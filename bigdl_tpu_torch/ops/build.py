@@ -4,8 +4,8 @@ The library is compiled by ``nvcc`` for ``sm_90a`` from
 ``ops/csrc/flash_attention.cu`` into ``build/bigdl_tpu_torch/`` at the
 root of the checkout, as a shared library with a plain ``extern "C"``
 interface (no PyTorch headers, so a build takes seconds). The file name
-carries a hash of the source and flags, so an edited source is rebuilt
-and a stale library is never loaded.
+carries a hash of the flags and of every file under ``csrc/``, so any
+edited source or header is rebuilt and a stale library is never loaded.
 
 Nothing here runs at import time: this module imports on a machine with
 no CUDA toolkit, and only a CUDA launch reaches ``load``.
@@ -22,7 +22,8 @@ import threading
 from pathlib import Path
 from typing import Optional
 
-SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
+CSRC = Path(__file__).resolve().parent / "csrc"
+SOURCE = CSRC / "flash_attention.cu"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "bigdl_tpu_torch"
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -42,8 +43,12 @@ def nvcc_path() -> str:
 
 
 def library_path() -> Path:
+    """Where the library built from ``CSRC`` with ``NVCC_FLAGS`` lives: a
+    hash of the flags and of each file's path and bytes under ``CSRC``."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    h.update(SOURCE.read_bytes())
+    for f in sorted(p for p in CSRC.rglob("*") if p.is_file()):
+        h.update(f.relative_to(CSRC).as_posix().encode() + b"\0")
+        h.update(f.read_bytes())
     return BUILD_DIR / f"lib{SOURCE.stem}-{h.hexdigest()[:16]}.so"
 
 

@@ -41,7 +41,7 @@ BLOCK_K = 64  # keys per kv tile, as in the kernel
 launches = 0
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_SIGNATURE_SET = False
+_LIB: Optional[ctypes.CDLL] = None    # the kernel library, once bound
 
 
 def _check(q, k, v):
@@ -113,31 +113,32 @@ def flash_attention_reference(q, k, v, causal: bool = False,
     return out, lse.reshape(b, h, t)
 
 
-def _library():
-    global _SIGNATURE_SET
-    from bigdl_tpu_torch.ops import build
+def _library() -> ctypes.CDLL:
+    global _LIB
+    if _LIB is None:
+        from bigdl_tpu_torch.ops import build
 
-    lib = build.load()
-    if not _SIGNATURE_SET:
+        lib = build.load()
         fn = lib.bigdl_flash_attention_fwd
         ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         fn.argtypes = ([ptr] * 5 + [i32] * 6 + [i64] * 9
-                       + [i32, i32, ctypes.c_float, i32, ptr])
+                       + [i32, i32, ctypes.c_float, i32, i32, ptr])
         fn.restype = i32
         lib.bigdl_cuda_error_string.argtypes = [i32]
         lib.bigdl_cuda_error_string.restype = ctypes.c_char_p
-        _SIGNATURE_SET = True
-    return lib
+        _LIB = lib
+    return _LIB
 
 
 def _vectorizable(*tensors) -> bool:
-    """16-byte loads are safe: D, every stride and every base pointer are
-    multiples of 16 bytes."""
+    """The kernel may load through TMA tensor maps (16-byte copies): D,
+    every stride and every base pointer are multiples of 16 bytes, and no
+    stride is 0 (an expanded view)."""
+    per = 16 // tensors[0].element_size()
     for x in tensors:
-        per = 16 // x.element_size()
-        if x.shape[-1] % per or x.data_ptr() % 16:
-            return False
-        if any(s % per for s in x.stride()[:3]):
+        sb, sh, st, _ = x.stride()
+        if (x.shape[-1] % per or x.data_ptr() % 16 or sb % per or sh % per
+                or st % per or not (sb and sh and st)):
             return False
     return True
 
@@ -157,18 +158,18 @@ def _launch(q, k, v, causal: bool, scale: float):
     if out.numel() == 0:
         return out, lse
     lib = _library()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.bigdl_flash_attention_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            lse.data_ptr(), b, h, h_kv, t, tk, d,
-            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-            _DTYPE_CODES[q.dtype], int(causal), float(scale),
-            int(_vectorizable(q, k, v)), stream)
+    dev = q.device.index             # set on every CUDA tensor
+    err = lib.bigdl_flash_attention_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        lse.data_ptr(), b, h, h_kv, t, tk, d,
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+        _DTYPE_CODES[q.dtype], int(causal), float(scale),
+        int(_vectorizable(q, k, v)), dev,
+        torch._C._cuda_getCurrentRawStream(dev))
     if err != 0:
         msg = lib.bigdl_cuda_error_string(err).decode()
         raise RuntimeError(f"flash attention kernel launch failed: {msg} "
-                           f"(cudaError {err})")
+                           f"(code {err})")
     launches += 1
     return out, lse
 

@@ -15,8 +15,12 @@ with a non-zero exit, at the first phase that does not hold:
 3. kernels: each kernel against its plain PyTorch version on the card at
    the shapes of the main path and its edge cases, out and lse, with the
    stated tolerances (shown, at the flagship shape, to reject an output
-   that dropped one kv tile), and timed with CUDA events (median of N after a
-   warm-up) beside its bound and a PyTorch library call;
+   that dropped one kv tile), at the edges of its tiling, and timed beside
+   its bound and a PyTorch library call: ``kernel_ms`` / ``library_ms``
+   by CUDA events around eager calls, ``device_ms`` /
+   ``library_device_ms`` by CUDA-graph replay (the card's time alone);
+   then a sweep of t = tk from 512 to 8192 at the flagship width (kernel,
+   library and bound ms, share of the bound);
 4. scoring: the flagship forward in bf16 over 4 x 2048 tokens launches
    the flash kernel once per layer and agrees with the dense path;
 5. generate: greedy generation of 64 tokens for 8 prompts of 256 tokens,
@@ -64,6 +68,10 @@ LSE_ATOL = 1e-4
 # model-level bf16 agreement (flash vs dense path, decode vs teacher-forced
 # forward): max |diff| relative to the largest |logit|
 LOGIT_RTOL = 5e-2
+# the flash kernel's flagship kernel_ms before its redesign for Hopper
+# (the WMMA version, H100 80GB HBM3 at 700 W): a constant from PERF.md,
+# printed for comparison and never measured here
+PRIOR_MS = 0.381
 
 
 def emit(obj) -> None:
@@ -78,19 +86,45 @@ def nvidia_smi() -> str:
 
 
 def time_ms(torch, fn, warmup: int = 3, iters: int = 20) -> float:
-    """Median CUDA-event time of ``fn`` in ms."""
+    """Median CUDA-event time of ``fn`` in ms, called eagerly with an event
+    recorded before and after each call (events and stream fetched before
+    the loop): where the host takes longer to issue a call than the card
+    to run it, this is the host's time."""
     for _ in range(warmup):
         fn()
-    pairs = []
-    for _ in range(iters):
+    stream = torch.cuda.current_stream()
+    pairs = [(torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True)) for _ in range(iters)]
+    for s, e in pairs:
+        s.record(stream)
+        fn()
+        e.record(stream)
+    torch.cuda.synchronize()
+    return statistics.median(s.elapsed_time(e) for s, e in pairs)
+
+
+def graph_ms(torch, fn, calls: int = 20, replays: int = 5) -> float:
+    """The card's time for one call of ``fn`` in ms: ``calls`` calls
+    captured in one CUDA graph, the median replay time over ``calls``, so
+    no host time between launches is counted."""
+    fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g, capture_error_mode="relaxed"):
+        for _ in range(calls):
+            fn()
+    g.replay()
+    times = []
+    for _ in range(replays):
         s = torch.cuda.Event(enable_timing=True)
         e = torch.cuda.Event(enable_timing=True)
         s.record()
-        fn()
+        g.replay()
         e.record()
-        pairs.append((s, e))
-    torch.cuda.synchronize()
-    return statistics.median(s.elapsed_time(e) for s, e in pairs)
+        torch.cuda.synchronize()
+        times.append(s.elapsed_time(e) / calls)
+    del g
+    return statistics.median(times)
 
 
 def flash_bound(b, h, h_kv, t, tk, d, dtype: str, causal: bool):
@@ -153,17 +187,24 @@ def check_flash(torch, fa, shape, causal, dtype, with_library,
         assert mutant_excess > 1.0, ("the tolerance passes an output that "
                                      "dropped a kv tile", mutant_excess)
         del v_bad, bad_out
-    ms = time_ms(torch, lambda: fa.flash_attention_with_lse(q, k, v, causal))
+    def kernel():
+        return fa.flash_attention_with_lse(q, k, v, causal)
+
+    ms, device_ms = time_ms(torch, kernel), graph_ms(torch, kernel)
     plain_ms = time_ms(torch, lambda: fa.flash_attention_reference(
         q, k, v, causal), warmup=1, iters=5)
-    library_ms = None
+    library_ms = library_device_ms = None
     if with_library:
         import torch.nn.functional as F
 
         # top-left causal alignment equals the port's last-query alignment
         # only at t == tk; timed as a yardstick, never called by the port
-        library_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
-            q, k, v, is_causal=causal, enable_gqa=True))
+        def library():
+            return F.scaled_dot_product_attention(q, k, v, is_causal=causal,
+                                                  enable_gqa=True)
+
+        library_ms = time_ms(torch, library)
+        library_device_ms = graph_ms(torch, library)
     bound_ms, bound_by = flash_bound(b, h, h_kv, t, tk, d, name, causal)
     rec = {"phase": "kernel", "kernel": "flash_attention_fwd",
            "shape": {"B": b, "H": h, "H_kv": h_kv, "t": t, "tk": tk,
@@ -176,7 +217,8 @@ def check_flash(torch, fa, shape, causal, dtype, with_library,
            "dropped_tile_err_over_tol": mutant_excess,
            "lse_max_abs_err": lse_err, "lse_atol": LSE_ATOL,
            "dead_rows": int(dead.sum()), "kernel_ms": ms,
-           "plain_ms": plain_ms, "library_ms": library_ms,
+           "device_ms": device_ms, "plain_ms": plain_ms,
+           "library_ms": library_ms, "library_device_ms": library_device_ms,
            "bound_ms": bound_ms, "bound_by": bound_by}
     emit(rec)
     return rec
@@ -217,7 +259,8 @@ def main() -> int:
     lib = build.build()
     build_s = time.monotonic() - t_build
     with open(build.build_log()) as f:
-        ptxas = [ln.strip() for ln in f if "registers" in ln or "spill" in ln]
+        ptxas = [ln.strip() for ln in f if "registers" in ln or "spill" in ln
+                 or "Function properties" in ln]
     emit({"phase": "build", "seconds": build_s, "nvcc": build.nvcc_path(),
           "flags": build.NVCC_FLAGS, "library": os.path.relpath(lib, ROOT),
           "ptxas": ptxas})
@@ -230,7 +273,38 @@ def main() -> int:
     check_flash(torch, fa, (2, 8, 2, 256, 2048, 64), True, bf16, False)
     check_flash(torch, fa, (2, 8, 2, 512, 256, 64), True, bf16, False)
     check_flash(torch, fa, (4, 8, 2, 1000, 1000, 64), True, bf16, True)
+    # edges of the bf16 tiling: one query row, a q tile plus one row, a kv
+    # tile plus one key (with dead rows), head dims 128 and, zero-padded, 32
+    # and 72
+    check_flash(torch, fa, (2, 8, 2, 1, 2048, 64), True, bf16, False)
+    check_flash(torch, fa, (2, 8, 2, 129, 129, 64), True, bf16, False)
+    check_flash(torch, fa, (2, 8, 2, 200, 65, 64), True, bf16, False)
+    check_flash(torch, fa, (2, 8, 2, 1024, 1024, 128), True, bf16, True)
+    check_flash(torch, fa, (2, 8, 2, 300, 300, 32), True, bf16, False)
+    check_flash(torch, fa, (2, 4, 2, 160, 96, 72), False, bf16, False)
+    # odd d: element stores in place of TMA copies, single-element outputs
+    check_flash(torch, fa, (2, 4, 1, 100, 100, 77), True, bf16, False)
     check_flash(torch, fa, (2, 8, 2, 1024, 1024, 64), True, f32, True)
+    # the flagship width over sequence lengths
+    sweep = []
+    for t in (512, 1024, 2048, 4096, 8192):
+        rec = flagship if t == 2048 else check_flash(
+            torch, fa, (4, 8, 2, t, t, 64), True, bf16, True)
+        sweep.append({"t": t, "tk": t, "kernel_ms": rec["kernel_ms"],
+                      "library_ms": rec["library_ms"],
+                      "device_ms": rec["device_ms"],
+                      "library_device_ms": rec["library_device_ms"],
+                      "bound_ms": rec["bound_ms"],
+                      "bound_share": rec["bound_ms"] / rec["kernel_ms"],
+                      "device_bound_share":
+                          rec["bound_ms"] / rec["device_ms"]})
+    emit({"phase": "sweep", "kernel": "flash_attention_fwd",
+          "shape": {"B": 4, "H": 8, "H_kv": 2, "d": 64}, "dtype": "bfloat16",
+          "causal": True, "nvidia_smi": smi, "rows": sweep})
+    emit({"phase": "prior", "kernel": "flash_attention_fwd",
+          "flagship_kernel_ms_before_redesign": PRIOR_MS,
+          "origin": "constant from PERF.md (the WMMA kernel, eager CUDA-event "
+                    "time, H100 80GB HBM3, 700 W); not measured in this run"})
 
     # ------------------------------------------- main path: phases 4 to 6
     fa.launches = 0
@@ -354,9 +428,11 @@ def main() -> int:
         "tpu_kernel": "bigdl_tpu/ops/flash_attention.py::_flash_kernel",
         "launches": launches, "max_abs_err": flagship["max_abs_err"],
         "ms": flagship["kernel_ms"], "kernel_ms": flagship["kernel_ms"],
+        "device_ms": flagship["device_ms"],
         "plain_ms": flagship["plain_ms"], "bound_ms": flagship["bound_ms"],
         "bound_by": flagship["bound_by"],
-        "library_ms": flagship["library_ms"]}]})
+        "library_ms": flagship["library_ms"],
+        "library_device_ms": flagship["library_device_ms"]}]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
