@@ -9,7 +9,9 @@ they raise and ask for ``device="cpu"`` instead of falling back.
 
 The only hand-written kernel so far is the flash-attention forward
 (``ops/csrc/flash_attention.cu``), the port of the JAX package's one
-Pallas kernel.
+Pallas kernel. Ported so far: inference of the TransformerLM (scoring,
+generation, ``GenerationService``) and its training (differentiable
+flash attention, criterions, SGD / Adam / AdamW, ``TrainStep``).
 """
 
 from bigdl_tpu_torch.device import resolve_device

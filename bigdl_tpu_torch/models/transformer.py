@@ -2,7 +2,13 @@
 
 Decoder-only, causal, pre-norm, tanh-GELU MLP, learned positions or
 RoPE, tied output head (logits = x @ tok_embed.T; the JAX package's
-untied head and non-causal option are not ported yet). The inference
+untied head, non-causal option, MoE blocks and sequence parallelism are
+not ported yet). Training runs through the full-sequence ``forward``
+with ``dropout`` and ``remat`` (each block under
+``torch.utils.checkpoint``, its dropout masks replayed in the
+recompute), differentiable through the flash kernel; ``param_count`` /
+``matmul_param_count`` / ``analytic_flops`` are the JAX package's
+analytic cost model. The inference
 entry points of the JAX package are ported: the full-sequence
 ``forward`` (through the flash kernel with ``use_flash=True``),
 ``prefill`` / ``prefill_chunk`` / ``decode_step`` over a KV cache,
@@ -25,10 +31,12 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from bigdl_tpu_torch.device import DEFAULT_DEVICE, resolve_device
 from bigdl_tpu_torch.nn import init as bt_init
 from bigdl_tpu_torch.nn.attention import LayerNorm, TransformerBlock
+from bigdl_tpu_torch.nn.dropout import Dropout
 from bigdl_tpu_torch.nn.module import Module
 from bigdl_tpu_torch.utils.random import RandomGenerator
 
@@ -82,16 +90,50 @@ def _sample_next(logits, generator, done, sampled, temperature, eos_id,
     return nxt, done
 
 
+def _checkpointed(blk, x):
+    """``blk(x)`` under ``torch.utils.checkpoint``: the block's
+    activations are recomputed in the backward. PyTorch restores its
+    default generators for the recompute; a dropout layer drawing from
+    an explicit generator gets that generator's state at the forward set
+    back for the recompute, then restored, so the masks replay
+    identically and the stream goes on as if no recompute had run."""
+    gens = {id(m.generator): m.generator for m in blk.modules()
+            if isinstance(m, Dropout) and m.generator is not None}
+    if not gens:
+        return checkpoint(blk, x, use_reentrant=False)
+    at_forward = [(g, g.get_state()) for g in gens.values()]
+    calls = []
+
+    def run(inp):
+        if not calls:               # the forward itself
+            calls.append(1)
+            return blk(inp)
+        now = [g.get_state() for g, _ in at_forward]
+        for g, state in at_forward:
+            g.set_state(state)
+        try:
+            return blk(inp)
+        finally:
+            for (g, _), state in zip(at_forward, now):
+                g.set_state(state)
+
+    return checkpoint(run, x, use_reentrant=False)
+
+
 class TransformerLM(Module):
     """Decoder-only LM. Input: (batch, time) token ids (0-based). Output:
     (batch, time, vocab) logits. Weights are drawn from ``seed`` (the
     JAX package's init methods over a ``torch.Generator``) and live on
-    ``device`` in ``dtype``."""
+    ``device`` in ``dtype``. ``remat`` recomputes each block in the
+    backward (activation memory O(T·D) per block boundary instead of
+    every intermediate, at about 1.3x the FLOPs; the flash kernel then
+    launches twice per layer and step)."""
 
     def __init__(self, vocab_size: int, embed_dim: int = 256,
                  num_heads: int = 8, num_layers: int = 4,
                  max_len: int = 1024, mlp_ratio: int = 4,
-                 use_flash: bool = False,
+                 dropout: float = 0.0, use_flash: bool = False,
+                 remat: bool = False,
                  num_kv_heads: Optional[int] = None,
                  use_rope: bool = False, *, seed: int = 1,
                  device=DEFAULT_DEVICE, dtype=torch.float32):
@@ -103,6 +145,7 @@ class TransformerLM(Module):
         self.use_rope = use_rope
         self.max_len = max_len
         self.num_layers = num_layers
+        self.remat = remat
         normal = bt_init.RandomNormal(0.0, 0.02)
         self.new_param("tok_embed", normal((vocab_size, embed_dim), rng),
                        dev, dtype)
@@ -112,8 +155,8 @@ class TransformerLM(Module):
         for i in range(num_layers):
             setattr(self, f"block{i}", TransformerBlock(
                 embed_dim, num_heads, mlp_ratio=mlp_ratio, use_flash=use_flash,
-                num_kv_heads=num_kv_heads, rotary=use_rope, rng=rng,
-                device=dev, dtype=dtype))
+                num_kv_heads=num_kv_heads, rotary=use_rope, dropout=dropout,
+                rng=rng, device=dev, dtype=dtype))
         self.ln_f = LayerNorm(embed_dim, device=dev, dtype=dtype)
 
     @property
@@ -138,9 +181,32 @@ class TransformerLM(Module):
         x = F.embedding(ids, self.tok_embed)
         if not self.use_rope:  # RoPE rotates inside each attention layer
             x = x + self.pos_embed[:t][None]
+        remat = self.remat and torch.is_grad_enabled()
         for blk in self.blocks():
-            x = blk(x)
+            x = _checkpointed(blk, x) if remat else blk(x)
         return self._head(self.ln_f(x))
+
+    # ------------------------------------------------ analytic cost model
+    def param_count(self) -> int:
+        """Total parameter count."""
+        return sum(p.numel() for p in self.parameters())
+
+    def matmul_param_count(self) -> int:
+        """Parameters that take part in per-token matmuls: all but the
+        learned position table (an add), with the token table counted
+        once as the tied output projection (its lookup is a gather)."""
+        pos = 0 if self.use_rope else self.max_len * self.embed_dim
+        return self.param_count() - pos
+
+    def analytic_flops(self, tokens: int, context: int) -> float:
+        """Analytic forward FLOPs for ``tokens`` positions attending over
+        ``context`` positions: ``2 x matmul-params`` per token plus the
+        attention score/value products ``4 x layers x embed_dim x
+        context`` per token."""
+        per_tok = (2.0 * self.matmul_param_count()
+                   + 4.0 * self.num_layers * self.embed_dim
+                   * max(0, int(context)))
+        return float(per_tok * max(0, int(tokens)))
 
     # ------------------------------------------------- KV-cache decoding
     def init_cache(self, batch: int, max_len: int):

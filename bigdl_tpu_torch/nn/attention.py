@@ -20,8 +20,12 @@ Kept from the JAX package, where PyTorch's habits differ:
 The KV caches are ``(k, v)`` tuples of (B, H_kv, max_len, D) tensors,
 updated IN PLACE (the JAX package returns new buffers); the cache entry
 points still return the cache so callers read the same either way.
-Dropout, sequence parallelism, MoE and the int8 and paged cache forms
-are not ported yet.
+
+``dropout > 0`` adds the JAX package's dropout layers to the
+full-sequence ``forward`` (after the attention's output projection and
+after the block's MLP); the KV-cache entry points never drop. Sequence
+parallelism (ring attention), MoE and the int8 and paged cache forms are
+not ported yet.
 """
 
 from __future__ import annotations
@@ -33,6 +37,7 @@ import torch
 import torch.nn.functional as F
 
 from bigdl_tpu_torch.device import DEFAULT_DEVICE, resolve_device
+from bigdl_tpu_torch.nn.dropout import Dropout
 from bigdl_tpu_torch.nn.linear import Linear
 from bigdl_tpu_torch.nn.module import Module
 from bigdl_tpu_torch.utils.random import RandomGenerator
@@ -111,13 +116,15 @@ def _is_ragged(pos) -> bool:
 
 class MultiHeadAttention(Module):
     """Fused-QKV multi-head self attention with grouped-query heads
-    (``num_kv_heads``), optional RoPE (``rotary``) and the flash kernel
-    (``use_flash``) on the full-sequence forward."""
+    (``num_kv_heads``), optional RoPE (``rotary``), the flash kernel
+    (``use_flash``) and dropout of the output (``dropout``) on the
+    full-sequence forward."""
 
     def __init__(self, embed_dim: int, num_heads: int,
                  causal: bool = False, use_flash: bool = False,
                  num_kv_heads: Optional[int] = None,
-                 rotary: bool = False, rotary_base: float = 10000.0, *,
+                 rotary: bool = False, rotary_base: float = 10000.0,
+                 dropout: float = 0.0, *,
                  rng: Optional[RandomGenerator] = None,
                  device=DEFAULT_DEVICE, dtype=torch.float32):
         super().__init__()
@@ -140,11 +147,14 @@ class MultiHeadAttention(Module):
                              f"num_kv_heads {self.num_kv_heads}")
         self.causal = causal
         self.use_flash = use_flash
+        self.dropout_p = dropout
         kv_dim = self.num_kv_heads * self.head_dim
         self.qkv = Linear(embed_dim, embed_dim + 2 * kv_dim, rng=rng,
                           device=device, dtype=dtype)
         self.out_proj = Linear(embed_dim, embed_dim, rng=rng, device=device,
                                dtype=dtype)
+        if dropout > 0:
+            self.drop = Dropout(dropout)
 
     def _split_heads(self, x, n_heads):
         b, t, _ = x.shape
@@ -300,17 +310,22 @@ class MultiHeadAttention(Module):
             k, v = self._expand_kv(k, v)
             o = dot_product_attention(q, k, v, causal=self.causal)
         o = o.transpose(1, 2).reshape(b * t, self.embed_dim)
-        return self.out_proj(o).reshape(b, t, -1)
+        o = self.out_proj(o).reshape(b, t, -1)
+        if self.dropout_p > 0:
+            o = self.drop(o)
+        return o
 
 
 class TransformerBlock(Module):
     """Pre-norm causal block: x + MHA(LN(x)); x + MLP(LN(x)), with a
-    tanh-GELU MLP of ``mlp_ratio`` x embed."""
+    tanh-GELU MLP of ``mlp_ratio`` x embed; with ``dropout > 0`` the
+    attention output and the MLP output are dropped in ``forward``."""
 
     def __init__(self, embed_dim: int, num_heads: int, mlp_ratio: int = 4,
                  use_flash: bool = False,
                  num_kv_heads: Optional[int] = None, rotary: bool = False,
-                 *, rng: Optional[RandomGenerator] = None,
+                 dropout: float = 0.0, *,
+                 rng: Optional[RandomGenerator] = None,
                  device=DEFAULT_DEVICE, dtype=torch.float32):
         super().__init__()
         rng = rng or RandomGenerator()
@@ -319,18 +334,28 @@ class TransformerBlock(Module):
         self.attn = MultiHeadAttention(embed_dim, num_heads, causal=True,
                                        num_kv_heads=num_kv_heads,
                                        rotary=rotary, use_flash=use_flash,
-                                       rng=rng, **kw)
+                                       dropout=dropout, rng=rng, **kw)
         self.ln2 = LayerNorm(embed_dim, **kw)
         self.fc1 = Linear(embed_dim, mlp_ratio * embed_dim, rng=rng, **kw)
         self.fc2 = Linear(mlp_ratio * embed_dim, embed_dim, rng=rng, **kw)
+        self.dropout_p = dropout
+        if dropout > 0:
+            self.drop = Dropout(dropout)
 
-    def _mlp_residual(self, x):
+    def _mlp(self, x):
         b, t, c = x.shape
         h = self.fc1(self.ln2(x).reshape(b * t, c))
-        return x + self.fc2(F.gelu(h, approximate="tanh")).reshape(b, t, c)
+        return self.fc2(F.gelu(h, approximate="tanh")).reshape(b, t, c)
+
+    def _mlp_residual(self, x):
+        return x + self._mlp(x)
 
     def forward(self, input):
-        return self._mlp_residual(input + self.attn(self.ln1(input)))
+        x = input + self.attn(self.ln1(input))
+        h = self._mlp(x)
+        if self.dropout_p > 0:
+            h = self.drop(h)
+        return x + h
 
     def forward_step(self, x_t, cache, pos):
         h, cache = self.attn.forward_step(self.ln1(x_t), cache, pos)

@@ -1,11 +1,12 @@
-"""Weight bridge from the JAX package's parameter tree into the port.
+"""Weight bridge between the JAX package's parameter tree and the port.
 
 The JAX package's ``params_dict()`` is a nested dict
 ``{child: {...}, "~params": {name: array}}``; the port's modules register
 the same children and parameters under the same names (see
 ``nn/module.py``), so the bridge is a key-for-key copy plus a dtype cast.
 No layout needs a transpose: Linear weights are (out, in) on both sides.
-Give it the tree with its leaves converted to numpy arrays.
+:func:`load_jax_params` takes the tree with its leaves converted to
+numpy arrays; :func:`params_to_numpy` gives the way back.
 """
 
 from __future__ import annotations
@@ -74,3 +75,20 @@ def load_jax_params(model, params: Dict) -> None:
     ``model``, casting to each parameter's dtype and device. Raises on a
     missing or extra key or a shape mismatch."""
     _load(model.params_dict(), params, ())
+
+
+def params_to_numpy(model_or_tree) -> Dict:
+    """The JAX ``params_dict()`` tree of a port model (or of a tree shaped
+    like its ``params_dict()``, such as the train step's ``params``) with
+    numpy leaves; bf16 leaves become f32, which numpy can hold."""
+    tree = (model_or_tree.params_dict()
+            if isinstance(model_or_tree, torch.nn.Module) else model_or_tree)
+
+    def conv(node):
+        return {key: (conv(sub) if isinstance(sub, dict) else
+                      sub.detach().cpu().float().numpy()
+                      if sub.is_floating_point()
+                      else sub.detach().cpu().numpy())
+                for key, sub in node.items()}
+
+    return conv(tree)

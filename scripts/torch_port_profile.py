@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Where the time goes in the PyTorch port's flagship inference path.
+"""Where the time goes in the PyTorch port's flagship paths.
 
     python3 scripts/torch_port_profile.py
 
@@ -7,9 +7,13 @@ Builds the serving flagship (TransformerLM vocab 32000, embed 512, 8
 heads, 2 kv heads, 8 layers, RoPE, flash on; random bf16 weights from a
 seed) on the GPU and traces, with ``torch.profiler``, one warm scoring
 forward over the 4 x 2048 tokens of ``chip_smoke.py``'s scoring phase
-and a window of 16 warm greedy decode steps after a 256-token prompt. For each it prints one JSON line: wall time, the summed device
-time by kernel (top entries), and the device's idle share of the window
-(1 - busy / wall, counting overlapping kernels once). Needs a GPU.
+and a window of 16 warm greedy decode steps after a 256-token prompt;
+then one warm step of the training flagship (``transformer_perf``:
+vocab 32000, embed 512, 8 heads, 8 layers, 32 x 1024 tokens, bf16 over
+f32 masters, SGD). For each it prints one JSON line: wall time, the
+summed device time by kernel and by PyTorch operation and input shapes
+(top entries), and the device's idle share of the window (1 - busy /
+wall, counting overlapping kernels once). Needs a GPU.
 """
 
 from __future__ import annotations
@@ -17,7 +21,6 @@ from __future__ import annotations
 import json
 import os
 import sys
-import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -28,47 +31,10 @@ FLAGSHIP = dict(vocab_size=32000, embed_dim=512, num_heads=8,
 BATCH, SEQ, PROMPT, DECODE_STEPS = 4, 2048, 256, 16
 
 
-def _busy_us(events) -> float:
-    """Union of the device kernels' [start, end) intervals, in us."""
-    spans = sorted((e.time_range.start, e.time_range.end) for e in events)
-    busy, cur_s, cur_e = 0.0, None, None
-    for s, e in spans:
-        if cur_e is None or s > cur_e:
-            if cur_e is not None:
-                busy += cur_e - cur_s
-            cur_s, cur_e = s, e
-        else:
-            cur_e = max(cur_e, e)
-    if cur_e is not None:
-        busy += cur_e - cur_s
-    return busy
+def trace(name, fn):
+    from bigdl_tpu_torch.utils.profiling import device_profile
 
-
-def trace(torch, name, fn, top: int = 12):
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.monotonic()
-        fn()
-        torch.cuda.synchronize()
-        wall_us = (time.monotonic() - t0) * 1e6
-    kernels = [e for e in prof.events()
-               if e.device_type.name == "CUDA"]
-    by_name = {}
-    for e in kernels:
-        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
-    total = sum(by_name.values())
-    busy = _busy_us(kernels)
-    rows = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
-    print(json.dumps({
-        "window": name, "wall_ms": wall_us / 1e3,
-        "device_kernel_ms": total / 1e3, "device_busy_ms": busy / 1e3,
-        "device_idle_share": 1.0 - busy / wall_us,
-        "kernel_launches": len(kernels),
-        "top_kernels_ms": [[n[:90], us / 1e3, us / total if total else 0.0]
-                           for n, us in rows]}), flush=True)
+    print(json.dumps({"window": name, **device_profile(fn)}), flush=True)
 
 
 def main() -> int:
@@ -87,7 +53,7 @@ def main() -> int:
                         device="cuda", generator=g)
     with torch.inference_mode():
         model(ids)                                          # warm-up
-        trace(torch, f"scoring_forward_b{BATCH}_t{SEQ}", lambda: model(ids))
+        trace(f"scoring_forward_b{BATCH}_t{SEQ}", lambda: model(ids))
     prompts = ids[:, :PROMPT]
     caches = model.init_cache(BATCH, PROMPT + DECODE_STEPS + 1)
     logits, caches = model.prefill(prompts, caches)
@@ -100,7 +66,18 @@ def main() -> int:
             logits, caches = model.decode_step(logits.argmax(-1),
                                                PROMPT + 1 + i, caches)
 
-    trace(torch, f"decode_{DECODE_STEPS}_steps_b{BATCH}", decode)
+    trace(f"decode_{DECODE_STEPS}_steps_b{BATCH}", decode)
+    del model, caches, logits
+
+    from bigdl_tpu_torch.models.perf import transformer_perf
+    from bigdl_tpu_torch.utils.profiling import device_profile
+
+    perf = transformer_perf(32, 2, 2, torch.bfloat16, log=lambda *_: None,
+                            device="cuda",
+                            profile=lambda fn: device_profile(fn, top=30))
+    print(json.dumps({"window": "train_step_b32_t1024",
+                      "ms_per_step": perf["ms_per_iter"],
+                      **perf["profile"]}), flush=True)
     return 0
 
 

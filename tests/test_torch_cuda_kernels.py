@@ -11,6 +11,15 @@ and the kernel rounds P to bf16 for the tensor cores; the row term scales
 the allowance to what a row holds, so a dropped kv tile fails where a
 fixed atol would hide it). Dead rows are exact zeros with lse -1e30 in
 both dtypes; lse is f32 math on both sides.
+
+Gradients of the differentiable flash attention (kernel forward, blocked
+backward) against autograd through the plain forward, as
+``chip_smoke.py`` holds them: each gradient row (over the head dim)
+within rtol (5e-2 bf16, 2e-4 f32) times the sum of its reference row's
+L2 norm and the RMS of all the reference's row norms (the backward's
+D = rowsum(dO * O) uses the bf16 output, so rows that see few keys,
+whose gradient cancels towards 0, keep an error of the size of a typical
+row).
 """
 
 import numpy as np
@@ -19,8 +28,11 @@ import torch
 
 from bigdl_tpu_torch.ops import flash_attention as fa
 
+pytestmark = pytest.mark.cuda
+
 F32_TOL = dict(rtol=2e-4, atol=2e-5)
 BF16_RTOL = 2e-2
+GRAD_RTOL = {torch.float32: 2e-4, torch.bfloat16: 5e-2}
 
 # (B, H, H_kv, t, tk, d, causal, dtype)
 FLASH_CASES = [
@@ -137,3 +149,79 @@ def test_flash_kernel_takes_a_scale_of_any_sign(card, scale, dtype):
         assert _row_rms_excess(out, ref_out, BF16_RTOL).item() <= 1.0
     np.testing.assert_allclose(lse.cpu().numpy(), ref_lse.cpu().numpy(),
                                **F32_TOL)
+
+
+# (B, H, H_kv, t, tk, d, causal, dtype) of the backward
+BACKWARD_CASES = [
+    (4, 8, 8, 1024, 1024, 64, True, torch.bfloat16),  # the training shape
+    (2, 8, 2, 512, 512, 64, True, torch.bfloat16),    # GQA
+    (2, 8, 2, 256, 1024, 64, True, torch.bfloat16),   # t < tk
+    (2, 8, 2, 512, 256, 64, True, torch.bfloat16),    # dead rows
+    (2, 8, 2, 1000, 1000, 64, True, torch.bfloat16),  # ragged
+    (2, 8, 2, 300, 700, 64, False, torch.bfloat16),   # non-causal
+    (2, 4, 2, 300, 300, 64, True, torch.float32),
+]
+
+
+def _grad_excess(grad, ref, rtol):
+    ref_norm = ref.float().norm(dim=-1)
+    err = (grad.float() - ref.float()).norm(dim=-1)
+    allow = rtol * (ref_norm + ref_norm.pow(2).mean().sqrt())
+    return torch.where(err == 0, torch.zeros_like(err), err / allow).max()
+
+
+@pytest.mark.parametrize("with_lse", [False, True])
+@pytest.mark.parametrize("b,h,h_kv,t,tk,d,causal,dtype", BACKWARD_CASES)
+def test_flash_grads_match_autograd_through_plain_version(
+        card, b, h, h_kv, t, tk, d, causal, dtype, with_lse):
+    g = torch.Generator(device=card).manual_seed(t + tk + d + with_lse)
+    q, k, v = (torch.randn(s, device=card, generator=g).to(dtype)
+               .requires_grad_(True)
+               for s in ((b, h, t, d), (b, h_kv, tk, d), (b, h_kv, tk, d)))
+    d_out = torch.randn((b, h, t, d), device=card, generator=g).to(dtype)
+    d_lse = torch.randn((b, h, t), device=card, generator=g)
+    before = fa.launches
+    out, lse = fa.flash_attention_with_lse(q, k, v, causal=causal)
+    assert fa.launches == before + 1
+    n = 2 if with_lse else 1
+    grads = torch.autograd.grad((out, lse)[:n], (q, k, v),
+                                (d_out, d_lse)[:n])
+    qr, kr, vr = (x.detach().clone().requires_grad_(True) for x in (q, k, v))
+    ref = torch.autograd.grad(
+        fa.flash_attention_reference(qr, kr, vr, causal)[:n], (qr, kr, vr),
+        (d_out, d_lse)[:n])
+    for x, gr, r in zip((q, k, v), grads, ref):
+        assert gr.dtype == x.dtype and gr.shape == x.shape
+        assert _grad_excess(gr, r, GRAD_RTOL[dtype]).item() <= 1.0
+
+
+def test_flash_on_cuda_is_differentiable(card):
+    """The repaired fault: CUDA outputs used to come out of the kernel
+    with no autograd history, so training through ``use_flash=True``
+    gave the projection no gradient. Now both outputs carry a
+    ``grad_fn``, and ``MultiHeadAttention(use_flash=True)`` gives its
+    fused projection the dense path's gradient (f32, GQA, so q, k and v
+    are strided views of the projection)."""
+    from bigdl_tpu_torch.nn import MultiHeadAttention
+
+    q, k, v = (torch.randn(s, device=card, requires_grad=True)
+               for s in ((2, 4, 64, 32), (2, 2, 64, 32), (2, 2, 64, 32)))
+    out, lse = fa.flash_attention_with_lse(q, k, v, causal=True)
+    assert out.grad_fn is not None and lse.grad_fn is not None
+    assert fa.flash_attention(q, k, v).grad_fn is not None
+    mha = MultiHeadAttention(64, 8, causal=True, use_flash=True,
+                             num_kv_heads=2, device=card)
+    x = torch.randn(2, 200, 64, device=card)
+    w = torch.randn(2, 200, 64, device=card)
+    grads = []
+    for flash in (True, False):
+        mha.use_flash = flash
+        mha.zero_grad(set_to_none=True)
+        before = fa.launches
+        (mha(x) * w).sum().backward()
+        assert fa.launches == before + int(flash)
+        grads.append([p.grad.clone() for p in mha.parameters()])
+    for gf, gd in zip(*grads):
+        assert gf is not None
+        np.testing.assert_allclose(gf.cpu().numpy(), gd.cpu().numpy(),
+                                   rtol=1e-4, atol=1e-5)
