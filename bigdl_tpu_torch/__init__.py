@@ -11,7 +11,10 @@ The only hand-written kernel so far is the flash-attention forward
 (``ops/csrc/flash_attention.cu``), the port of the JAX package's one
 Pallas kernel. Ported so far: inference of the TransformerLM (scoring,
 generation, ``GenerationService``) and its training (differentiable
-flash attention, criterions, SGD / Adam / AdamW, ``TrainStep``).
+flash attention, criterions, SGD / Adam / AdamW, ``TrainStep``), and
+the vision path (convolution, BatchNorm, pooling, LeNet-5, ResNet, the
+data path and the ``LocalOptimizer`` loop), whose layers are torch ops
+as they are XLA ops in the JAX package.
 """
 
 from bigdl_tpu_torch.device import resolve_device

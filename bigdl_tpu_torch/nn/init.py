@@ -1,5 +1,5 @@
-"""Weight initialization methods (port of ``bigdl_tpu/nn/init.py``,
-``RandomNormal`` and ``Xavier`` only).
+"""Weight initialization methods (port of ``bigdl_tpu/nn/init.py``:
+``RandomNormal``, ``Xavier`` and ``MsraFiller``).
 
 Each method is a callable ``init(shape, rng, fan_in, fan_out)`` that
 draws an f32 CPU tensor from the explicit
@@ -33,3 +33,19 @@ class Xavier:
         fo = fan_out or shape[0]
         limit = math.sqrt(6.0 / (fi + fo))
         return rng.uniform(shape, minval=-limit, maxval=limit)
+
+
+class MsraFiller:
+    """He initialization: normal with std sqrt(2 / n), n the mean of
+    fan-in and fan-out (``variance_norm_average``, the default) or the
+    fan-in alone (ResNet passes False)."""
+
+    def __init__(self, variance_norm_average: bool = True):
+        self.variance_norm_average = variance_norm_average
+
+    def __call__(self, shape, rng: RandomGenerator, fan_in=None,
+                 fan_out=None):
+        fi = fan_in or shape[-1]
+        fo = fan_out or shape[0]
+        n = (fi + fo) / 2.0 if self.variance_norm_average else fi
+        return rng.normal(shape, mean=0.0, stdv=math.sqrt(2.0 / max(1.0, n)))

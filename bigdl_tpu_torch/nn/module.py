@@ -1,13 +1,17 @@
 """Thin module base over ``torch.nn.Module``.
 
 Port of the parts of ``bigdl_tpu/nn/module.py`` the inference and
-training slices need: parameter naming, modes (``training_mode`` /
-``evaluate`` / ``is_training``), module names, freezing
-(``freeze`` / ``unfreeze`` / ``trainable_dict``), ``buffers_dict`` and
-per-parameter regularizers (``regularization_loss``). Parameters are
-registered under the same names as in the JAX package, so
+training slices need: parameter and buffer naming (``new_param`` /
+``new_buffer``), modes (``training_mode`` / ``evaluate`` /
+``is_training``), module names, freezing (``freeze`` / ``unfreeze`` /
+``trainable_dict``), the trees ``params_dict`` / ``buffers_dict`` and
+their checked loaders ``load_params_dict`` / ``load_buffers_dict``
+(:func:`load_tree`, which the weight bridge uses too), and
+per-parameter regularizers (``regularization_loss``). Parameters and
+buffers are registered under the same names as in the JAX package, so
 :meth:`Module.params_dict` returns the JAX ``params_dict()`` tree key
-for key: ``{child: {...}, "~params": {name: tensor}}``.
+for key: ``{child: {...}, "~params": {name: tensor}}``, and
+:meth:`Module.buffers_dict` the ``"~buffers"`` tree.
 
 :func:`tree_leaves` flattens such a tree in the JAX package's leaf order
 (``jax.tree.leaves`` sorts dict keys) with each leaf's dotted parameter
@@ -52,6 +56,37 @@ def tree_unflatten(like: Dict, leaves) -> Dict:
     return build(like)
 
 
+def _same_keys(ours: Dict, theirs: Dict, where: str) -> None:
+    missing = sorted(set(ours) - set(theirs))
+    extra = sorted(set(theirs) - set(ours))
+    if missing or extra:
+        raise KeyError(f"tree mismatch at {where}: missing {missing}, "
+                       f"unexpected {extra}")
+
+
+def load_tree(ours: Dict, theirs: Dict, leaf_key: str,
+              path: Tuple[str, ...] = ()) -> None:
+    """Copy the tensors of ``theirs`` into those of ``ours``, a tree of
+    the same layout whose leaves sit under ``leaf_key`` (``"~params"`` or
+    ``"~buffers"``), in place, each cast to its target's dtype and
+    device. Raises on a missing or extra key or a shape mismatch."""
+    where = "/".join(path) or "<root>"
+    _same_keys(ours, theirs, where)
+    for key in ours:
+        if key != leaf_key:
+            load_tree(ours[key], theirs[key], leaf_key, path + (key,))
+            continue
+        _same_keys(ours[key], theirs[key], f"{where}/{key}")
+        for name, dst in ours[key].items():
+            src = theirs[key][name]
+            if tuple(src.shape) != tuple(dst.shape):
+                raise ValueError(
+                    f"shape mismatch at {where}/{name}: given "
+                    f"{tuple(src.shape)} vs model {tuple(dst.shape)}")
+            with torch.no_grad():
+                dst.copy_(src)
+
+
 class Module(torch.nn.Module):
     """Base of the port's layers."""
 
@@ -77,6 +112,15 @@ class Module(torch.nn.Module):
             name, torch.nn.Parameter(value.to(device=device, dtype=dtype)))
         if regularizer is not None:
             self._regularizers[name] = regularizer
+
+    def new_buffer(self, name: str, value: torch.Tensor, device,
+                   dtype=torch.float32) -> None:
+        """Register ``value`` as buffer ``name`` (non-trainable state,
+        such as BatchNorm's running statistics), cast to ``dtype`` on
+        ``device``. A layer updates a buffer by assigning a new tensor to
+        it, never in place, so a train step that binds its own buffers
+        reads the new values back without changing its inputs."""
+        self.register_buffer(name, value.to(device=device, dtype=dtype))
 
     # --------------------------------------------------------- identity
     def set_name(self, name: str) -> "Module":
@@ -143,6 +187,18 @@ class Module(torch.nn.Module):
         """Nested ``{child: ..., "~buffers": {name: tensor}}`` tree."""
         return self._tree(BUFFERS_KEY,
                           lambda m: dict(m.named_buffers(recurse=False)))
+
+    def load_params_dict(self, d: Dict) -> None:
+        """Copy a :meth:`params_dict`-shaped tree of tensors into this
+        module's parameters, in place, each cast to its parameter's dtype
+        and device (the train loop's write-back of its new parameters).
+        Raises on a missing or extra key or a shape mismatch."""
+        load_tree(self.params_dict(), d, PARAMS_KEY)
+
+    def load_buffers_dict(self, d: Dict) -> None:
+        """Copy a :meth:`buffers_dict`-shaped tree into the buffers, as
+        :meth:`load_params_dict` does for the parameters."""
+        load_tree(self.buffers_dict(), d, BUFFERS_KEY)
 
     def trainable_dict(self) -> Dict:
         """Tree of bools mirroring :meth:`params_dict`: False where

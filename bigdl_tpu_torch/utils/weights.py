@@ -3,10 +3,16 @@
 The JAX package's ``params_dict()`` is a nested dict
 ``{child: {...}, "~params": {name: array}}``; the port's modules register
 the same children and parameters under the same names (see
-``nn/module.py``), so the bridge is a key-for-key copy plus a dtype cast.
-No layout needs a transpose: Linear weights are (out, in) on both sides.
+``nn/module.py``), so the bridge converts the leaves to tensors and
+loads them with the module's checked, key-for-key loader.
+No layout needs a transpose: Linear weights are (out, in) and conv
+weights (out, in / groups, kH, kW) on both sides (a channels-last conv
+weight of the NHWC format keeps its shape; the copy fills its strides).
 :func:`load_jax_params` takes the tree with its leaves converted to
-numpy arrays; :func:`params_to_numpy` gives the way back.
+numpy arrays; :func:`params_to_numpy` gives the way back. Buffers (the
+``"~buffers"`` tree of ``buffers_dict()``: BatchNorm's running
+statistics) cross the same way with :func:`load_jax_buffers` and
+:func:`buffers_to_numpy`, under the same key, shape and dtype rules.
 """
 
 from __future__ import annotations
@@ -44,51 +50,54 @@ def _as_array(value) -> np.ndarray:
     return arr
 
 
-def _same_keys(ours: Dict, theirs: Dict, where: str):
-    missing = sorted(set(ours) - set(theirs))
-    extra = sorted(set(theirs) - set(ours))
-    if missing or extra:
-        raise KeyError(f"parameter tree mismatch at {where}: missing "
-                       f"{missing}, unexpected {extra}")
-
-
-def _load(ours: Dict, theirs: Dict, path: Tuple[str, ...]):
-    where = "/".join(path) or "<root>"
-    _same_keys(ours, theirs, where)
-    for key in ours:
-        if key != PARAMS_KEY:
-            _load(ours[key], theirs[key], path + (key,))
-            continue
-        _same_keys(ours[key], theirs[key], f"{where}/{key}")
-        for name, param in ours[key].items():
-            arr = _as_array(theirs[key][name])
-            if tuple(arr.shape) != tuple(param.shape):
-                raise ValueError(
-                    f"shape mismatch at {where}/{name}: JAX "
-                    f"{tuple(arr.shape)} vs port {tuple(param.shape)}")
-            with torch.no_grad():
-                param.copy_(torch.tensor(arr, dtype=param.dtype))
+def _tensors(tree: Dict) -> Dict:
+    """The tree with each numpy leaf as a CPU tensor (a copy)."""
+    return {key: (_tensors(sub) if isinstance(sub, dict)
+                  else torch.tensor(_as_array(sub)))
+            for key, sub in tree.items()}
 
 
 def load_jax_params(model, params: Dict) -> None:
     """Copy the JAX ``params_dict()`` tree ``params`` (numpy leaves) into
     ``model``, casting to each parameter's dtype and device. Raises on a
     missing or extra key or a shape mismatch."""
-    _load(model.params_dict(), params, ())
+    model.load_params_dict(_tensors(params))
+
+
+def load_jax_buffers(model, buffers: Dict) -> None:
+    """Copy the JAX ``buffers_dict()`` tree ``buffers`` (numpy leaves)
+    into ``model``'s buffers, as :func:`load_jax_params` does for the
+    parameters (each buffer keeps its own dtype: f32 statistics stay
+    f32)."""
+    model.load_buffers_dict(_tensors(buffers))
+
+
+def _to_numpy(tree: Dict) -> Dict:
+    """Copies (never views of the tensors, which the loaders overwrite in
+    place), floating leaves as f32."""
+    def conv(node):
+        return {key: (conv(sub) if isinstance(sub, dict) else
+                      sub.detach().cpu().float().numpy().copy()
+                      if sub.is_floating_point()
+                      else sub.detach().cpu().numpy().copy())
+                for key, sub in node.items()}
+
+    return conv(tree)
 
 
 def params_to_numpy(model_or_tree) -> Dict:
     """The JAX ``params_dict()`` tree of a port model (or of a tree shaped
     like its ``params_dict()``, such as the train step's ``params``) with
     numpy leaves; bf16 leaves become f32, which numpy can hold."""
-    tree = (model_or_tree.params_dict()
-            if isinstance(model_or_tree, torch.nn.Module) else model_or_tree)
+    return _to_numpy(model_or_tree.params_dict()
+                     if isinstance(model_or_tree, torch.nn.Module)
+                     else model_or_tree)
 
-    def conv(node):
-        return {key: (conv(sub) if isinstance(sub, dict) else
-                      sub.detach().cpu().float().numpy()
-                      if sub.is_floating_point()
-                      else sub.detach().cpu().numpy())
-                for key, sub in node.items()}
 
-    return conv(tree)
+def buffers_to_numpy(model_or_tree) -> Dict:
+    """The JAX ``buffers_dict()`` tree of a port model (or of a tree
+    shaped like it, such as the train step's ``buffers``) with numpy
+    leaves."""
+    return _to_numpy(model_or_tree.buffers_dict()
+                     if isinstance(model_or_tree, torch.nn.Module)
+                     else model_or_tree)
