@@ -225,6 +225,16 @@ class TransformerLM(Module):
         (B,) tensor). Caller contract: ``pos0 + chunk <= cache length``."""
         return self._prefill_impl(ids, caches, pos0, chunked=True)
 
+    def prefill_chunk_at(self, ids, caches, pos0, last_idx):
+        """``prefill_chunk`` returning the logits at the per-row position
+        ``last_idx`` (B,) within the chunk instead of its last position:
+        the continuous-batching engine's admission path, whose final
+        chunk is right-padded. ``pos0`` is an int or a (B,) tensor of
+        per-row offsets (each row an independent chunked prefill at its
+        own depth). Returns (logits (B, V), caches)."""
+        return self._prefill_impl(ids, caches, pos0, chunked=True,
+                                  gather_last=self._ids(last_idx))
+
     @torch.no_grad()
     def _prefill_impl(self, ids, caches, pos0, chunked: bool,
                       gather_last=None):

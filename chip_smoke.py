@@ -30,12 +30,32 @@ a non-zero exit, at the first phase that does not hold:
    checked by teacher forcing through the flash forward;
 6. server: ``GenerationService`` answers 8 concurrent mixed-length
    requests, each row equal to a lone ``generate`` in f32 with TF32 off;
+   then the continuous-batching engine, whose chunked prefill and decode
+   use the masked dense attention (no flash launch, checked):
+
+   - engine_gate (f32, TF32 off): the same 8 requests at once through
+     ``ContinuousBatchingEngine(max_slots=4, prefill_chunk=64,
+     prefill_rows=2)``, each row equal to a lone ``generate`` or, at its
+     first difference, a near tie of the lone run (top two logits within
+     1e-4); a 192-token prefix hit whose row equals the cache-off
+     engine's; a cancellation mid-decode; the flow counters;
+   - engine_serving (bf16): a Poisson workload of 32 requests at 20/s
+     (prompts 64-512, 16-128 new tokens) through the engine
+     (``max_slots=8, prefill_chunk=64, prefill_rows=4``) and through
+     ``GenerationService(max_batch=8)``: latency, TTFT, inter-token gap,
+     tokens/s, the p99 speedup, and a ``torch.profiler`` window over 16
+     loop iterations of steady decode (launches an iteration, device
+     busy share, top kernels);
+   - engine_prefix (f32, TF32 off): ``run_shared_prefix_comparison`` at
+     16 requests over 4 templates of 512 tokens, cache on against off:
+     TTFT speedups, hit rate, rows equal (or near ties);
 7. flash_backward: the differentiable flash attention (the kernel's
    forward, the plain blocked backward) against the plain forward (out
    and lse) and autograd through it (dq / dk / dv and the lse
    cotangent), at the training shape (on views of a fused qkv
    projection, as the model passes them) and its edge cases; the
-   backward timed beside SDPA's backward and its bound;
+   backward timed beside SDPA's backward and its bound, eagerly and by
+   CUDA-graph replay (the card's time alone);
 8. train: ``transformer_perf`` at the training flagship (ms/step,
    tokens/s, analytic MFU, the loss of every step, 8 kernel launches a
    step; a remat step launches 16), a ``torch.profiler`` pass over one
@@ -43,9 +63,9 @@ a non-zero exit, at the first phase that does not hold:
    against the dense path's, then f32 SGD steps that lower the loss;
 9. the kernels line: one JSON object with each kernel's launches on the
    main paths (phases 4-6, and the timed bf16 training run of phase 8,
-   each counted from 0 just before it and read just after; the remat
-   run and the f32 gate are counted on their own lines), error, times
-   and bound.
+   each counted from 0 just before it and read just after; the engine
+   phases, the remat run and the f32 gate are counted on their own
+   lines), error, times and bound.
 
 Before the kernels line, the vision path (ResNet-50 at full width and
 depth, LeNet-5, the LocalOptimizer), which launches no kernel of the
@@ -173,6 +193,21 @@ EVAL_BF16_RTOL = 5e-2
 # printed for comparison and never measured here
 PRIOR_MS = 0.381
 
+# a served greedy row may differ from a lone ``generate`` only where the
+# lone run's top two logits are this close at the first difference (f32
+# GEMMs of another batch shape can flip such an argmax; nothing else can)
+NEAR_TIE = 1e-4
+# the server phase's 8 requests: prompt lengths and new tokens
+SERVER_LENGTHS = [100, 128, 193, 200, 224, 241, 250, 256]
+SERVER_NEWS = [32, 24, 32, 16, 32, 32, 20, 32]
+# the engine_serving phase: a Poisson workload through the engine and
+# through GenerationService (bf16 flagship)
+ENGINE_SERVING = dict(n_requests=32, rate_hz=20.0, max_slots=8,
+                      prefill_chunk=64, prefill_rows=4, max_batch=8,
+                      prompt_lens=(64, 512), decode_lens=(16, 128), seed=0)
+# loop iterations in the engine's steady-decode profile window
+PROFILE_ITERATIONS = 16
+
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
@@ -203,14 +238,16 @@ def time_ms(torch, fn, warmup: int = 3, iters: int = 20) -> float:
     return statistics.median(s.elapsed_time(e) for s, e in pairs)
 
 
-def graph_ms(torch, fn, calls: int = 20, replays: int = 5) -> float:
+def graph_ms(torch, fn, calls: int = 20, replays: int = 5,
+             stream=None) -> float:
     """The card's time for one call of ``fn`` in ms: ``calls`` calls
-    captured in one CUDA graph, the median replay time over ``calls``, so
-    no host time between launches is counted."""
+    captured in one CUDA graph (on ``stream``, where given), the median
+    replay time over ``calls``, so no host time between launches is
+    counted."""
     fn()
     torch.cuda.synchronize()
     g = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(g, capture_error_mode="relaxed"):
+    with torch.cuda.graph(g, stream=stream, capture_error_mode="relaxed"):
         for _ in range(calls):
             fn()
     g.replay()
@@ -465,14 +502,32 @@ def check_flash_backward(torch, fa, shape, causal, dtype, with_lse,
             F.scaled_dot_product_attention(*qkv_in, is_causal=causal,
                                            enable_gqa=True), qkv_in,
             d_out))
+        # the card's time alone, by CUDA-graph replay (TF32 off)
+        rec["backward_device_ms"] = graph_ms(torch, plain_backward, 5, 3)
+        # autograd runs a backward on the streams of its forward and of
+        # its leaves, so fresh leaves and the SDPA forward are made on
+        # the stream the graph captures
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            leaves = tuple(x.detach().requires_grad_(True) for x in (q, k, v))
+            so_side = F.scaled_dot_product_attention(
+                *leaves, is_causal=causal, enable_gqa=True)
+        torch.cuda.current_stream().wait_stream(side)
+        rec["sdpa_backward_device_ms"] = graph_ms(
+            torch, lambda: torch.autograd.grad(so_side, leaves, d_out,
+                                               retain_graph=True), 5, 3,
+            stream=side)
         bound, by, flops = flash_bwd_bound(b, h, h_kv, t, tk, d, name,
                                            causal)
         rec.update(backward_bound_ms=bound, backward_bound_by=by,
                    backward_flops=flops,
                    backward_share_of_bound=bound / rec["backward_ms"],
-                   timing="median CUDA-event interval around eager calls; "
-                          "backward_ms with TF32 off, as every f32 product "
-                          "of this run; library calls timed only")
+                   timing="*_ms: median CUDA-event interval around eager "
+                          "calls; *_device_ms: CUDA-graph replay of 5 calls, "
+                          "the card's time alone; backward_ms with TF32 "
+                          "off, as every f32 product of this run; library "
+                          "calls timed only")
     emit(rec)
 
 
@@ -604,6 +659,264 @@ def train_phase(torch, fa, smi) -> int:
     assert gate_launches == TRAIN["layers"] * (1 + len(f32_losses)), \
         gate_launches
     return train_launches
+
+
+def lone_mismatch(model, prompt, n, row):
+    """None when ``row`` equals a lone greedy ``generate`` of ``prompt``
+    (``n`` new tokens); else the first difference, asserted to be a near
+    tie (the lone run's top two logits there within ``NEAR_TIE``)."""
+    lone, lone_logits = model.generate(prompt, n, return_logits=True)
+    lone = lone[0].cpu().numpy()
+    assert row.shape == lone.shape, (row.shape, lone.shape)
+    if (row == lone).all():
+        return None
+    j = int((row != lone).nonzero()[0][0]) - len(prompt)
+    top2 = lone_logits[0, j].topk(2).values
+    rec = {"position": j, "margin": (top2[0] - top2[1]).item()}
+    assert rec["margin"] < NEAR_TIE, rec
+    return rec
+
+
+def engine_gate(torch, fa, smi, model32, reqs) -> int:
+    """engine_gate (f32, TF32 off): the server phase's 8 requests through
+    ``ContinuousBatchingEngine(max_slots=4, prefill_chunk=64,
+    prefill_rows=2)`` at once, so slots and staging rows recycle, each
+    row held to a lone ``generate``; a warm prefix hit of 192 tokens
+    against the same request through an engine with the cache off; a
+    cancellation mid-decode; the flow counters. Returns the flash
+    kernel's launches in the phase's engine runs."""
+    import numpy as np
+
+    from bigdl_tpu_torch.serving import (ContinuousBatchingEngine,
+                                         RequestCancelled)
+
+    fa.launches = 0
+    t0 = time.monotonic()
+    eng = ContinuousBatchingEngine(model32, max_slots=4, prefill_chunk=64,
+                                   prefill_rows=2)
+    with eng:
+        handles = [eng.submit(p, n) for p, n in reqs]
+        rows = [h.result(timeout=120) for h in handles]
+        serve_s = time.monotonic() - t0
+        # a new 192-token head shared by two requests: the second
+        # reuses it whole
+        g = np.random.RandomState(5)
+        head = g.randint(0, FLAGSHIP["vocab_size"], 192)
+        tail_a = g.randint(0, FLAGSHIP["vocab_size"], 40)
+        tail_b = g.randint(0, FLAGSHIP["vocab_size"], 30)
+        tail_b[0] = (tail_a[0] + 1) % FLAGSHIP["vocab_size"]
+        pa, pb = (np.concatenate([head, t]).astype(np.int32)
+                  for t in (tail_a, tail_b))
+        eng.submit(pa, 16).result(timeout=120)
+        hb = eng.submit(pb, 24)
+        row_b = hb.result(timeout=120)
+        # cancelled mid-decode: after its first streamed token
+        hc = eng.submit(reqs[0][0], 200)
+        it = hc.tokens()
+        next(it)
+        hc.cancel()
+        cancelled = False
+        try:
+            for _ in it:
+                pass
+        except RequestCancelled:
+            cancelled = True
+        stats = eng.stats()
+    with ContinuousBatchingEngine(model32, max_slots=4, prefill_chunk=64,
+                                  prefill_rows=2,
+                                  prefix_cache_bytes=0) as cold:
+        row_b_cold = cold.submit(pb, 24).result(timeout=120)
+    launches = fa.launches
+    near_ties = []
+    for i, ((p, n), row) in enumerate(zip(reqs, rows)):
+        tie = lone_mismatch(model32, p, n, row)
+        if tie is not None:
+            near_ties.append({"request": i, **tie})
+    warm_equals_cold = bool((row_b == row_b_cold).all())
+    warm_tie = None if warm_equals_cold else \
+        lone_mismatch(model32, pb, 24, row_b)
+    rec = {"phase": "engine_gate", "dtype": "float32",
+           "allow_tf32": torch.backends.cuda.matmul.allow_tf32,
+           "nvidia_smi": smi,
+           "engine": {"max_slots": 4, "prefill_chunk": 64,
+                      "prefill_rows": 2},
+           "requests": len(reqs), "seconds": serve_s,
+           "rows_equal_lone_generate": len(reqs) - len(near_ties),
+           "near_ties": near_ties, "near_tie_limit": NEAR_TIE,
+           "prefix_tokens": hb.prefix_tokens,
+           "warm_row_equals_cache_off": warm_equals_cold,
+           "warm_near_tie": warm_tie,
+           "cancelled_raised": cancelled,
+           "cancelled_tokens": int(hc.tokens_so_far().shape[0]),
+           "stats": {k: stats[k] for k in ("admitted", "finished",
+                                           "evicted", "cancelled",
+                                           "timed_out", "iterations",
+                                           "prefill_rounds",
+                                           "decode_steps")},
+           "prefix_cache": {k: stats["prefix_cache"][k]
+                            for k in ("hits", "misses", "reused_tokens",
+                                      "hit_rate")},
+           "flash_launches": launches}
+    emit(rec)
+    assert launches == 0, launches
+    assert hb.prefix_tokens == 192, hb.prefix_tokens
+    assert cancelled and isinstance(hc.error(), RequestCancelled)
+    n_req = len(reqs) + 3
+    assert (stats["admitted"], stats["finished"], stats["cancelled"],
+            stats["evicted"], stats["timed_out"]) == \
+        (n_req, n_req - 1, 1, n_req, 0), stats
+    return launches
+
+
+def steady_decode_profile(torch, model) -> dict:
+    """A ``torch.profiler`` window over ``PROFILE_ITERATIONS`` iterations
+    of the engine's loop in steady decode, every slot busy (the engine
+    config of ``ENGINE_SERVING``, 8 requests of 256 prompt tokens and 128
+    new). The profiler records the thread that starts it, so the window
+    runs the loop's iteration (``_iterate``) on this thread: the engine's
+    own thread is never started."""
+    import numpy as np
+
+    from bigdl_tpu_torch.serving import (ContinuousBatchingEngine,
+                                         RequestHandle)
+    from bigdl_tpu_torch.utils.profiling import device_profile
+
+    cfg = ENGINE_SERVING
+    eng = ContinuousBatchingEngine(model, max_slots=cfg["max_slots"],
+                                   prefill_chunk=cfg["prefill_chunk"],
+                                   prefill_rows=cfg["prefill_rows"])
+    g = np.random.RandomState(7)
+    for _ in range(eng.max_slots):
+        eng._queue.put(RequestHandle(
+            g.randint(0, FLAGSHIP["vocab_size"], 256), 128))
+    with torch.inference_mode():
+        while eng.stats()["active_slots"] < eng.max_slots:
+            eng._iterate()
+        s0 = eng.stats()
+        prof = device_profile(
+            lambda: [eng._iterate() for _ in range(PROFILE_ITERATIONS)],
+            top=10)
+        s1 = eng.stats()
+    eng.stop(drain=False)
+    n = PROFILE_ITERATIONS
+    return dict(
+        iterations=n,
+        decode_steps=s1["decode_steps"] - s0["decode_steps"],
+        prefill_rounds=s1["prefill_rounds"] - s0["prefill_rounds"],
+        active_slots=s1["active_slots"],
+        kernel_launches=prof["kernel_launches"],
+        launches_per_iteration=prof["kernel_launches"] / n,
+        wall_ms=prof["wall_ms"], device_busy_ms=prof["device_busy_ms"],
+        device_busy_share=1.0 - prof["device_idle_share"],
+        ms_per_iteration=prof["wall_ms"] / n,
+        top_kernels_ms=prof["top_kernels_ms"],
+        top_ops_ms=prof["top_ops_ms"][:6])
+
+
+def engine_serving(torch, fa, smi) -> int:
+    """engine_serving (bf16): one Poisson workload (``ENGINE_SERVING``)
+    through the engine and through ``GenerationService`` by the port's
+    ``run_poisson_comparison``: latency both ways, the engine's TTFT and
+    inter-token gap, delivered tokens/s both ways, the p99 speedup, the
+    loop's iterations; then the steady-decode profile window. Returns
+    the flash kernel's launches in the phase."""
+    from bigdl_tpu_torch.models.transformer import TransformerLM
+    from bigdl_tpu_torch.serving import run_poisson_comparison
+
+    model = TransformerLM(**FLAGSHIP, seed=0, device="cuda",
+                          dtype=torch.bfloat16)
+    model.evaluate()
+    fa.launches = 0
+    res = run_poisson_comparison(model, **ENGINE_SERVING)
+    window = steady_decode_profile(torch, model)
+    launches = fa.launches
+    eng, svc = res["engine"], res["generation_service"]
+    stats = eng["stats"]
+    vocab = FLAGSHIP["vocab_size"]
+    same = 0
+    for req, row, srow in zip(res["requests"], eng["rows"], svc["rows"]):
+        assert row.shape == (len(req["prompt"]) + req["n"],), row.shape
+        assert (row[:len(req["prompt"])] == req["prompt"]).all()
+        assert ((row >= 0) & (row < vocab)).all()
+        same += bool((row == srow).all())
+    emit({"phase": "engine_serving", "dtype": "bfloat16",
+          "nvidia_smi": smi, "workload": res["workload"],
+          "engine": {"latency_s": eng["latency"], "ttft_s": eng["ttft"],
+                     "inter_token_s": eng["inter_token"],
+                     "tokens_per_s": eng["tokens_per_sec"],
+                     "wall_s": eng["wall_s"],
+                     "loop": {k: stats[k] for k in ("iterations",
+                                                    "prefill_rounds",
+                                                    "decode_steps")},
+                     "latency_phases_s": {
+                         k: {q: v[q] for q in ("p50", "p99")}
+                         for k, v in stats["latency"].items()}},
+          "generation_service": {"latency_s": svc["latency"],
+                                 "tokens_per_s": svc["tokens_per_sec"],
+                                 "wall_s": svc["wall_s"]},
+          "p99_speedup": res["p99_speedup"],
+          "rows_equal_generation_service": same,
+          "steady_decode_profile": window,
+          "flash_launches": launches,
+          "timer": "host monotonic clock around each request; profile "
+                   "window by torch.profiler (CUPTI kernels, busy = union "
+                   "of kernel intervals over the window's wall)"})
+    assert launches == 0, launches
+    n_req = ENGINE_SERVING["n_requests"]
+    assert (stats["admitted"], stats["finished"]) == (n_req, n_req), stats
+    assert window["prefill_rounds"] == 0, window
+    assert window["decode_steps"] == window["iterations"], window
+    assert window["active_slots"] == ENGINE_SERVING["max_slots"], window
+    assert window["kernel_launches"] > 0, window
+    return launches
+
+
+def engine_prefix(torch, fa, smi, model32) -> int:
+    """engine_prefix (f32, TF32 off): ``run_shared_prefix_comparison`` at
+    16 requests over 4 templates of 512 tokens, the prefix cache on
+    against off: TTFT speedups, hit rate, and every row of the cached
+    leg held to a lone ``generate`` (the uncached leg's too where the
+    two legs differ), each mismatch a near tie. Returns the flash
+    kernel's launches in the two engine legs."""
+    from bigdl_tpu_torch.serving import run_shared_prefix_comparison
+
+    fa.launches = 0
+    res = run_shared_prefix_comparison(
+        model32, n_requests=16, max_slots=4, prefill_chunk=64,
+        prefill_rows=2, n_templates=4, template_len=512)
+    launches = fa.launches
+    near_ties = []
+    for i, (req, a, b) in enumerate(zip(res["requests"],
+                                        res["cached"]["rows"],
+                                        res["uncached"]["rows"])):
+        legs = (("cached", a),) if (a == b).all() else \
+            (("cached", a), ("uncached", b))
+        for leg, row in legs:
+            tie = lone_mismatch(model32, req["prompt"], req["n"], row)
+            if tie is not None:
+                near_ties.append({"request": i, "leg": leg, **tie})
+    pc = res["cached"]["prefix_cache"]
+    emit({"phase": "engine_prefix", "dtype": "float32",
+          "allow_tf32": torch.backends.cuda.matmul.allow_tf32,
+          "nvidia_smi": smi, "workload": res["workload"],
+          "ttft_p50_speedup": res["ttft_p50_speedup"],
+          "ttft_p99_speedup": res["ttft_p99_speedup"],
+          "cached": {"ttft_s": res["cached"]["ttft"],
+                     "latency_s": res["cached"]["latency"],
+                     "tokens_per_s": res["cached"]["tokens_per_sec"]},
+          "uncached": {"ttft_s": res["uncached"]["ttft"],
+                       "latency_s": res["uncached"]["latency"],
+                       "tokens_per_s": res["uncached"]["tokens_per_sec"]},
+          "hit_rate": pc["hit_rate"], "hits": pc["hits"],
+          "reused_tokens": pc["reused_tokens"],
+          "reused_fraction": pc["reused_fraction"],
+          "token_parity": res["token_parity"],
+          "rows_held_to_lone_generate": len(res["requests"]),
+          "near_ties": near_ties,
+          "flash_launches": launches})
+    assert launches == 0, launches
+    assert pc["hits"] >= 1, pc
+    return launches
 
 
 def rel_diff(a, b) -> float:
@@ -1139,8 +1452,7 @@ def main() -> int:
     # 6. server: concurrent mixed-length requests, f32 with TF32 off
     model32 = TransformerLM(**FLAGSHIP, seed=0, device="cuda", dtype=f32)
     model32.evaluate()
-    lengths = [100, 128, 193, 200, 224, 241, 250, 256]
-    news = [32, 24, 32, 16, 32, 32, 20, 32]
+    lengths, news = SERVER_LENGTHS, SERVER_NEWS
     reqs = [prompts[i, :n].cpu().numpy() for i, n in enumerate(lengths)]
     svc = GenerationService(model32, max_batch=8, batch_timeout_ms=500.0,
                             bucket_tokens=32, prompt_bucket=64)
@@ -1161,17 +1473,9 @@ def main() -> int:
     for i, (p, n) in enumerate(zip(reqs, news)):
         ans = answers[i]
         assert ans is not None and ans.shape == (len(p) + n,), i
-        lone, lone_logits = model32.generate(p, n, return_logits=True)
-        lone = lone[0].cpu().numpy()
-        if (ans == lone).all():
-            continue
-        # allowed only where the lone run's top two logits tie to f32
-        # rounding at the first difference; anything else fails
-        j = int((ans != lone).nonzero()[0][0]) - len(p)
-        top2 = lone_logits[0, j].topk(2).values
-        margin = (top2[0] - top2[1]).item()
-        near_ties.append({"request": i, "position": j, "margin": margin})
-        assert margin < 1e-4, near_ties[-1]
+        tie = lone_mismatch(model32, p, n, ans)
+        if tie is not None:
+            near_ties.append({"request": i, **tie})
     stats = svc.stats()
     emit({"phase": "server", "requests": len(reqs), "prompt_lengths": lengths,
           "new_tokens": news, "dtype": "float32", "seconds": srv_s,
@@ -1180,7 +1484,16 @@ def main() -> int:
     serving_launches = fa.launches
     assert serving_launches > 0, \
         "the serving path never launched the flash kernel"
-    del model32, svc
+    del svc
+
+    # -------------------------------- the continuous-batching engine
+    # (its chunked prefill and decode use the masked dense attention, as
+    # in the JAX package: no flash launch, which each phase checks)
+    engine_launches = (
+        engine_gate(torch, fa, smi, model32, list(zip(reqs, news)))
+        + engine_serving(torch, fa, smi)
+        + engine_prefix(torch, fa, smi, model32))
+    del model32
 
     # ---------------------------------------- 7. and 8.: the train path
     flash_backward_phase(torch, fa)
@@ -1200,9 +1513,10 @@ def main() -> int:
         "source": "bigdl_tpu_torch/ops/csrc/flash_attention.cu",
         "replaces": "bigdl_tpu/ops/flash_attention.py:116",
         "tpu_kernel": "bigdl_tpu/ops/flash_attention.py::_flash_kernel",
-        "launches": serving_launches + train_launches,
+        "launches": serving_launches + engine_launches + train_launches,
         "launches_serving": serving_launches,
         "launches_train": train_launches,
+        "launches_engine": engine_launches,
         "max_abs_err": flagship["max_abs_err"],
         "ms": flagship["kernel_ms"], "kernel_ms": flagship["kernel_ms"],
         "device_ms": flagship["device_ms"],

@@ -1,6 +1,7 @@
 """The port stands alone: bigdl_tpu_torch imports neither JAX nor the JAX
-package (a subprocess that serves and trains with it on the CPU, a
-ResNet-20 through the LocalOptimizer included, and a scan of every
+package (a subprocess that serves and trains with it on the CPU, the
+continuous-batching engine and a ResNet-20 through the LocalOptimizer
+included, and a scan of every
 module's imports), and its entry points run on the card
 unless asked for the CPU, never falling back to it by themselves."""
 
@@ -27,6 +28,16 @@ assert out.shape == (1, 10), out.shape
 assert m(out).shape == (1, 10, 64)
 row = GenerationService(m, bucket_tokens=4).generate(list(range(5)), 3)
 assert row.shape == (8,), row.shape
+from bigdl_tpu_torch.serving import ContinuousBatchingEngine
+with ContinuousBatchingEngine(m, max_slots=2, prefill_chunk=4,
+                              prefill_rows=2) as eng:
+    hs, rows = [], []
+    for prompt in (list(range(9)), list(range(8)) + [5]):
+        hs.append(eng.submit(prompt, 3))
+        rows.append(hs[-1].result(timeout=60))
+assert [r.shape for r in rows] == [(12,), (12,)], rows
+assert hs[1].prefix_tokens == 8, hs[1].prefix_tokens
+import bigdl_tpu_torch.serving.benchmark
 from bigdl_tpu_torch.models.perf import transformer_perf
 s = transformer_perf(2, 1, 1, torch.float32, log=lambda *_: None,
                      seq_len=16, vocab=64, embed_dim=32, layers=1, heads=4,
@@ -75,6 +86,8 @@ def test_no_jax_or_jax_package_import_in_the_port():
     files.append(REPO / "chip_smoke.py")
     files += sorted((REPO / "scripts").glob("torch_*.py"))
     assert len(files) > 10
+    assert {"__init__", "benchmark", "engine", "prefix_cache", "scheduler",
+            "streams"} <= {f.stem for f in files if f.parent.name == "serving"}
     found = [(str(f.relative_to(REPO)), name) for f in files
              for name in _imports(f)
              if name.split(".")[0] in ("jax", "jaxlib", "bigdl_tpu")]
@@ -90,6 +103,7 @@ def test_entry_points_default_to_the_card_and_never_fall_back():
                                              transformer_perf)
     from bigdl_tpu_torch.nn import (BatchNormalization, LayerNorm, Linear,
                                     MultiHeadAttention, SpatialConvolution)
+    from bigdl_tpu_torch.serving import ContinuousBatchingEngine
     from bigdl_tpu_torch.utils.random import RandomGenerator
 
     for make in (lambda: TransformerLM(64, 32, 4, 2, 64),
@@ -102,7 +116,10 @@ def test_entry_points_default_to_the_card_and_never_fall_back():
                  lambda: BatchNormalization(4), lambda: LeNet5(),
                  lambda: ResNet(10, {"depth": 20}),
                  lambda: build_model("lenet5"),
-                 lambda: run_perf("lenet5", 2, 1, 1)):
+                 lambda: run_perf("lenet5", 2, 1, 1),
+                 lambda: ContinuousBatchingEngine(
+                     TransformerLM(64, 32, 4, 2, 64, device="cpu"),
+                     device="cuda")):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             make()
     assert resolve_device("cpu") == torch.device("cpu")
