@@ -12,9 +12,12 @@ analytic cost model. The inference
 entry points of the JAX package are ported: the full-sequence
 ``forward`` (through the flash kernel with ``use_flash=True``),
 ``prefill`` / ``prefill_chunk`` / ``decode_step`` over a KV cache,
-greedy or sampled ``generate`` and ``generate_ragged``. The JAX
-package's one-dispatch ``lax.scan`` decode becomes a Python loop over
-``decode_step``; eager PyTorch compiles nothing, so the JAX package's
+their paged twins over a page pool and block tables
+(``prefill_chunk_at_paged`` / ``decode_step_paged``), the speculative
+verifier ``verify_chunk`` (and ``verify_chunk_paged``), greedy or sampled
+``generate``, ``generate_ragged`` and ``speculative_generate``. The JAX
+package's one-dispatch ``lax.scan`` decode (and the draft's proposal
+scan) becomes a Python loop over ``decode_step``; eager PyTorch compiles nothing, so the JAX package's
 shape buckets (``bucket_tokens``) have no counterpart here. With
 ``eos_id``, finished rows keep emitting eos and the loop stops once
 every row has finished.
@@ -88,6 +91,45 @@ def _sample_next(logits, generator, done, sampled, temperature, eos_id,
         nxt = torch.where(done, eos_id, nxt)
         done = done | (nxt == eos_id)
     return nxt, done
+
+
+def _draw(logits, temperature: float, generator):
+    """One token a row from the tempered, unfiltered softmax of
+    ``logits`` (B, V): the speculative paths' draw (their acceptance
+    identity needs the unfiltered distributions)."""
+    probs = torch.softmax(logits.float() / temperature, -1)
+    return torch.multinomial(probs, 1, generator=generator)[:, 0]
+
+
+@torch.no_grad()
+def _spec_accept(p_logits, q_logits, props, temperature: float, generator):
+    """Speculative-sampling acceptance (Leviathan et al. 2023, Thm 1):
+    given target logits ``p_logits`` (B, g+1, V) at positions
+    pos..pos+g, draft logits ``q_logits`` (B, g, V) and sampled
+    proposals ``props`` (B, g), return per-proposal acceptance
+    (U < p(x)/q(x)), a residual sample from norm(max(p - q, 0)) for
+    every position (used at each row's first rejection), and a bonus
+    sample from p at position g (used on full acceptance). Taking the
+    proposal where accepted and the residual where rejected is
+    distributed exactly as p. The three draws come from ``generator`` in
+    this fixed order: the uniforms, the residuals, the bonus."""
+    b, g = props.shape
+    p = torch.softmax(p_logits.float() / temperature, -1)
+    q = torch.softmax(q_logits.float() / temperature, -1)
+    p_at = p[:, :g].gather(-1, props[..., None])[..., 0]
+    q_at = q.gather(-1, props[..., None])[..., 0]
+    u = torch.rand((b, g), generator=generator, device=p.device)
+    accept = u * q_at < p_at          # U < p/q without the 0/0 division
+    resid = (p[:, :g] - q).clamp_min(0.0)
+    mass = resid.sum(-1, keepdim=True)
+    # p == q leaves an empty residual; that position always accepts, so
+    # the fallback (p itself) is drawn from but never used
+    resid = torch.where(mass > 0.0, resid / mass.clamp_min(1e-30),
+                        p[:, :g])
+    resid_toks = torch.multinomial(resid.reshape(b * g, -1), 1,
+                                   generator=generator).reshape(b, g)
+    bonus = torch.multinomial(p[:, g], 1, generator=generator)[:, 0]
+    return accept, resid_toks, bonus
 
 
 def _checkpointed(blk, x):
@@ -225,6 +267,16 @@ class TransformerLM(Module):
         (B,) tensor). Caller contract: ``pos0 + chunk <= cache length``."""
         return self._prefill_impl(ids, caches, pos0, chunked=True)
 
+    def verify_chunk(self, ids, caches, pos0):
+        """Chunked forward at offset ``pos0`` returning the logits at
+        EVERY chunk position, (B, T, V): the speculative verifier, one
+        pass scoring all draft proposals. ``pos0`` is an int (the
+        lockstep ``speculative_generate``) or a (B,) tensor (the engine's
+        ragged verify, each row at its own depth). Writes the chunk's KV
+        as ``prefill_chunk`` does, with its caller contract per row."""
+        return self._prefill_impl(ids, caches, pos0, chunked=True,
+                                  all_logits=True)
+
     def prefill_chunk_at(self, ids, caches, pos0, last_idx):
         """``prefill_chunk`` returning the logits at the per-row position
         ``last_idx`` (B,) within the chunk instead of its last position:
@@ -235,28 +287,95 @@ class TransformerLM(Module):
         return self._prefill_impl(ids, caches, pos0, chunked=True,
                                   gather_last=self._ids(last_idx))
 
-    @torch.no_grad()
-    def _prefill_impl(self, ids, caches, pos0, chunked: bool,
-                      gather_last=None):
-        """``gather_last`` (B,) picks one hidden state per row before the
-        head: the ragged prefill's last valid position."""
-        ids = self._ids(ids)
-        b, t = ids.shape
+    def _table_pos(self, positions):
+        """Per-row positions as rows of the learned position table. A
+        position past the context (a rejected verify proposal, or a draft
+        step, at the serving window's edge) reads the last row: its KV
+        lands past every live position and is never attended. JAX's take
+        does not raise there; CUDA asserts on an out-of-range index."""
+        return positions.clamp_max(self.max_len - 1)
+
+    def _embed_chunk(self, ids, pos0):
+        """Token embeddings of a (B, T) chunk at offset ``pos0`` (an int or
+        a (B,) tensor), plus the learned positions without RoPE."""
         x = F.embedding(ids, self.tok_embed)
         if not self.use_rope:
-            ar = torch.arange(t, device=self.device)
+            ar = torch.arange(ids.shape[1], device=self.device)
             if torch.is_tensor(pos0) and pos0.dim() == 1:
-                x = x + self.pos_embed[pos0[:, None] + ar[None]]
+                x = x + self.pos_embed[self._table_pos(pos0[:, None]
+                                                       + ar[None])]
             else:
                 x = x + self.pos_embed[int(pos0) + ar][None]
+        return x
+
+    def _chunk_logits(self, x, all_logits: bool, gather_last):
+        """The head over a chunk's hidden states: every position (B, T, V)
+        with ``all_logits``, else one position a row (B, V), the row's
+        ``gather_last`` (B,) or the chunk's last."""
+        if all_logits and gather_last is None:
+            return self._head(self.ln_f(x))
+        if gather_last is not None:
+            x = x[torch.arange(x.shape[0], device=self.device),
+                  gather_last][:, None]
+        else:
+            x = x[:, -1:]
+        return self._head(self.ln_f(x))[:, 0]
+
+    @torch.no_grad()
+    def _prefill_impl(self, ids, caches, pos0, chunked: bool,
+                      all_logits: bool = False, gather_last=None):
+        """``gather_last`` (B,) picks one hidden state per row before the
+        head: the ragged prefill's last valid position; ``all_logits``
+        keeps every position (the verify chunk)."""
+        ids = self._ids(ids)
+        x = self._embed_chunk(ids, pos0)
         for i, blk in enumerate(self.blocks()):
             x, caches[i] = (blk.forward_chunk(x, caches[i], pos0) if chunked
                             else blk.forward_prefill(x, caches[i], pos0))
-        if gather_last is not None:
-            x = x[torch.arange(b, device=self.device), gather_last][:, None]
-        else:
-            x = x[:, -1:]
-        return self._head(self.ln_f(x))[:, 0], caches
+        return self._chunk_logits(x, all_logits, gather_last), caches
+
+    # ------------------------------------------------- paged KV decoding
+    def init_page_pool(self, max_pages: int, page_size: int):
+        """Per-block page-pool tensors for paged serving: the
+        ``init_cache`` form with the leading dim indexing pool pages. One
+        block table indexes every layer (page ``p`` names slice ``p`` of
+        each block's tensors), so a request's pages are one id list."""
+        return [blk.attn.init_page_pool(max_pages, page_size)
+                for blk in self.blocks()]
+
+    def prefill_chunk_at_paged(self, ids, pools, tables, pos0, last_idx):
+        """Paged twin of :meth:`prefill_chunk_at` (``pos0`` (B,) only):
+        each row's chunk scatters its KV into the pool pages its
+        ``tables`` row names and attends the gathered view. Caller
+        contract per row: every written position falls inside the row's
+        table."""
+        return self._prefill_impl_paged(ids, pools, tables, pos0,
+                                        gather_last=self._ids(last_idx))
+
+    def verify_chunk_paged(self, ids, pools, tables, pos0):
+        """Paged twin of :meth:`verify_chunk` ((B,) ``pos0``): logits at
+        every chunk position, KV written through the block tables."""
+        return self._prefill_impl_paged(ids, pools, tables, pos0,
+                                        all_logits=True)
+
+    @torch.no_grad()
+    def _prefill_impl_paged(self, ids, pools, tables, pos0,
+                            all_logits: bool = False, gather_last=None):
+        ids = self._ids(ids)
+        x = self._embed_chunk(ids, pos0)
+        for i, blk in enumerate(self.blocks()):
+            x, pools[i] = blk.forward_chunk_paged(x, pools[i], tables, pos0)
+        return self._chunk_logits(x, all_logits, gather_last), pools
+
+    @torch.no_grad()
+    def decode_step_paged(self, ids_t, pos, pools, tables):
+        """Paged twin of :meth:`decode_step` ((B,) ``pos`` only): one
+        token per row, KV scattered into and gathered from the page pool
+        through ``tables``."""
+        x = self._embed_chunk(self._ids(ids_t)[:, None], pos)  # (B, 1, C)
+        for i, blk in enumerate(self.blocks()):
+            x, pools[i] = blk.forward_step_paged(x, pools[i], tables, pos)
+        return self._head(self.ln_f(x))[:, 0], pools
 
     @torch.no_grad()
     def decode_step(self, ids_t, pos, caches):
@@ -266,7 +385,7 @@ class TransformerLM(Module):
         x = F.embedding(ids_t, self.tok_embed)[:, None, :]      # (B, 1, C)
         if not self.use_rope:
             if torch.is_tensor(pos) and pos.dim() == 1:
-                x = x + self.pos_embed[pos][:, None]
+                x = x + self.pos_embed[self._table_pos(pos)][:, None]
             else:
                 x = x + self.pos_embed[int(pos)][None, None]
         for i, blk in enumerate(self.blocks()):
@@ -364,6 +483,124 @@ class TransformerLM(Module):
             top_p, on_token, return_logits)
         ids = torch.cat([prompt, toks], 1)
         return (ids, seen) if return_logits else ids
+
+    # --------------------------------------------- speculative decoding
+    @torch.no_grad()
+    def _propose(self, tok, pos0, caches, gamma: int, sampled: bool = False,
+                 temperature: float = 1.0, generator=None, tables=None):
+        """The draft proposer: ``gamma`` decode steps of this model from
+        ``tok`` (B,) at ``pos0`` (an int, or a (B,) tensor of per-row
+        positions), each choosing its next input (argmax, or a draw from
+        the tempered softmax when ``sampled``) and writing its input's KV
+        as it goes; through the page pool when ``tables`` is given. The
+        JAX package's one-dispatch ``lax.scan`` (``_propose_fn`` and its
+        paged twin) as a Python loop. Returns ((gamma, B) proposals,
+        (gamma, B, V) step logits: the sampled verifier's q
+        distributions, unused when greedy) and the caches."""
+        toks, qlogits = [], []
+        pos = pos0
+        for _ in range(gamma):
+            if tables is None:
+                logits, caches = self.decode_step(tok, pos, caches)
+            else:
+                logits, caches = self.decode_step_paged(tok, pos, caches,
+                                                        tables)
+            tok = (_draw(logits, temperature, generator) if sampled
+                   else logits.argmax(-1))
+            toks.append(tok)
+            qlogits.append(logits)
+            pos = pos + 1
+        return torch.stack(toks), torch.stack(qlogits), caches
+
+    @torch.no_grad()
+    def speculative_generate(self, prompt_ids, max_new_tokens: int,
+                             draft, gamma: int = 4, max_len=None,
+                             return_stats: bool = False,
+                             temperature: float = 0.0,
+                             generator: Optional[torch.Generator] = None):
+        """Speculative decoding: ``draft`` (a smaller TransformerLM over
+        the same vocabulary) proposes ``gamma`` tokens a round with its
+        own KV cache; this model scores all of them in one chunked
+        ``verify_chunk`` forward.
+
+        ``temperature == 0``: greedy; accept the longest prefix matching
+        this model's argmax and take its own token at the first mismatch,
+        so the output is exactly greedy ``generate()``. ``temperature >
+        0``: speculative sampling; each proposal is accepted with
+        probability min(1, p/q), the first rejected position draws from
+        the normalized residual max(p - q, 0), and full acceptance draws
+        a bonus token from p, all from ``generator``. Acceptance is the
+        minimum over the batch's rows. Returns (B, t0 + n) ids, or
+        ``(ids, {"rounds", "accept_rate"})`` with ``return_stats``."""
+        sampled = temperature > 0.0
+        prompt = self._ids(prompt_ids)
+        if prompt.dim() == 1:
+            prompt = prompt[None]
+        b, t0 = prompt.shape
+        n = max_new_tokens
+        if n == 0:
+            return (prompt, {"rounds": 0, "accept_rate": 0.0}) \
+                if return_stats else prompt
+        ctx = min(self.max_len, draft.max_len)
+        if max_len is not None:
+            ctx = min(ctx, max_len)
+        # a round starts at pos <= t0 + n - 2 and writes up to pos + gamma
+        # (the verify chunk, the full-acceptance fill-in): gamma <=
+        # ctx - t0 - n + 1 keeps every write inside the caches
+        gamma = min(gamma, ctx - t0 - n + 1)
+        if t0 + n > ctx or gamma < 1:
+            ids = self.generate(prompt, n, max_len=max_len,
+                                temperature=temperature, generator=generator)
+            return (ids, {"rounds": n, "accept_rate": 0.0}) \
+                if return_stats else ids
+        t_caches = self.init_cache(b, ctx)
+        d_caches = draft.init_cache(b, ctx)
+        t_logits, t_caches = self.prefill(prompt, t_caches)
+        _, d_caches = draft.prefill(prompt, d_caches)
+        next_tok = (_draw(t_logits, temperature, generator) if sampled
+                    else t_logits.argmax(-1))
+        out = [next_tok]
+        pos = t0            # next_tok's position; its KV is not cached yet
+        rounds = accepted = 0
+        while len(out) < n:
+            toks, qlogits, d_caches = draft._propose(
+                next_tok, pos, d_caches, gamma, sampled,
+                temperature if sampled else 1.0, generator)
+            props = toks.T                                      # (B, g)
+            # chunk token j sits at position pos + j; logits row j
+            # predicts the token at position pos + j + 1
+            chunk = torch.cat([next_tok[:, None], props], 1)
+            v_logits, t_caches = self.verify_chunk(chunk, t_caches, pos)
+            if sampled:
+                accept, resid, bonus = _spec_accept(
+                    v_logits, qlogits.transpose(0, 1), props, temperature,
+                    generator)
+                a = int(accept.int().cumprod(1).sum(1).min())
+                out.extend(props[:, j] for j in range(a))
+                # rows still accepting at column a keep their proposal,
+                # rejecting rows draw the residual: together exactly p
+                next_tok = bonus if a == gamma else torch.where(
+                    accept[:, a], props[:, a], resid[:, a])
+            else:
+                v_tok = v_logits.argmax(-1)
+                match = (props == v_tok[:, :gamma]).int()
+                a = int(match.cumprod(1).sum(1).min())
+                out.extend(props[:, j] for j in range(a))
+                next_tok = v_tok[:, a]      # the target's token at pos+a+1
+            out.append(next_tok)
+            if a == gamma:
+                # full acceptance: the last proposal (position pos +
+                # gamma) never went through the draft; write its KV
+                _, d_caches = draft.decode_step(props[:, -1], pos + gamma,
+                                                d_caches)
+            pos += a + 1
+            rounds += 1
+            accepted += a
+        ids = torch.cat([prompt, torch.stack(out[:n], 1)], 1)
+        if return_stats:
+            return ids, {"rounds": rounds,
+                         "accept_rate": accepted / max(rounds * gamma, 1)}
+        return ids
 
     @torch.no_grad()
     def generate_ragged(self, prompt_ids, prompt_lengths,

@@ -23,9 +23,14 @@ points still return the cache so callers read the same either way.
 
 ``dropout > 0`` adds the JAX package's dropout layers to the
 full-sequence ``forward`` (after the attention's output projection and
-after the block's MLP); the KV-cache entry points never drop. Sequence
-parallelism (ring attention), MoE and the int8 and paged cache forms are
-not ported yet.
+after the block's MLP); the KV-cache entry points never drop.
+
+Paged KV (``*_paged``): a layer's KV lives in a page pool of
+(max_pages, H_kv, page_size, D) tensors, and a (B, table_len) block
+table names each row's pages; every paged step scatters its new K/V
+through the table in place and attends the gathered row view under the
+same position mask as the dense ragged paths. Sequence parallelism
+(ring attention), MoE and the int8 cache forms are not ported yet.
 """
 
 from __future__ import annotations
@@ -112,6 +117,51 @@ def rotary_embedding_rowwise(x, positions, base: float = 10000.0):
 
 def _is_ragged(pos) -> bool:
     return torch.is_tensor(pos) and pos.dim() == 1
+
+
+def _gather_pages(leaf, tables):
+    """One logical KV row per batch entry from a page-pool tensor:
+    ``leaf`` (max_pages, H, page_size, D), ``tables`` (B, table_len)
+    page ids; position ``i`` of row ``b`` lives at ``leaf[tables[b, i //
+    page_size], :, i % page_size]``. Returns the (B, H, table_len *
+    page_size, D) view the attention math consumes. Table slots past a
+    row's reservation name the scratch page: garbage the caller's
+    position mask discards."""
+    b, tlen = tables.shape
+    g = leaf[tables]                            # (B, table_len, H, ps, D)
+    _, _, h, ps, d = g.shape
+    return g.transpose(1, 2).reshape(b, h, tlen * ps, d)
+
+
+def _write_kv_paged(pool, k_t, v_t, tables, positions):
+    """Scatter one K/V block into the page-pool tensors IN PLACE through
+    per-row block tables, then gather the per-row views attention
+    attends over. ``k_t`` / ``v_t`` are (B, H_kv, T, D); ``positions``
+    is (B,) (one decode token per row) or (B, T) (a ragged chunk):
+    token ``t`` of row ``b`` lands on page ``tables[b, positions[b, t] //
+    page_size]`` at offset ``positions[b, t] % page_size``. Every
+    ``positions // page_size`` must index the table (CUDA asserts on an
+    out-of-range index where JAX clamps). Idle lanes carry all-scratch
+    tables and may collide on page 0: the order of duplicate writes is
+    undefined, which is harmless only there, since nothing gathered
+    from the scratch page survives the position mask. Returns
+    ``(pool, k_read, v_read)``."""
+    if len(pool) != 2:
+        raise NotImplementedError(
+            "the int8 page pool (k_q, v_q, k_scale, v_scale) belongs to a "
+            "later step of the port (ROADMAP.md, Queue 1 item 3: int8 KV "
+            "and weights)")
+    if positions.dim() == 1:
+        positions = positions[:, None]          # decode step: T == 1
+    k_buf, v_buf = pool
+    ps = k_buf.shape[2]
+    pg = torch.gather(tables, 1, positions // ps)           # (B, T)
+    off = positions % ps
+    # advanced indices at dims 0 and 2 put (B, T) in front: the value
+    # layout is (B, T, H, D)
+    k_buf[pg, :, off] = k_t.transpose(1, 2).to(k_buf.dtype)
+    v_buf[pg, :, off] = v_t.transpose(1, 2).to(v_buf.dtype)
+    return pool, _gather_pages(k_buf, tables), _gather_pages(v_buf, tables)
 
 
 class MultiHeadAttention(Module):
@@ -295,6 +345,56 @@ class MultiHeadAttention(Module):
         o = self.out_proj(o.reshape(b * t, self.embed_dim).to(x.dtype))
         return o.reshape(b, t, -1), cache
 
+    def init_page_pool(self, max_pages: int, page_size: int):
+        """Zero page-pool tensors for paged serving: the ``init_cache``
+        form with the leading dim indexing pages, (max_pages, H_kv,
+        page_size, D) each."""
+        return self.init_cache(max_pages, page_size)
+
+    @torch.no_grad()
+    def forward_step_paged(self, x_t, pool, tables, pos):
+        """One ragged decode step against a page pool: the math of
+        :meth:`forward_step` with a (B,) ``pos``, but each row's KV row
+        is the concatenation of the pages its ``tables`` row names; the
+        write scatters and the read gathers through ``tables``. Rows on
+        all-scratch tables are idle lanes whose output the caller
+        ignores."""
+        b = x_t.shape[0]
+        qkv = self.qkv(x_t.reshape(b, self.embed_dim)).reshape(b, 1, -1)
+        q, k_t, v_t = self._split_kv_step(qkv)      # q (B, H, 1, D)
+        if self.rotary:
+            q = rotary_embedding_rowwise(q, pos, self.rotary_base)
+            k_t = rotary_embedding_rowwise(k_t, pos, self.rotary_base)
+        pool, k_read, v_read = _write_kv_paged(pool, k_t, v_t, tables, pos)
+        ar = torch.arange(k_read.shape[2], device=x_t.device)
+        live = (ar[None] <= pos[:, None])[:, None]              # (B, 1, L)
+        o = self._grouped_attention(q, (k_read, v_read), live).to(x_t.dtype)
+        return self.out_proj(o.reshape(b, self.embed_dim)).reshape(b, 1, -1), \
+            pool
+
+    @torch.no_grad()
+    def forward_chunk_paged(self, x, pool, tables, pos0):
+        """Ragged chunked prefill against a page pool (the paged twin of
+        :meth:`forward_chunk` with a (B,) ``pos0``): each row's chunk
+        scatters into its own pages and attends the gathered view under
+        its own position mask. Caller contract: every written position
+        ``pos0 + i`` falls inside the row's table, and positions past the
+        row's reservation land on the scratch page."""
+        b, t, _ = x.shape
+        qkv = self.qkv(x.reshape(b * t, self.embed_dim)).reshape(b, t, -1)
+        q, k, v = self._split_kv_step(qkv)
+        positions = pos0[:, None] + torch.arange(t, device=x.device)[None]
+        if self.rotary:
+            q = rotary_embedding_rowwise(q, positions, self.rotary_base)
+            k = rotary_embedding_rowwise(k, positions, self.rotary_base)
+        pool, k_read, v_read = _write_kv_paged(pool, k, v, tables,
+                                               positions)
+        ar = torch.arange(k_read.shape[2], device=x.device)
+        live = ar <= positions[..., None]                       # (B, T, L)
+        o = self._grouped_attention(q, (k_read, v_read), live)
+        o = self.out_proj(o.reshape(b * t, self.embed_dim).to(x.dtype))
+        return o.reshape(b, t, -1), pool
+
     def forward(self, input):
         b, t, _ = input.shape
         qkv = self.qkv(input.reshape(b * t, self.embed_dim)).reshape(b, t, -1)
@@ -368,3 +468,13 @@ class TransformerBlock(Module):
     def forward_chunk(self, x, cache, pos0):
         h, cache = self.attn.forward_chunk(self.ln1(x), cache, pos0)
         return self._mlp_residual(x + h), cache
+
+    def forward_step_paged(self, x_t, pool, tables, pos):
+        h, pool = self.attn.forward_step_paged(self.ln1(x_t), pool, tables,
+                                               pos)
+        return self._mlp_residual(x_t + h), pool
+
+    def forward_chunk_paged(self, x, pool, tables, pos0):
+        h, pool = self.attn.forward_chunk_paged(self.ln1(x), pool, tables,
+                                                pos0)
+        return self._mlp_residual(x + h), pool

@@ -334,7 +334,7 @@ class Optimizer:
                 raise NotImplementedError(
                     "training on a ShardedDataSet is the distributed "
                     "slice (DistriOptimizer), not ported yet: see "
-                    "ROADMAP.md, Queue 1 item 5")
+                    "ROADMAP.md, Queue 1 item 10")
             return object.__new__(LocalOptimizer)
         return object.__new__(cls)
 

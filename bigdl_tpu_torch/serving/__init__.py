@@ -1,23 +1,30 @@
 """bigdl_tpu_torch.serving: continuous-batching LM inference (port of
-``bigdl_tpu/serving``, dense slots).
+``bigdl_tpu/serving``: dense slots, paged KV, speculative decoding).
 
 - ``ContinuousBatchingEngine`` (``engine``): the loop thread, the pooled
-  ``(max_slots, ...)`` KV cache, mid-flight chunked-prefill admission
-  (``prefill_rows`` wide through one ragged call a round) and per-token
-  slot eviction and reuse;
+  ``(max_slots, ...)`` KV cache or (``page_size=``) the page pool,
+  mid-flight chunked-prefill admission (``prefill_rows`` wide through
+  one ragged call a round), per-token slot eviction and reuse, and
+  (``draft=``) draft-propose / target-verify decoding;
 - ``PrefixCache`` (``prefix_cache``): the host-side radix trie over token
   prefixes mapping to retained KV pool rows;
-- ``AdmissionQueue`` / ``PrefillPolicy`` (``scheduler``): the bounded
-  admission queue with deadline and cancellation sweeps and its
-  prefix-aware pop, and the prefill-vs-decode token budget (with the
-  JAX module's ``TokenBucket``, ``SpeculationPolicy``, ``pages_needed``
-  and ``page_fit_score``, which later steps use);
+- ``PagePool`` / ``BlockTable`` / ``PagedPrefixIndex`` (``paging``): the
+  refcounted page allocator, one request's page list, and the prefix
+  index with shared pages as its currency;
+- ``AdmissionQueue`` / ``PrefillPolicy`` / ``SpeculationPolicy``
+  (``scheduler``): the bounded admission queue with deadline and
+  cancellation sweeps and its prefix-aware pop, the prefill-vs-decode
+  token budget, the draft's gamma, ``pages_needed`` and
+  ``page_fit_score`` (with the JAX module's ``TokenBucket``, which a
+  later step uses);
 - ``RequestHandle`` (``streams``): per-request streaming iterator and
   blocking ``result()``; greedy output is token-identical to a lone
   ``model.generate``;
-- ``run_poisson_comparison`` / ``run_shared_prefix_comparison``
+- ``run_poisson_comparison`` / ``run_shared_prefix_comparison`` /
+  ``run_speculative_comparison`` / ``run_paged_comparison``
   (``benchmark``): the engine against ``GenerationService`` under
-  Poisson arrivals, and the prefix cache on against off.
+  Poisson arrivals, the prefix cache on against off, a draft against
+  none, and paged against dense KV at equal bytes.
 
 Quick start::
 
@@ -31,10 +38,15 @@ Quick start::
 """
 
 from bigdl_tpu_torch.serving.benchmark import (
-    poisson_workload, run_poisson_comparison, run_shared_prefix_comparison,
+    mixed_length_workload, poisson_workload, repeated_text_workload,
+    run_paged_comparison, run_poisson_comparison,
+    run_shared_prefix_comparison, run_speculative_comparison,
     shared_prefix_workload,
 )
 from bigdl_tpu_torch.serving.engine import ContinuousBatchingEngine
+from bigdl_tpu_torch.serving.paging import (
+    SCRATCH_PAGE, BlockTable, PagedPrefixIndex, PagePool,
+)
 from bigdl_tpu_torch.serving.prefix_cache import PrefixCache, PrefixEntry
 from bigdl_tpu_torch.serving.scheduler import (
     AdmissionQueue, PrefillPolicy, SpeculationPolicy, TokenBucket,
@@ -48,6 +60,7 @@ from bigdl_tpu_torch.serving.streams import (
 
 __all__ = [
     "ContinuousBatchingEngine", "PrefixCache", "PrefixEntry",
+    "PagePool", "BlockTable", "PagedPrefixIndex", "SCRATCH_PAGE",
     "AdmissionQueue", "PrefillPolicy", "SpeculationPolicy",
     "TokenBucket", "pages_needed", "page_fit_score",
     "RequestHandle", "RequestError", "RequestCancelled",
@@ -55,4 +68,6 @@ __all__ = [
     "QueueFull", "EngineStopped", "EngineDraining", "PRIORITIES",
     "poisson_workload", "run_poisson_comparison",
     "shared_prefix_workload", "run_shared_prefix_comparison",
+    "repeated_text_workload", "run_speculative_comparison",
+    "mixed_length_workload", "run_paged_comparison",
 ]

@@ -1,5 +1,5 @@
 """Poisson-arrival serving comparisons (port of the engine-against-
-``GenerationService`` and shared-prefix parts of
+``GenerationService``, shared-prefix, speculative and paged parts of
 ``bigdl_tpu/serving/benchmark.py``).
 
 :func:`run_poisson_comparison` replays ONE sampled open-loop workload
@@ -10,6 +10,13 @@ mean inter-token gap p50/p99, and delivered tokens/s both ways.
 :func:`run_shared_prefix_comparison` replays a prefix-heavy workload
 through the engine with its prefix cache on and off and reports the
 TTFT speedups, the hit rate and whether both paths gave the same rows.
+:func:`run_speculative_comparison` replays a repeated-text workload with
+a draft proposing ``gamma`` tokens a round against plain decode: the
+inter-token and TTFT speedups, the acceptance rate and token parity.
+:func:`run_paged_comparison` replays a mixed short/long storm through
+the paged engine and the dense engine at an equal KV byte budget: the
+peak admitted concurrency both ways, the TTFT speedups, the pool block
+and token parity.
 The workload generators draw from ``numpy.random.RandomState(seed)`` in
 the JAX package's order, so a seed gives the same arrays in both
 packages. The usage, alert and incident blocks of the JAX rows wait for
@@ -81,6 +88,81 @@ def shared_prefix_workload(n_requests: int, rate_hz: float, vocab: int,
     return out
 
 
+def repeated_text_workload(n_requests: int, rate_hz: float, vocab: int,
+                           motif_len: int = 4, prompt_lens=(8, 16),
+                           decode_lens=(8, 24), seed: int = 0,
+                           tenants=("tenant-a", "tenant-b", "tenant-c")
+                           ) -> List[dict]:
+    """Sample a repeated-text open-loop workload: each prompt tiles a
+    short random motif (boilerplate, markup, table rows: the
+    self-similar traffic a draft predicts well), so speculative decoding
+    gets a fair shot at a high acceptance rate while prompts stay
+    distinct enough that the prefix cache is not what is measured. Same
+    arrival and replay semantics as :func:`poisson_workload`."""
+    r = np.random.RandomState(seed)
+    at = np.cumsum(r.exponential(1.0 / rate_hz, n_requests))
+    out = []
+    for i in range(n_requests):
+        motif = r.randint(0, vocab, (motif_len,)).astype(np.int32)
+        t0 = int(r.randint(prompt_lens[0], prompt_lens[1] + 1))
+        reps = -(-t0 // motif_len)
+        out.append({
+            "arrival_s": float(at[i]),
+            "prompt": np.tile(motif, reps)[:t0],
+            "n": int(r.randint(decode_lens[0], decode_lens[1] + 1)),
+            "tenant": tenants[i % len(tenants)] if tenants else None,
+        })
+    return out
+
+
+def mixed_length_workload(n_requests: int, rate_hz: float, vocab: int,
+                          short_prompt=(4, 12), short_decode=(4, 12),
+                          long_prompt: int = 32, long_decode: int = 8,
+                          long_every: int = 6, seed: int = 0,
+                          tenants=("tenant-a", "tenant-b", "tenant-c")
+                          ) -> List[dict]:
+    """Sample a mixed short/long open-loop workload: mostly short
+    interactive requests with every ``long_every``-th a long-prompt job,
+    the traffic where full-window slot reservation wastes the most KV
+    and page-granular reservation buys the most concurrency. Long
+    requests have fixed lengths, so their page footprint does not depend
+    on the seed. Same arrival and replay semantics as
+    :func:`poisson_workload`."""
+    r = np.random.RandomState(seed)
+    at = np.cumsum(r.exponential(1.0 / rate_hz, n_requests))
+    out = []
+    for i in range(n_requests):
+        if long_every and i % long_every == long_every - 1:
+            t0, n = int(long_prompt), int(long_decode)
+        else:
+            t0 = int(r.randint(short_prompt[0], short_prompt[1] + 1))
+            n = int(r.randint(short_decode[0], short_decode[1] + 1))
+        out.append({
+            "arrival_s": float(at[i]),
+            "prompt": r.randint(0, vocab, (t0,)).astype(np.int32),
+            "n": n,
+            "tenant": tenants[i % len(tenants)] if tenants else None,
+        })
+    return out
+
+
+def _peak_concurrency(spans) -> int:
+    """Max number of overlapping ``(start, end)`` intervals: the peak
+    count of requests holding a slot at once (admitted, not yet
+    finished), from the handles' own stamps. A release at exactly
+    another's admission is a handoff, not an overlap."""
+    events = []
+    for a, b in spans:
+        events.append((a, 1))
+        events.append((b, -1))
+    events.sort()   # (t, -1) orders before (t, +1): handoff, not overlap
+    cur = peak = 0
+    for _, d in events:
+        cur += d
+        peak = max(peak, cur)
+    return peak
+
+
 def _percentiles(xs) -> dict:
     if not xs:
         return {"p50": None, "p99": None}
@@ -145,13 +227,15 @@ def _engine_replay(model, workload, warm_prompt, warm_tokens,
     None), open-loop replay the workload, and return latency / TTFT /
     inter-token percentiles, delivered tokens/s, the per-request rows
     (keyed by ``id(req)``), the whole ``stats()`` under ``stats`` and
-    the entries named by ``stats_keys`` at the top level."""
+    the entries named by ``stats_keys`` at the top level, and the peak
+    number of requests admitted at once (``peak_admitted_concurrency``)."""
     from bigdl_tpu_torch.serving.engine import ContinuousBatchingEngine
 
     engine = ContinuousBatchingEngine(model, **engine_kw)
     ttft: List[float] = []
     itl: List[float] = []
     rows: dict = {}
+    spans: List[tuple] = []
     tlock = threading.Lock()
 
     def collect(handle, req):
@@ -161,6 +245,9 @@ def _engine_replay(model, workload, warm_prompt, warm_tokens,
             if handle.first_token_at is not None:
                 ttft.append(handle.first_token_at - handle.submitted_at)
             _append_itl(itl, handle)
+            if handle.admitted_at is not None \
+                    and handle.finished_at is not None:
+                spans.append((handle.admitted_at, handle.finished_at))
         return row.shape[0] - req["prompt"].shape[0]
 
     log(f"[serving-bench] {label} replay ({engine.service_name})...")
@@ -175,6 +262,7 @@ def _engine_replay(model, workload, warm_prompt, warm_tokens,
         stats = engine.stats()
     res["ttft"] = _percentiles(ttft)
     res["inter_token"] = _percentiles(itl)
+    res["peak_admitted_concurrency"] = _peak_concurrency(spans)
     res["stats"] = stats
     for key in stats_keys:
         res[key] = stats[key]
@@ -314,3 +402,160 @@ def run_poisson_comparison(model, n_requests: int = 16,
                          "prompt_lens": list(prompt_lens),
                          "decode_lens": list(decode_lens)},
             "requests": wl}
+
+
+def _parity(a: dict, b: dict, workload) -> bool:
+    return all(np.array_equal(a["rows"][id(req)], b["rows"][id(req)])
+               for req in workload)
+
+
+def run_speculative_comparison(model, draft=None, n_requests: int = 24,
+                               rate_hz: float = 30.0,
+                               max_slots: int = 4,
+                               prefill_chunk: int = 8,
+                               prefill_rows: int = 2,
+                               gamma: int = 4,
+                               eos_id: Optional[int] = None,
+                               seed: int = 0, registry=None,
+                               log=None) -> dict:
+    """Replay ONE repeated-text Poisson workload through the engine twice,
+    speculative decoding on (``draft`` proposing ``gamma`` tokens a
+    round) and off, everything else identical; report
+    inter-token/TTFT/latency percentiles both ways, the acceptance rate,
+    the inter-token and TTFT p50/p99 speedups, and whether the two paths
+    produced the same rows (``token_parity``: under greedy decoding a
+    draft changes how many target calls a row costs, never its tokens;
+    each leg's rows are kept under ``rows``, by request index). The JAX
+    package's default draft, an int8 clone of ``model``, waits for the
+    int8 step: pass a draft."""
+    if draft is None:
+        raise NotImplementedError(
+            "the default draft (an int8 clone of the model through "
+            "Quantizer) belongs to a later step of the port (ROADMAP.md, "
+            "Queue 1 item 3: int8 KV and weights): pass draft=")
+    log = log or (lambda *a, **k: None)
+    vocab = model.vocab_size
+    window = (model.max_len // prefill_chunk) * prefill_chunk
+    decode_hi = max(8, min(24, window // 2 - 16))
+    wl = repeated_text_workload(
+        n_requests, rate_hz, vocab,
+        prompt_lens=(8, min(16, window - decode_hi - 1)),
+        decode_lens=(min(8, decode_hi), decode_hi), seed=seed)
+    warm_prompt = np.asarray(
+        np.random.RandomState(seed + 1).randint(0, vocab, (12,)), np.int32)
+
+    def run_path(name: str, **engine_kw) -> dict:
+        return _engine_replay(
+            model, wl, warm_prompt, 4, ("speculation",), log,
+            "speculative", max_slots=max_slots,
+            prefill_chunk=prefill_chunk, prefill_rows=prefill_rows,
+            eos_id=eos_id, registry=registry, service_name=name,
+            **engine_kw)
+
+    spec = run_path("bench_spec_on", draft=draft, spec_gamma=gamma)
+    nospec = run_path("bench_spec_off")
+    parity = _parity(spec, nospec, wl)
+    for r in (spec, nospec):
+        r["rows"] = [r["rows"][id(req)] for req in wl]
+
+    def ratio(metric, key):
+        a, b = nospec[metric][key], spec[metric][key]
+        return round(a / b, 4) if a and b else None
+
+    return {"spec": spec, "nospec": nospec,
+            "inter_token_p50_speedup": ratio("inter_token", "p50"),
+            "inter_token_p99_speedup": ratio("inter_token", "p99"),
+            "ttft_p50_speedup": ratio("ttft", "p50"),
+            "ttft_p99_speedup": ratio("ttft", "p99"),
+            "acceptance_rate":
+                spec["speculation"].get("acceptance_rate"),
+            "token_parity": bool(parity),
+            "workload": {"kind": "speculative",
+                         "requests": n_requests, "rate_hz": rate_hz,
+                         "seed": seed, "max_slots": max_slots,
+                         "prefill_rows": prefill_rows, "gamma": gamma},
+            "requests": wl}
+
+
+def run_paged_comparison(model, n_requests: int = 32,
+                         rate_hz: float = 200.0, dense_slots: int = 2,
+                         paged_slots: int = 8, page_size: int = 4,
+                         prefill_chunk: int = 8, prefill_rows: int = 2,
+                         eos_id: Optional[int] = None, seed: int = 0,
+                         registry=None, log=None) -> dict:
+    """Replay ONE mixed short/long Poisson storm through the engine twice
+    at an EQUAL KV byte budget: paged (a ``page_size``-token pool holding
+    exactly the dense leg's slot-row bytes, shared page by page among
+    ``paged_slots`` slots) and dense (``dense_slots`` full serving-window
+    rows). Reports the peak admitted concurrency both ways and its ratio
+    (the capacity claim), TTFT/latency percentiles both ways, the paged
+    leg's pool and fragmentation block, the byte budget, and whether the
+    two paths produced the same rows (``token_parity``: paging moves
+    bytes, never tokens; each leg's rows are kept under ``rows``, by
+    request index). Both legs run with the prefix cache off, so the
+    comparison isolates the reservation's granularity."""
+    log = log or (lambda *a, **k: None)
+    vocab = model.vocab_size
+    window = (model.max_len // prefill_chunk) * prefill_chunk
+    table_len = -(-window // page_size)
+    # EQUAL BYTE BUDGET: the paged pool gets exactly the bytes the dense
+    # leg spends on its slot rows, plus the one scratch page every pool
+    # carries
+    max_pages = 1 + dense_slots * table_len
+    # long jobs inside the window; the storm dense enough to queue
+    # (arrivals outpace service, decodes long enough that early slots
+    # are still held while admission fills the rest), or neither leg
+    # reaches its concurrency ceiling
+    long_prompt = min(32, window // 2)
+    long_decode = min(16, max(1, window - long_prompt))
+    wl = mixed_length_workload(
+        n_requests, rate_hz, vocab,
+        short_prompt=(4, min(12, window // 4)),
+        short_decode=(8, min(16, window // 4)),
+        long_prompt=long_prompt, long_decode=long_decode, seed=seed)
+    warm_prompt = np.asarray(
+        np.random.RandomState(seed + 1).randint(0, vocab, (12,)), np.int32)
+
+    def leg(name: str, stats_keys, **engine_kw) -> dict:
+        return _engine_replay(
+            model, wl, warm_prompt, 4, stats_keys, log, "paged A/B",
+            prefill_chunk=prefill_chunk, prefill_rows=prefill_rows,
+            eos_id=eos_id, registry=registry, service_name=name,
+            prefix_cache_rows=0, **engine_kw)
+
+    paged = leg("bench_paged", ("paging",), max_slots=paged_slots,
+                page_size=page_size, max_pages=max_pages)
+    dense = leg("bench_dense", (), max_slots=dense_slots)
+    parity = _parity(paged, dense, wl)
+    for r in (paged, dense):
+        r["rows"] = [r["rows"][id(req)] for req in wl]
+
+    def ttft_ratio(key):
+        a, b = dense["ttft"][key], paged["ttft"][key]
+        return round(a / b, 4) if a and b else None
+
+    page_bytes = paged["paging"]["pool"]["page_bytes"]
+    peak_p = paged["peak_admitted_concurrency"]
+    peak_d = dense["peak_admitted_concurrency"]
+    return {
+        "paged": paged, "dense": dense,
+        "admitted_concurrency_ratio":
+            round(peak_p / peak_d, 4) if peak_d else None,
+        "ttft_p50_speedup": ttft_ratio("p50"),
+        "ttft_p99_speedup": ttft_ratio("p99"),
+        "token_parity": bool(parity),
+        "kv_budget": {
+            # what each leg could spend on request KV: the same by
+            # construction (the scratch page is pool overhead)
+            "dense_bytes": dense_slots * table_len * page_bytes,
+            "paged_bytes": (max_pages - 1) * page_bytes,
+            "page_bytes": page_bytes,
+            "max_pages": max_pages,
+            "table_len": table_len},
+        "workload": {"kind": "paged", "requests": n_requests,
+                     "rate_hz": rate_hz, "seed": seed,
+                     "dense_slots": dense_slots,
+                     "paged_slots": paged_slots,
+                     "page_size": page_size,
+                     "prefill_rows": prefill_rows},
+        "requests": wl}

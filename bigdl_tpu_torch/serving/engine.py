@@ -1,5 +1,6 @@
-"""Continuous-batching decode engine over a slot-pooled KV cache (port of
-``bigdl_tpu/serving/engine.py``, dense slots).
+"""Continuous-batching decode engine over a slot-pooled or paged KV cache
+(port of ``bigdl_tpu/serving/engine.py``: dense slots, paged KV and
+speculative decoding).
 
 The batch-at-a-time ``GenerationService`` runs each batch to completion:
 one long request holds every co-batched short one. This engine keeps a
@@ -29,20 +30,38 @@ persistent decode loop instead:
   which is aligned down to a chunk multiple and capped at ``t0 - 1`` so
   the tail's chunk geometry (and with it the numerics) matches a cold
   prefill's. A finishing slot donates its KV before the slot is freed.
+- with ``page_size`` (paged KV, ``serving/paging.py``) every KV surface
+  becomes one refcounted page pool of ``(max_pages, H_kv, page_size,
+  D)`` tensors a layer: an admission reserves its whole span (prompt +
+  new tokens + the draft's verify headroom) as a ``BlockTable`` and
+  prefills straight through it, a prefix hit SHARES the entry's
+  page-aligned head (no row copy), donation shares the slot's pages
+  into the index, and a request the pool cannot hold waits at the
+  queue head. Idle lanes carry all-scratch tables, so their junk
+  writes land on page 0.
+- with ``draft`` (speculative decoding) each iteration is draft-propose
+  / target-verify: the draft proposes ``spec_gamma`` tokens for every
+  live slot (gamma draft decode steps), the target scores them all in
+  one ragged ``verify_chunk``, and each row accepts its own 1..gamma+1
+  token burst; one host sync reads the accepted counts and tokens
+  together. The draft owns its slot pool and staging (or its own page
+  pool), in lockstep with the target's, and prefills the full prompt
+  beside the target's chunks.
 
 Greedy output is token-identical to a lone ``model.generate`` per
-request, with the prefix cache cold or warm (tested against the JAX
-engine on the same weights). Sampling draws from a ``torch.Generator``
-on the engine's device seeded by ``seed``.
+request, with the prefix cache cold or warm, paged or dense, with a
+draft or without (tested against the JAX engine on the same weights).
+Sampling draws from a ``torch.Generator`` on the engine's device seeded
+by ``seed``; with a draft it runs speculative sampling (accept
+min(1, p/q), the residual on rejection) from the same generator.
 
-Later steps of the JAX engine (paged KV, speculative decoding, int8 KV
-and weights, the prefix host tier, QoS shedding / rate limits /
-preemption, chaos drills, tensor-parallel serving) raise
-``NotImplementedError`` naming their ``ROADMAP.md`` item; the
-observability hooks (recorder, metric instruments, memory pools, usage
-ledger, watchdogs, time series, incidents, cost model, loop-phase
-accounting) are not ported yet, and ``registry=`` / ``recorder=`` are
-accepted and unused.
+Later steps of the JAX engine (int8 KV and weights, the prefix host
+tier, QoS shedding / rate limits / preemption, chaos drills,
+tensor-parallel serving) raise ``NotImplementedError`` naming their
+``ROADMAP.md`` item; the observability hooks (recorder, metric
+instruments, memory pools, usage ledger, watchdogs, time series,
+incidents, cost model, loop-phase accounting) are not ported yet, and
+``registry=`` / ``recorder=`` are accepted and unused.
 """
 
 from __future__ import annotations
@@ -58,29 +77,32 @@ import torch
 
 from bigdl_tpu_torch.device import resolve_device
 from bigdl_tpu_torch.models.transformer import (
-    _filter_logits, _validate_sampling,
+    _draw, _filter_logits, _spec_accept, _validate_sampling,
+)
+from bigdl_tpu_torch.serving.paging import (
+    BlockTable, PagedPrefixIndex, PagePool,
 )
 from bigdl_tpu_torch.serving.prefix_cache import PrefixCache
-from bigdl_tpu_torch.serving.scheduler import AdmissionQueue, PrefillPolicy
+from bigdl_tpu_torch.serving.scheduler import (
+    AdmissionQueue, PrefillPolicy, SpeculationPolicy, page_fit_score,
+    pages_needed,
+)
 from bigdl_tpu_torch.serving.streams import (
     EngineDraining, EngineStopped, RequestCancelled, RequestHandle,
     RequestTimedOut,
 )
 
-#: options of the JAX engine that later steps of this port bring, by
-#: the sub-step of ROADMAP.md Queue 1 item 3 that brings them
+#: options of the JAX engine that later steps of this port bring: the
+#: ROADMAP.md Queue 1 item that brings each, and the step's name
 _LATER = {
-    "page_size": "paged KV",
-    "max_pages": "paged KV",
-    "draft": "speculative decoding",
-    "kv_dtype": "int8 KV and weights",
-    "weights_dtype": "int8 KV and weights",
-    "prefix_host_bytes": "the prefix host tier",
-    "prefix_host_rows": "the prefix host tier",
-    "tenant_rate_limits": "QoS shedding, rate limits and preemption",
-    "chaos": "chaos.py",
-    "mesh": "tensor-parallel serving",
-    "tp_rules": "tensor-parallel serving",
+    "kv_dtype": (3, "int8 KV and weights"),
+    "weights_dtype": (3, "int8 KV and weights"),
+    "prefix_host_bytes": (4, "the prefix host tier"),
+    "prefix_host_rows": (4, "the prefix host tier"),
+    "tenant_rate_limits": (5, "QoS shedding, rate limits and preemption"),
+    "chaos": (6, "chaos.py"),
+    "mesh": (10, "tensor-parallel serving"),
+    "tp_rules": (10, "tensor-parallel serving"),
 }
 
 #: the flow counters ``stats()`` reports (the JAX engine's
@@ -90,10 +112,11 @@ _TALLIES = ("iterations", "prefill_rounds", "decode_steps")
 
 
 def _later(what: str) -> NotImplementedError:
+    item, step = _LATER[what]
     return NotImplementedError(
         f"{what} belongs to a later step of the engine's port "
-        f"(ROADMAP.md, Queue 1 item 3: {_LATER[what]}); this "
-        "engine serves dense slots")
+        f"(ROADMAP.md, Queue 1 item {item}: {step}); this engine serves "
+        "dense or paged KV, with or without a draft")
 
 
 def _percentile_summary(values) -> dict:
@@ -114,15 +137,17 @@ def _percentile_summary(values) -> dict:
 
 class _Admission:
     """Host-side progress of one chunked prefill: up to ``prefill_rows``
-    are in flight at once, each owning one staging row and one reserved
-    slot; every prefill round advances all of them by one chunk."""
+    are in flight at once, each owning one staging row (in paged mode, a
+    lane of the prefill call) and one reserved slot; every prefill round
+    advances all of them by one chunk."""
 
     __slots__ = ("handle", "slot", "row", "ids", "t0", "base", "tail",
-                 "n_chunks", "next_chunk", "entry")
+                 "n_chunks", "next_chunk", "entry", "d_ids", "d_n_chunks",
+                 "d_next_chunk", "table", "d_table")
 
     def __init__(self, handle: RequestHandle, slot: int, row: int,
                  ids: np.ndarray, t0: int, base: int, n_chunks: int,
-                 entry=None):
+                 entry=None, d_ids=None, d_n_chunks: int = 0):
         self.handle = handle
         self.slot = slot          # reserved pool slot (insert target)
         self.row = row            # staging row this prefill owns
@@ -132,7 +157,19 @@ class _Admission:
         self.tail = t0 - base     # tokens actually prefilled
         self.n_chunks = n_chunks
         self.next_chunk = 0
-        self.entry = entry        # pinned PrefixEntry on a hit, else None
+        self.entry = entry        # pinned PrefixEntry on a dense hit
+        #: speculative decoding: the draft prefills the FULL prompt (the
+        #: prefix cache holds target KV only), so its cursor lags the
+        #: target's on a hit; the admission completes when both caches
+        #: hold the prompt
+        self.d_ids = d_ids        # (d_n_chunks * chunk,) full prompt
+        self.d_n_chunks = d_n_chunks
+        self.d_next_chunk = 0
+        #: paged mode: the BlockTables this admission writes through
+        #: (its full span, reserved at admission), handed to the slot on
+        #: completion and freed on abort
+        self.table: Optional[BlockTable] = None
+        self.d_table: Optional[BlockTable] = None
 
 
 class _SlotState:
@@ -144,7 +181,8 @@ class _SlotState:
         self.handle = handle
         #: cache position the next decode step writes: the slot's KV
         #: covers [0, pos), the last delivered token's KV is not cached
-        #: yet (generate()'s host-loop invariant, which donation uses)
+        #: yet (generate()'s host-loop invariant, which donation uses);
+        #: a speculative burst of m tokens moves pos by m and keeps it
         self.pos = pos
         self.last_token = last_token
         self.delivered = 1
@@ -153,20 +191,33 @@ class _SlotState:
 class ContinuousBatchingEngine:
     """Token-granular continuous batching over ``TransformerLM``'s
     incremental-decoding API (``init_cache`` / ``prefill_chunk_at`` /
-    ``decode_step``), with prefix-cached, batched multi-row prefill.
+    ``decode_step`` and their paged twins), with prefix-cached, batched
+    multi-row prefill and optional speculative decoding.
 
     ``submit()`` returns a ``RequestHandle`` at once (bounded queue;
     ``QueueFull`` is the backpressure signal) and the loop thread streams
     tokens into it. The sampling config is fixed per engine; the default
     is greedy. ``prefix_cache_bytes`` sets the prefix pool's byte budget
     (None: two pool rows per slot; 0 disables the cache),
-    ``prefix_cache_rows`` its row count directly, ``prefix_min_tokens``
+    ``prefix_cache_rows`` its row count directly (in paged mode, its
+    entry count: the page pool bounds its bytes), ``prefix_min_tokens``
     (default one chunk) the shortest reusable head; with
     ``admission_window > 1`` the queue pops the candidate with the
     longest usable cached prefix among the first ``admission_window``
     (bounded bypass, see ``AdmissionQueue.pop_ready``).
     ``prefill_rows`` widens the staging cache so that that many
     admissions prefill together through one ragged call a round.
+
+    ``page_size`` switches every KV surface to one refcounted page pool
+    of ``max_pages`` pages (default ``1 + 2 * max_slots * table_len``,
+    room for every slot at full length plus as much again for retained
+    prefixes; page 0 is the scratch page); ``prefill_chunk`` must be a
+    multiple of ``page_size``, so a prefix hit's shared pages are never
+    written. ``draft`` (a smaller ``TransformerLM`` over the same
+    vocabulary, on the same device) turns each decode iteration into
+    ``spec_gamma`` draft proposals and one target verify; greedy rows
+    stay exact, and ``top_k`` / ``top_p`` are refused with a draft (the
+    acceptance identity needs the unfiltered distributions).
 
     The engine runs on ``device`` (default: the model's device; a device
     that differs from the model's raises). ``priority`` ``"normal"`` and
@@ -189,15 +240,13 @@ class ContinuousBatchingEngine:
                  prefix_host_rows: Optional[int] = None,
                  prefix_min_tokens: Optional[int] = None,
                  admission_window: int = 4,
-                 draft=None, mesh=None, tp_rules=None,
+                 draft=None, spec_gamma: int = 4, mesh=None, tp_rules=None,
                  kv_dtype: Optional[str] = None,
                  weights_dtype: Optional[str] = None,
                  tenant_rate_limits=None, chaos=None,
                  page_size: Optional[int] = None,
                  max_pages: Optional[int] = None, device=None):
-        for name, val in (("page_size", page_size),
-                          ("max_pages", max_pages), ("draft", draft),
-                          ("mesh", mesh), ("tp_rules", tp_rules),
+        for name, val in (("mesh", mesh), ("tp_rules", tp_rules),
                           ("kv_dtype", kv_dtype),
                           ("weights_dtype", weights_dtype),
                           ("prefix_host_bytes", prefix_host_bytes),
@@ -229,6 +278,27 @@ class ContinuousBatchingEngine:
         self.eos_id = eos_id
         self.temperature = temperature
         self.top_k, self.top_p = top_k, top_p
+        self.draft = draft
+        self._spec: Optional[SpeculationPolicy] = None
+        if draft is not None:
+            if draft.vocab_size != model.vocab_size:
+                raise ValueError(
+                    f"draft vocab ({draft.vocab_size}) must match the "
+                    f"target's ({model.vocab_size}): acceptance compares "
+                    "distributions token for token")
+            if temperature > 0.0 and (top_k is not None
+                                      or top_p is not None):
+                raise ValueError(
+                    "speculative sampling accepts with min(1, p/q) over "
+                    "the UNFILTERED tempered distributions; top_k/top_p "
+                    "would break the acceptance identity: drop them or "
+                    "drop the draft")
+            if draft.device != model.device:
+                raise ValueError(
+                    f"the draft lives on {draft.device}, the model on "
+                    f"{model.device}: build both on the engine's device")
+            draft.evaluate()
+            self._spec = SpeculationPolicy(spec_gamma)
         self.idle_wait_s = idle_wait_s
         self.service_name = service_name
         self.admission_window = admission_window
@@ -255,37 +325,128 @@ class ContinuousBatchingEngine:
                 f"prefill_chunk {c} exceeds the usable context {cap}")
         self.max_len = cap
         self._cache_len = cache_len
+        # speculation pads every KV row by gamma positions: a verify
+        # round launched at the window's last decodable position still
+        # writes gamma (possibly rejected) proposal positions past it.
+        # JAX clamps such a write (corrupting the row's prefix); on CUDA
+        # an out-of-range index is a device assert. The padding is
+        # position-masked until overwritten
+        phys_len = cache_len + (self._spec.kv_headroom
+                                if self._spec is not None else 0)
+        self._phys_len = phys_len
+        if draft is not None and draft.max_len < cap:
+            raise ValueError(
+                f"draft context ({draft.max_len}) is shorter than the "
+                f"engine's serving window ({cap}); shrink max_len or "
+                "bring a longer-context draft")
+
+        self.paged = page_size is not None
+        if max_pages is not None and not self.paged:
+            raise ValueError("max_pages requires page_size (paged mode)")
+        self.page_size: Optional[int] = None
+        self._table_len = 0
+        if self.paged:
+            page_size = int(page_size)
+            if page_size < 1:
+                raise ValueError(
+                    f"page_size must be >= 1, got {page_size}")
+            if c % page_size != 0:
+                raise ValueError(
+                    f"prefill_chunk ({c}) must be a multiple of "
+                    f"page_size ({page_size}): the chunk-aligned reuse "
+                    "boundary must land on a page boundary, or a hit's "
+                    "shared pages would be written under a live share "
+                    "(the copy-on-write invariant paging.py documents)")
+            self.page_size = page_size
+            #: fixed block-table width: every table is padded to the
+            #: worst-case page count, so dispatch shapes never depend on
+            #: any one request's length
+            self._table_len = -(-phys_len // page_size)
+            if max_pages is None:
+                max_pages = 1 + 2 * max_slots * self._table_len
+            max_pages = int(max_pages)
+            if max_pages < 1 + self._table_len:
+                raise ValueError(
+                    f"max_pages ({max_pages}) cannot hold one "
+                    f"full-length request ({self._table_len} pages) "
+                    "plus the reserved scratch page")
 
         # the persistent device tensors, allocated as inference tensors:
         # the loop writes them in place under inference_mode
+        self._caches = self._staging = self._kv_pool = None
+        self._pages: Optional[PagePool] = None
+        self._tables: Optional[List[Optional[BlockTable]]] = None
+        self._d_caches = self._d_staging = self._d_kv_pool = None
+        self._d_pages: Optional[PagePool] = None
+        self._d_tables: Optional[List[Optional[BlockTable]]] = None
         with torch.inference_mode():
-            self._caches = model.init_cache(max_slots, cache_len)
-            self._staging = model.init_cache(self._policy.prefill_rows,
-                                             cache_len)
-            row_bytes = sum(int(k.nbytes) + int(v.nbytes)
-                            for k, v in self._caches) // max_slots
+            if self.paged:
+                # THE page pool: no staging cache (admissions prefill
+                # straight through their reserved tables) and no prefix
+                # pool (retained prefixes share these same pages)
+                self._kv_pool = model.init_page_pool(max_pages, page_size)
+                self._pages = PagePool(self._kv_pool, page_size)
+                self._tables = [None] * max_slots
+                # a dense slot of this geometry: the exchange rate of
+                # the prefix budget and the reuse credits
+                row_bytes = self._table_len * self._pages.page_bytes
+            else:
+                self._caches = model.init_cache(max_slots, phys_len)
+                self._staging = model.init_cache(self._policy.prefill_rows,
+                                                 phys_len)
+                row_bytes = sum(int(k.nbytes) + int(v.nbytes)
+                                for k, v in self._caches) // max_slots
+            if draft is not None and self.paged:
+                # the draft's own page pool: it never shares pages (the
+                # prefix index retains target KV only), so at most
+                # max_slots tables: a draft reservation cannot fail once
+                # the target's succeeded
+                self._d_kv_pool = draft.init_page_pool(
+                    1 + max_slots * self._table_len, page_size)
+                self._d_pages = PagePool(self._d_kv_pool, page_size)
+                self._d_tables = [None] * max_slots
+            elif draft is not None:
+                # the draft's slot pool and staging mirror the target's
+                # geometry row for row (same phys_len)
+                self._d_caches = draft.init_cache(max_slots, phys_len)
+                self._d_staging = draft.init_cache(
+                    self._policy.prefill_rows, phys_len)
             self._row_bytes = row_bytes
             #: device KV bytes one cached token position costs
-            self._token_bytes = row_bytes / cache_len
+            self._token_bytes = row_bytes / phys_len
             if prefix_cache_rows is not None:
                 pool_rows = max(0, int(prefix_cache_rows))
             elif prefix_cache_bytes is None:
                 pool_rows = 2 * max_slots
             else:
                 pool_rows = max(0, int(prefix_cache_bytes) // row_bytes)
-            if pool_rows > 0:
-                self._pool = model.init_cache(pool_rows, cache_len)
+            self._pool = None
+            min_tokens = (prefix_min_tokens if prefix_min_tokens is not None
+                          else c)
+            if pool_rows > 0 and self.paged:
+                # pages as the retention currency: pool_rows bounds the
+                # entry count, the shared page pool bounds the bytes
+                self._prefix = PagedPrefixIndex(
+                    self._pages, max_entries=pool_rows,
+                    min_tokens=min_tokens, token_bytes=self._token_bytes)
+            elif pool_rows > 0:
+                self._pool = model.init_cache(pool_rows, phys_len)
                 self._prefix = PrefixCache(
-                    pool_rows, row_bytes,
-                    min_tokens=(prefix_min_tokens
-                                if prefix_min_tokens is not None else c),
+                    pool_rows, row_bytes, min_tokens=min_tokens,
                     token_bytes=self._token_bytes)
             else:
-                self._pool = None
                 self._prefix = None
         #: prompt tokens this engine actually prefilled (the reused
         #: fraction's denominator)
         self._prefilled_tokens = 0
+        #: speculative tallies behind stats()["speculation"]
+        self._spec_proposed = 0
+        self._spec_accepted = 0
+        #: paged: set when the pool refused the queue head this
+        #: iteration (re-probed next iteration instead of thrashing
+        #: pop/requeue within one); ``_page_waits`` counts the refusals
+        self._adm_blocked = False
+        self._page_waits = 0
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(seed)
 
@@ -302,7 +463,10 @@ class ContinuousBatchingEngine:
         self._crashed: Optional[BaseException] = None
         self._draining = False
 
-    # ------------------------------------------- the four device programs
+    # ----------------------------------------------- the device programs
+    # (the JAX engine's jitted step / chunk / copies / sample0 and, with a
+    # draft, d_chunk / d_sync / propose / spec_verify, as eager calls on
+    # the persistent tensors)
     def _h2d(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(a).to(self.device, non_blocking=True)
 
@@ -318,19 +482,103 @@ class ContinuousBatchingEngine:
 
     def _step(self, tok: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
         """One fused ragged decode over ALL slots: (S,) tokens at (S,)
-        per-row positions, written into the slot pool in place."""
-        logits, _ = self.model.decode_step(tok, pos, self._caches)
+        per-row positions, written into the slot pool (or through the
+        slot tables into the page pool) in place."""
+        if self.paged:
+            logits, _ = self.model.decode_step_paged(
+                tok, pos, self._kv_pool, self._slot_tables())
+        else:
+            logits, _ = self.model.decode_step(tok, pos, self._caches)
         return self._pick(logits)
 
     def _chunk(self, ids: torch.Tensor, pos0: torch.Tensor,
                last: torch.Tensor) -> torch.Tensor:
-        """One ragged prefill round over the whole staging cache: row r
-        writes its chunk at its own offset ``pos0[r]``; ``last`` picks
-        each row's true last prompt position (the final chunk is
-        right-padded)."""
-        logits, _ = self.model.prefill_chunk_at(ids, self._staging, pos0,
-                                                last)
+        """One ragged prefill round over the whole staging cache (or over
+        the admissions' tables): row r writes its chunk at its own offset
+        ``pos0[r]``; ``last`` picks each row's true last prompt position
+        (the final chunk is right-padded)."""
+        if self.paged:
+            logits, _ = self.model.prefill_chunk_at_paged(
+                ids, self._kv_pool, self._adm_tables(), pos0, last)
+        else:
+            logits, _ = self.model.prefill_chunk_at(ids, self._staging,
+                                                    pos0, last)
         return logits
+
+    def _d_chunk(self, ids: torch.Tensor, pos0: torch.Tensor) -> None:
+        """The draft's mirror of the ragged prefill round, into its own
+        staging (or through its admission tables); its logits are
+        dropped: the first token comes from the target's."""
+        last = torch.zeros_like(pos0)
+        if self.paged:
+            self.draft.prefill_chunk_at_paged(
+                ids, self._d_kv_pool, self._adm_tables(draft=True), pos0,
+                last)
+        else:
+            self.draft.prefill_chunk_at(ids, self._d_staging, pos0, last)
+
+    def _d_sync(self, tok: torch.Tensor, pos: torch.Tensor) -> None:
+        """One ragged draft step re-writing each row's last accepted
+        token's KV at its own position: for a row that accepted all gamma
+        proposals it fills the one position the proposals never wrote;
+        every other row rewrites identical values in place."""
+        if self.paged:
+            self.draft.decode_step_paged(tok, pos, self._d_kv_pool,
+                                         self._slot_tables(draft=True))
+        else:
+            self.draft.decode_step(tok, pos, self._d_caches)
+
+    def _propose(self, tok: torch.Tensor, pos: torch.Tensor):
+        """gamma draft decode steps over ALL slots: (gamma, S) proposals
+        and their (gamma, S, V) logits."""
+        g = self._spec.gamma
+        sampled = self.temperature > 0.0
+        temp = self.temperature if sampled else 1.0
+        if self.paged:
+            toks, qlogits, _ = self.draft._propose(
+                tok, pos, self._d_kv_pool, g, sampled, temp, self._gen,
+                tables=self._slot_tables(draft=True))
+        else:
+            toks, qlogits, _ = self.draft._propose(
+                tok, pos, self._d_caches, g, sampled, temp, self._gen)
+        return toks, qlogits
+
+    def _spec_verify(self, tok: torch.Tensor, props: torch.Tensor,
+                     qlogits: torch.Tensor, pos: torch.Tensor):
+        """ONE ragged target forward scoring every row's proposals: chunk
+        column 0 is the row's pending token (its KV is written first),
+        columns 1..g its proposals; logits column j predicts the token at
+        position pos + j + 1. Acceptance is decided per row on the device,
+        so the host reads only the (S, g + 1) emit matrix and the (S,)
+        accepted counts."""
+        g = self._spec.gamma
+        chunk = torch.cat([tok[:, None], props.T], 1)
+        if self.paged:
+            logits, _ = self.model.verify_chunk_paged(
+                chunk, self._kv_pool, self._slot_tables(), pos)
+        else:
+            logits, _ = self.model.verify_chunk(chunk, self._caches, pos)
+        if self.temperature > 0.0:
+            accept, resid, bonus = _spec_accept(
+                logits, qlogits.transpose(0, 1), chunk[:, 1:],
+                self.temperature, self._gen)
+            n_acc = accept.long().cumprod(1).sum(1)
+            # emit column j: the proposal while accepted; at the first
+            # rejection the residual draw, on full acceptance the bonus
+            # (columns past n_acc are never read)
+            fix = torch.cat([resid, bonus[:, None]], 1).gather(
+                1, n_acc[:, None])
+            cols = torch.arange(g + 1, device=tok.device)[None]
+            padded = torch.cat([chunk[:, 1:], torch.zeros_like(tok)[:, None]],
+                               1)
+            emit = torch.where(cols < n_acc[:, None], padded, fix)
+        else:
+            v_tok = logits.argmax(-1)
+            n_acc = (chunk[:, 1:] == v_tok[:, :g]).long().cumprod(1).sum(1)
+            # matched proposals ARE the target's argmax, so the burst is
+            # v_tok[:, :n_acc + 1] verbatim
+            emit = v_tok
+        return emit, n_acc
 
     @staticmethod
     def _copy_row(dst, src, dst_row: int, src_row: int) -> None:
@@ -340,6 +588,50 @@ class ContinuousBatchingEngine:
         for (dk, dv), (sk, sv) in zip(dst, src):
             dk[dst_row].copy_(sk[src_row])
             dv[dst_row].copy_(sv[src_row])
+
+    def _copy_page(self, dst: int, src: int) -> None:
+        """``BlockTable.ensure_writable``'s copy callback: page ``src``
+        into page ``dst`` of the target pool, every layer's k and v, in
+        place. The engine's own paths never fork a table (each admission
+        reserves its full span), so this serves API users' forks, from
+        any thread (inference mode is thread-local)."""
+        with torch.inference_mode():
+            self._copy_row(self._kv_pool, self._kv_pool, dst, src)
+
+    def _adm_tables(self, draft: bool = False) -> torch.Tensor:
+        """The prefill call's (prefill_rows, table_len) block tables:
+        each admission lane's reserved table, idle lanes all-scratch
+        (their padding writes land on page 0, never attended)."""
+        t = np.zeros((self._policy.prefill_rows, self._table_len), np.int64)
+        for a in self._adms:
+            tbl = a.d_table if draft else a.table
+            if tbl is not None:
+                t[a.row] = tbl.as_array(self._table_len)
+        return self._h2d(t)
+
+    def _slot_tables(self, draft: bool = False) -> torch.Tensor:
+        """The decode call's (max_slots, table_len) block tables (idle
+        slots all-scratch, as above)."""
+        t = np.zeros((self.max_slots, self._table_len), np.int64)
+        for sid, tbl in enumerate(self._d_tables if draft
+                                  else self._tables):
+            if tbl is not None:
+                t[sid] = tbl.as_array(self._table_len)
+        return self._h2d(t)
+
+    def _free_slot_table(self, sid: int) -> None:
+        """Drop slot ``sid``'s page references (target and draft):
+        refcount moves only; pages shared into the prefix index survive
+        under its references."""
+        if not self.paged:
+            return
+        tbl = self._tables[sid]
+        if tbl is not None:
+            tbl.free()
+            self._tables[sid] = None
+        if self._d_tables is not None and self._d_tables[sid] is not None:
+            self._d_tables[sid].free()
+            self._d_tables[sid] = None
 
     # ------------------------------------------------------- lifecycle
     def start(self) -> "ContinuousBatchingEngine":
@@ -384,16 +676,7 @@ class ContinuousBatchingEngine:
         err = EngineStopped("engine stopped before the request finished")
         for h in self._queue.drain():
             self._finish_handle(h, err, "stopped")
-        for a in self._adms:
-            if a.entry is not None:
-                self._prefix.release(a.entry)
-                a.entry = None
-            self._finish_handle(a.handle, err, "stopped")
-        self._adms = []
-        for sid, st in enumerate(self._slots):
-            if st is not None:
-                self._finish_handle(st.handle, err, "stopped")
-                self._slots[sid] = None
+        self._fail_in_flight(err, "stopped")
 
     def drain(self) -> None:
         """Stop admitting NEW requests while everything already
@@ -436,7 +719,7 @@ class ContinuousBatchingEngine:
         if priority == "high":
             raise NotImplementedError(
                 "priority='high' belongs to a later step of the engine's "
-                "port (ROADMAP.md, Queue 1 item 3: QoS shedding, rate "
+                "port (ROADMAP.md, Queue 1 item 5: QoS shedding, rate "
                 "limits and preemption); 'normal' and 'low' are served")
         if self._crashed is not None:
             raise EngineStopped("engine loop crashed") from self._crashed
@@ -455,6 +738,19 @@ class ContinuousBatchingEngine:
             raise ValueError(
                 f"prompt ({t0}) + max_new_tokens ({n}) exceeds the "
                 f"engine's serving window {self.max_len}")
+        if self.paged:
+            # admission reserves the FULL span (no mid-flight
+            # allocation), so it must fit the pool with every other page
+            # free
+            need = pages_needed(min(t0 + n + self._gamma(), self._phys_len),
+                                self.page_size)
+            usable = self._pages.max_pages - 1    # page 0 is scratch
+            if need > usable:
+                raise ValueError(
+                    f"request needs {need} KV pages but the pool only "
+                    f"has {usable} allocatable (max_pages="
+                    f"{self._pages.max_pages} minus the scratch page): "
+                    "raise max_pages or shorten the request")
         h = RequestHandle(prompt, n, timeout_s, priority=priority)
         h.tenant = tenant if tenant is not None else "default"
         h.trace_id = trace_id
@@ -510,13 +806,71 @@ class ContinuousBatchingEngine:
         rounds and decode steps, ``active_slots``, ``queue_depth``,
         ``latency`` (``{count, mean, p50, p90, p99}`` of queue wait,
         prefill, TTFT, decode and total over the recent finished
-        requests) and ``prefix_cache`` (hit rate, reused tokens, bytes)."""
+        requests), ``prefix_cache`` (hit rate, reused tokens, bytes),
+        ``speculation`` (proposed and accepted draft tokens, acceptance
+        rate) and, in paged mode, ``paging`` (the page pools' stats, the
+        reservations' fragmentation, the page waits). A decode step of a
+        speculative engine is one propose / verify round."""
         with self._counts_lock:
             out = dict(self._counts)
         out["active_slots"] = sum(s is not None for s in self._slots)
         out["queue_depth"] = len(self._queue)
         out["latency"] = self._latency_summary()
         out["prefix_cache"] = self._prefix_summary()
+        out["speculation"] = self._spec_summary()
+        if self.paged:
+            out["paging"] = self._paging_summary()
+        return out
+
+    def _gamma(self) -> int:
+        return self._spec.gamma if self._spec is not None else 0
+
+    def _spec_summary(self) -> dict:
+        """Proposed and accepted draft tokens and the acceptance rate
+        (near 1: raise gamma; near 0: every round yields one token)."""
+        if self._spec is None:
+            return {"enabled": False}
+        prop = self._spec_proposed
+        return {
+            "enabled": True,
+            "gamma": self._spec.gamma,
+            "proposed_tokens": prop,
+            "accepted_tokens": self._spec_accepted,
+            "acceptance_rate": (round(self._spec_accepted / prop, 4)
+                                if prop else 0.0),
+        }
+
+    def _fragmentation(self) -> float:
+        """Internal fragmentation of the live reservations: 1 - covered
+        tokens / (held pages x page_size) over every slot table (covered:
+        the slot's KV cursor) and admission table (covered: reuse base +
+        prefill cursor). 0.0 when nothing is held."""
+        ps, c = self.page_size, self._policy.chunk
+        held = covered = 0
+        for st, tbl in zip(self._slots, self._tables):
+            if st is None or tbl is None:
+                continue
+            held += len(tbl.pages)
+            covered += min(st.pos, len(tbl.pages) * ps)
+        for a in list(self._adms):
+            tbl = a.table      # read once: the loop may hand it off
+            if tbl is None:
+                continue
+            held += len(tbl.pages)
+            covered += min(a.base + a.next_chunk * c, a.t0,
+                           len(tbl.pages) * ps)
+        return 1.0 - covered / (held * ps) if held else 0.0
+
+    def _paging_summary(self) -> dict:
+        out = {"page_size": self.page_size,
+               "table_len": self._table_len,
+               "fragmentation": self._fragmentation(),
+               "page_waits": self._page_waits,
+               "pool": self._pages.stats()}
+        if self._d_pages is not None:
+            out["draft_pool"] = self._d_pages.stats()
+        if self._prefix is not None:
+            out["prefix_device_pages"] = self._prefix.device_pages
         return out
 
     def _prefix_summary(self) -> dict:
@@ -567,22 +921,43 @@ class ContinuousBatchingEngine:
               f"crashed: {e!r}", file=sys.stderr)
         err = EngineStopped(f"engine loop crashed: {e!r}")
         err.__cause__ = e
+        self._fail_in_flight(err, "crashed")
+        for h in self._queue.drain():
+            self._finish_handle(h, err, "crashed")
+
+    def _fail_in_flight(self, err: Exception, outcome: str) -> None:
+        """Fail every admission and occupied slot with ``err`` and drop
+        every reference they hold. In paged mode the prefix index then
+        drops its entries too, so every page is back on the free list
+        (the leak invariant: ``pages_in_use == 0``)."""
         for a in self._adms:
-            if a.entry is not None:
-                self._prefix.release(a.entry)
-                a.entry = None
-            self._finish_handle(a.handle, err, "crashed")
+            self._drop_admission_refs(a)
+            self._finish_handle(a.handle, err, outcome)
         self._adms = []
         for sid, st in enumerate(self._slots):
             if st is not None:
-                self._finish_handle(st.handle, err, "crashed")
+                self._finish_handle(st.handle, err, outcome)
                 self._slots[sid] = None
-        for h in self._queue.drain():
-            self._finish_handle(h, err, "crashed")
+            self._free_slot_table(sid)
+        if self.paged and self._prefix is not None:
+            self._prefix.drop_all()
+
+    def _drop_admission_refs(self, a: _Admission) -> None:
+        """Release an unfinished admission's prefix pin and tables."""
+        if a.entry is not None:
+            self._prefix.release(a.entry)
+            a.entry = None
+        for tbl in (a.table, a.d_table):
+            if tbl is not None:
+                tbl.free()
+        a.table = a.d_table = None
 
     def _iterate(self) -> bool:
         now = time.monotonic()
         worked = False
+        # paged: a fresh iteration may admit again (pages freed since
+        # can satisfy what the pool refused before)
+        self._adm_blocked = False
         # 1. running slots: cancellation and deadline eviction
         for sid, st in enumerate(self._slots):
             if st is None:
@@ -649,11 +1024,22 @@ class ContinuousBatchingEngine:
                 return r
         return None
 
+    def _need_tokens(self, t0: int, h: RequestHandle) -> int:
+        """KV positions a paged admission reserves: the effective prompt,
+        the tokens still to deliver and the verify headroom."""
+        remaining = h.max_new_tokens - len(h._tokens)
+        return min(t0 + remaining + self._gamma(), self._phys_len)
+
     def _fill_admissions(self, now: float) -> None:
         """Start new admissions until the staging cache is full, the slot
-        pool is exhausted, or the queue runs dry. With a prefix cache and
-        ``admission_window > 1`` the pop prefers the queued candidate
-        with the longest usable cached prefix (bounded bypass)."""
+        pool is exhausted, the page pool refuses the queue head, or the
+        queue runs dry. With a prefix cache and ``admission_window > 1``
+        the pop prefers the queued candidate with the longest usable
+        cached prefix (bounded bypass); in paged mode a candidate whose
+        fresh pages the pool could not supply even after a full prefix
+        reclaim scores below every admittable one."""
+        if self._adm_blocked:
+            return
         scorer = None
         if self._prefix is not None and self.admission_window > 1:
             c = self._policy.chunk
@@ -665,7 +1051,14 @@ class ContinuousBatchingEngine:
                 p = self._effective_prompt(h)
                 e, m = self._prefix.lookup(p)
                 h._prefix_probe = (e, m, self._prefix.generation)
-                return (min(m, p.shape[0] - 1) // c) * c
+                base = (min(m, p.shape[0] - 1) // c) * c
+                if not self.paged:
+                    return base
+                ps = self.page_size
+                fresh = (pages_needed(self._need_tokens(p.shape[0], h), ps)
+                         - base // ps)
+                avail = self._pages.free_pages + self._prefix.device_pages
+                return page_fit_score(base, fresh, avail)
         while len(self._adms) < self._policy.prefill_rows:
             slot = self._free_slot()
             if slot is None:
@@ -679,7 +1072,8 @@ class ContinuousBatchingEngine:
                 self._finish_dropped(hd, err)
             if h is None:
                 return
-            self._start_admission(h, slot, row)
+            if not self._start_admission(h, slot, row):
+                return
 
     @staticmethod
     def _effective_prompt(h: RequestHandle) -> np.ndarray:
@@ -691,30 +1085,39 @@ class ContinuousBatchingEngine:
                 [h.prompt, np.asarray(h._tokens, np.int32)])
         return h.prompt
 
-    def _start_admission(self, h: RequestHandle, slot: int,
-                         row: int) -> None:
-        """Stage one popped request for chunked prefill, copying its
-        usable cached prefix into its staging row on a hit."""
+    def _lookup_base(self, h: RequestHandle, prompt: np.ndarray):
+        """The usable cached prefix of ``prompt``: (entry, base) with
+        ``base`` capped at ``t0 - 1`` (the last prompt position must be
+        computed: its logits seed the first token) and aligned DOWN to a
+        chunk multiple, so the tail's chunk geometry, and with it the
+        numerics, matches a cold prefill's (in paged mode the base is
+        then page-aligned too). Reuses the scorer's lookup while the
+        generation guard says it is still valid (a stale entry may hold
+        other tokens' KV)."""
+        probe = h.__dict__.pop("_prefix_probe", None)
+        if probe is not None and probe[2] == self._prefix.generation:
+            e, matched = probe[0], probe[1]
+        else:
+            e, matched = self._prefix.lookup(prompt)
+        if e is None:
+            return None, 0
         c = self._policy.chunk
+        return e, (min(matched, prompt.shape[0] - 1) // c) * c
+
+    def _start_admission(self, h: RequestHandle, slot: int,
+                         row: int) -> bool:
+        """Stage one popped request for chunked prefill, copying its
+        usable cached prefix into its staging row on a hit. Returns False
+        (paged mode only) when the page pool could not cover the
+        request's reservation: the request is back at the queue head and
+        the caller stops filling for this iteration."""
+        if self.paged:
+            return self._start_admission_paged(h, slot, row)
         prompt = self._effective_prompt(h)
         t0 = prompt.shape[0]
         base, entry = 0, None
         if self._prefix is not None:
-            # reuse the scorer's lookup while it is still valid: the
-            # generation guard rejects probes older than any donation or
-            # eviction (a stale entry's row may hold other tokens' KV)
-            probe = h.__dict__.pop("_prefix_probe", None)
-            if probe is not None and probe[2] == self._prefix.generation:
-                e, matched = probe[0], probe[1]
-            else:
-                e, matched = self._prefix.lookup(prompt)
-            if e is not None:
-                # cap at t0 - 1 (the last prompt position must be
-                # computed: its logits seed the first token), then align
-                # DOWN to a chunk multiple so the tail's chunk geometry
-                # matches a cold prefill's and its padded writes stay in
-                # the cache
-                base = (min(matched, t0 - 1) // c) * c
+            e, base = self._lookup_base(h, prompt)
             if base > 0:
                 entry = e
                 self._prefix.record_hit(entry, base)
@@ -722,51 +1125,150 @@ class ContinuousBatchingEngine:
                 self._copy_row(self._staging, self._pool, row, entry.row)
             else:
                 self._prefix.record_miss()
+        self._stage(h, slot, row, prompt, base, entry)
+        return True
+
+    def _start_admission_paged(self, h: RequestHandle, slot: int,
+                               row: int) -> bool:
+        """Paged admission: reserve the request's FULL span up front (a
+        shared prefix head by refcount bump, a fresh tail from the free
+        list, with a reclaim of unpinned prefix entries under pressure)
+        and copy nothing. A hit's shared pages are read through the
+        block table while the prefill writes land only in the fresh tail
+        (chunk alignment implies page alignment). Admission is the only
+        allocation point, so decode never runs out of pages mid-flight
+        and ``ensure_writable`` never fires on an engine path. When the
+        pool cannot cover the reservation even after reclaim, the
+        request goes back to the queue HEAD and the ``_adm_blocked``
+        latch stops the fill loop until the next iteration."""
+        ps = self.page_size
+        prompt = self._effective_prompt(h)
+        t0 = prompt.shape[0]
+        entry, base = (self._lookup_base(h, prompt)
+                       if self._prefix is not None else (None, 0))
+        shared = tuple(entry.pages[:base // ps]) if base > 0 else ()
+        need = pages_needed(self._need_tokens(t0, h), ps)
+        n_fresh = need - len(shared)
+        table = BlockTable.build(self._pages, shared, n_fresh)
+        if table is None and self._prefix is not None:
+            self._prefix.reclaim(n_fresh)
+            table = BlockTable.build(self._pages, shared, n_fresh)
+        d_table = None
+        if table is not None and self.draft is not None:
+            # sized never to fail once the target's reservation held;
+            # the unwind keeps a failure from leaking the target's pages
+            d_table = BlockTable.build(self._d_pages, (), need)
+            if d_table is None:
+                table.free()
+                table = None
+        if table is None:
+            self._queue.requeue(h)
+            self._adm_blocked = True
+            self._page_waits += 1
+            h._page_waited = True
+            return False
+        if self._prefix is not None:
+            if base > 0:
+                # no staging copy and no entry pin: the shared
+                # refcounts keep the pages alive even if the entry is
+                # evicted while this admission prefills
+                self._prefix.record_hit(entry, base)
+            else:
+                self._prefix.record_miss()
+        a = self._stage(h, slot, row, prompt, base, None)
+        a.table, a.d_table = table, d_table
+        return True
+
+    def _stage(self, h: RequestHandle, slot: int, row: int,
+               prompt: np.ndarray, base: int, entry) -> _Admission:
+        """Queue the admission's chunks: the tail from ``base`` for the
+        target and, with a draft, the FULL prompt for the draft."""
+        c = self._policy.chunk
+        t0 = prompt.shape[0]
         tail = t0 - base
         n_chunks = self._policy.n_chunks(tail)
         ids = np.zeros((n_chunks * c,), np.int64)   # right-pad final chunk
         ids[:tail] = prompt[base:]
-        self._adms.append(_Admission(h, slot, row, ids, t0, base,
-                                     n_chunks, entry))
+        d_ids, d_n_chunks = None, 0
+        if self.draft is not None:
+            d_n_chunks = self._policy.n_chunks(t0)
+            d_ids = np.zeros((d_n_chunks * c,), np.int64)
+            d_ids[:t0] = prompt
+        a = _Admission(h, slot, row, ids, t0, base, n_chunks, entry, d_ids,
+                       d_n_chunks)
+        self._adms.append(a)
         h.prefix_tokens = base
         if h.admitted_at is None:
             h.admitted_at = time.monotonic()
         self._count("admitted")
+        return a
 
     def _prefill_round(self) -> None:
         """Advance EVERY in-flight admission by one chunk through one
-        ragged call, then complete those whose prompt is fully staged
-        (slot insert and first-token sample)."""
+        ragged call (plus, with a draft, one mirrored call for the
+        draft), then complete those whose prompt is fully staged in every
+        cache that needs it (slot insert and first-token sample).
+
+        A prefix hit can leave the target's cursor finished while the
+        draft still prefills the reused head: such rows REPLAY their
+        final target chunk each round (an idempotent rewrite: same ids,
+        same offset, same KV), so the call needs no per-row liveness
+        flag and the final round's logits are fresh for the first
+        token."""
         c = self._policy.chunk
         rows = self._policy.prefill_rows
+        spec = self.draft is not None
         ids = np.zeros((rows, c), np.int64)
         pos0 = np.zeros((rows,), np.int64)
         last = np.full((rows,), c - 1, np.int64)
         finals: List[_Admission] = []
         for a in self._adms:
-            k = a.next_chunk
+            k = min(a.next_chunk, a.n_chunks - 1)
             ids[a.row] = a.ids[k * c:(k + 1) * c]
             pos0[a.row] = a.base + k * c
-            if k == a.n_chunks - 1:
+            if a.next_chunk >= a.n_chunks - 1:
                 # the true last prompt position within the final chunk:
                 # the pads behind it are written but never attended
-                last[a.row] = a.tail - 1 - k * c
-                finals.append(a)
+                last[a.row] = a.tail - 1 - (a.n_chunks - 1) * c
+                if not spec or a.d_next_chunk >= a.d_n_chunks - 1:
+                    finals.append(a)
         logits = self._chunk(self._h2d(ids), self._h2d(pos0),
                              self._h2d(last))
+        if spec:
+            d_ids = np.zeros((rows, c), np.int64)
+            d_pos0 = np.zeros((rows,), np.int64)
+            for a in self._adms:
+                dk = a.d_next_chunk
+                d_ids[a.row] = a.d_ids[dk * c:(dk + 1) * c]
+                d_pos0[a.row] = dk * c
+            self._d_chunk(self._h2d(d_ids), self._h2d(d_pos0))
         toks = self._pick(logits).tolist() if finals else None
         self._count("prefill_rounds")
         for a in self._adms:
-            self._prefilled_tokens += min(c, a.tail - a.next_chunk * c)
-            a.next_chunk += 1
+            if a.next_chunk < a.n_chunks:
+                self._prefilled_tokens += min(c, a.tail - a.next_chunk * c)
+                a.next_chunk += 1
+            if spec:
+                a.d_next_chunk += 1
         for a in finals:
             self._complete_admission(a, int(toks[a.row]))
 
     def _complete_admission(self, a: _Admission, tok: int) -> None:
-        # prompt fully staged: copy the staging row into the reserved
-        # slot, unpin the prefix entry (the staged copy no longer needs
-        # it), deliver the first token
-        self._copy_row(self._caches, self._staging, a.slot, a.row)
+        # prompt fully staged. Paged: the admission's tables BECOME the
+        # slot's (its pages hold the prompt KV). Dense: copy the staging
+        # row (and the draft's) into the reserved slot, then unpin the
+        # prefix entry (the staged copy no longer needs it). Then deliver
+        # the first token
+        if self.paged:
+            self._free_slot_table(a.slot)
+            self._tables[a.slot], a.table = a.table, None
+            if self.draft is not None:
+                self._d_tables[a.slot], a.d_table = a.d_table, None
+        else:
+            self._copy_row(self._caches, self._staging, a.slot, a.row)
+            if self.draft is not None:
+                self._copy_row(self._d_caches, self._d_staging, a.slot,
+                               a.row)
         if a.entry is not None:
             self._prefix.release(a.entry)
             a.entry = None
@@ -776,10 +1278,11 @@ class ContinuousBatchingEngine:
         h._deliver(tok, now)
         if (self.eos_id is not None and tok == self.eos_id) \
                 or len(h._tokens) >= h.max_new_tokens:
-            # instant finisher: the slot row holds the prompt's KV;
-            # donate it before the slot identity is lost
+            # instant finisher: the slot holds the prompt's KV; donate it
+            # before the slot identity is lost
             self._maybe_donate(a.slot, np.concatenate(
                 [h.prompt, np.asarray(h._tokens[:-1], np.int32)]))
+            self._free_slot_table(a.slot)
             self._finish_handle(h, None, "finished")
             self._count("finished")
             return
@@ -789,19 +1292,26 @@ class ContinuousBatchingEngine:
 
     def _abort_admission(self, a: _Admission, err: Exception,
                          kind: str) -> None:
-        if a.entry is not None:
-            self._prefix.release(a.entry)
-            a.entry = None
+        self._drop_admission_refs(a)
         self._adms.remove(a)
         self._count(kind)
         self._finish_handle(a.handle, err, kind)
 
     def _maybe_donate(self, sid: int, tokens: np.ndarray) -> None:
-        """Offer a finishing slot's KV to the prefix pool. ``tokens`` are
+        """Offer a finishing slot's KV to the prefix cache. ``tokens`` are
         exactly the ids whose KV the slot holds (positions
-        ``0..len-1``); the index decides (covered / LRU-evict / decline)
-        and an accepted row is filled by one row copy."""
+        ``0..len-1``); the index decides (covered / LRU-evict /
+        decline). Dense: an accepted row is filled by one row copy.
+        Paged: the covering pages are SHARED into the new entry (a
+        refcount move; the slot's own references are freed by the
+        caller)."""
         if self._prefix is None:
+            return
+        if self.paged:
+            tbl = self._tables[sid]
+            if tbl is not None and tokens.shape[0] > 0:
+                self._prefix.donate_pages(
+                    tokens, tbl.covering(int(tokens.shape[0])))
             return
         row = self._prefix.donate(tokens)
         if row is not None:
@@ -809,6 +1319,8 @@ class ContinuousBatchingEngine:
 
     # --------------------------------------------------------- decode
     def _decode_all(self, active: List[int]) -> None:
+        if self.draft is not None:
+            return self._decode_all_spec(active)
         tok = np.zeros((self.max_slots,), np.int64)
         pos = np.zeros((self.max_slots,), np.int64)
         for sid in active:
@@ -819,19 +1331,71 @@ class ContinuousBatchingEngine:
         self._count("decode_steps")
         now = time.monotonic()
         for sid in active:
-            self._deliver_burst(sid, nxt[sid], now)
+            self._deliver_burst(sid, nxt[sid:sid + 1], now)
 
-    def _deliver_burst(self, sid: int, tok: int, now: float) -> None:
-        """Stream one decode round's token into the slot's handle and
-        advance the slot by one position; finishes the row at eos or its
-        token budget. (Dense decode delivers one token a round; the
-        multi-token burst of speculative decoding waits for that step.)"""
+    def _decode_all_spec(self, active: List[int]) -> None:
+        """Speculative decode over every occupied slot: gamma draft steps,
+        one ragged target verify, and (when some row accepted all gamma)
+        one draft sync step; one host sync reads the accepted counts and
+        the emitted tokens together. Acceptance is per row, and eos or
+        the request's token budget can cut a burst short."""
+        g = self._spec.gamma
+        tok = np.zeros((self.max_slots,), np.int64)
+        pos = np.zeros((self.max_slots,), np.int64)
+        for sid in active:
+            st = self._slots[sid]
+            tok[sid] = st.last_token
+            pos[sid] = st.pos
+        tok_d, pos_d = self._h2d(tok), self._h2d(pos)
+        props, qlogits = self._propose(tok_d, pos_d)
+        emit, n_acc = self._spec_verify(tok_d, props, qlogits, pos_d)
+        host = torch.cat([emit, n_acc[:, None]], 1).cpu().numpy()
+        emit_np, n_np = host[:, :-1], host[:, -1]
+        self._count("decode_steps")
+        # a row that accepted all gamma proposals lacks the draft KV of
+        # its last one: re-write each row's last accepted token at its
+        # own position (no-ops for the others); launched after the sync,
+        # ordered before the next propose by the stream
+        if any(int(n_np[sid]) == g for sid in active):
+            sync_tok = np.zeros((self.max_slots,), np.int64)
+            sync_pos = np.zeros((self.max_slots,), np.int64)
+            for sid in active:
+                n_r = int(n_np[sid])
+                sync_tok[sid] = tok[sid] if n_r == 0 else emit_np[sid, n_r - 1]
+                sync_pos[sid] = pos[sid] + n_r
+            self._d_sync(self._h2d(sync_tok), self._h2d(sync_pos))
+        now = time.monotonic()
+        bursts = {}
+        for sid in active:
+            st = self._slots[sid]
+            n_r = int(n_np[sid])
+            self._spec_proposed += g
+            self._spec_accepted += n_r
+            st.handle.spec_proposed += g
+            st.handle.spec_accepted += n_r
+            room = st.handle.max_new_tokens - st.delivered
+            toks = emit_np[sid, :min(n_r + 1, room)]
+            if self.eos_id is not None:
+                hits = np.flatnonzero(toks == self.eos_id)
+                if hits.size:     # eos mid-burst: stop AT it
+                    toks = toks[:hits[0] + 1]
+            bursts[sid] = toks
+        for sid in active:
+            self._deliver_burst(sid, bursts[sid], now)
+
+    def _deliver_burst(self, sid: int, toks, now: float) -> None:
+        """Stream one decode round's tokens (one, or a speculative burst
+        of 1..gamma+1, in order) into the slot's handle and advance the
+        slot's position by the delivered count: afterwards its KV covers
+        ``[0, pos)`` and the last token's KV is not cached yet, as after
+        a one-token step. Finishes the row at eos or its token budget."""
         st = self._slots[sid]
         h = st.handle
-        st.delivered += 1
-        h._deliver(int(tok), now)
-        st.pos += 1
-        st.last_token = int(tok)
+        for t in toks:
+            st.delivered += 1
+            h._deliver(int(t), now)
+        st.pos += len(toks)
+        st.last_token = int(toks[-1])
         if (self.eos_id is not None and st.last_token == self.eos_id) \
                 or st.delivered >= h.max_new_tokens:
             self._release(sid, None, "finished")
@@ -846,6 +1410,7 @@ class ContinuousBatchingEngine:
         self._maybe_donate(sid, np.concatenate(
             [st.handle.prompt,
              np.asarray(st.handle._tokens[:-1], np.int32)]))
+        self._free_slot_table(sid)
         self._slots[sid] = None
         self._count("evicted")
         self._count("finished" if reason == "finished" else reason)

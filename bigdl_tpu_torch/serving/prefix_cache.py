@@ -48,7 +48,7 @@ tier transition (demote, host-evict, promote) bumps ``generation``, so
 the stale-probe guard covers host rows exactly like device rows. The
 port's engine does not drive the host tier yet: it refuses
 ``prefix_host_bytes`` / ``prefix_host_rows`` until the prefix host-tier
-step (ROADMAP Queue 1 item 3), so these methods are exercised only by
+step (ROADMAP.md Queue 1 item 4), so these methods are exercised only by
 the index's own tests.
 
 Thread contract: the engine's loop thread is the only mutator;

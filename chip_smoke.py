@@ -49,6 +49,29 @@ a non-zero exit, at the first phase that does not hold:
    - engine_prefix (f32, TF32 off): ``run_shared_prefix_comparison`` at
      16 requests over 4 templates of 512 tokens, cache on against off:
      TTFT speedups, hit rate, rows equal (or near ties);
+   - paged_gate (f32, TF32 off): engine_gate's 8 requests through the
+     paged engine (``page_size=16``), each row equal to a lone
+     ``generate`` or a near tie; the 192-token prefix hit takes its 12
+     head pages by refcount (no page copied) and its row equals the
+     cache-off engine's; after drain the pool holds exactly the prefix
+     index's pages, and none after stop; a 21-page pool over a
+     320-token window serves the 8 rows, each waiting for pages;
+   - spec_gate (f32, TF32 off): the 8 requests through the speculative
+     engine (``spec_gamma=4``), dense and paged, with draft (a) (an
+     unrelated 2-layer, 256-wide model from its own seed: rejections)
+     and with the target as its own draft (every proposal accepted,
+     acceptance >= 0.99: the bonus and full-burst paths); rows as
+     above; a lone ``speculative_generate`` with draft (a) for two
+     prompts;
+   - paged_serving (bf16): ``run_paged_comparison`` (32 requests at
+     200/s, 2 dense slots against 8 paged slots at equal KV bytes):
+     admitted-concurrency ratio, TTFT speedups, the byte budget, rows
+     equal between the legs; then the profile window over 16 steady
+     paged-decode iterations;
+   - spec_serving (bf16): ``run_speculative_comparison`` with draft (a)
+     (24 requests at 30/s, 8 slots, gamma 4): inter-token and TTFT
+     speedups, acceptance rate, token parity; then the profile window
+     over 16 steady speculative iterations;
 7. flash_backward: the differentiable flash attention (the kernel's
    forward, the plain blocked backward) against the plain forward (out
    and lse) and autograd through it (dq / dk / dv and the lse
@@ -65,7 +88,8 @@ a non-zero exit, at the first phase that does not hold:
    main paths (phases 4-6, and the timed bf16 training run of phase 8,
    each counted from 0 just before it and read just after; the engine
    phases, the remat run and the f32 gate are counted on their own
-   lines), error, times and bound.
+   lines; ``launches_engine`` is the sum of the seven engine phases'
+   counts, each asserted 0), error, times and bound.
 
 Before the kernels line, the vision path (ResNet-50 at full width and
 depth, LeNet-5, the LocalOptimizer), which launches no kernel of the
@@ -205,8 +229,25 @@ SERVER_NEWS = [32, 24, 32, 16, 32, 32, 20, 32]
 ENGINE_SERVING = dict(n_requests=32, rate_hz=20.0, max_slots=8,
                       prefill_chunk=64, prefill_rows=4, max_batch=8,
                       prompt_lens=(64, 512), decode_lens=(16, 128), seed=0)
-# loop iterations in the engine's steady-decode profile window
+# loop iterations in the engine's steady-decode profile windows
 PROFILE_ITERATIONS = 16
+# the paged and speculative phases: 16-token pages, 4 proposals a round
+PAGE_SIZE = 16
+SPEC_GAMMA = 4
+# draft (a): an unrelated small model over the flagship's vocabulary, from
+# its own seed (its proposals are mostly rejected)
+DRAFT = dict(vocab_size=32000, embed_dim=256, num_heads=4, num_kv_heads=2,
+             num_layers=2, max_len=2048, use_rope=True)
+# paged_serving: paged against dense KV at equal bytes (bf16 flagship)
+PAGED_SERVING = dict(n_requests=32, rate_hz=200.0, dense_slots=2,
+                     paged_slots=8, page_size=PAGE_SIZE, prefill_chunk=64,
+                     prefill_rows=4)
+# spec_serving: draft (a) proposing against plain decode (bf16 flagship)
+SPEC_SERVING = dict(n_requests=24, rate_hz=30.0, max_slots=8,
+                    prefill_chunk=64, prefill_rows=4, gamma=SPEC_GAMMA)
+# the self-draft's proposals equal the target's argmax but for f32 GEMMs
+# of another shape flipping a near tie
+SELF_ACCEPT_MIN = 0.99
 
 
 def emit(obj) -> None:
@@ -661,20 +702,43 @@ def train_phase(torch, fa, smi) -> int:
     return train_launches
 
 
+_LONE: dict = {}
+
+
 def lone_mismatch(model, prompt, n, row):
     """None when ``row`` equals a lone greedy ``generate`` of ``prompt``
     (``n`` new tokens); else the first difference, asserted to be a near
-    tie (the lone run's top two logits there within ``NEAR_TIE``)."""
-    lone, lone_logits = model.generate(prompt, n, return_logits=True)
-    lone = lone[0].cpu().numpy()
+    tie (the lone run's top two logits there within ``NEAR_TIE``). Each
+    lone run is made once and kept for the later phases."""
+    import numpy as np
+
+    key = (id(model), np.asarray(prompt).tobytes(), n)
+    if key not in _LONE:
+        ids, seen = model.generate(prompt, n, return_logits=True)
+        _LONE[key] = (ids[0].cpu().numpy(), seen[0].cpu())
+    lone, lone_logits = _LONE[key]
     assert row.shape == lone.shape, (row.shape, lone.shape)
     if (row == lone).all():
         return None
     j = int((row != lone).nonzero()[0][0]) - len(prompt)
-    top2 = lone_logits[0, j].topk(2).values
+    top2 = lone_logits[j].topk(2).values
     rec = {"position": j, "margin": (top2[0] - top2[1]).item()}
     assert rec["margin"] < NEAR_TIE, rec
     return rec
+
+
+def shared_head_pair():
+    """Two prompts sharing a new 192-token head, then differing: the
+    second reuses the head whole."""
+    import numpy as np
+
+    g = np.random.RandomState(5)
+    head = g.randint(0, FLAGSHIP["vocab_size"], 192)
+    tail_a = g.randint(0, FLAGSHIP["vocab_size"], 40)
+    tail_b = g.randint(0, FLAGSHIP["vocab_size"], 30)
+    tail_b[0] = (tail_a[0] + 1) % FLAGSHIP["vocab_size"]
+    return tuple(np.concatenate([head, t]).astype(np.int32)
+                 for t in (tail_a, tail_b))
 
 
 def engine_gate(torch, fa, smi, model32, reqs) -> int:
@@ -698,15 +762,7 @@ def engine_gate(torch, fa, smi, model32, reqs) -> int:
         handles = [eng.submit(p, n) for p, n in reqs]
         rows = [h.result(timeout=120) for h in handles]
         serve_s = time.monotonic() - t0
-        # a new 192-token head shared by two requests: the second
-        # reuses it whole
-        g = np.random.RandomState(5)
-        head = g.randint(0, FLAGSHIP["vocab_size"], 192)
-        tail_a = g.randint(0, FLAGSHIP["vocab_size"], 40)
-        tail_b = g.randint(0, FLAGSHIP["vocab_size"], 30)
-        tail_b[0] = (tail_a[0] + 1) % FLAGSHIP["vocab_size"]
-        pa, pb = (np.concatenate([head, t]).astype(np.int32)
-                  for t in (tail_a, tail_b))
+        pa, pb = shared_head_pair()
         eng.submit(pa, 16).result(timeout=120)
         hb = eng.submit(pb, 24)
         row_b = hb.result(timeout=120)
@@ -727,11 +783,7 @@ def engine_gate(torch, fa, smi, model32, reqs) -> int:
                                   prefix_cache_bytes=0) as cold:
         row_b_cold = cold.submit(pb, 24).result(timeout=120)
     launches = fa.launches
-    near_ties = []
-    for i, ((p, n), row) in enumerate(zip(reqs, rows)):
-        tie = lone_mismatch(model32, p, n, row)
-        if tie is not None:
-            near_ties.append({"request": i, **tie})
+    near_ties = held_to_lone(model32, reqs, rows)
     warm_equals_cold = bool((row_b == row_b_cold).all())
     warm_tie = None if warm_equals_cold else \
         lone_mismatch(model32, pb, 24, row_b)
@@ -768,13 +820,13 @@ def engine_gate(torch, fa, smi, model32, reqs) -> int:
     return launches
 
 
-def steady_decode_profile(torch, model) -> dict:
+def steady_decode_profile(torch, model, **engine_kw) -> dict:
     """A ``torch.profiler`` window over ``PROFILE_ITERATIONS`` iterations
     of the engine's loop in steady decode, every slot busy (the engine
-    config of ``ENGINE_SERVING``, 8 requests of 256 prompt tokens and 128
-    new). The profiler records the thread that starts it, so the window
-    runs the loop's iteration (``_iterate``) on this thread: the engine's
-    own thread is never started."""
+    config of ``ENGINE_SERVING`` plus ``engine_kw``, 8 requests of 256
+    prompt tokens and 128 new). The profiler records the thread that
+    starts it, so the window runs the loop's iteration (``_iterate``) on
+    this thread: the engine's own thread is never started."""
     import numpy as np
 
     from bigdl_tpu_torch.serving import (ContinuousBatchingEngine,
@@ -784,19 +836,23 @@ def steady_decode_profile(torch, model) -> dict:
     cfg = ENGINE_SERVING
     eng = ContinuousBatchingEngine(model, max_slots=cfg["max_slots"],
                                    prefill_chunk=cfg["prefill_chunk"],
-                                   prefill_rows=cfg["prefill_rows"])
+                                   prefill_rows=cfg["prefill_rows"],
+                                   **engine_kw)
     g = np.random.RandomState(7)
-    for _ in range(eng.max_slots):
-        eng._queue.put(RequestHandle(
-            g.randint(0, FLAGSHIP["vocab_size"], 256), 128))
+    handles = [RequestHandle(g.randint(0, FLAGSHIP["vocab_size"], 256), 128)
+               for _ in range(eng.max_slots)]
+    for h in handles:
+        eng._queue.put(h)
     with torch.inference_mode():
         while eng.stats()["active_slots"] < eng.max_slots:
             eng._iterate()
         s0 = eng.stats()
+        tok0 = sum(len(h.tokens_so_far()) for h in handles)
         prof = device_profile(
             lambda: [eng._iterate() for _ in range(PROFILE_ITERATIONS)],
             top=10)
         s1 = eng.stats()
+        tok1 = sum(len(h.tokens_so_far()) for h in handles)
     eng.stop(drain=False)
     n = PROFILE_ITERATIONS
     return dict(
@@ -804,6 +860,7 @@ def steady_decode_profile(torch, model) -> dict:
         decode_steps=s1["decode_steps"] - s0["decode_steps"],
         prefill_rounds=s1["prefill_rounds"] - s0["prefill_rounds"],
         active_slots=s1["active_slots"],
+        tokens_per_iteration=(tok1 - tok0) / n,
         kernel_launches=prof["kernel_launches"],
         launches_per_iteration=prof["kernel_launches"] / n,
         wall_ms=prof["wall_ms"], device_busy_ms=prof["device_busy_ms"],
@@ -813,19 +870,15 @@ def steady_decode_profile(torch, model) -> dict:
         top_ops_ms=prof["top_ops_ms"][:6])
 
 
-def engine_serving(torch, fa, smi) -> int:
+def engine_serving(torch, fa, smi, model) -> int:
     """engine_serving (bf16): one Poisson workload (``ENGINE_SERVING``)
     through the engine and through ``GenerationService`` by the port's
     ``run_poisson_comparison``: latency both ways, the engine's TTFT and
     inter-token gap, delivered tokens/s both ways, the p99 speedup, the
     loop's iterations; then the steady-decode profile window. Returns
     the flash kernel's launches in the phase."""
-    from bigdl_tpu_torch.models.transformer import TransformerLM
     from bigdl_tpu_torch.serving import run_poisson_comparison
 
-    model = TransformerLM(**FLAGSHIP, seed=0, device="cuda",
-                          dtype=torch.bfloat16)
-    model.evaluate()
     fa.launches = 0
     res = run_poisson_comparison(model, **ENGINE_SERVING)
     window = steady_decode_profile(torch, model)
@@ -916,6 +969,277 @@ def engine_prefix(torch, fa, smi, model32) -> int:
           "flash_launches": launches})
     assert launches == 0, launches
     assert pc["hits"] >= 1, pc
+    return launches
+
+
+def held_to_lone(model, reqs, rows, label=None) -> list:
+    """Each row against a lone ``generate``: the near ties (each asserted
+    a near tie by ``lone_mismatch``), tagged with ``label``."""
+    ties = []
+    for i, ((p, n), row) in enumerate(zip(reqs, rows)):
+        tie = lone_mismatch(model, p, n, row)
+        if tie is not None:
+            ties.append({"request": i, **({"run": label} if label else {}),
+                         **tie})
+    return ties
+
+
+def paged_gate(torch, fa, smi, model32, reqs) -> int:
+    """paged_gate (f32, TF32 off): engine_gate's 8 requests through the
+    paged engine (``page_size=16``), each row held to a lone
+    ``generate``; the 192-token prefix hit takes its 12 head pages by
+    refcount (the admission's table holds the entry's pages, one
+    reference more each, no page copied) and its row equals the
+    cache-off paged engine's; after drain the pool holds exactly the
+    prefix index's pages; a pool that fits one reservation at a time
+    (a 320-token window, 21 pages) serves all 8 rows, each waiting its
+    turn. Returns the flash kernel's launches in the phase."""
+    from bigdl_tpu_torch.serving import ContinuousBatchingEngine
+
+    t_phase = time.monotonic()
+    fa.launches = 0
+    kw = dict(max_slots=4, prefill_chunk=64, prefill_rows=2,
+              page_size=PAGE_SIZE)
+    t0 = time.monotonic()
+    eng = ContinuousBatchingEngine(model32, **kw)
+    with eng:
+        rows = [h.result(timeout=120)
+                for h in [eng.submit(p, n) for p, n in reqs]]
+        serve_s = time.monotonic() - t0
+        pa, pb = shared_head_pair()
+        eng.submit(pa, 16).result(timeout=120)
+        entry, _ = eng._prefix.lookup(pb)
+        head = list(entry.pages[:192 // PAGE_SIZE])
+        refs = [eng._pages.refcount(p) for p in head]
+        seen = []
+        complete = eng._complete_admission
+
+        def spy(a, tok):
+            seen.append((a.table.pages[:len(head)],
+                         [eng._pages.refcount(p) for p in head]))
+            return complete(a, tok)
+
+        eng._complete_admission = spy
+        hb = eng.submit(pb, 24)
+        row_b = hb.result(timeout=120)
+        stats = eng.stats()
+        held = {p for e in eng._prefix.snapshot() for p in e["pages"]}
+    leaked = eng._pages.pages_in_use
+    with ContinuousBatchingEngine(model32, prefix_cache_rows=0,
+                                  **kw) as cold:
+        row_b_cold = cold.submit(pb, 24).result(timeout=120)
+    tight = ContinuousBatchingEngine(model32, max_len=320, max_pages=21,
+                                     prefix_cache_rows=0, **kw)
+    t1 = time.monotonic()
+    with tight:
+        tight_rows = [h.result(timeout=300)
+                      for h in [tight.submit(p, n) for p, n in reqs]]
+        tight_s = time.monotonic() - t1
+        tight_stats = tight.stats()["paging"]
+    launches = fa.launches
+    near_ties = held_to_lone(model32, reqs, rows, "paged")
+    near_ties += held_to_lone(model32, reqs, tight_rows, "tight")
+    warm_equals_cold = bool((row_b == row_b_cold).all())
+    warm_tie = None if warm_equals_cold else \
+        lone_mismatch(model32, pb, 24, row_b)
+    pool = stats["paging"]["pool"]
+    rec = {"phase": "paged_gate", "dtype": "float32",
+           "allow_tf32": torch.backends.cuda.matmul.allow_tf32,
+           "nvidia_smi": smi, "engine": kw,
+           "requests": len(reqs), "seconds": serve_s,
+           "rows_equal_lone_generate": 2 * len(reqs) - len(near_ties),
+           "rows_held": 2 * len(reqs),
+           "near_ties": near_ties, "near_tie_limit": NEAR_TIE,
+           "prefix_tokens": hb.prefix_tokens,
+           "head_pages": len(head),
+           "head_pages_shared_at_admission": seen == [(head, [
+               c + 1 for c in refs])],
+           "warm_row_equals_cache_off": warm_equals_cold,
+           "warm_near_tie": warm_tie,
+           "pool": pool, "table_len": stats["paging"]["table_len"],
+           "pages_in_use_after_drain": pool["pages_in_use"],
+           "prefix_held_pages": len(held),
+           "pages_in_use_after_stop": leaked,
+           "tight_pool": {"max_len": 320, "max_pages": 21,
+                          "seconds": tight_s,
+                          "page_waits": tight_stats["page_waits"]},
+           "flash_launches": launches,
+           "phase_s": time.monotonic() - t_phase}
+    emit(rec)
+    assert launches == 0, launches
+    assert hb.prefix_tokens == 192, hb.prefix_tokens
+    assert rec["head_pages_shared_at_admission"], (seen, head, refs)
+    assert pool["cow_forks_total"] == 0, pool
+    assert pool["pages_in_use"] == len(held) > 0, (pool, held)
+    assert leaked == 0, leaked
+    assert tight_stats["page_waits"] >= 1, tight_stats
+    return launches
+
+
+def make_draft(torch, dtype):
+    """Draft (a): ``DRAFT`` with random weights from its own seed."""
+    from bigdl_tpu_torch.models.transformer import TransformerLM
+
+    draft = TransformerLM(**DRAFT, seed=1, device="cuda", dtype=dtype)
+    draft.evaluate()
+    return draft
+
+
+def spec_gate(torch, fa, smi, model32, reqs) -> int:
+    """spec_gate (f32, TF32 off): engine_gate's 8 requests through the
+    speculative engine (``spec_gamma=4``), dense and paged
+    (``page_size=16``), with draft (a), which exercises rejections, and
+    with the target as its own draft, where every proposal is accepted
+    and the bonus and full-burst paths run; every row held to a lone
+    ``generate``, the self-draft's acceptance at least
+    ``SELF_ACCEPT_MIN``; then a lone ``speculative_generate`` with draft
+    (a) for two of the prompts. Returns the flash kernel's launches."""
+    from bigdl_tpu_torch.serving import ContinuousBatchingEngine
+
+    t_phase = time.monotonic()
+    draft_a = make_draft(torch, torch.float32)
+    fa.launches = 0
+    runs, near_ties = [], []
+    for name, draft in (("unrelated", draft_a), ("self", model32)):
+        for paged in (False, True):
+            label = f"{name}-{'paged' if paged else 'dense'}"
+            t0 = time.monotonic()
+            with ContinuousBatchingEngine(
+                    model32, max_slots=4, prefill_chunk=64, prefill_rows=2,
+                    draft=draft, spec_gamma=SPEC_GAMMA,
+                    page_size=PAGE_SIZE if paged else None) as eng:
+                rows = [h.result(timeout=300)
+                        for h in [eng.submit(p, n) for p, n in reqs]]
+                stats = eng.stats()
+            ties = held_to_lone(model32, reqs, rows, label)
+            near_ties += ties
+            runs.append({"run": label, "seconds": time.monotonic() - t0,
+                         "rows_equal_lone_generate": len(reqs) - len(ties),
+                         "decode_steps": stats["decode_steps"],
+                         "speculation": stats["speculation"]})
+    lone_spec = []
+    for i in (0, 1):
+        p, n = reqs[i]
+        ids, st = model32.speculative_generate(
+            p, n, draft=draft_a, gamma=SPEC_GAMMA, return_stats=True)
+        tie = lone_mismatch(model32, p, n, ids[0].cpu().numpy())
+        lone_spec.append({"request": i, **st, "near_tie": tie})
+    launches = fa.launches
+    emit({"phase": "spec_gate", "dtype": "float32",
+          "allow_tf32": torch.backends.cuda.matmul.allow_tf32,
+          "nvidia_smi": smi, "gamma": SPEC_GAMMA, "draft_a": DRAFT,
+          "runs": runs, "near_ties": near_ties,
+          "near_tie_limit": NEAR_TIE,
+          "lone_speculative_generate": lone_spec,
+          "flash_launches": launches,
+          "phase_s": time.monotonic() - t_phase})
+    assert launches == 0, launches
+    for r in runs:
+        sp = r["speculation"]
+        assert sp["enabled"] and sp["proposed_tokens"] > 0, r
+        if r["run"].startswith("self"):
+            assert sp["acceptance_rate"] >= SELF_ACCEPT_MIN, r
+    return launches
+
+
+def paged_serving(torch, fa, smi, model) -> int:
+    """paged_serving (bf16): ``run_paged_comparison`` (``PAGED_SERVING``)
+    at equal KV bytes: peak admitted concurrency both ways and its
+    ratio, TTFT speedups, the byte budget, how many rows agree between
+    the legs; then the steady-decode profile window of the paged engine
+    (``page_size=16``). Returns the flash kernel's launches."""
+    from bigdl_tpu_torch.serving import run_paged_comparison
+
+    t_phase = time.monotonic()
+    fa.launches = 0
+    res = run_paged_comparison(model, **PAGED_SERVING)
+    window = steady_decode_profile(torch, model, page_size=PAGE_SIZE)
+    launches = fa.launches
+    paged, dense = res["paged"], res["dense"]
+    vocab = FLAGSHIP["vocab_size"]
+    for req, row in zip(res["requests"], paged["rows"]):
+        assert row.shape == (len(req["prompt"]) + req["n"],), row.shape
+        assert (row[:len(req["prompt"])] == req["prompt"]).all()
+        assert ((row >= 0) & (row < vocab)).all()
+    same = sum(bool((a == b).all())
+               for a, b in zip(paged["rows"], dense["rows"]))
+    emit({"phase": "paged_serving", "dtype": "bfloat16",
+          "nvidia_smi": smi, "workload": res["workload"],
+          "admitted_concurrency_ratio": res["admitted_concurrency_ratio"],
+          "peak_admitted_concurrency": {
+              "paged": paged["peak_admitted_concurrency"],
+              "dense": dense["peak_admitted_concurrency"]},
+          "ttft_p50_speedup": res["ttft_p50_speedup"],
+          "ttft_p99_speedup": res["ttft_p99_speedup"],
+          "kv_budget": res["kv_budget"],
+          "paged": {"ttft_s": paged["ttft"], "latency_s": paged["latency"],
+                    "inter_token_s": paged["inter_token"],
+                    "tokens_per_s": paged["tokens_per_sec"],
+                    "paging": paged["paging"]},
+          "dense": {"ttft_s": dense["ttft"], "latency_s": dense["latency"],
+                    "inter_token_s": dense["inter_token"],
+                    "tokens_per_s": dense["tokens_per_sec"]},
+          "rows_equal_between_legs": same, "requests": len(paged["rows"]),
+          "steady_decode_profile": window,
+          "flash_launches": launches,
+          "phase_s": time.monotonic() - t_phase})
+    assert launches == 0, launches
+    n_req = PAGED_SERVING["n_requests"] + 1     # and the warm request
+    for leg in (paged, dense):
+        assert (leg["stats"]["admitted"], leg["stats"]["finished"]) == \
+            (n_req, n_req), leg["stats"]
+    assert window["prefill_rounds"] == 0, window
+    assert window["active_slots"] == ENGINE_SERVING["max_slots"], window
+    assert window["kernel_launches"] > 0, window
+    return launches
+
+
+def spec_serving(torch, fa, smi, model) -> int:
+    """spec_serving (bf16): ``run_speculative_comparison`` with draft (a)
+    (``SPEC_SERVING``): inter-token and TTFT speedups, the acceptance
+    rate, token parity; then the steady-decode profile window of the
+    speculative engine. Returns the flash kernel's launches."""
+    from bigdl_tpu_torch.serving import run_speculative_comparison
+
+    t_phase = time.monotonic()
+    draft = make_draft(torch, torch.bfloat16)
+    fa.launches = 0
+    res = run_speculative_comparison(model, draft=draft, **SPEC_SERVING)
+    window = steady_decode_profile(torch, model, draft=draft,
+                                   spec_gamma=SPEC_GAMMA)
+    launches = fa.launches
+    spec, nospec = res["spec"], res["nospec"]
+    vocab = FLAGSHIP["vocab_size"]
+    for req, row in zip(res["requests"], spec["rows"]):
+        assert row.shape == (len(req["prompt"]) + req["n"],), row.shape
+        assert ((row >= 0) & (row < vocab)).all()
+    same = sum(bool((a == b).all())
+               for a, b in zip(spec["rows"], nospec["rows"]))
+    emit({"phase": "spec_serving", "dtype": "bfloat16",
+          "nvidia_smi": smi, "workload": res["workload"],
+          "draft_a": DRAFT,
+          "inter_token_p50_speedup": res["inter_token_p50_speedup"],
+          "inter_token_p99_speedup": res["inter_token_p99_speedup"],
+          "ttft_p50_speedup": res["ttft_p50_speedup"],
+          "ttft_p99_speedup": res["ttft_p99_speedup"],
+          "acceptance_rate": res["acceptance_rate"],
+          "token_parity": res["token_parity"],
+          "rows_equal_between_legs": same, "requests": len(spec["rows"]),
+          "spec": {"ttft_s": spec["ttft"], "latency_s": spec["latency"],
+                   "inter_token_s": spec["inter_token"],
+                   "tokens_per_s": spec["tokens_per_sec"],
+                   "speculation": spec["speculation"]},
+          "nospec": {"ttft_s": nospec["ttft"],
+                     "latency_s": nospec["latency"],
+                     "inter_token_s": nospec["inter_token"],
+                     "tokens_per_s": nospec["tokens_per_sec"]},
+          "steady_decode_profile": window,
+          "flash_launches": launches,
+          "phase_s": time.monotonic() - t_phase})
+    assert launches == 0, launches
+    assert spec["speculation"]["proposed_tokens"] > 0, spec["speculation"]
+    assert window["decode_steps"] == window["iterations"], window
+    assert window["kernel_launches"] > 0, window
     return launches
 
 
@@ -1489,11 +1813,20 @@ def main() -> int:
     # -------------------------------- the continuous-batching engine
     # (its chunked prefill and decode use the masked dense attention, as
     # in the JAX package: no flash launch, which each phase checks)
+    model16 = TransformerLM(**FLAGSHIP, seed=0, device="cuda", dtype=bf16)
+    model16.evaluate()
+    engine_reqs = list(zip(reqs, news))
     engine_launches = (
-        engine_gate(torch, fa, smi, model32, list(zip(reqs, news)))
-        + engine_serving(torch, fa, smi)
-        + engine_prefix(torch, fa, smi, model32))
-    del model32
+        engine_gate(torch, fa, smi, model32, engine_reqs)
+        + engine_serving(torch, fa, smi, model16)
+        + engine_prefix(torch, fa, smi, model32)
+        # paged KV and speculative decoding
+        + paged_gate(torch, fa, smi, model32, engine_reqs)
+        + spec_gate(torch, fa, smi, model32, engine_reqs)
+        + paged_serving(torch, fa, smi, model16)
+        + spec_serving(torch, fa, smi, model16))
+    del model32, model16
+    _LONE.clear()
 
     # ---------------------------------------- 7. and 8.: the train path
     flash_backward_phase(torch, fa)

@@ -37,7 +37,19 @@ with ContinuousBatchingEngine(m, max_slots=2, prefill_chunk=4,
         rows.append(hs[-1].result(timeout=60))
 assert [r.shape for r in rows] == [(12,), (12,)], rows
 assert hs[1].prefix_tokens == 8, hs[1].prefix_tokens
-import bigdl_tpu_torch.serving.benchmark
+d = TransformerLM(64, 16, 2, 1, 64, num_kv_heads=1, use_rope=True,
+                  device="cpu")
+with ContinuousBatchingEngine(m, max_slots=2, prefill_chunk=4,
+                              page_size=4, draft=d, spec_gamma=2) as eng:
+    row = eng.submit(list(range(9)), 5).result(timeout=60)
+    assert eng.submit(list(range(9)) + [1], 3).result(
+        timeout=60).shape == (13,)
+assert row.shape == (14,), row.shape
+assert eng._pages.pages_in_use == 0 and eng._d_pages.pages_in_use == 0
+assert m.speculative_generate(torch.arange(6)[None], 4, draft=d).shape == \
+    (1, 10)
+from bigdl_tpu_torch.serving import (run_paged_comparison,
+                                     run_speculative_comparison)
 from bigdl_tpu_torch.models.perf import transformer_perf
 s = transformer_perf(2, 1, 1, torch.float32, log=lambda *_: None,
                      seq_len=16, vocab=64, embed_dim=32, layers=1, heads=4,
@@ -86,8 +98,9 @@ def test_no_jax_or_jax_package_import_in_the_port():
     files.append(REPO / "chip_smoke.py")
     files += sorted((REPO / "scripts").glob("torch_*.py"))
     assert len(files) > 10
-    assert {"__init__", "benchmark", "engine", "prefix_cache", "scheduler",
-            "streams"} <= {f.stem for f in files if f.parent.name == "serving"}
+    assert {"__init__", "benchmark", "engine", "paging", "prefix_cache",
+            "scheduler", "streams"} <= {f.stem for f in files
+                                        if f.parent.name == "serving"}
     found = [(str(f.relative_to(REPO)), name) for f in files
              for name in _imports(f)
              if name.split(".")[0] in ("jax", "jaxlib", "bigdl_tpu")]
@@ -119,6 +132,13 @@ def test_entry_points_default_to_the_card_and_never_fall_back():
                  lambda: run_perf("lenet5", 2, 1, 1),
                  lambda: ContinuousBatchingEngine(
                      TransformerLM(64, 32, 4, 2, 64, device="cpu"),
+                     device="cuda"),
+                 lambda: ContinuousBatchingEngine(
+                     TransformerLM(64, 32, 4, 2, 64, device="cpu"),
+                     page_size=4, device="cuda"),
+                 lambda: ContinuousBatchingEngine(
+                     TransformerLM(64, 32, 4, 2, 64, device="cpu"),
+                     draft=TransformerLM(64, 32, 4, 1, 64, device="cpu"),
                      device="cuda")):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             make()

@@ -341,16 +341,32 @@ def test_prefix_cache_disabled(lm):
 def test_engine_submit_timed_out_while_blocked(lm):
     r = np.random.RandomState(11)
     p = r.randint(0, 32, (4,))
-    with ContinuousBatchingEngine(lm, max_slots=1, prefill_chunk=4,
-                                  queue_capacity=1) as eng:
-        h_long = eng.submit(p, 24)
-        it = h_long.tokens()
-        next(it)                 # admitted: slot busy, queue empty
-        eng.submit(p, 4)         # fills the 1-deep queue
-        with pytest.raises(RequestTimedOut):
-            eng.submit(p, 4, timeout_s=0.05, queue_timeout_s=30.0)
-        np.testing.assert_array_equal(h_long.result(timeout=60),
-                                      _direct(lm, p, 24))
+    eng = ContinuousBatchingEngine(lm, max_slots=1, prefill_chunk=4,
+                                   queue_capacity=1)
+    # hold the loop at its decode step until the blocked submit has
+    # timed out: the slot stays busy and the queue full however fast the
+    # decode would have run
+    gate = threading.Event()
+    decode = eng._decode_all
+
+    def gated(active):
+        gate.wait(timeout=60)
+        return decode(active)
+
+    eng._decode_all = gated
+    try:
+        with eng:
+            h_long = eng.submit(p, 24)
+            it = h_long.tokens()
+            next(it)             # admitted: slot busy, queue empty
+            eng.submit(p, 4)     # fills the 1-deep queue
+            with pytest.raises(RequestTimedOut):
+                eng.submit(p, 4, timeout_s=0.05, queue_timeout_s=30.0)
+            gate.set()
+            np.testing.assert_array_equal(h_long.result(timeout=60),
+                                          _direct(lm, p, 24))
+    finally:
+        gate.set()
     assert eng.stats()["timed_out"] >= 1
 
 

@@ -304,23 +304,20 @@ def test_validation_and_sampled_mode(lm):
     np.testing.assert_array_equal(row, _direct(lm, p, 6))
 
 
-@pytest.mark.parametrize("option,value,step", [
-    ("page_size", 4, "paged KV"),
-    ("max_pages", 8, "paged KV"),
-    ("draft", "draft-model", "speculative decoding"),
-    ("kv_dtype", "int8", "int8 KV and weights"),
-    ("weights_dtype", "int8", "int8 KV and weights"),
-    ("prefix_host_bytes", 1 << 20, "prefix host tier"),
-    ("prefix_host_rows", 2, "prefix host tier"),
-    ("tenant_rate_limits", {"*": (1.0, 1.0)}, "rate limits"),
-    ("chaos", object(), "chaos.py"),
-    ("mesh", object(), "tensor-parallel serving"),
-    ("tp_rules", object(), "tensor-parallel serving"),
+@pytest.mark.parametrize("option,value,item,step", [
+    ("kv_dtype", "int8", 3, "int8 KV and weights"),
+    ("weights_dtype", "int8", 3, "int8 KV and weights"),
+    ("prefix_host_bytes", 1 << 20, 4, "prefix host tier"),
+    ("prefix_host_rows", 2, 4, "prefix host tier"),
+    ("tenant_rate_limits", {"*": (1.0, 1.0)}, 5, "rate limits"),
+    ("chaos", object(), 6, "chaos.py"),
+    ("mesh", object(), 10, "tensor-parallel serving"),
+    ("tp_rules", object(), 10, "tensor-parallel serving"),
 ])
 def test_later_options_raise_naming_their_roadmap_item(lm, option, value,
-                                                       step):
+                                                       item, step):
     with pytest.raises(NotImplementedError,
-                       match=f"ROADMAP.md, Queue 1 item 3: .*{step}"):
+                       match=f"ROADMAP.md, Queue 1 item {item}: .*{step}"):
         ContinuousBatchingEngine(lm, **{option: value})
 
 
@@ -329,7 +326,7 @@ def test_high_priority_raises_and_engine_keeps_serving(lm):
     with ContinuousBatchingEngine(lm, max_slots=1,
                                   prefill_chunk=4) as eng:
         with pytest.raises(NotImplementedError,
-                           match="ROADMAP.md, Queue 1 item 3: QoS"):
+                           match="ROADMAP.md, Queue 1 item 5: QoS"):
             eng.submit(p, 2, priority="high")
         np.testing.assert_array_equal(eng.submit(p, 2).result(60),
                                       _direct(lm, p, 2))
