@@ -1,9 +1,10 @@
 """Transformer language model (port of ``bigdl_tpu/models/transformer.py``).
 
 Decoder-only, causal, pre-norm, tanh-GELU MLP, learned positions or
-RoPE, tied output head (logits = x @ tok_embed.T; the JAX package's
-untied head, non-causal option, MoE blocks and sequence parallelism are
-not ported yet). Training runs through the full-sequence ``forward``
+RoPE, a tied output head (logits = x @ tok_embed.T) or, with
+``tie_embeddings=False``, a bias-free ``head`` Linear (the JAX package's
+non-causal option, MoE blocks and sequence parallelism are not ported
+yet). Training runs through the full-sequence ``forward``
 with ``dropout`` and ``remat`` (each block under
 ``torch.utils.checkpoint``, its dropout masks replayed in the
 recompute), differentiable through the flash kernel; ``param_count`` /
@@ -40,6 +41,7 @@ from bigdl_tpu_torch.device import DEFAULT_DEVICE, resolve_device
 from bigdl_tpu_torch.nn import init as bt_init
 from bigdl_tpu_torch.nn.attention import LayerNorm, TransformerBlock
 from bigdl_tpu_torch.nn.dropout import Dropout
+from bigdl_tpu_torch.nn.linear import Linear
 from bigdl_tpu_torch.nn.module import Module
 from bigdl_tpu_torch.utils.random import RandomGenerator
 
@@ -177,7 +179,8 @@ class TransformerLM(Module):
                  dropout: float = 0.0, use_flash: bool = False,
                  remat: bool = False,
                  num_kv_heads: Optional[int] = None,
-                 use_rope: bool = False, *, seed: int = 1,
+                 use_rope: bool = False, tie_embeddings: bool = True, *,
+                 seed: int = 1,
                  device=DEFAULT_DEVICE, dtype=torch.float32):
         super().__init__()
         dev = resolve_device(device)
@@ -188,6 +191,7 @@ class TransformerLM(Module):
         self.max_len = max_len
         self.num_layers = num_layers
         self.remat = remat
+        self.tie_embeddings = tie_embeddings
         normal = bt_init.RandomNormal(0.0, 0.02)
         self.new_param("tok_embed", normal((vocab_size, embed_dim), rng),
                        dev, dtype)
@@ -200,6 +204,9 @@ class TransformerLM(Module):
                 num_kv_heads=num_kv_heads, rotary=use_rope, dropout=dropout,
                 rng=rng, device=dev, dtype=dtype))
         self.ln_f = LayerNorm(embed_dim, device=dev, dtype=dtype)
+        if not tie_embeddings:
+            self.head = Linear(embed_dim, vocab_size, with_bias=False,
+                               rng=rng, device=dev, dtype=dtype)
 
     @property
     def device(self) -> torch.device:
@@ -215,7 +222,10 @@ class TransformerLM(Module):
         return torch.as_tensor(np.asarray(ids, np.int64), device=self.device)
 
     def _head(self, x):
-        return F.linear(x, self.tok_embed)     # tied: x @ tok_embed.T
+        if self.tie_embeddings:
+            return F.linear(x, self.tok_embed)     # x @ tok_embed.T
+        return self.head(x.reshape(-1, x.shape[-1])).reshape(
+            *x.shape[:-1], -1)
 
     def forward(self, input):
         ids = self._ids(input)
@@ -235,10 +245,12 @@ class TransformerLM(Module):
 
     def matmul_param_count(self) -> int:
         """Parameters that take part in per-token matmuls: all but the
-        learned position table (an add), with the token table counted
-        once as the tied output projection (its lookup is a gather)."""
+        learned position table (an add) and the token table's lookup (a
+        gather); the tied head counts the token table once as the output
+        projection."""
         pos = 0 if self.use_rope else self.max_len * self.embed_dim
-        return self.param_count() - pos
+        emb = 0 if self.tie_embeddings else self.vocab_size * self.embed_dim
+        return self.param_count() - pos - emb
 
     def analytic_flops(self, tokens: int, context: int) -> float:
         """Analytic forward FLOPs for ``tokens`` positions attending over
@@ -251,10 +263,16 @@ class TransformerLM(Module):
         return float(per_tok * max(0, int(tokens)))
 
     # ------------------------------------------------- KV-cache decoding
-    def init_cache(self, batch: int, max_len: int):
-        """Per-block (k, v) caches, each (B, H_kv, max_len, D), in the
-        parameters' dtype (bf16 serving -> bf16 KV cache)."""
-        return [blk.attn.init_cache(batch, max_len) for blk in self.blocks()]
+    def init_cache(self, batch: int, max_len: int, dtype=None,
+                   kv_dtype: Optional[str] = None):
+        """Per-block (k, v) caches, each (B, H_kv, max_len, D), in
+        ``dtype`` (default: the token table's, so bf16 serving keeps a
+        bf16 cache, also in the int8 clone); ``kv_dtype="int8"`` gives
+        each block the quantized ``(k_q, v_q, k_scale, v_scale)`` form,
+        which every prefill, decode and verify entry point takes."""
+        dtype = dtype or self.tok_embed.dtype
+        return [blk.attn.init_cache(batch, max_len, dtype, kv_dtype)
+                for blk in self.blocks()]
 
     def prefill(self, ids, caches, pos0: int = 0):
         """One causal pass over ids (B, T0) writing every block's cache at
@@ -335,12 +353,15 @@ class TransformerLM(Module):
         return self._chunk_logits(x, all_logits, gather_last), caches
 
     # ------------------------------------------------- paged KV decoding
-    def init_page_pool(self, max_pages: int, page_size: int):
+    def init_page_pool(self, max_pages: int, page_size: int, dtype=None,
+                       kv_dtype: Optional[str] = None):
         """Per-block page-pool tensors for paged serving: the
-        ``init_cache`` form with the leading dim indexing pool pages. One
+        ``init_cache`` forms with the leading dim indexing pool pages. One
         block table indexes every layer (page ``p`` names slice ``p`` of
         each block's tensors), so a request's pages are one id list."""
-        return [blk.attn.init_page_pool(max_pages, page_size)
+        dtype = dtype or self.tok_embed.dtype
+        return [blk.attn.init_page_pool(max_pages, page_size, dtype,
+                                        kv_dtype)
                 for blk in self.blocks()]
 
     def prefill_chunk_at_paged(self, ids, pools, tables, pos0, last_idx):

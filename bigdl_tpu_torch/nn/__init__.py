@@ -21,13 +21,15 @@ from bigdl_tpu_torch.nn.normalization import (
     BatchNormalization, SpatialBatchNormalization,
 )
 from bigdl_tpu_torch.nn.pooling import SpatialAveragePooling, SpatialMaxPooling
+from bigdl_tpu_torch.nn.quantized import Quantizer
 from bigdl_tpu_torch.nn.shape_ops import Reshape, View
 from bigdl_tpu_torch.nn.table_ops import CAddTable
 
 __all__ = ["BatchNormalization", "CAddTable", "ClassNLLCriterion", "Concat",
            "ConcatTable", "Container", "Criterion", "CrossEntropyCriterion",
            "Dropout", "Identity", "LayerNorm", "Linear", "LogSoftMax",
-           "Module", "MulConstant", "MultiHeadAttention", "ReLU", "Reshape",
+           "Module", "MulConstant", "MultiHeadAttention", "Quantizer",
+           "ReLU", "Reshape",
            "Sequential", "SpatialAveragePooling", "SpatialBatchNormalization",
            "SpatialConvolution", "SpatialMaxPooling", "Tanh",
            "TransformerBlock", "View", "bind_generator",

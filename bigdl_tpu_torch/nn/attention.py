@@ -20,6 +20,12 @@ Kept from the JAX package, where PyTorch's habits differ:
 The KV caches are ``(k, v)`` tuples of (B, H_kv, max_len, D) tensors,
 updated IN PLACE (the JAX package returns new buffers); the cache entry
 points still return the cache so callers read the same either way.
+``init_cache(kv_dtype="int8")`` gives the quantized form ``(k_q, v_q,
+k_scale, v_scale)``: int8 codes of the float shape and f32 scales of
+shape (..., T, 1), one per (row, head, position). Every entry point
+quantizes the block it writes (:func:`quantize_kv`) and attends the
+dequantized STORED rows, cast to the block's dtype, so a cold pass and a
+later read of the same rows see the same numbers.
 
 ``dropout > 0`` adds the JAX package's dropout layers to the
 full-sequence ``forward`` (after the attention's output projection and
@@ -29,12 +35,14 @@ Paged KV (``*_paged``): a layer's KV lives in a page pool of
 (max_pages, H_kv, page_size, D) tensors, and a (B, table_len) block
 table names each row's pages; every paged step scatters its new K/V
 through the table in place and attends the gathered row view under the
-same position mask as the dense ragged paths. Sequence parallelism
-(ring attention), MoE and the int8 cache forms are not ported yet.
+same position mask as the dense ragged paths; the int8 pool's scales
+share their codes' page and offset. Sequence parallelism (ring
+attention) and MoE are not ported yet.
 """
 
 from __future__ import annotations
 
+import itertools
 import math
 from typing import Optional
 
@@ -45,6 +53,7 @@ from bigdl_tpu_torch.device import DEFAULT_DEVICE, resolve_device
 from bigdl_tpu_torch.nn.dropout import Dropout
 from bigdl_tpu_torch.nn.linear import Linear
 from bigdl_tpu_torch.nn.module import Module
+from bigdl_tpu_torch.nn.quantized import exact_div
 from bigdl_tpu_torch.utils.random import RandomGenerator
 
 
@@ -119,6 +128,47 @@ def _is_ragged(pos) -> bool:
     return torch.is_tensor(pos) and pos.dim() == 1
 
 
+def quantize_kv(x):
+    """Symmetric int8 per (row, head, position) of a KV block ``x``
+    (..., T, D): scale = max|x| over D / 127 (1/127 where the slice is
+    all zero, so zeros come back as zeros), q = round(x / scale), half
+    to even, clipped to [-127, 127]. Returns ``(q int8, scale f32)``
+    with scale (..., T, 1). Deterministic: the same floats give the same
+    bytes, which keeps prefix reuse and a spill to host exact."""
+    xf = x.float()
+    amax = xf.abs().amax(-1, keepdim=True)
+    scale = exact_div(torch.where(amax > 0, amax, 1.0), 127.0)
+    q = torch.clamp(torch.round(xf / scale), -127, 127).to(torch.int8)
+    return q, scale
+
+
+def dequantize_kv(q, scale, dtype=torch.float32):
+    """Inverse of :func:`quantize_kv`: codes times their scales in f32,
+    cast to ``dtype``."""
+    return (q.float() * scale).to(dtype)
+
+
+def _write_kv(cache, k_t, v_t, write):
+    """Write one K/V block into ``cache`` IN PLACE through ``write(buf,
+    block)`` and return ``(k_read, v_read)``, what attention attends: the
+    float 2-tuple form writes the block in the cache's dtype and reads
+    the buffers; the int8 4-tuple ``(k_q, v_q, k_scale, v_scale)``
+    quantizes the block, writes codes and scales through the same index
+    math, and reads the dequantized buffers in the block's dtype."""
+    if len(cache) == 2:
+        k_cache, v_cache = cache
+        write(k_cache, k_t.to(k_cache.dtype))
+        write(v_cache, v_t.to(v_cache.dtype))
+        return k_cache, v_cache
+    k_q, v_q, k_s, v_s = cache
+    kq, ks = quantize_kv(k_t)
+    vq, vs = quantize_kv(v_t)
+    for buf, blk in ((k_q, kq), (v_q, vq), (k_s, ks), (v_s, vs)):
+        write(buf, blk)
+    return (dequantize_kv(k_q, k_s, k_t.dtype),
+            dequantize_kv(v_q, v_s, v_t.dtype))
+
+
 def _gather_pages(leaf, tables):
     """One logical KV row per batch entry from a page-pool tensor:
     ``leaf`` (max_pages, H, page_size, D), ``tables`` (B, table_len)
@@ -142,26 +192,58 @@ def _write_kv_paged(pool, k_t, v_t, tables, positions):
     page_size]`` at offset ``positions[b, t] % page_size``. Every
     ``positions // page_size`` must index the table (CUDA asserts on an
     out-of-range index where JAX clamps). Idle lanes carry all-scratch
-    tables and may collide on page 0: the order of duplicate writes is
-    undefined, which is harmless only there, since nothing gathered
-    from the scratch page survives the position mask. Returns
-    ``(pool, k_read, v_read)``."""
-    if len(pool) != 2:
-        raise NotImplementedError(
-            "the int8 page pool (k_q, v_q, k_scale, v_scale) belongs to a "
-            "later step of the port (ROADMAP.md, Queue 1 item 3: int8 KV "
-            "and weights)")
+    tables and may collide on page 0, and so may padded chunk tails past
+    a reservation and one lane's positions wrapping onto the page. On
+    CUDA the order of duplicate writes is undefined: a chunk (T > 1)
+    therefore gives every duplicate the value of its LAST writer in
+    (row, position) order, the CPU's sequential result, so what an idle
+    lane reads back is the same on every device and run. Nothing
+    gathered from the scratch page survives a live row's position mask,
+    but an idle lane's output enters the batch's int8 activation scale
+    under int8 weights. A decode step (T == 1) needs no such care: its
+    only colliding writers are idle lanes, which write identical
+    values. The int8 pool
+    ``(k_q, v_q, k_scale, v_scale)`` writes codes and scales through
+    the same (page, offset) and reads the dequantized gathered view.
+    Returns ``(pool, k_read, v_read)``."""
     if positions.dim() == 1:
         positions = positions[:, None]          # decode step: T == 1
-    k_buf, v_buf = pool
-    ps = k_buf.shape[2]
+    ps = pool[0].shape[2]
     pg = torch.gather(tables, 1, positions // ps)           # (B, T)
     off = positions % ps
-    # advanced indices at dims 0 and 2 put (B, T) in front: the value
-    # layout is (B, T, H, D)
-    k_buf[pg, :, off] = k_t.transpose(1, 2).to(k_buf.dtype)
-    v_buf[pg, :, off] = v_t.transpose(1, 2).to(v_buf.dtype)
-    return pool, _gather_pages(k_buf, tables), _gather_pages(v_buf, tables)
+    src = None
+    if positions.shape[1] > 1:
+        flat = (pg * ps + off).reshape(-1)
+        order = torch.arange(flat.numel(), device=flat.device)
+        last = torch.full((pool[0].shape[0] * ps,), -1, dtype=order.dtype,
+                          device=flat.device)
+        src = last.scatter_reduce_(0, flat, order, "amax")[flat]
+
+    def write(buf, blk):
+        # advanced indices at dims 0 and 2 put (B, T) in front: the
+        # value layout is (B, T, H, D)
+        vals = blk.transpose(1, 2)
+        if src is not None:
+            vals = vals.reshape(-1, *vals.shape[2:])[src].reshape(
+                vals.shape)
+        buf[pg, :, off] = vals.to(buf.dtype)
+
+    if len(pool) == 2:
+        k_buf, v_buf = pool
+        write(k_buf, k_t)
+        write(v_buf, v_t)
+        return (pool, _gather_pages(k_buf, tables),
+                _gather_pages(v_buf, tables))
+    k_q, v_q, k_s, v_s = pool
+    kq, ks = quantize_kv(k_t)
+    vq, vs = quantize_kv(v_t)
+    for buf, blk in ((k_q, kq), (v_q, vq), (k_s, ks), (v_s, vs)):
+        write(buf, blk)
+    return (pool,
+            dequantize_kv(_gather_pages(k_q, tables),
+                          _gather_pages(k_s, tables), k_t.dtype),
+            dequantize_kv(_gather_pages(v_q, tables),
+                          _gather_pages(v_s, tables), v_t.dtype))
 
 
 class MultiHeadAttention(Module):
@@ -228,19 +310,31 @@ class MultiHeadAttention(Module):
         return rotary_embedding(x, positions, self.rotary_base) \
             if self.rotary else x
 
-    def init_cache(self, batch: int, max_len: int):
-        """Zero KV cache (k, v), each (B, H_kv, max_len, D), on this
-        layer's device in its parameters' dtype."""
-        w = self.qkv.weight
+    def init_cache(self, batch: int, max_len: int, dtype=torch.float32,
+                   kv_dtype: Optional[str] = None):
+        """Zero KV cache (k, v), each (B, H_kv, max_len, D), in ``dtype``
+        on this layer's device. ``kv_dtype="int8"`` gives the quantized
+        form ``(k_q, v_q, k_scale, v_scale)``: int8 codes of that shape
+        and f32 scales (B, H_kv, max_len, 1)."""
+        dev = next(itertools.chain(self.parameters(), self.buffers())).device
         shape = (batch, self.num_kv_heads, max_len, self.head_dim)
-        return (torch.zeros(shape, dtype=w.dtype, device=w.device),
-                torch.zeros(shape, dtype=w.dtype, device=w.device))
+        if kv_dtype is None:
+            return (torch.zeros(shape, dtype=dtype, device=dev),
+                    torch.zeros(shape, dtype=dtype, device=dev))
+        if str(kv_dtype) != "int8":
+            raise ValueError(
+                f"kv_dtype must be None (full precision) or 'int8', "
+                f"got {kv_dtype!r}")
+        sshape = shape[:-1] + (1,)
+        return (torch.zeros(shape, dtype=torch.int8, device=dev),
+                torch.zeros(shape, dtype=torch.int8, device=dev),
+                torch.zeros(sshape, dtype=torch.float32, device=dev),
+                torch.zeros(sshape, dtype=torch.float32, device=dev))
 
-    def _grouped_attention(self, q, cache, live):
-        """q (B, H, T, D) against the un-expanded cache under the
+    def _grouped_attention(self, q, k_cache, v_cache, live):
+        """q (B, H, T, D) against the un-expanded (read) cache under the
         (B, T, L) or (T, L) mask ``live``; scores in f32, weights cast to
         the cache dtype. Returns (B, T, C)."""
-        k_cache, v_cache = cache
         b, _, t, d = q.shape
         h_kv = self.num_kv_heads
         qg = q.reshape(b, h_kv, self.num_heads // h_kv, t, d)
@@ -261,25 +355,28 @@ class MultiHeadAttention(Module):
         b = x_t.shape[0]
         qkv = self.qkv(x_t.reshape(b, self.embed_dim)).reshape(b, 1, -1)
         q, k_t, v_t = self._split_kv_step(qkv)      # q (B, H, 1, D)
-        k_cache, v_cache = cache
-        length = k_cache.shape[2]
-        ar = torch.arange(length, device=x_t.device)
+        ar = torch.arange(cache[0].shape[2], device=x_t.device)
         if _is_ragged(pos):
             if self.rotary:
                 q = rotary_embedding_rowwise(q, pos, self.rotary_base)
                 k_t = rotary_embedding_rowwise(k_t, pos, self.rotary_base)
             rows = torch.arange(b, device=x_t.device)
-            k_cache[rows, :, pos] = k_t[:, :, 0].to(k_cache.dtype)
-            v_cache[rows, :, pos] = v_t[:, :, 0].to(v_cache.dtype)
+
+            def write(buf, blk):
+                buf[rows, :, pos] = blk[:, :, 0]
+
             live = (ar[None] <= pos[:, None])[:, None]          # (B, 1, L)
         else:
             pos = int(pos)
             positions = torch.tensor([pos], device=x_t.device)
             q, k_t = self._rope(q, positions), self._rope(k_t, positions)
-            k_cache[:, :, pos:pos + 1] = k_t.to(k_cache.dtype)
-            v_cache[:, :, pos:pos + 1] = v_t.to(v_cache.dtype)
+
+            def write(buf, blk):
+                buf[:, :, pos:pos + 1] = blk
+
             live = (ar <= pos)[None]                            # (1, L)
-        o = self._grouped_attention(q, cache, live).to(x_t.dtype)
+        k_read, v_read = _write_kv(cache, k_t, v_t, write)
+        o = self._grouped_attention(q, k_read, v_read, live).to(x_t.dtype)
         return self.out_proj(o.reshape(b, self.embed_dim)).reshape(b, 1, -1), \
             cache
 
@@ -296,18 +393,22 @@ class MultiHeadAttention(Module):
         if self.rotary:
             positions = pos0 + torch.arange(t, device=x.device)
             q, k = self._rope(q, positions), self._rope(k, positions)
-        k_cache, v_cache = cache
-        if pos0 + t > k_cache.shape[2]:
+        if pos0 + t > cache[0].shape[2]:
             raise ValueError(
                 f"prefill of {t} tokens at pos0={pos0} overflows the "
-                f"{k_cache.shape[2]}-long KV cache")
-        k_cache[:, :, pos0:pos0 + t] = k.to(k_cache.dtype)
-        v_cache[:, :, pos0:pos0 + t] = v.to(v_cache.dtype)
-        if pos0:
+                f"{cache[0].shape[2]}-long KV cache")
+
+        def write(buf, blk):
+            buf[:, :, pos0:pos0 + t] = blk
+
+        k_read, v_read = _write_kv(cache, k, v, write)
+        if pos0 or len(cache) == 4:
             # the causal mask's offset tk - tq = pos0 lets query i see
-            # exactly keys [0, pos0 + i]
-            k = k_cache[:, :, :pos0 + t].to(q.dtype)
-            v = v_cache[:, :, :pos0 + t].to(q.dtype)
+            # exactly keys [0, pos0 + i]. An int8 cache takes this branch
+            # at pos0 == 0 too: attending the stored rows keeps the cold
+            # pass equal to every later read of them
+            k = k_read[:, :, :pos0 + t].to(q.dtype)
+            v = v_read[:, :, :pos0 + t].to(q.dtype)
         kx, vx = self._expand_kv(k, v)
         o = dot_product_attention(q, kx, vx, causal=True)
         o = o.transpose(1, 2).reshape(b * t, self.embed_dim)
@@ -322,7 +423,6 @@ class MultiHeadAttention(Module):
         b, t, _ = x.shape
         qkv = self.qkv(x.reshape(b * t, self.embed_dim)).reshape(b, t, -1)
         q, k, v = self._split_kv_step(qkv)
-        k_cache, v_cache = cache
         ar_t = torch.arange(t, device=x.device)
         if _is_ragged(pos0):
             positions = pos0[:, None] + ar_t[None]                # (B, T)
@@ -330,26 +430,30 @@ class MultiHeadAttention(Module):
                 q = rotary_embedding_rowwise(q, positions, self.rotary_base)
                 k = rotary_embedding_rowwise(k, positions, self.rotary_base)
             rows = torch.arange(b, device=x.device)[:, None]
-            # advanced indices at dims 0 and 2 put (B, T) in front
-            k_cache[rows, :, positions] = k.transpose(1, 2).to(k_cache.dtype)
-            v_cache[rows, :, positions] = v.transpose(1, 2).to(v_cache.dtype)
+
+            def write(buf, blk):
+                # advanced indices at dims 0 and 2 put (B, T) in front
+                buf[rows, :, positions] = blk.transpose(1, 2)
         else:
             pos0 = int(pos0)
             positions = pos0 + ar_t                               # (T,)
             q, k = self._rope(q, positions), self._rope(k, positions)
-            k_cache[:, :, pos0:pos0 + t] = k.to(k_cache.dtype)
-            v_cache[:, :, pos0:pos0 + t] = v.to(v_cache.dtype)
-        ar = torch.arange(k_cache.shape[2], device=x.device)
+
+            def write(buf, blk):
+                buf[:, :, pos0:pos0 + t] = blk
+        k_read, v_read = _write_kv(cache, k, v, write)
+        ar = torch.arange(k_read.shape[2], device=x.device)
         live = ar <= positions[..., None]               # (B, T, L) / (T, L)
-        o = self._grouped_attention(q, cache, live)
+        o = self._grouped_attention(q, k_read, v_read, live)
         o = self.out_proj(o.reshape(b * t, self.embed_dim).to(x.dtype))
         return o.reshape(b, t, -1), cache
 
-    def init_page_pool(self, max_pages: int, page_size: int):
+    def init_page_pool(self, max_pages: int, page_size: int,
+                       dtype=torch.float32, kv_dtype: Optional[str] = None):
         """Zero page-pool tensors for paged serving: the ``init_cache``
-        form with the leading dim indexing pages, (max_pages, H_kv,
-        page_size, D) each."""
-        return self.init_cache(max_pages, page_size)
+        forms with the leading dim indexing pages, (max_pages, H_kv,
+        page_size, D) each (and the int8 form's scales)."""
+        return self.init_cache(max_pages, page_size, dtype, kv_dtype)
 
     @torch.no_grad()
     def forward_step_paged(self, x_t, pool, tables, pos):
@@ -368,7 +472,7 @@ class MultiHeadAttention(Module):
         pool, k_read, v_read = _write_kv_paged(pool, k_t, v_t, tables, pos)
         ar = torch.arange(k_read.shape[2], device=x_t.device)
         live = (ar[None] <= pos[:, None])[:, None]              # (B, 1, L)
-        o = self._grouped_attention(q, (k_read, v_read), live).to(x_t.dtype)
+        o = self._grouped_attention(q, k_read, v_read, live).to(x_t.dtype)
         return self.out_proj(o.reshape(b, self.embed_dim)).reshape(b, 1, -1), \
             pool
 
@@ -391,7 +495,7 @@ class MultiHeadAttention(Module):
                                                positions)
         ar = torch.arange(k_read.shape[2], device=x.device)
         live = ar <= positions[..., None]                       # (B, T, L)
-        o = self._grouped_attention(q, (k_read, v_read), live)
+        o = self._grouped_attention(q, k_read, v_read, live)
         o = self.out_proj(o.reshape(b * t, self.embed_dim).to(x.dtype))
         return o.reshape(b, t, -1), pool
 

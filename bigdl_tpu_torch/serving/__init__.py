@@ -1,13 +1,17 @@
 """bigdl_tpu_torch.serving: continuous-batching LM inference (port of
-``bigdl_tpu/serving``: dense slots, paged KV, speculative decoding).
+``bigdl_tpu/serving``: dense slots, paged KV, speculative decoding,
+int8 KV and weights, the prefix host tier).
 
 - ``ContinuousBatchingEngine`` (``engine``): the loop thread, the pooled
   ``(max_slots, ...)`` KV cache or (``page_size=``) the page pool,
   mid-flight chunked-prefill admission (``prefill_rows`` wide through
-  one ragged call a round), per-token slot eviction and reuse, and
-  (``draft=``) draft-propose / target-verify decoding;
+  one ragged call a round), per-token slot eviction and reuse,
+  (``draft=``) draft-propose / target-verify decoding, (``kv_dtype=`` /
+  ``weights_dtype="int8"``) int8 KV pools and the int8 weight clone, and
+  (``prefix_host_bytes=``) the prefix cache's host tier;
 - ``PrefixCache`` (``prefix_cache``): the host-side radix trie over token
-  prefixes mapping to retained KV pool rows;
+  prefixes mapping to retained KV pool rows, with a host tier that
+  demoted rows spill to;
 - ``PagePool`` / ``BlockTable`` / ``PagedPrefixIndex`` (``paging``): the
   refcounted page allocator, one request's page list, and the prefix
   index with shared pages as its currency;
@@ -21,10 +25,13 @@
   blocking ``result()``; greedy output is token-identical to a lone
   ``model.generate``;
 - ``run_poisson_comparison`` / ``run_shared_prefix_comparison`` /
-  ``run_speculative_comparison`` / ``run_paged_comparison``
-  (``benchmark``): the engine against ``GenerationService`` under
-  Poisson arrivals, the prefix cache on against off, a draft against
-  none, and paged against dense KV at equal bytes.
+  ``run_speculative_comparison`` / ``run_paged_comparison`` /
+  ``run_quantized_comparison`` / ``run_working_set_sweep`` and
+  ``quantized_quality_report`` (``benchmark``): the engine against
+  ``GenerationService`` under Poisson arrivals, the prefix cache on
+  against off, a draft against none, paged against dense KV at equal
+  bytes, int8 against full precision, the host tier against device-only
+  past the pool's rows, and the int8 path's logit drift.
 
 Quick start::
 
@@ -38,9 +45,10 @@ Quick start::
 """
 
 from bigdl_tpu_torch.serving.benchmark import (
-    mixed_length_workload, poisson_workload, repeated_text_workload,
-    run_paged_comparison, run_poisson_comparison,
-    run_shared_prefix_comparison, run_speculative_comparison,
+    mixed_length_workload, poisson_workload, quantized_quality_report,
+    repeated_text_workload, run_paged_comparison, run_poisson_comparison,
+    run_quantized_comparison, run_shared_prefix_comparison,
+    run_speculative_comparison, run_working_set_sweep,
     shared_prefix_workload,
 )
 from bigdl_tpu_torch.serving.engine import ContinuousBatchingEngine
@@ -70,4 +78,6 @@ __all__ = [
     "shared_prefix_workload", "run_shared_prefix_comparison",
     "repeated_text_workload", "run_speculative_comparison",
     "mixed_length_workload", "run_paged_comparison",
+    "quantized_quality_report", "run_quantized_comparison",
+    "run_working_set_sweep",
 ]

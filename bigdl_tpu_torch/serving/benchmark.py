@@ -1,6 +1,6 @@
 """Poisson-arrival serving comparisons (port of the engine-against-
-``GenerationService``, shared-prefix, speculative and paged parts of
-``bigdl_tpu/serving/benchmark.py``).
+``GenerationService``, shared-prefix, speculative, paged, quantized and
+working-set parts of ``bigdl_tpu/serving/benchmark.py``).
 
 :func:`run_poisson_comparison` replays ONE sampled open-loop workload
 (exponential inter-arrival gaps, mixed prompt and decode lengths)
@@ -17,10 +17,22 @@ inter-token and TTFT speedups, the acceptance rate and token parity.
 the paged engine and the dense engine at an equal KV byte budget: the
 peak admitted concurrency both ways, the TTFT speedups, the pool block
 and token parity.
+:func:`quantized_quality_report` teacher-forces the int8 path (int8 KV,
+optionally the int8 weight clone) down the float model's greedy
+trajectory: logit divergence and the greedy prefix agreement.
+:func:`run_quantized_comparison` replays a repeated-text workload through
+the int8 engine and the float engine (plus int8-KV-only and the two
+speculative legs under the int8 draft): percentiles both ways, the row
+bytes both ways, the quality report, the acceptance delta and token
+parity within each numerics regime. :func:`run_working_set_sweep` grows
+a round-robin template working set past the prefix pool's rows and
+replays it through a host-tiered, a device-only and a cache-off engine:
+hit rates, TTFT, demotions and promotions, token parity.
 The workload generators draw from ``numpy.random.RandomState(seed)`` in
 the JAX package's order, so a seed gives the same arrays in both
-packages. The usage, alert and incident blocks of the JAX rows wait for
-the observability slice.
+packages. The usage, alert and incident blocks of the JAX rows, the
+compile gauges and the cost model's memory-bandwidth figures wait for
+the observability slice (ROADMAP.md, Queue 1 item 11).
 """
 
 from __future__ import annotations
@@ -30,6 +42,9 @@ import time
 from typing import List, Optional
 
 import numpy as np
+import torch
+
+from bigdl_tpu_torch.nn.quantized import Quantizer
 
 
 def poisson_workload(n_requests: int, rate_hz: float, vocab: int,
@@ -425,14 +440,11 @@ def run_speculative_comparison(model, draft=None, n_requests: int = 24,
     the inter-token and TTFT p50/p99 speedups, and whether the two paths
     produced the same rows (``token_parity``: under greedy decoding a
     draft changes how many target calls a row costs, never its tokens;
-    each leg's rows are kept under ``rows``, by request index). The JAX
-    package's default draft, an int8 clone of ``model``, waits for the
-    int8 step: pass a draft."""
+    each leg's rows are kept under ``rows``, by request index). The
+    default draft is the int8 clone of ``model``."""
     if draft is None:
-        raise NotImplementedError(
-            "the default draft (an int8 clone of the model through "
-            "Quantizer) belongs to a later step of the port (ROADMAP.md, "
-            "Queue 1 item 3: int8 KV and weights): pass draft=")
+        draft = Quantizer.quantize(model)
+        draft.evaluate()
     log = log or (lambda *a, **k: None)
     vocab = model.vocab_size
     window = (model.max_len // prefill_chunk) * prefill_chunk
@@ -559,3 +571,321 @@ def run_paged_comparison(model, n_requests: int = 32,
                      "page_size": page_size,
                      "prefill_rows": prefill_rows},
         "requests": wl}
+
+
+def quantized_quality_report(model, prompts=None, horizon: int = 16,
+                             kv_dtype: str = "int8",
+                             weights_dtype: Optional[str] = "int8",
+                             n_prompts: int = 6, prompt_len: int = 8,
+                             seed: int = 0) -> dict:
+    """The numerics gate of quantized serving: roll the FLOAT model
+    greedily for ``horizon`` tokens a prompt, then (a) teacher-force the
+    quantized path (the int8 KV cache, and the int8 ``Quantizer`` clone
+    when ``weights_dtype="int8"``) down the same trajectory and measure
+    the per-token logit divergence, and (b) let the quantized path run
+    free and measure how long its greedy output agrees with the float
+    run. Deterministic for a (model, prompts, horizon): the same floats
+    quantize to the same bytes.
+
+    Returns ``logit_div_max`` / ``logit_div_mean`` (absolute),
+    ``logit_div_rel`` (the max divergence over the float run's largest
+    |logit|) and ``greedy_match_fraction`` (mean common-prefix length
+    over the horizon)."""
+    model.evaluate()
+    if weights_dtype is not None and str(weights_dtype) == "int8":
+        qmodel = Quantizer.quantize(model)
+    else:
+        qmodel = model
+    qmodel.evaluate()
+    vocab = model.vocab_size
+    window = model.max_len
+    horizon = max(2, min(horizon, window - prompt_len - 1))
+    if prompts is None:
+        r = np.random.RandomState(seed)
+        prompts = [r.randint(0, vocab, (prompt_len,)).astype(np.int32)
+                   for _ in range(n_prompts)]
+
+    def greedy_roll(m, ids, kv, forced=None):
+        """Greedy rollout (teacher-forced when ``forced`` lists the
+        tokens to feed): (tokens, per-step f32 logits)."""
+        c = m.init_cache(1, window, kv_dtype=kv)
+        lg, c = m.prefill(ids, c)
+        logits = [lg.float().reshape(-1).cpu().numpy()]
+        toks = [int(np.argmax(logits[-1]))]
+        pos = ids.shape[1]
+        for i in range(horizon - 1):
+            nxt = forced[i] if forced is not None else toks[-1]
+            lg, c = m.decode_step(torch.tensor([nxt], device=m.device),
+                                  pos, c)
+            logits.append(lg.float().reshape(-1).cpu().numpy())
+            toks.append(int(np.argmax(logits[-1])))
+            pos += 1
+        return toks, logits
+
+    div_max, fp_scale = 0.0, 0.0
+    div_means, match = [], []
+    with torch.inference_mode():
+        for p in prompts:
+            ids = torch.as_tensor(np.asarray(p, np.int64),
+                                  device=model.device)[None]
+            fp_toks, fp_logits = greedy_roll(model, ids, None)
+            fp_scale = max(fp_scale, max(float(np.max(np.abs(lg)))
+                                         for lg in fp_logits))
+            _, q_logits = greedy_roll(qmodel, ids, kv_dtype,
+                                      forced=fp_toks)
+            d = [float(np.max(np.abs(a - b)))
+                 for a, b in zip(fp_logits, q_logits)]
+            div_max = max(div_max, max(d))
+            div_means.append(float(np.mean(d)))
+            q_toks, _ = greedy_roll(qmodel, ids, kv_dtype)
+            k = 0
+            for a, b in zip(fp_toks, q_toks):
+                if a != b:
+                    break
+                k += 1
+            match.append(k / len(fp_toks))
+    return {
+        "kv_dtype": kv_dtype,
+        "weights_dtype": (weights_dtype or "fp"),
+        "prompts": len(prompts), "horizon": horizon,
+        "vocab": vocab,
+        "logit_div_max": round(div_max, 6),
+        "logit_div_mean": round(float(np.mean(div_means)), 6),
+        "logit_div_rel": (round(div_max / fp_scale, 6)
+                          if fp_scale else 0.0),
+        "greedy_match_fraction": round(float(np.mean(match)), 4),
+    }
+
+
+def run_quantized_comparison(model, n_requests: int = 24,
+                             rate_hz: float = 30.0,
+                             max_slots: int = 4,
+                             prefill_chunk: int = 8,
+                             prefill_rows: int = 2,
+                             gamma: int = 4,
+                             eos_id: Optional[int] = None,
+                             seed: int = 0, registry=None,
+                             log=None) -> dict:
+    """Replay ONE repeated-text Poisson workload through the engine with
+    int8 KV and int8 weights and at full precision, everything else
+    identical, plus three more legs: int8 KV only, and the int8 draft
+    (the ``Quantizer`` clone) proposing ``gamma`` tokens over float KV
+    and over int8 KV. Reports the percentiles of every leg, the row
+    bytes both ways (``capacity``), the quality report with the
+    acceptance rates and their signed delta (float KV minus int8 KV),
+    and token parity WITHIN each numerics regime: speculation must not
+    change tokens over float KV or over int8 KV (across regimes int8
+    rounds differently; the quality report bounds that drift). The
+    memory-bandwidth pair of the JAX row (``membw_util``) comes from its
+    cost model, which waits for ROADMAP.md Queue 1 item 11: it is
+    ``None`` here. Each leg's rows are kept under ``rows``, by request
+    index."""
+    log = log or (lambda *a, **k: None)
+    vocab = model.vocab_size
+    window = (model.max_len // prefill_chunk) * prefill_chunk
+    decode_hi = max(8, min(24, window // 2 - 16))
+    wl = repeated_text_workload(
+        n_requests, rate_hz, vocab,
+        prompt_lens=(8, min(16, window - decode_hi - 1)),
+        decode_lens=(min(8, decode_hi), decode_hi), seed=seed)
+    warm_prompt = np.asarray(
+        np.random.RandomState(seed + 1).randint(0, vocab, (12,)),
+        np.int32)
+    log("[serving-bench] quantizing the int8 draft clone...")
+    draft = Quantizer.quantize(model)
+    draft.evaluate()
+
+    def run_path(name: str, **engine_kw) -> dict:
+        return _engine_replay(
+            model, wl, warm_prompt, 4, ("speculation", "quantization"),
+            log, "quantized", max_slots=max_slots,
+            prefill_chunk=prefill_chunk, prefill_rows=prefill_rows,
+            eos_id=eos_id, registry=registry, service_name=name,
+            **engine_kw)
+
+    quant = run_path("bench_quant_on", kv_dtype="int8",
+                     weights_dtype="int8")
+    fp = run_path("bench_quant_off")
+    # the acceptance-delta probe: the same draft over the same workload,
+    # float KV against int8 KV (float weights in both, so the cache is
+    # the only thing that moves); the int8-KV-only leg is the
+    # non-speculative twin the int8 speculative leg's parity holds to
+    kv8 = run_path("bench_quant_kv_only", kv_dtype="int8")
+    spec_fp = run_path("bench_quant_spec_fp", draft=draft,
+                       spec_gamma=gamma)
+    spec_q = run_path("bench_quant_spec_int8", draft=draft,
+                      spec_gamma=gamma, kv_dtype="int8")
+    parity_fp = _parity(fp, spec_fp, wl)
+    parity_q = _parity(kv8, spec_q, wl)
+    for r in (quant, fp, kv8, spec_fp, spec_q):
+        r["rows"] = [r["rows"][id(req)] for req in wl]
+    log("[serving-bench] quantized quality report "
+        "(teacher-forced logit divergence)...")
+    quality = quantized_quality_report(model, horizon=min(16, window // 2))
+    acc_fp = spec_fp["speculation"].get("acceptance_rate")
+    acc_q = spec_q["speculation"].get("acceptance_rate")
+    quality["acceptance_rate_fp"] = acc_fp
+    quality["acceptance_rate_int8"] = acc_q
+    # signed, positive = the int8 cache LOST acceptance
+    quality["acceptance_delta"] = (round(acc_fp - acc_q, 4)
+                                   if acc_fp is not None
+                                   and acc_q is not None else None)
+
+    def ratio(key, base=None, new=None):
+        a = (base or fp)["inter_token"][key]
+        b = (new or quant)["inter_token"][key]
+        return round(a / b, 4) if a and b else None
+
+    qz = quant["quantization"]
+    return {"quantized": quant, "fp_baseline": fp, "kv_only": kv8,
+            "spec_fp": spec_fp, "spec_int8": spec_q,
+            "inter_token_p50_speedup": ratio("p50"),
+            "inter_token_p99_speedup": ratio("p99"),
+            "spec_inter_token_p50_speedup":
+                ratio("p50", base=spec_fp, new=spec_q),
+            "spec_inter_token_p99_speedup":
+                ratio("p99", base=spec_fp, new=spec_q),
+            "membw_util": {"fp": None, "quantized": None,
+                           "waits_for": "ROADMAP.md Queue 1 item 11"},
+            "capacity": {
+                "kv_row_bytes": qz["kv_row_bytes"],
+                "fp_row_bytes": qz["fp_row_bytes"],
+                "row_bytes_ratio": qz["row_bytes_ratio"],
+                "capacity_multiplier":
+                    (round(qz["fp_row_bytes"] / qz["kv_row_bytes"], 4)
+                     if qz["kv_row_bytes"] else None)},
+            "quality": quality,
+            "token_parity_spec_fp": bool(parity_fp),
+            "token_parity_spec_int8": bool(parity_q),
+            "workload": {"kind": "quantized",
+                         "requests": n_requests, "rate_hz": rate_hz,
+                         "seed": seed, "max_slots": max_slots,
+                         "prefill_rows": prefill_rows,
+                         "gamma": gamma},
+            "requests": wl}
+
+
+def run_working_set_sweep(model, working_sets=(2, 8),
+                          device_rows: int = 2,
+                          requests_per_template: int = 3,
+                          rate_hz: float = 40.0, max_slots: int = 4,
+                          prefill_chunk: int = 8,
+                          prefill_rows: int = 2,
+                          template_len: int = 16,
+                          eos_id: Optional[int] = None, seed: int = 0,
+                          registry=None, log=None) -> dict:
+    """Sweep the shared-prefix WORKING SET past the prefix pool's
+    ``device_rows`` and measure where each cache tier's hit rate falls
+    off. Each point replays one round-robin template workload (the LRU
+    worst case: every revisit is ``working_set`` requests away) through
+    three engines, everything else identical: a host tier sized to the
+    workload (``tiered``), ``device_only`` and ``disabled``. The
+    device-only leg collapses once the working set passes
+    ``device_rows``; the tiered leg keeps its hits, because evictions
+    demote to host memory and revisits promote back. Every point checks
+    token parity of both cached legs against the cache-off leg. The JAX
+    row's compile-gauge and usage-ledger checks (``jit_flat``,
+    ``ledger_conserved``) wait for the observability slice."""
+    log = log or (lambda *a, **k: None)
+    vocab = model.vocab_size
+    window = (model.max_len // prefill_chunk) * prefill_chunk
+    room = window - template_len
+    if room < 2:
+        raise ValueError(
+            f"template_len {template_len} leaves only {room} of the "
+            f"engine's {window}-token serving window for tail + decode")
+    tail_hi = max(1, min(4, room // 2))
+    decode_hi = max(1, min(8, room - tail_hi))
+    warm_prompt = np.asarray(
+        np.random.RandomState(seed + 1).randint(
+            0, vocab, (template_len,)), np.int32)
+
+    points = []
+    for ws in working_sets:
+        n_req = max(int(ws) * max(2, requests_per_template), 8)
+        wl = shared_prefix_workload(
+            n_req, rate_hz, vocab, n_templates=int(ws),
+            template_len=template_len,
+            tail_lens=(min(2, tail_hi), tail_hi),
+            decode_lens=(min(4, decode_hi), decode_hi),
+            seed=seed + int(ws), template_order="cycle")
+        legs = {}
+        # the host tier absorbs the DONATION working set: every request
+        # donates its own template + tail entry, so the hot set is the
+        # request count, not the template count
+        for name, kw in (
+                ("tiered", {"prefix_cache_rows": device_rows,
+                            "prefix_host_rows": n_req}),
+                ("device_only", {"prefix_cache_rows": device_rows}),
+                ("disabled", {"prefix_cache_bytes": 0})):
+            legs[name] = _engine_replay(
+                model, wl, warm_prompt, 2, ("prefix_cache",), log,
+                f"ws{ws}_{name}", max_slots=max_slots,
+                prefill_chunk=prefill_chunk, prefill_rows=prefill_rows,
+                eos_id=eos_id, registry=registry,
+                service_name=f"ws{ws}_{name}", **kw)
+        parity = all(_parity(legs[a], legs["disabled"], wl)
+                     for a in ("tiered", "device_only"))
+
+        def trim(r):
+            pc = r["prefix_cache"]
+            out = {"ttft": r["ttft"], "latency": r["latency"],
+                   "inter_token": r["inter_token"],
+                   "tokens_per_sec": r["tokens_per_sec"]}
+            if pc.get("enabled"):
+                out.update(
+                    hit_rate=pc["hit_rate"], hits=pc["hits"],
+                    misses=pc["misses"],
+                    reused_tokens=pc["reused_tokens"],
+                    capacity_bytes=pc["capacity_bytes"])
+                if pc.get("host_rows"):
+                    out.update(
+                        host_hits=pc["host_hits"],
+                        demotions=pc["demotions"],
+                        promotions=pc["promotions"],
+                        host_evictions=pc["host_evictions"],
+                        host_capacity_bytes=pc["host_capacity_bytes"])
+            return out
+
+        points.append({
+            "working_set": int(ws),
+            "ws_to_budget": round(int(ws) / device_rows, 2),
+            "requests": n_req,
+            "token_parity": bool(parity),
+            **{name: trim(leg) for name, leg in legs.items()},
+        })
+        log(f"[serving-bench] working-set {ws}: tiered hit-rate "
+            f"{points[-1]['tiered'].get('hit_rate')} vs device-only "
+            f"{points[-1]['device_only'].get('hit_rate')}")
+
+    # the headline: the deepest point past the budget (the cliff the
+    # host tier exists to hold), else the last point
+    past = [p for p in points if p["ws_to_budget"] >= 4.0]
+    head = (past or points)[-1]
+    dev_hr = head["device_only"].get("hit_rate") or 0.0
+    tier_hr = head["tiered"].get("hit_rate") or 0.0
+    return {
+        "points": points,
+        "tiered": head["tiered"],
+        "device_only": head["device_only"],
+        "headline": {
+            "working_set": head["working_set"],
+            "ws_to_budget": head["ws_to_budget"],
+            "tiered_hit_rate": tier_hr,
+            "device_only_hit_rate": dev_hr,
+            "hit_rate_gain": (round(tier_hr / dev_hr, 2)
+                              if dev_hr > 0 else None),
+            "tiered_ttft_p50_s": head["tiered"]["ttft"]["p50"],
+            "device_only_ttft_p50_s": head["device_only"]["ttft"]["p50"],
+            "token_parity": head["token_parity"],
+        },
+        "workload": {"kind": "working_set_sweep",
+                     "device_rows": device_rows,
+                     "working_sets": [int(w) for w in working_sets],
+                     "max_working_set": int(max(working_sets)),
+                     "n_points": len(list(working_sets)),
+                     "requests_per_template": requests_per_template,
+                     "rate_hz": rate_hz, "seed": seed,
+                     "max_slots": max_slots,
+                     "prefill_rows": prefill_rows,
+                     "template_len": template_len}}

@@ -1,6 +1,6 @@
 """Continuous-batching decode engine over a slot-pooled or paged KV cache
-(port of ``bigdl_tpu/serving/engine.py``: dense slots, paged KV and
-speculative decoding).
+(port of ``bigdl_tpu/serving/engine.py``: dense slots, paged KV,
+speculative decoding, int8 KV and weights, and the prefix host tier).
 
 The batch-at-a-time ``GenerationService`` runs each batch to completion:
 one long request holds every co-batched short one. This engine keeps a
@@ -48,17 +48,37 @@ persistent decode loop instead:
   pool), in lockstep with the target's, and prefills the full prompt
   beside the target's chunks.
 
+- with ``kv_dtype="int8"`` every KV surface (slots, staging, prefix
+  pool, page pool, the draft's pools) holds int8 codes and f32 scales
+  per (row, head, position), quantized where they are written and
+  dequantized inside attention; ``weights_dtype="int8"`` serves through
+  ``Quantizer.quantize(model)``, the int8 clone (``nn/quantized.py``).
+- with ``prefix_host_bytes`` / ``prefix_host_rows`` the prefix cache has
+  a host tier: a device entry the LRU evicts is DEMOTED (its pool row,
+  or its pages, copied to pinned host tensors, int8 codes and scales as
+  they are) instead of dropped, and a hit on a host entry PROMOTES it
+  back before the admission reads it. Every copy runs on the engine's
+  stream, so a demotion's copy reads the row before the write that
+  reuses it, and a promotion's copy lands before the prefill that reads
+  it. Dense promotions start at scoring time (``_begin_promotion``), to
+  overlap the request's queue wait.
+
 Greedy output is token-identical to a lone ``model.generate`` per
 request, with the prefix cache cold or warm, paged or dense, with a
 draft or without (tested against the JAX engine on the same weights).
+Under int8 weights each Linear's activation scale spans the whole batch,
+idle lanes included: rows equal the JAX engine's in the same
+configuration, with the prefix cache and its host tier or without, but
+not a lone ``generate``'s, and paged idle lanes (other junk) or a
+verify chunk (gamma + 1 positions a row) can move the scale, and a
+token, against plain dense decode.
 Sampling draws from a ``torch.Generator`` on the engine's device seeded
 by ``seed``; with a draft it runs speculative sampling (accept
 min(1, p/q), the residual on rejection) from the same generator.
 
-Later steps of the JAX engine (int8 KV and weights, the prefix host
-tier, QoS shedding / rate limits / preemption, chaos drills,
-tensor-parallel serving) raise ``NotImplementedError`` naming their
-``ROADMAP.md`` item; the observability hooks (recorder, metric
+Later steps of the JAX engine (QoS shedding / rate limits / preemption,
+chaos drills, tensor-parallel serving) raise ``NotImplementedError``
+naming their ``ROADMAP.md`` item; the observability hooks (recorder, metric
 instruments, memory pools, usage ledger, watchdogs, time series,
 incidents, cost model, loop-phase accounting) are not ported yet, and
 ``registry=`` / ``recorder=`` are accepted and unused.
@@ -79,6 +99,7 @@ from bigdl_tpu_torch.device import resolve_device
 from bigdl_tpu_torch.models.transformer import (
     _draw, _filter_logits, _spec_accept, _validate_sampling,
 )
+from bigdl_tpu_torch.nn.quantized import Quantizer
 from bigdl_tpu_torch.serving.paging import (
     BlockTable, PagedPrefixIndex, PagePool,
 )
@@ -95,10 +116,6 @@ from bigdl_tpu_torch.serving.streams import (
 #: options of the JAX engine that later steps of this port bring: the
 #: ROADMAP.md Queue 1 item that brings each, and the step's name
 _LATER = {
-    "kv_dtype": (3, "int8 KV and weights"),
-    "weights_dtype": (3, "int8 KV and weights"),
-    "prefix_host_bytes": (4, "the prefix host tier"),
-    "prefix_host_rows": (4, "the prefix host tier"),
     "tenant_rate_limits": (5, "QoS shedding, rate limits and preemption"),
     "chaos": (6, "chaos.py"),
     "mesh": (10, "tensor-parallel serving"),
@@ -116,7 +133,8 @@ def _later(what: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} belongs to a later step of the engine's port "
         f"(ROADMAP.md, Queue 1 item {item}: {step}); this engine serves "
-        "dense or paged KV, with or without a draft")
+        "dense or paged KV, float or int8, with or without a draft and "
+        "a prefix host tier")
 
 
 def _percentile_summary(values) -> dict:
@@ -222,7 +240,16 @@ class ContinuousBatchingEngine:
     The engine runs on ``device`` (default: the model's device; a device
     that differs from the model's raises). ``priority`` ``"normal"`` and
     ``"low"`` are ordered by the admission queue; ``"high"`` raises until
-    preemption is ported."""
+    preemption is ported.
+
+    ``kv_dtype="int8"`` stores every KV pool as int8 codes plus f32
+    scales (a row costs (D + 4) / (D * itemsize) of the float row, so a
+    byte budget holds that many more prefix rows); ``weights_dtype=
+    "int8"`` serves through the int8 ``Quantizer`` clone of ``model``
+    (the model itself is left as it was). ``prefix_host_bytes`` (or
+    ``prefix_host_rows``) sizes the prefix cache's host tier in
+    full-length rows: evicted entries demote to pinned host memory and
+    promote back on a hit (0 or None: eviction drops)."""
 
     def __init__(self, model, max_slots: int = 4,
                  max_len: Optional[int] = None, prefill_chunk: int = 16,
@@ -247,10 +274,6 @@ class ContinuousBatchingEngine:
                  page_size: Optional[int] = None,
                  max_pages: Optional[int] = None, device=None):
         for name, val in (("mesh", mesh), ("tp_rules", tp_rules),
-                          ("kv_dtype", kv_dtype),
-                          ("weights_dtype", weights_dtype),
-                          ("prefix_host_bytes", prefix_host_bytes),
-                          ("prefix_host_rows", prefix_host_rows),
                           ("tenant_rate_limits", tenant_rate_limits),
                           ("chaos", chaos)):
             if val is not None:
@@ -261,6 +284,14 @@ class ContinuousBatchingEngine:
             raise ValueError(
                 f"admission_window must be >= 1, got {admission_window}")
         _validate_sampling(temperature > 0.0, top_k, top_p)
+        for name, val in (("kv_dtype", kv_dtype),
+                          ("weights_dtype", weights_dtype)):
+            if val is not None and str(val) != "int8":
+                raise ValueError(
+                    f"{name} must be None (full precision) or 'int8', "
+                    f"got {val!r}")
+        self.kv_dtype = "int8" if kv_dtype is not None else None
+        self.weights_dtype = "int8" if weights_dtype is not None else None
         if device is None:
             dev = model.device
         else:
@@ -272,6 +303,10 @@ class ContinuousBatchingEngine:
                     f"the model lives on {model.device}, not on {dev}: "
                     "build the model on the engine's device")
         self.device = model.device
+        if self.weights_dtype == "int8":
+            # serve through the int8 clone: every Linear's weight becomes
+            # int8 codes and per-channel scales (buffers)
+            model = Quantizer.quantize(model)
         model.evaluate()
         self.model = model
         self.max_slots = max_slots
@@ -379,39 +414,54 @@ class ContinuousBatchingEngine:
         self._d_caches = self._d_staging = self._d_kv_pool = None
         self._d_pages: Optional[PagePool] = None
         self._d_tables: Optional[List[Optional[BlockTable]]] = None
+        dtype = model.tok_embed.dtype
+        kv = self.kv_dtype
         with torch.inference_mode():
             if self.paged:
                 # THE page pool: no staging cache (admissions prefill
                 # straight through their reserved tables) and no prefix
                 # pool (retained prefixes share these same pages)
-                self._kv_pool = model.init_page_pool(max_pages, page_size)
+                self._kv_pool = model.init_page_pool(max_pages, page_size,
+                                                     dtype, kv)
                 self._pages = PagePool(self._kv_pool, page_size)
                 self._tables = [None] * max_slots
                 # a dense slot of this geometry: the exchange rate of
                 # the prefix budget and the reuse credits
                 row_bytes = self._table_len * self._pages.page_bytes
             else:
-                self._caches = model.init_cache(max_slots, phys_len)
+                self._caches = model.init_cache(max_slots, phys_len, dtype,
+                                                kv)
                 self._staging = model.init_cache(self._policy.prefill_rows,
-                                                 phys_len)
-                row_bytes = sum(int(k.nbytes) + int(v.nbytes)
-                                for k, v in self._caches) // max_slots
+                                                 phys_len, dtype, kv)
+                # summed over every leaf: under int8 the codes AND the
+                # scales, the true physical cost of a row
+                row_bytes = sum(int(t.nbytes) for layer in self._caches
+                                for t in layer) // max_slots
             if draft is not None and self.paged:
                 # the draft's own page pool: it never shares pages (the
                 # prefix index retains target KV only), so at most
                 # max_slots tables: a draft reservation cannot fail once
                 # the target's succeeded
                 self._d_kv_pool = draft.init_page_pool(
-                    1 + max_slots * self._table_len, page_size)
+                    1 + max_slots * self._table_len, page_size,
+                    draft.tok_embed.dtype, kv)
                 self._d_pages = PagePool(self._d_kv_pool, page_size)
                 self._d_tables = [None] * max_slots
             elif draft is not None:
                 # the draft's slot pool and staging mirror the target's
                 # geometry row for row (same phys_len)
-                self._d_caches = draft.init_cache(max_slots, phys_len)
+                d_dtype = draft.tok_embed.dtype
+                self._d_caches = draft.init_cache(max_slots, phys_len,
+                                                  d_dtype, kv)
                 self._d_staging = draft.init_cache(
-                    self._policy.prefill_rows, phys_len)
+                    self._policy.prefill_rows, phys_len, d_dtype, kv)
             self._row_bytes = row_bytes
+            #: the same row at full precision: the capacity multiplier
+            #: int8 KV buys is fp_row_bytes / row_bytes
+            attn = model.blocks()[0].attn
+            self._fp_row_bytes = (2 * model.num_layers * attn.num_kv_heads
+                                  * phys_len * attn.head_dim
+                                  * dtype.itemsize)
             #: device KV bytes one cached token position costs
             self._token_bytes = row_bytes / phys_len
             if prefix_cache_rows is not None:
@@ -420,6 +470,14 @@ class ContinuousBatchingEngine:
                 pool_rows = 2 * max_slots
             else:
                 pool_rows = max(0, int(prefix_cache_bytes) // row_bytes)
+            # the host tier behind the device pool, in full-length rows
+            # (0: eviction drops)
+            if prefix_host_rows is not None:
+                host_rows = max(0, int(prefix_host_rows))
+            elif prefix_host_bytes is None:
+                host_rows = 0
+            else:
+                host_rows = max(0, int(prefix_host_bytes) // row_bytes)
             self._pool = None
             min_tokens = (prefix_min_tokens if prefix_min_tokens is not None
                           else c)
@@ -428,14 +486,22 @@ class ContinuousBatchingEngine:
                 # entry count, the shared page pool bounds the bytes
                 self._prefix = PagedPrefixIndex(
                     self._pages, max_entries=pool_rows,
-                    min_tokens=min_tokens, token_bytes=self._token_bytes)
+                    min_tokens=min_tokens, token_bytes=self._token_bytes,
+                    host_pages=host_rows * self._table_len)
             elif pool_rows > 0:
-                self._pool = model.init_cache(pool_rows, phys_len)
+                self._pool = model.init_cache(pool_rows, phys_len, dtype,
+                                              kv)
                 self._prefix = PrefixCache(
                     pool_rows, row_bytes, min_tokens=min_tokens,
-                    token_bytes=self._token_bytes)
+                    token_bytes=self._token_bytes, host_rows=host_rows)
             else:
                 self._prefix = None
+        #: dense host-to-device promotions in flight, by entry identity:
+        #: {"entry", "tree" (the device copy), "touched" (monotonic
+        #: stamp)}; each record pins its entry, so the host buffer cannot
+        #: be evicted while its copy runs
+        self._promotions: dict = {}
+        self._promotions_max = max(4, 2 * self._policy.prefill_rows)
         #: prompt tokens this engine actually prefilled (the reused
         #: fraction's denominator)
         self._prefilled_tokens = 0
@@ -583,11 +649,12 @@ class ContinuousBatchingEngine:
     @staticmethod
     def _copy_row(dst, src, dst_row: int, src_row: int) -> None:
         """Row ``src_row`` of cache list ``src`` into row ``dst_row`` of
-        ``dst``, every layer's k and v, in place: staging → slot on
-        insert, pool → staging on a hit, slot → pool on donation."""
-        for (dk, dv), (sk, sv) in zip(dst, src):
-            dk[dst_row].copy_(sk[src_row])
-            dv[dst_row].copy_(sv[src_row])
+        ``dst``, every layer's tensors (k and v, and the int8 form's
+        scales), in place: staging → slot on insert, pool → staging on a
+        hit, slot → pool on donation, page → page on a fork."""
+        for dst_layer, src_layer in zip(dst, src):
+            for d, s in zip(dst_layer, src_layer):
+                d[dst_row].copy_(s[src_row])
 
     def _copy_page(self, dst: int, src: int) -> None:
         """``BlockTable.ensure_writable``'s copy callback: page ``src``
@@ -806,11 +873,14 @@ class ContinuousBatchingEngine:
         rounds and decode steps, ``active_slots``, ``queue_depth``,
         ``latency`` (``{count, mean, p50, p90, p99}`` of queue wait,
         prefill, TTFT, decode and total over the recent finished
-        requests), ``prefix_cache`` (hit rate, reused tokens, bytes),
-        ``speculation`` (proposed and accepted draft tokens, acceptance
-        rate) and, in paged mode, ``paging`` (the page pools' stats, the
-        reservations' fragmentation, the page waits). A decode step of a
-        speculative engine is one propose / verify round."""
+        requests), ``prefix_cache`` (hit rate, reused tokens, bytes, and
+        the host tier's demotions, promotions and host hits),
+        ``quantization`` (the KV and weight dtypes, a row's bytes beside
+        the float row's), ``speculation`` (proposed and accepted draft
+        tokens, acceptance rate) and, in paged mode, ``paging`` (the
+        page pools' stats, the reservations' fragmentation, the page
+        waits). A decode step of a speculative engine is one propose /
+        verify round."""
         with self._counts_lock:
             out = dict(self._counts)
         out["active_slots"] = sum(s is not None for s in self._slots)
@@ -818,9 +888,25 @@ class ContinuousBatchingEngine:
         out["latency"] = self._latency_summary()
         out["prefix_cache"] = self._prefix_summary()
         out["speculation"] = self._spec_summary()
+        out["quantization"] = self._quant_summary()
         if self.paged:
             out["paging"] = self._paging_summary()
         return out
+
+    def _quant_summary(self) -> dict:
+        """Which numerics the hot path runs and what one KV row costs:
+        ``kv_row_bytes`` (scales included) beside ``fp_row_bytes``, the
+        same geometry at full precision; their ratio is what int8 KV
+        buys in rows per byte."""
+        return {
+            "kv_dtype": self.kv_dtype or "fp",
+            "weights_dtype": self.weights_dtype or "fp",
+            "kv_row_bytes": int(self._row_bytes),
+            "fp_row_bytes": int(self._fp_row_bytes),
+            "row_bytes_ratio": (round(self._row_bytes
+                                      / self._fp_row_bytes, 4)
+                                if self._fp_row_bytes else 1.0),
+        }
 
     def _gamma(self) -> int:
         return self._spec.gamma if self._spec is not None else 0
@@ -930,6 +1016,8 @@ class ContinuousBatchingEngine:
         every reference they hold. In paged mode the prefix index then
         drops its entries too, so every page is back on the free list
         (the leak invariant: ``pages_in_use == 0``)."""
+        for key in list(self._promotions):
+            self._drop_promotion(key)
         for a in self._adms:
             self._drop_admission_refs(a)
             self._finish_handle(a.handle, err, outcome)
@@ -1043,6 +1131,8 @@ class ContinuousBatchingEngine:
         scorer = None
         if self._prefix is not None and self.admission_window > 1:
             c = self._policy.chunk
+            if self._promotions:
+                self._prune_promotions(now)
 
             def scorer(h):
                 # the usable (capped, chunk-aligned) reuse, exactly what
@@ -1053,7 +1143,13 @@ class ContinuousBatchingEngine:
                 h._prefix_probe = (e, m, self._prefix.generation)
                 base = (min(m, p.shape[0] - 1) // c) * c
                 if not self.paged:
+                    if e is not None and e.tier == "host":
+                        # start the host-to-device copy now: it overlaps
+                        # the candidate's remaining queue wait
+                        self._begin_promotion(e)
                     return base
+                if e is not None and e.tier != "device":
+                    base = 0    # a promotion may still land it: score cold
                 ps = self.page_size
                 fresh = (pages_needed(self._need_tokens(p.shape[0], h), ps)
                          - base // ps)
@@ -1072,7 +1168,15 @@ class ContinuousBatchingEngine:
                 self._finish_dropped(hd, err)
             if h is None:
                 return
-            if not self._start_admission(h, slot, row):
+            try:
+                started = self._start_admission(h, slot, row)
+            except BaseException:
+                # the loop is about to crash: put the popped request back
+                # so the crash's queue drain fails it, instead of leaving
+                # its handle waiting for a result that never comes
+                self._queue.requeue(h)
+                raise
+            if not started:
                 return
 
     @staticmethod
@@ -1114,13 +1218,17 @@ class ContinuousBatchingEngine:
         if self.paged:
             return self._start_admission_paged(h, slot, row)
         prompt = self._effective_prompt(h)
-        t0 = prompt.shape[0]
         base, entry = 0, None
         if self._prefix is not None:
             e, base = self._lookup_base(h, prompt)
+            from_host = base > 0 and e.tier == "host"
+            if from_host and not self._promote_entry(e):
+                # the host row could not be made device-resident: a clean
+                # miss, never a copy from a reused or unfilled row
+                e, base = None, 0
             if base > 0:
                 entry = e
-                self._prefix.record_hit(entry, base)
+                self._prefix.record_hit(entry, base, host=from_host)
                 self._prefix.acquire(entry)
                 self._copy_row(self._staging, self._pool, row, entry.row)
             else:
@@ -1146,12 +1254,27 @@ class ContinuousBatchingEngine:
         t0 = prompt.shape[0]
         entry, base = (self._lookup_base(h, prompt)
                        if self._prefix is not None else (None, 0))
+        from_host = base > 0 and entry.tier == "host"
+        if from_host and not self._promote_entry_paged(entry):
+            entry, base, from_host = None, 0, False
         shared = tuple(entry.pages[:base // ps]) if base > 0 else ()
         need = pages_needed(self._need_tokens(t0, h), ps)
         n_fresh = need - len(shared)
         table = BlockTable.build(self._pages, shared, n_fresh)
         if table is None and self._prefix is not None:
-            self._prefix.reclaim(n_fresh)
+            # a hit's entry is pinned through the reclaim: as the LRU
+            # victim it would free (or demote) the very pages ``shared``
+            # names. The JAX engine leaves it unpinned and then shares
+            # freed pages (``share() of free page``) when the entry's
+            # pages have no other holder
+            pin = entry if base > 0 else None
+            if pin is not None:
+                self._prefix.acquire(pin)
+            try:
+                self._prefix.reclaim(n_fresh, self._spill)
+            finally:
+                if pin is not None:
+                    self._prefix.release(pin)
             table = BlockTable.build(self._pages, shared, n_fresh)
         d_table = None
         if table is not None and self.draft is not None:
@@ -1172,7 +1295,7 @@ class ContinuousBatchingEngine:
                 # no staging copy and no entry pin: the shared
                 # refcounts keep the pages alive even if the entry is
                 # evicted while this admission prefills
-                self._prefix.record_hit(entry, base)
+                self._prefix.record_hit(entry, base, host=from_host)
             else:
                 self._prefix.record_miss()
         a = self._stage(h, slot, row, prompt, base, None)
@@ -1315,7 +1438,157 @@ class ContinuousBatchingEngine:
             return
         row = self._prefix.donate(tokens)
         if row is not None:
+            # the claimed row may still hold a demoted victim's KV: its
+            # copy to host is enqueued before this copy overwrites it
+            self._resolve_pending_demotion()
             self._copy_row(self._pool, self._caches, row, sid)
+
+    # ------------------------------------------------ host-tier moves
+    # Every copy below is enqueued on the engine's (current) stream, as
+    # the decode and prefill calls are: a demotion's device-to-host copy
+    # reads its row before any later write to that row, and a
+    # promotion's host-to-device copy lands before any later prefill
+    # reads it. On the card the host side is pinned memory and the
+    # copies are asynchronous; PyTorch's pinned-memory allocator keeps a
+    # freed host buffer until the copies that use it have run.
+    def _to_host(self, t: torch.Tensor) -> torch.Tensor:
+        if t.device.type == "cpu":
+            return t.clone()
+        h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        h.copy_(t, non_blocking=True)
+        return h
+
+    def _host_copy(self, tree, row: int) -> list:
+        """Row (or page) ``row`` of every tensor of a cache list, copied
+        to host tensors: int8 codes and f32 scales as they are."""
+        return [tuple(self._to_host(t[row]) for t in layer)
+                for layer in tree]
+
+    def _land(self, tree, row: int, src) -> None:
+        """Copy a per-layer list of row tensors ``src`` (host or device)
+        into row (or page) ``row`` of ``tree``."""
+        for layer, src_layer in zip(tree, src):
+            for d, s in zip(layer, src_layer):
+                d[row].copy_(s, non_blocking=True)
+
+    def _resolve_pending_demotion(self) -> None:
+        """Complete the demotion a row claim left open: copy the victim's
+        pool row to host and attach it. Runs before the claimed row is
+        overwritten (its KV is the source). A failed host allocation
+        drops the entry instead."""
+        pend = self._prefix.pop_pending_demotion()
+        if pend is None:
+            return
+        victim, vrow = pend
+        try:
+            buf = self._host_copy(self._pool, vrow)
+        except RuntimeError:
+            buf = None
+        self._prefix.complete_demotion(victim, buf)
+
+    def _begin_promotion(self, entry) -> None:
+        """Start (or touch) the host-to-device copy of a host-tier entry
+        a queued candidate's lookup landed on. The copy is enqueued at
+        once and overlaps the request's queue wait; the record pins the
+        entry, so its host buffer stays while the copy runs."""
+        key = id(entry)
+        now = time.monotonic()
+        rec = self._promotions.get(key)
+        if rec is not None:
+            rec["touched"] = now
+            return
+        if entry.host_buf is None:
+            return
+        if len(self._promotions) >= self._promotions_max:
+            # bound the copies in flight (device bytes and host pins):
+            # drop the stalest record and its pin
+            stalest = min(self._promotions,
+                          key=lambda k: self._promotions[k]["touched"])
+            self._drop_promotion(stalest)
+        self._prefix.acquire(entry)
+        tree = [tuple(h.to(self.device, non_blocking=True) for h in layer)
+                for layer in entry.host_buf]
+        self._promotions[key] = {"entry": entry, "tree": tree,
+                                 "touched": now}
+
+    def _drop_promotion(self, key) -> None:
+        rec = self._promotions.pop(key, None)
+        if rec is not None:
+            self._prefix.release(rec["entry"])
+
+    def _prune_promotions(self, now: float) -> None:
+        """Retire promotion records whose entry left the host tier
+        (promoted by another admission, or dropped) and ones no scorer
+        touched for 30 s (their request was cancelled or timed out), so
+        no pin outlives its use and the host LRU can evict."""
+        for key in [k for k, r in self._promotions.items()
+                    if r["entry"].tier != "host"
+                    or now - r["touched"] > 30.0]:
+            self._drop_promotion(key)
+
+    def _promote_entry(self, entry) -> bool:
+        """Make a host-tier entry device-resident for the admission that
+        consumes it: claim a pool row (evict-or-demote, as a donation
+        does), land the entry's KV there (the copy the scorer started,
+        else one started here) and flip the entry's tier. False: the
+        promotion fell through and the caller takes a clean miss."""
+        rec = self._promotions.pop(id(entry), None)
+        if entry.tier != "host":
+            # another admission promoted it first: its row is live
+            if rec is not None:
+                self._prefix.release(entry)
+            return entry.tier == "device"
+        if rec is None:
+            if entry.host_buf is None:
+                return False
+            # pin for the promotion: allocate_row's evict-or-demote sweep
+            # must not reclaim this entry's host buffer
+            self._prefix.acquire(entry)
+        try:
+            src = rec["tree"] if rec is not None else entry.host_buf
+            row = self._prefix.allocate_row()
+            if row is None:
+                return False        # every device row pinned: clean miss
+            # the claimed row may hold a freshly demoted victim's KV:
+            # enqueue its copy to host before this copy overwrites it
+            self._resolve_pending_demotion()
+            self._land(self._pool, row, src)
+            self._prefix.promote(entry, row)
+            return True
+        finally:
+            self._prefix.release(entry)
+
+    def _promote_entry_paged(self, entry) -> bool:
+        """Host-to-device promotion of a paged host-tier entry at
+        admission: allocate fresh pages (reclaiming unpinned prefix
+        entries under pressure), land each host page in one, flip the
+        entry's tier. False: a clean miss (the pool is exhausted, or the
+        buffer was evicted)."""
+        if entry.tier != "host":
+            return entry.tier == "device"
+        buf = entry.host_buf
+        if buf is None:
+            return False
+        pages = self._pages.alloc(len(buf))
+        if pages is None:
+            self._prefix.reclaim(len(buf), self._spill)
+            pages = self._pages.alloc(len(buf))
+        if pages is None:
+            return False
+        for dst, host_page in zip(pages, buf):
+            self._land(self._kv_pool, dst, host_page)
+        self._prefix.promote_pages(entry, pages)
+        return True
+
+    def _spill(self, pages):
+        """``PagedPrefixIndex.reclaim``'s demotion callback (the index
+        calls it only with a host tier): each victim page of every layer
+        copied to host (one host tree a page), or None when a host
+        allocation fails, to drop the victim instead."""
+        try:
+            return [self._host_copy(self._kv_pool, p) for p in pages]
+        except RuntimeError:
+            return None
 
     # --------------------------------------------------------- decode
     def _decode_all(self, active: List[int]) -> None:

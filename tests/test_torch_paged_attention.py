@@ -114,15 +114,19 @@ def test_gather_and_write_match_jax():
 
 def test_write_raises_where_cuda_would_assert():
     """A position past the table (what JAX would clamp into the row's
-    last page) raises on the CPU; the int8 pool form waits for its step."""
+    last page) raises on the CPU, in the float pool and in the int8 pool
+    (codes and scales share the index math)."""
     pool = (torch.zeros(10, 2, PS, 8), torch.zeros(10, 2, PS, 8))
     kv = torch.zeros(3, 2, 1, 8)
     with pytest.raises((IndexError, RuntimeError)):
         tattn._write_kv_paged(pool, kv, kv, torch.from_numpy(TABLES),
                               torch.tensor([16, 0, 0]))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-        tattn._write_kv_paged(pool * 2, kv, kv, torch.from_numpy(TABLES),
-                              torch.tensor([0, 0, 0]))
+    q8 = (torch.zeros(10, 2, PS, 8, dtype=torch.int8),
+          torch.zeros(10, 2, PS, 8, dtype=torch.int8),
+          torch.zeros(10, 2, PS, 1), torch.zeros(10, 2, PS, 1))
+    with pytest.raises((IndexError, RuntimeError)):
+        tattn._write_kv_paged(q8, kv, kv, torch.from_numpy(TABLES),
+                              torch.tensor([16, 0, 0]))
 
 
 def _prefilled(jm, tm):

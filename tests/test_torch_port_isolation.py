@@ -1,7 +1,7 @@
 """The port stands alone: bigdl_tpu_torch imports neither JAX nor the JAX
 package (a subprocess that serves and trains with it on the CPU, the
-continuous-batching engine and a ResNet-20 through the LocalOptimizer
-included, and a scan of every
+continuous-batching engine, int8 with a prefix host tier, and a
+ResNet-20 through the LocalOptimizer included, and a scan of every
 module's imports), and its entry points run on the card
 unless asked for the CPU, never falling back to it by themselves."""
 
@@ -48,6 +48,15 @@ assert row.shape == (14,), row.shape
 assert eng._pages.pages_in_use == 0 and eng._d_pages.pages_in_use == 0
 assert m.speculative_generate(torch.arange(6)[None], 4, draft=d).shape == \
     (1, 10)
+with ContinuousBatchingEngine(m, max_slots=2, prefill_chunk=4,
+                              kv_dtype="int8", weights_dtype="int8",
+                              prefix_cache_rows=1,
+                              prefix_host_rows=4) as eng:
+    for head in (list(range(8)), list(range(8, 16)), list(range(8))):
+        eng.submit(head + [1, 2], 3).result(timeout=60)
+    pc = eng.stats()["prefix_cache"]
+assert pc["demotions"] >= 1 and pc["promotions"] >= 1, pc
+assert eng.stats()["quantization"]["row_bytes_ratio"] < 1.0
 from bigdl_tpu_torch.serving import (run_paged_comparison,
                                      run_speculative_comparison)
 from bigdl_tpu_torch.models.perf import transformer_perf
@@ -101,6 +110,8 @@ def test_no_jax_or_jax_package_import_in_the_port():
     assert {"__init__", "benchmark", "engine", "paging", "prefix_cache",
             "scheduler", "streams"} <= {f.stem for f in files
                                         if f.parent.name == "serving"}
+    assert {"attention", "linear", "quantized"} <= {
+        f.stem for f in files if f.parent.name == "nn"}
     found = [(str(f.relative_to(REPO)), name) for f in files
              for name in _imports(f)
              if name.split(".")[0] in ("jax", "jaxlib", "bigdl_tpu")]
@@ -139,7 +150,11 @@ def test_entry_points_default_to_the_card_and_never_fall_back():
                  lambda: ContinuousBatchingEngine(
                      TransformerLM(64, 32, 4, 2, 64, device="cpu"),
                      draft=TransformerLM(64, 32, 4, 1, 64, device="cpu"),
-                     device="cuda")):
+                     device="cuda"),
+                 lambda: ContinuousBatchingEngine(
+                     TransformerLM(64, 32, 4, 2, 64, device="cpu"),
+                     kv_dtype="int8", weights_dtype="int8",
+                     prefix_host_rows=2, device="cuda")):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             make()
     assert resolve_device("cpu") == torch.device("cpu")

@@ -305,10 +305,6 @@ def test_validation_and_sampled_mode(lm):
 
 
 @pytest.mark.parametrize("option,value,item,step", [
-    ("kv_dtype", "int8", 3, "int8 KV and weights"),
-    ("weights_dtype", "int8", 3, "int8 KV and weights"),
-    ("prefix_host_bytes", 1 << 20, 4, "prefix host tier"),
-    ("prefix_host_rows", 2, 4, "prefix host tier"),
     ("tenant_rate_limits", {"*": (1.0, 1.0)}, 5, "rate limits"),
     ("chaos", object(), 6, "chaos.py"),
     ("mesh", object(), 10, "tensor-parallel serving"),
