@@ -15,8 +15,10 @@ flash attention, criterions, SGD / Adam / AdamW, ``TrainStep``), the
 vision path (convolution, BatchNorm, pooling, LeNet-5, ResNet, the
 data path and the ``LocalOptimizer`` loop), whose layers are torch ops
 as they are XLA ops in the JAX package, and the continuous-batching
-engine's dense slots with batched prefill and the prefix cache
-(``serving/``).
+engine (``serving/``: dense or paged KV, batched prefill, the prefix
+cache and its host tier, speculative decoding, int8 KV and weights, QoS
+and chaos drills) with the usage ledger and SLO watchdog that QoS reads
+(``observability/``).
 """
 
 from bigdl_tpu_torch.device import resolve_device

@@ -1,14 +1,19 @@
 """bigdl_tpu_torch.serving: continuous-batching LM inference (port of
 ``bigdl_tpu/serving``: dense slots, paged KV, speculative decoding,
-int8 KV and weights, the prefix host tier).
+int8 KV and weights, the prefix host tier, QoS and chaos drills).
 
 - ``ContinuousBatchingEngine`` (``engine``): the loop thread, the pooled
   ``(max_slots, ...)`` KV cache or (``page_size=``) the page pool,
   mid-flight chunked-prefill admission (``prefill_rows`` wide through
   one ragged call a round), per-token slot eviction and reuse,
   (``draft=``) draft-propose / target-verify decoding, (``kv_dtype=`` /
-  ``weights_dtype="int8"``) int8 KV pools and the int8 weight clone, and
-  (``prefix_host_bytes=``) the prefix cache's host tier;
+  ``weights_dtype="int8"``) int8 KV pools and the int8 weight clone,
+  (``prefix_host_bytes=``) the prefix cache's host tier, and QoS:
+  preemption of lower-class slots for waiting high-class requests,
+  load shedding under a TTFT SLO burn, per-tenant token buckets over
+  the usage ledger's device-seconds;
+- ``ChaosInjector`` / ``ChaosFault`` (``chaos``): scripted TTFT burns,
+  dispatch faults and frozen slots;
 - ``PrefixCache`` (``prefix_cache``): the host-side radix trie over token
   prefixes mapping to retained KV pool rows, with a host tier that
   demoted rows spill to;
@@ -19,19 +24,20 @@ int8 KV and weights, the prefix host tier).
   (``scheduler``): the bounded admission queue with deadline and
   cancellation sweeps and its prefix-aware pop, the prefill-vs-decode
   token budget, the draft's gamma, ``pages_needed`` and
-  ``page_fit_score`` (with the JAX module's ``TokenBucket``, which a
-  later step uses);
+  ``page_fit_score``, and the per-tenant ``TokenBucket``;
 - ``RequestHandle`` (``streams``): per-request streaming iterator and
   blocking ``result()``; greedy output is token-identical to a lone
   ``model.generate``;
 - ``run_poisson_comparison`` / ``run_shared_prefix_comparison`` /
   ``run_speculative_comparison`` / ``run_paged_comparison`` /
-  ``run_quantized_comparison`` / ``run_working_set_sweep`` and
-  ``quantized_quality_report`` (``benchmark``): the engine against
+  ``run_quantized_comparison`` / ``run_working_set_sweep`` /
+  ``run_qos_storm`` and ``quantized_quality_report`` (``benchmark``):
+  the engine against
   ``GenerationService`` under Poisson arrivals, the prefix cache on
   against off, a draft against none, paged against dense KV at equal
   bytes, int8 against full precision, the host tier against device-only
-  past the pool's rows, and the int8 path's logit drift.
+  past the pool's rows, a mixed-priority storm against its high class
+  alone, and the int8 path's logit drift.
 
 Quick start::
 
@@ -45,12 +51,13 @@ Quick start::
 """
 
 from bigdl_tpu_torch.serving.benchmark import (
-    mixed_length_workload, poisson_workload, quantized_quality_report,
-    repeated_text_workload, run_paged_comparison, run_poisson_comparison,
-    run_quantized_comparison, run_shared_prefix_comparison,
-    run_speculative_comparison, run_working_set_sweep,
-    shared_prefix_workload,
+    mixed_length_workload, poisson_workload, qos_storm_workload,
+    quantized_quality_report, repeated_text_workload, run_paged_comparison,
+    run_poisson_comparison, run_qos_storm, run_quantized_comparison,
+    run_shared_prefix_comparison, run_speculative_comparison,
+    run_working_set_sweep, shared_prefix_workload,
 )
+from bigdl_tpu_torch.serving.chaos import ChaosFault, ChaosInjector
 from bigdl_tpu_torch.serving.engine import ContinuousBatchingEngine
 from bigdl_tpu_torch.serving.paging import (
     SCRATCH_PAGE, BlockTable, PagedPrefixIndex, PagePool,
@@ -79,5 +86,6 @@ __all__ = [
     "repeated_text_workload", "run_speculative_comparison",
     "mixed_length_workload", "run_paged_comparison",
     "quantized_quality_report", "run_quantized_comparison",
-    "run_working_set_sweep",
+    "run_working_set_sweep", "qos_storm_workload", "run_qos_storm",
+    "ChaosInjector", "ChaosFault",
 ]

@@ -1,6 +1,6 @@
 """Poisson-arrival serving comparisons (port of the engine-against-
-``GenerationService``, shared-prefix, speculative, paged, quantized and
-working-set parts of ``bigdl_tpu/serving/benchmark.py``).
+``GenerationService``, shared-prefix, speculative, paged, quantized,
+working-set and QoS-storm parts of ``bigdl_tpu/serving/benchmark.py``).
 
 :func:`run_poisson_comparison` replays ONE sampled open-loop workload
 (exponential inter-arrival gaps, mixed prompt and decode lengths)
@@ -28,11 +28,16 @@ parity within each numerics regime. :func:`run_working_set_sweep` grows
 a round-robin template working set past the prefix pool's rows and
 replays it through a host-tiered, a device-only and a cache-off engine:
 hit rates, TTFT, demotions and promotions, token parity.
+:func:`run_qos_storm` replays a mixed-priority storm into an undersized
+engine with the whole QoS stack on (a tripwire TTFT objective, zero
+preemption slack, a starved tenant bucket), then the high class alone:
+the high-class TTFT ratios, the shed / preempted / rate-limited counts,
+outcome conservation and the usage ledger's per-tenant device-seconds.
 The workload generators draw from ``numpy.random.RandomState(seed)`` in
 the JAX package's order, so a seed gives the same arrays in both
-packages. The usage, alert and incident blocks of the JAX rows, the
-compile gauges and the cost model's memory-bandwidth figures wait for
-the observability slice (ROADMAP.md, Queue 1 item 11).
+packages. The incident blocks of the JAX rows, the compile gauges and
+the cost model's figures wait for the observability slice (ROADMAP.md,
+Queue 1 item 11).
 """
 
 from __future__ import annotations
@@ -45,6 +50,9 @@ import numpy as np
 import torch
 
 from bigdl_tpu_torch.nn.quantized import Quantizer
+from bigdl_tpu_torch.serving.streams import (
+    RequestCancelled, RequestRateLimited, RequestShed, RequestTimedOut,
+)
 
 
 def poisson_workload(n_requests: int, rate_hz: float, vocab: int,
@@ -193,26 +201,34 @@ def _append_itl(itl: List[float], handle) -> None:
         itl.append(tl["decode_s"] / (tl["tokens"] - 1))
 
 
-def _replay(workload, submit_fn, collect_fn) -> dict:
-    """Open-loop replay: each request is submitted at its arrival offset
-    from a thread of its own (late submissions go at once: arrival times
-    are an offered load, not a barrier); ``collect_fn`` blocks per
-    request and returns its delivered token count."""
-    lat: List[float] = []
-    toks: List[int] = []
+def _usage_blocks(stats: dict) -> dict:
+    """Compress ``engine.stats()["usage"]`` into the bench-row shape:
+    the goodput block verbatim plus a per-tenant token /
+    device-second breakdown (the columns a capacity planner reads)."""
+    u = stats.get("usage") or {}
+    tenants = {
+        t: {"requests": a["requests"],
+            "prefill_tokens": a["prefill_tokens"],
+            "decode_tokens": a["decode_tokens"],
+            "device_s": a["device_s"],
+            "tokens_per_device_second": a["tokens_per_device_second"]}
+        for t, a in (u.get("tenants") or {}).items()}
+    return {"goodput": u.get("goodput"), "tenants": tenants}
+
+
+def _open_loop(workload, one) -> float:
+    """The open-loop arrival loop: each request is handed to ``one`` at
+    its arrival offset, from a thread of its own (late submissions go
+    at once: arrival times are an offered load, not a barrier). Joins
+    every thread, re-raises the first error, returns the wall
+    seconds."""
     errs: List[BaseException] = []
     lock = threading.Lock()
     t_start = time.monotonic()
 
-    def one(req):
+    def run(req):
         try:
-            t_sub = time.monotonic()
-            pending = submit_fn(req)
-            n_tok = collect_fn(pending, req)
-            dt = time.monotonic() - t_sub
-            with lock:
-                lat.append(dt)
-                toks.append(n_tok)
+            one(req)
         except BaseException as e:
             with lock:
                 errs.append(e)
@@ -222,7 +238,7 @@ def _replay(workload, submit_fn, collect_fn) -> dict:
         delay = t_start + req["arrival_s"] - time.monotonic()
         if delay > 0:
             time.sleep(delay)
-        t = threading.Thread(target=one, args=(req,), daemon=True)
+        t = threading.Thread(target=run, args=(req,), daemon=True)
         t.start()
         threads.append(t)
     for t in threads:
@@ -230,6 +246,26 @@ def _replay(workload, submit_fn, collect_fn) -> dict:
     wall = time.monotonic() - t_start
     if errs:
         raise errs[0]
+    return wall
+
+
+def _replay(workload, submit_fn, collect_fn) -> dict:
+    """Open-loop replay (:func:`_open_loop`); ``collect_fn`` blocks per
+    request and returns its delivered token count."""
+    lat: List[float] = []
+    toks: List[int] = []
+    lock = threading.Lock()
+
+    def one(req):
+        t_sub = time.monotonic()
+        pending = submit_fn(req)
+        n_tok = collect_fn(pending, req)
+        dt = time.monotonic() - t_sub
+        with lock:
+            lat.append(dt)
+            toks.append(n_tok)
+
+    wall = _open_loop(workload, one)
     return {"latency": _percentiles(lat),
             "tokens_per_sec": round(sum(toks) / max(wall, 1e-9), 2),
             "wall_s": round(wall, 3), "requests": len(workload)}
@@ -242,8 +278,10 @@ def _engine_replay(model, workload, warm_prompt, warm_tokens,
     None), open-loop replay the workload, and return latency / TTFT /
     inter-token percentiles, delivered tokens/s, the per-request rows
     (keyed by ``id(req)``), the whole ``stats()`` under ``stats`` and
-    the entries named by ``stats_keys`` at the top level, and the peak
-    number of requests admitted at once (``peak_admitted_concurrency``)."""
+    the entries named by ``stats_keys`` at the top level, the usage
+    ledger's goodput and per-tenant blocks, the active alerts, and the
+    peak number of requests admitted at once
+    (``peak_admitted_concurrency``)."""
     from bigdl_tpu_torch.serving.engine import ContinuousBatchingEngine
 
     engine = ContinuousBatchingEngine(model, **engine_kw)
@@ -281,6 +319,8 @@ def _engine_replay(model, workload, warm_prompt, warm_tokens,
     res["stats"] = stats
     for key in stats_keys:
         res[key] = stats[key]
+    res.update(_usage_blocks(stats))
+    res["alerts"] = stats["alerts"]
     res["rows"] = rows
     return res
 
@@ -783,9 +823,10 @@ def run_working_set_sweep(model, working_sets=(2, 8),
     device-only leg collapses once the working set passes
     ``device_rows``; the tiered leg keeps its hits, because evictions
     demote to host memory and revisits promote back. Every point checks
-    token parity of both cached legs against the cache-off leg. The JAX
-    row's compile-gauge and usage-ledger checks (``jit_flat``,
-    ``ledger_conserved``) wait for the observability slice."""
+    token parity of both cached legs against the cache-off leg, and each
+    leg's usage-ledger conservation (``ledger_conserved``: the tenants'
+    device-seconds against the busy total). The JAX row's compile-gauge
+    check (``jit_flat``) has no counterpart here."""
     log = log or (lambda *a, **k: None)
     vocab = model.vocab_size
     window = (model.max_len // prefill_chunk) * prefill_chunk
@@ -829,9 +870,14 @@ def run_working_set_sweep(model, working_sets=(2, 8),
 
         def trim(r):
             pc = r["prefix_cache"]
+            tenant_s = sum(t["device_s"] for t in r["tenants"].values())
+            total_s = r["goodput"]["device_seconds"]["total"]
             out = {"ttft": r["ttft"], "latency": r["latency"],
                    "inter_token": r["inter_token"],
-                   "tokens_per_sec": r["tokens_per_sec"]}
+                   "tokens_per_sec": r["tokens_per_sec"],
+                   "ledger_conserved": bool(
+                       abs(tenant_s - total_s)
+                       <= 1e-6 * max(total_s, 1e-9))}
             if pc.get("enabled"):
                 out.update(
                     hit_rate=pc["hit_rate"], hits=pc["hits"],
@@ -878,6 +924,7 @@ def run_working_set_sweep(model, working_sets=(2, 8),
             "tiered_ttft_p50_s": head["tiered"]["ttft"]["p50"],
             "device_only_ttft_p50_s": head["device_only"]["ttft"]["p50"],
             "token_parity": head["token_parity"],
+            "ledger_conserved": bool(head["tiered"]["ledger_conserved"]),
         },
         "workload": {"kind": "working_set_sweep",
                      "device_rows": device_rows,
@@ -889,3 +936,252 @@ def run_working_set_sweep(model, working_sets=(2, 8),
                      "max_slots": max_slots,
                      "prefill_rows": prefill_rows,
                      "template_len": template_len}}
+
+
+#: priority assignment cycle for the storm mix: half the traffic is
+#: low-class batch work (long decodes that hold slots), a quarter
+#: latency-sensitive high-class interactive traffic (long prompts,
+#: short decodes), a quarter normal. The cycle leads with TWO lows so
+#: the storm opens with every slot held by batch work — the first
+#: high-class arrival then exercises the preemption path, not a free
+#: slot
+_QOS_MIX = ("low", "low", "high", "normal")
+
+#: tenant names by class — the ledger's fair-share breakdown needs the
+#: classes billed apart; the over-budget tenant is added on top
+_QOS_TENANTS = {"high": "interactive", "normal": "standard",
+                "low": "batch"}
+
+
+def qos_storm_workload(n_requests: int, rate_hz: float, vocab: int,
+                       n_greedy: int = 3, seed: int = 0) -> List[dict]:
+    """Sample the MIXED-PRIORITY storm: Poisson arrivals cycling
+    through ``_QOS_MIX`` — high-class requests get LONG prompts and
+    short decodes (interactive: TTFT is the product), low/normal get
+    short prompts and LONG decodes (batch: they hold slots, which is
+    what makes them preemption victims) — plus ``n_greedy`` extra
+    high-class requests under the ``greedy`` tenant spread across the
+    storm span (the token-bucket's prey: even the top class cannot buy
+    unmetered device time). Each request carries ``priority`` and
+    ``tenant`` next to the usual arrival/prompt/n fields."""
+    r = np.random.RandomState(seed)
+    at = np.cumsum(r.exponential(1.0 / rate_hz, n_requests))
+    out = []
+    for i in range(n_requests):
+        cls = _QOS_MIX[i % len(_QOS_MIX)]
+        if cls == "high":
+            # interactive prompts are LONG (12-14 prefill chunks):
+            # TTFT is then dominated by real prefill work, so the
+            # fixed few-ms cost of a preemption reads as the small
+            # fraction it is, not as a 2x on a trivial baseline
+            t0 = int(r.randint(96, 113))
+            n = int(r.randint(4, 9))
+        else:
+            t0 = int(r.randint(8, 17))
+            n = int(r.randint(56, 81))
+        out.append({
+            "arrival_s": float(at[i]),
+            "prompt": r.randint(0, vocab, (t0,)).astype(np.int32),
+            "n": n,
+            "priority": cls,
+            "tenant": _QOS_TENANTS[cls],
+        })
+    # pin the storm's opening: the second batch job lands 10ms behind
+    # the first and the first interactive request 20ms behind that —
+    # DETERMINISTICALLY, both slots are held by mid-decode batch work
+    # when the first high-class request arrives, so the preemption
+    # path runs on every seed, not just unlucky ones
+    if n_requests > 2:
+        out[1]["arrival_s"] = out[0]["arrival_s"] + 0.01
+        out[2]["arrival_s"] = out[1]["arrival_s"] + 0.02
+    span = float(at[-1])
+    for k in range(n_greedy):
+        out.append({
+            # the first greedy request lands early enough to ADMIT and
+            # drain the bucket (16 decode tokens bill well past the
+            # bucket's burst); the rest arrive after it has finished
+            # and been billed, so they meet an exhausted bucket
+            "arrival_s": span * (0.2 + 0.65 * k / max(1, n_greedy - 1)),
+            "prompt": r.randint(0, vocab, (24,)).astype(np.int32),
+            "n": 16,
+            "priority": "high",
+            "tenant": "greedy",
+        })
+    out.sort(key=lambda q: q["arrival_s"])
+    return out
+
+
+def _qos_replay(engine, workload, timeout_s: float = 300.0) -> dict:
+    """Open-loop replay (:func:`_open_loop`) with OUTCOME accounting:
+    structured QoS rejections (shed / rate-limited) are expected results
+    here, not errors — every submit is tallied into exactly one
+    terminal outcome and the TTFT samples are kept PER CLASS (the
+    storm's headline is the high class's tail, measured apart from the
+    traffic being sacrificed for it)."""
+    outcomes = {"finished": 0, "shed": 0, "rate_limited": 0,
+                "cancelled": 0, "timed_out": 0}
+    # the greedy tenant is high-CLASS but not the headline: its TTFTs
+    # land in their own bucket so the interactive tail stays clean
+    ttft_by_class = {"high": [], "normal": [], "low": [], "greedy": []}
+    itl_high: List[float] = []
+    lat: List[float] = []
+    toks: List[int] = []
+    retry_hints: List[float] = []
+    lock = threading.Lock()
+
+    def one(req):
+        t_sub = time.monotonic()
+        try:
+            h = engine.submit(req["prompt"], req["n"],
+                              tenant=req["tenant"],
+                              priority=req["priority"])
+        except (RequestShed, RequestRateLimited) as e:
+            kind = ("shed" if isinstance(e, RequestShed)
+                    else "rate_limited")
+            with lock:
+                outcomes[kind] += 1
+                retry_hints.append(float(e.retry_after_s))
+            return
+        try:
+            row = h.result(timeout=timeout_s)
+        except RequestTimedOut:
+            with lock:
+                outcomes["timed_out"] += 1
+            return
+        except RequestCancelled:
+            with lock:
+                outcomes["cancelled"] += 1
+            return
+        dt = time.monotonic() - t_sub
+        cls = ("greedy" if req["tenant"] == "greedy"
+               else req["priority"])
+        with lock:
+            outcomes["finished"] += 1
+            lat.append(dt)
+            toks.append(row.shape[0] - req["prompt"].shape[0])
+            if h.first_token_at is not None:
+                ttft_by_class[cls].append(
+                    h.first_token_at - h.submitted_at)
+            if cls == "high":
+                _append_itl(itl_high, h)
+
+    wall = _open_loop(workload, one)
+    return {"latency": _percentiles(lat),
+            "ttft_by_class": {c: _percentiles(v)
+                              for c, v in ttft_by_class.items()},
+            # the leg's headline percentile blocks are the HIGH class's
+            # — the class the SLO is written for
+            "ttft": _percentiles(ttft_by_class["high"]),
+            "inter_token": _percentiles(itl_high),
+            "tokens_per_sec": round(sum(toks) / max(wall, 1e-9), 2),
+            "wall_s": round(wall, 3),
+            "submitted": len(workload),
+            "outcomes": outcomes,
+            "retry_after_s_max": (round(max(retry_hints), 3)
+                                  if retry_hints else None)}
+
+
+def run_qos_storm(model, n_requests: int = 24, rate_hz: float = 20.0,
+                  max_slots: int = 2, prefill_chunk: int = 8,
+                  prefill_rows: int = 2, n_greedy: int = 3,
+                  eos_id: Optional[int] = None, seed: int = 0,
+                  registry=None, log=None) -> dict:
+    """Replay ONE mixed-priority Poisson storm into a deliberately
+    undersized engine (``max_slots`` far below the offered load) wired
+    with the full QoS stack — a hair-trigger TTFT SLO objective so the
+    burn-rate shedder fires on the real watchdog, zero preemption
+    slack so waiting high-class requests evict batch slots through the
+    KV-donation path, ``shed_classes=("low", "normal")`` so a severe
+    burn widens the shed set, and a starved token bucket for the
+    ``greedy`` tenant — then replay ONLY the high-class interactive
+    requests through the SAME engine config as the uncontended
+    baseline.
+
+    The headline is ``high_ttft_p99_ratio`` (storm / uncontended high-
+    class p99 TTFT: under a storm that sheds and preempts everything
+    else, how far the top class's tail moves from its uncontended self;
+    reported, with no limit set here). The row also
+    carries the shed / preempted / rate-limited counts (all must be
+    > 0: a storm that never fired the machinery measured nothing), the
+    outcome-conservation verdict (client-side outcome tally == submits
+    AND == the engine's own finished+shed+rate_limited accounting — no
+    silent drops), and the per-tenant ledger breakdown."""
+    from bigdl_tpu_torch.serving.engine import ContinuousBatchingEngine
+
+    log = log or (lambda *a, **k: None)
+    vocab = model.vocab_size
+    wl = qos_storm_workload(n_requests, rate_hz, vocab,
+                            n_greedy=n_greedy, seed=seed)
+    # the uncontended baseline is the HIGH-PRIORITY traffic alone —
+    # interactive AND greedy, at the same arrival offsets, under the
+    # same rate limits — so any high-vs-high collision lands in both
+    # legs identically and the ratio isolates what the STORM adds
+    high_only = [q for q in wl if q["priority"] == "high"]
+    warm_prompt = np.asarray(
+        np.random.RandomState(seed + 1).randint(0, vocab, (12,)),
+        np.int32)
+    engine_kw = dict(
+        max_slots=max_slots, prefill_chunk=prefill_chunk,
+        prefill_rows=prefill_rows, eos_id=eos_id, registry=registry,
+        # the burn objective is a tripwire, not a target: every real
+        # TTFT lands over 0.1ms, so the storm's traffic itself drives
+        # the watchdog into a SEVERE burn (burn 10 >= 2x threshold)
+        # within min_count observations — shedding activates on the
+        # same machinery production would use, just tuned to fire
+        # min_count 3 = warm + the two leading lows: the slot-holding
+        # batch work ADMITS before the burn trips, so the first high
+        # arrival preempts a live victim; everything low/normal after
+        # the trip sheds at submit
+        slo_objectives=[{"name": "ttft_burn", "metric": "ttft",
+                         "threshold_s": 1e-4, "target": 0.9,
+                         "window_s": 30.0, "min_count": 3,
+                         "burn_threshold": 2.0}],
+        shed_classes=("low", "normal"),
+        preempt_slack_s=0.0,
+        tenant_rate_limits={"greedy": (0.01, 0.001)})
+
+    def leg(name: str, work) -> dict:
+        log(f"[serving-bench] qos {name} replay...")
+        with ContinuousBatchingEngine(model, service_name=name,
+                                      **engine_kw) as eng:
+            eng.submit(warm_prompt, 4).result(timeout=300)
+            res = _qos_replay(eng, work)
+            stats = eng.stats()
+        res["qos_state"] = stats["qos"]
+        res.update(_usage_blocks(stats))
+        res["alerts"] = stats["alerts"]
+        # conservation against the ENGINE's own books, not just the
+        # client's: every submit the engine saw must have landed in
+        # exactly one terminal outcome counter
+        qc = stats["qos"]
+        eng_terminal = (stats["finished"] + qc["shed"]
+                        + qc["rate_limited"] + stats["cancelled"]
+                        + stats["timed_out"])
+        client_terminal = sum(res["outcomes"].values())
+        res["conservation_ok"] = bool(
+            client_terminal == res["submitted"]
+            # +1: the warm request finished outside the tally
+            and eng_terminal == res["submitted"] + 1)
+        return res
+
+    storm = leg("bench_qos_storm", wl)
+    uncont = leg("bench_qos_uncontended", high_only)
+
+    def ratio(key):
+        a = storm["ttft"][key]
+        b = uncont["ttft"][key]
+        return round(a / b, 4) if a and b else None
+
+    qc = storm["qos_state"]
+    return {
+        "qos": storm, "uncontended": uncont,
+        "high_ttft_p50_ratio": ratio("p50"),
+        "high_ttft_p99_ratio": ratio("p99"),
+        "shed": qc["shed"], "preempted": qc["preempted"],
+        "rate_limited": qc["rate_limited"],
+        "conservation_ok": bool(storm["conservation_ok"]
+                                and uncont["conservation_ok"]),
+        "workload": {"kind": "qos_storm", "requests": n_requests,
+                     "n_greedy": n_greedy, "rate_hz": rate_hz,
+                     "seed": seed, "max_slots": max_slots,
+                     "prefill_rows": prefill_rows}}

@@ -1,6 +1,7 @@
 """Continuous-batching decode engine over a slot-pooled or paged KV cache
 (port of ``bigdl_tpu/serving/engine.py``: dense slots, paged KV,
-speculative decoding, int8 KV and weights, and the prefix host tier).
+speculative decoding, int8 KV and weights, the prefix host tier, QoS,
+chaos drills, usage metering and SLO burn detection).
 
 The batch-at-a-time ``GenerationService`` runs each batch to completion:
 one long request holds every co-batched short one. This engine keeps a
@@ -76,12 +77,32 @@ Sampling draws from a ``torch.Generator`` on the engine's device seeded
 by ``seed``; with a draft it runs speculative sampling (accept
 min(1, p/q), the residual on rejection) from the same generator.
 
-Later steps of the JAX engine (QoS shedding / rate limits / preemption,
-chaos drills, tensor-parallel serving) raise ``NotImplementedError``
-naming their ``ROADMAP.md`` item; the observability hooks (recorder, metric
-instruments, memory pools, usage ledger, watchdogs, time series,
-incidents, cost model, loop-phase accounting) are not ported yet, and
-``registry=`` / ``recorder=`` are accepted and unused.
+- QoS: a ``high``-class request queued past ``preempt_slack_s`` with
+  every slot busy PREEMPTS the lowest-class, longest-remaining slot: the
+  victim's KV (prompt + generated) is donated to the prefix cache and
+  pinned, the victim requeues at the head, and its re-admission
+  re-prefills only what the donated entry does not cover, so it resumes
+  token-identical. Under a TTFT burn (an active ``SloWatchdog`` alert on
+  a ``metric="ttft"`` objective, or the ``ChaosInjector``'s synthetic
+  one) ``submit`` refuses the ``shed_classes`` with ``RequestShed``, and
+  a tenant past its device-second ``TokenBucket`` with
+  ``RequestRateLimited``; both carry ``retry_after_s``.
+- every request is metered by a ``UsageLedger``
+  (``observability/accounting.py``): queue wait, prefilled and reused
+  prompt tokens, delivered tokens, KV byte-seconds, and device-seconds
+  split pro-rata across the rows each dispatch advanced (host walls
+  from the launch to the host read that ends the dispatch; no sync is
+  added for the bill). The token buckets debit what it measured.
+- ``chaos`` (``serving/chaos.py``) scripts a TTFT burn, a dispatch fault
+  (the loop crashes; every waiting handle fails with ``EngineStopped``)
+  or a frozen slot (it sits out the decode while the others stream).
+
+Tensor-parallel serving (``mesh`` / ``tp_rules``) raises
+``NotImplementedError`` naming its ``ROADMAP.md`` item; the rest of the
+observability hooks (recorder, metric instruments, memory pools, budget
+tracker, recompile watchdog, time series, incidents, cost model,
+loop-phase accounting) are not ported yet, and ``registry=`` /
+``recorder=`` are accepted and unused.
 """
 
 from __future__ import annotations
@@ -100,24 +121,25 @@ from bigdl_tpu_torch.models.transformer import (
     _draw, _filter_logits, _spec_accept, _validate_sampling,
 )
 from bigdl_tpu_torch.nn.quantized import Quantizer
+from bigdl_tpu_torch.observability import (
+    Histogram, SloObjective, SloWatchdog, UsageLedger,
+)
 from bigdl_tpu_torch.serving.paging import (
     BlockTable, PagedPrefixIndex, PagePool,
 )
 from bigdl_tpu_torch.serving.prefix_cache import PrefixCache
 from bigdl_tpu_torch.serving.scheduler import (
-    AdmissionQueue, PrefillPolicy, SpeculationPolicy, page_fit_score,
-    pages_needed,
+    AdmissionQueue, PrefillPolicy, SpeculationPolicy, TokenBucket,
+    page_fit_score, pages_needed,
 )
 from bigdl_tpu_torch.serving.streams import (
-    EngineDraining, EngineStopped, RequestCancelled, RequestHandle,
-    RequestTimedOut,
+    PRIORITY_RANK, EngineDraining, EngineStopped, RequestCancelled,
+    RequestHandle, RequestRateLimited, RequestShed, RequestTimedOut,
 )
 
-#: options of the JAX engine that later steps of this port bring: the
+#: options of the JAX engine that a later step of this port brings: the
 #: ROADMAP.md Queue 1 item that brings each, and the step's name
 _LATER = {
-    "tenant_rate_limits": (5, "QoS shedding, rate limits and preemption"),
-    "chaos": (6, "chaos.py"),
     "mesh": (10, "tensor-parallel serving"),
     "tp_rules": (10, "tensor-parallel serving"),
 }
@@ -133,8 +155,8 @@ def _later(what: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} belongs to a later step of the engine's port "
         f"(ROADMAP.md, Queue 1 item {item}: {step}); this engine serves "
-        "dense or paged KV, float or int8, with or without a draft and "
-        "a prefix host tier")
+        "one device: dense or paged KV, float or int8, with or without a "
+        "draft and a prefix host tier")
 
 
 def _percentile_summary(values) -> dict:
@@ -193,16 +215,20 @@ class _Admission:
 class _SlotState:
     """Host-side view of one occupied KV slot."""
 
-    __slots__ = ("handle", "pos", "last_token", "delivered")
+    __slots__ = ("handle", "pos", "last_token", "last_token_at",
+                 "delivered")
 
-    def __init__(self, handle: RequestHandle, pos: int, last_token: int):
+    def __init__(self, handle: RequestHandle, pos: int, last_token: int,
+                 now: float):
         self.handle = handle
         #: cache position the next decode step writes: the slot's KV
         #: covers [0, pos), the last delivered token's KV is not cached
-        #: yet (generate()'s host-loop invariant, which donation uses);
-        #: a speculative burst of m tokens moves pos by m and keeps it
+        #: yet (generate()'s host-loop invariant, which donation and
+        #: preemption use); a speculative burst of m tokens moves pos by
+        #: m and keeps it
         self.pos = pos
         self.last_token = last_token
+        self.last_token_at = now
         self.delivered = 1
 
 
@@ -238,9 +264,24 @@ class ContinuousBatchingEngine:
     acceptance identity needs the unfiltered distributions).
 
     The engine runs on ``device`` (default: the model's device; a device
-    that differs from the model's raises). ``priority`` ``"normal"`` and
-    ``"low"`` are ordered by the admission queue; ``"high"`` raises until
-    preemption is ported.
+    that differs from the model's raises).
+
+    QoS: ``priority`` (``"high"`` / ``"normal"`` / ``"low"``) orders the
+    admission queue. With every slot busy, a high-class request queued
+    past ``preempt_slack_s`` (None disables) preempts the lowest-class,
+    longest-remaining slot, which resumes token-identical; high slots
+    are never preempted. While the TTFT SLO burns, ``shed_classes``
+    (``"low"`` on any burn, ``"normal"`` too once the burn is severe,
+    never ``"high"``) are refused with ``RequestShed``;
+    ``tenant_rate_limits`` (``{tenant: (rate, burst)}`` or ``{"rate":,
+    "burst":}`` in device-seconds, ``"*"`` the default) meter each
+    tenant through a post-paid ``TokenBucket`` (``RequestRateLimited``).
+    ``slo_objectives`` (``SloObjective``s or their keyword dicts, each
+    naming the ``"ttft"``, ``"inter_token"`` or ``"queue_wait"``
+    histogram) drive an ``SloWatchdog`` sampled once an iteration;
+    ``chaos`` is a ``ChaosInjector``. ``usage_tenants`` caps the
+    ledger's tenant table (later names bill to ``"other"``) and
+    ``usage_recent`` bounds its ring of finished records.
 
     ``kv_dtype="int8"`` stores every KV pool as int8 codes plus f32
     scales (a row costs (D + 4) / (D * itemsize) of the float row, so a
@@ -267,17 +308,27 @@ class ContinuousBatchingEngine:
                  prefix_host_rows: Optional[int] = None,
                  prefix_min_tokens: Optional[int] = None,
                  admission_window: int = 4,
+                 slo_objectives=None, usage_tenants: int = 32,
+                 usage_recent: int = 256,
                  draft=None, spec_gamma: int = 4, mesh=None, tp_rules=None,
                  kv_dtype: Optional[str] = None,
                  weights_dtype: Optional[str] = None,
+                 preempt_slack_s: Optional[float] = 0.25,
+                 shed_classes=("low",),
                  tenant_rate_limits=None, chaos=None,
                  page_size: Optional[int] = None,
                  max_pages: Optional[int] = None, device=None):
-        for name, val in (("mesh", mesh), ("tp_rules", tp_rules),
-                          ("tenant_rate_limits", tenant_rate_limits),
-                          ("chaos", chaos)):
+        for name, val in (("mesh", mesh), ("tp_rules", tp_rules)):
             if val is not None:
                 raise _later(name)
+        if preempt_slack_s is not None and preempt_slack_s < 0:
+            raise ValueError(f"preempt_slack_s must be >= 0 or None, "
+                             f"got {preempt_slack_s}")
+        for p in tuple(shed_classes or ()):
+            if p not in PRIORITY_RANK or p == "high":
+                raise ValueError(
+                    f"shed_classes may contain 'low'/'normal', "
+                    f"got {p!r}")
         if max_slots < 1:
             raise ValueError(f"max_slots must be >= 1, got {max_slots}")
         if admission_window < 1:
@@ -516,7 +567,57 @@ class ContinuousBatchingEngine:
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(seed)
 
-        self._queue = AdmissionQueue(queue_capacity)
+        # the latency histograms the JAX engine feeds its ttft /
+        # inter-token / queue-wait instruments with: the SLO watchdog's
+        # inputs (unregistered: the port exports no metric yet)
+        self._hists = {"ttft": Histogram(), "inter_token": Histogram(),
+                       "queue_wait": Histogram()}
+        #: per-request / per-tenant usage meter. Paged mode bills KV
+        #: byte-seconds per actually-held page (``_accrue_paged_kv``),
+        #: so the dense row-residency terms are zero there
+        self._usage = UsageLedger(
+            service=service_name, registry=registry, recorder=recorder,
+            max_tenants=usage_tenants, recent=usage_recent,
+            slot_row_bytes=0 if self.paged else row_bytes,
+            staging_row_bytes=0 if self.paged else row_bytes,
+            token_bytes=self._token_bytes)
+        #: the programs that have run once: a program's first call pays
+        #: for library handles and allocator growth, so its wall is not
+        #: billed (the JAX engine's warm set, whose cold call compiles)
+        self._warm: set = set()
+        self._last_kv_accrue: Optional[float] = None
+        self._slo_wd = SloWatchdog(service=service_name, registry=registry,
+                                   recorder=recorder)
+        for obj in (slo_objectives or ()):
+            if isinstance(obj, dict):
+                obj = SloObjective(**obj)
+            if obj.metric not in self._hists:
+                raise ValueError(
+                    f"SloObjective {obj.name!r} names unknown engine "
+                    f"metric {obj.metric!r}; expected one of "
+                    f"{sorted(self._hists)}")
+            self._slo_wd.watch(obj, self._hists[obj.metric])
+
+        # ---- QoS: preemption, burn-rate shedding, token buckets
+        self.preempt_slack_s = preempt_slack_s
+        self.shed_classes = tuple(shed_classes or ())
+        #: per-tenant device-second token buckets (post-paid): resolved
+        #: tenant names, "*" the default; None = unlimited
+        self._rate_limits = dict(tenant_rate_limits or {})
+        self._buckets: dict = {}
+        #: per rate-limited tenant, the usage records of its requests
+        #: past the bucket gate and not yet settled (debited)
+        self._unsettled: dict = {}
+        self._buckets_lock = threading.Lock()
+        for tenant in self._rate_limits:
+            if tenant != "*":
+                self._tenant_bucket(self._usage.resolve_tenant(tenant))
+        #: scripted fault injector (``serving/chaos.py``), or None
+        self._chaos = chaos
+        self._qos_counts = {"preempted": 0, "shed": 0, "rate_limited": 0}
+
+        self._queue = AdmissionQueue(
+            queue_capacity, wait_histogram=self._hists["queue_wait"])
         self._slots: List[Optional[_SlotState]] = [None] * max_slots
         self._adms: List[_Admission] = []
         self._counts = dict.fromkeys(_FLOW + _TALLIES, 0)
@@ -781,13 +882,17 @@ class ContinuousBatchingEngine:
         ``timeout_s`` is a wall deadline over queue, prefill and decode
         (``RequestTimedOut``, also while blocked on a full queue); a full
         queue blocks (``block=True``, up to ``queue_timeout_s``) or
-        raises ``QueueFull``. ``tenant`` (default ``"default"``),
-        ``priority`` and ``trace_id`` are stored on the handle."""
-        if priority == "high":
-            raise NotImplementedError(
-                "priority='high' belongs to a later step of the engine's "
-                "port (ROADMAP.md, Queue 1 item 5: QoS shedding, rate "
-                "limits and preemption); 'normal' and 'low' are served")
+        raises ``QueueFull``.
+
+        ``tenant`` names the workload the request's usage is billed to
+        (``None`` bills to ``"default"``; past ``usage_tenants`` distinct
+        names, new ones bill to ``"other"``); ``handle.usage()`` returns
+        the metered record. ``priority`` (``"high"`` / ``"normal"`` /
+        ``"low"``) is the QoS class: a shed class under a TTFT burn
+        raises ``RequestShed``, a tenant past its token bucket
+        ``RequestRateLimited``, both with ``retry_after_s``; the handle
+        is then finished with that outcome. ``trace_id`` is stored on
+        the handle and its usage record."""
         if self._crashed is not None:
             raise EngineStopped("engine loop crashed") from self._crashed
         if self._draining:
@@ -818,14 +923,58 @@ class ContinuousBatchingEngine:
                     f"has {usable} allocatable (max_pages="
                     f"{self._pages.max_pages} minus the scratch page): "
                     "raise max_pages or shorten the request")
-        h = RequestHandle(prompt, n, timeout_s, priority=priority)
-        h.tenant = tenant if tenant is not None else "default"
-        h.trace_id = trace_id
         self.start()
+        h = RequestHandle(prompt, n, timeout_s, priority=priority)
+        h.trace_id = trace_id
+        h._usage = self._usage.begin(h.request_id, tenant, t0, n,
+                                     submitted_at=h.submitted_at)
+        h._usage.trace_id = trace_id
+        h.tenant = h._usage.tenant
+        # QoS gates, the JAX engine's order: burn-rate shedding, then the
+        # tenant's token bucket. Both finish the handle with their
+        # outcome (the ledger bills its queue-side life) and raise
+        shed = self._shed_state()
+        if shed["active"] and priority in shed["classes"]:
+            retry = self._shed_retry_after_s(shed)
+            err = RequestShed(
+                f"shed at admission: TTFT SLO burning at "
+                f"{shed['burn_rate']:.1f}x budget "
+                f"({shed['source']}), class {priority!r} is in the "
+                f"shed set; retry in {retry:.2f}s",
+                retry_after_s=retry)
+            self._reject_qos(h, err, "shed")
+            raise err
+        bucket = self._tenant_bucket(h.tenant)
+        if bucket is not None:
+            # the bucket is debited when a request ends, so what the
+            # tenant's requests in flight have been metered so far counts
+            # against the balance here: without it, concurrent submits
+            # all pass a bucket nothing has been debited from yet (the
+            # JAX engine admits them, ROADMAP.md Queue 3)
+            with self._buckets_lock:
+                open_recs = self._unsettled.setdefault(h.tenant, set())
+                pending = sum(r.device_s for r in open_recs)
+                admit = bucket.try_admit(pending=pending)
+                if admit:
+                    open_recs.add(h._usage)
+            if not admit:
+                retry = bucket.retry_after(pending=pending)
+                err = RequestRateLimited(
+                    f"tenant {h.tenant!r} exhausted its device-second "
+                    f"budget (bucket {bucket.level():.3f}s, "
+                    f"{pending:.3f}s unsettled, refill "
+                    f"{bucket.rate:.3f}/s); retry in {retry:.2f}s",
+                    retry_after_s=retry)
+                self._reject_qos(h, err, "rate_limited")
+                raise err
         try:
             self._queue.put(h, block=block, timeout=queue_timeout_s)
-        except RequestTimedOut:
-            self._count("timed_out")
+        except Exception as e:
+            # a backpressure rejection still closes the request's record
+            self._usage.finalize(h._usage, "rejected", time.monotonic())
+            self._settle(h._usage)
+            if isinstance(e, RequestTimedOut):
+                self._count("timed_out")
             raise
         with self._wake:
             self._wake.notify_all()
@@ -849,12 +998,23 @@ class ContinuousBatchingEngine:
     def _finish_handle(self, h: RequestHandle,
                        err: Optional[BaseException],
                        outcome: str) -> None:
-        """Terminal bookkeeping for ONE request: the stream sentinel and
-        the finished-timeline ring entry. ``_finish`` arbitrates racing
-        finishers (a stopping submitter against the loop): only the
-        winner records."""
+        """Terminal bookkeeping for ONE request: the stream sentinel, the
+        usage ledger's finalize (and the tenant bucket's post-paid debit
+        of the measured device-seconds), the release of a preemption
+        pin the request never consumed, and the finished-timeline ring
+        entry. ``_finish`` arbitrates racing finishers (a stopping
+        submitter against the loop): only the winner records."""
         if not h._finish(err):
             return
+        rec = h._usage
+        if rec is not None:
+            self._usage.finalize(rec, outcome, h.finished_at)
+            self._settle(rec)
+        # a victim that finished, timed out or was cancelled while
+        # requeued must not leak its pinned prefix entry
+        pin = h.__dict__.pop("_preempt_pin", None)
+        if pin is not None and self._prefix is not None:
+            self._prefix.release(pin)
         tl = h.timeline()
         tl["request_id"] = h.request_id
         tl["outcome"] = outcome
@@ -867,6 +1027,86 @@ class ContinuousBatchingEngine:
         with self._counts_lock:
             self._counts[key] += n
 
+    # ------------------------------------------------------ QoS plumbing
+    def _shed_state(self) -> dict:
+        """The load-shedding decision input: is the TTFT SLO burning
+        (an active ``SloWatchdog`` alert on a ``metric="ttft"``
+        objective, or the chaos injector's synthetic burn), how hard,
+        and which classes shed as a result: ``low`` on any burn,
+        ``normal`` (when in ``shed_classes``) only once the burn is
+        severe (>= 2x its alert threshold), ``high`` never."""
+        active = severe = False
+        burn = 0.0
+        source = None
+        if self._chaos is not None and self._chaos.burn_active():
+            active = True
+            severe = self._chaos.burn_severe()
+            burn = 4.0 if severe else 2.0
+            source = "chaos"
+        else:
+            for row in self._slo_wd.state():
+                if row["metric"] != "ttft" or not row["active"]:
+                    continue
+                active = True
+                burn = max(burn, row["burn_rate"])
+                severe = severe or row["severe"]
+                source = "slo:" + row["objective"]
+        classes = ()
+        if active:
+            classes = (self.shed_classes if severe else
+                       tuple(p for p in self.shed_classes if p == "low"))
+        return {"active": active and bool(classes), "severe": severe,
+                "burn_rate": burn, "source": source, "classes": classes}
+
+    @staticmethod
+    def _shed_retry_after_s(shed: dict) -> float:
+        """Back-off hint for a shed rejection: long enough for the
+        trailing burn window to move, doubled under a severe burn."""
+        return 2.0 if shed["severe"] else 1.0
+
+    def _tenant_bucket(self, tenant: str) -> Optional[TokenBucket]:
+        """The tenant's device-second token bucket, created lazily from
+        ``tenant_rate_limits`` (exact name first, then the ``"*"``
+        default); None = unlimited."""
+        if not self._rate_limits:
+            return None
+        with self._buckets_lock:
+            b = self._buckets.get(tenant)
+            if b is not None:
+                return b
+            cfg = self._rate_limits.get(tenant, self._rate_limits.get("*"))
+            if cfg is None:
+                return None
+            if isinstance(cfg, dict):
+                b = TokenBucket(cfg["rate"], cfg["burst"])
+            else:
+                rate, burst = cfg
+                b = TokenBucket(rate, burst)
+            self._buckets[tenant] = b
+            return b
+
+    def _settle(self, rec) -> None:
+        """The tenant bucket's post-paid debit of a finalized record's
+        measured device-seconds; the record leaves the unsettled set in
+        the same step, so the gate never counts it twice or not at
+        all."""
+        bucket = self._tenant_bucket(rec.tenant)
+        if bucket is None:
+            return
+        with self._buckets_lock:
+            self._unsettled.get(rec.tenant, set()).discard(rec)
+            if rec.device_s > 0:
+                bucket.debit(rec.device_s)
+
+    def _reject_qos(self, h: RequestHandle, err: Exception,
+                    outcome: str) -> None:
+        """Terminal bookkeeping for a structured QoS rejection (shed /
+        rate_limited), through the ``_finish_handle`` funnel; the
+        caller raises ``err`` to the submitter."""
+        with self._counts_lock:
+            self._qos_counts[outcome] += 1
+        self._finish_handle(h, err, outcome)
+
     def stats(self) -> dict:
         """The flow counters since construction (admitted, finished,
         evicted, timed_out, cancelled), the loop's iterations, prefill
@@ -877,10 +1117,14 @@ class ContinuousBatchingEngine:
         the host tier's demotions, promotions and host hits),
         ``quantization`` (the KV and weight dtypes, a row's bytes beside
         the float row's), ``speculation`` (proposed and accepted draft
-        tokens, acceptance rate) and, in paged mode, ``paging`` (the
-        page pools' stats, the reservations' fragmentation, the page
-        waits). A decode step of a speculative engine is one propose /
-        verify round."""
+        tokens, acceptance rate), ``usage`` (the ledger's per-tenant
+        table, totals and goodput block), ``qos`` (shedding state, the
+        preempted / shed / rate-limited tallies, queue depth by class,
+        each tenant bucket's balance, and the chaos injector's script),
+        ``alerts`` (the active SLO alerts) and, in paged mode,
+        ``paging`` (the page pools' stats, the reservations'
+        fragmentation, the page waits). A decode step of a speculative
+        engine is one propose / verify round."""
         with self._counts_lock:
             out = dict(self._counts)
         out["active_slots"] = sum(s is not None for s in self._slots)
@@ -889,9 +1133,48 @@ class ContinuousBatchingEngine:
         out["prefix_cache"] = self._prefix_summary()
         out["speculation"] = self._spec_summary()
         out["quantization"] = self._quant_summary()
+        out["usage"] = self._usage.summary()
+        out["qos"] = self._qos_summary()
         if self.paged:
             out["paging"] = self._paging_summary()
+        out["alerts"] = self.alerts()
         return out
+
+    def _qos_summary(self) -> dict:
+        """The ``stats()["qos"]`` block (the JAX engine's keys)."""
+        shed = self._shed_state()
+        with self._buckets_lock:
+            buckets = {t: b.snapshot()
+                       for t, b in sorted(self._buckets.items())}
+        with self._counts_lock:
+            counts = dict(self._qos_counts)
+        out = {
+            "shedding": {"active": shed["active"],
+                         "severe": shed["severe"],
+                         "burn_rate": round(shed["burn_rate"], 3),
+                         "source": shed["source"],
+                         "classes": list(shed["classes"])},
+            "shed_classes_configured": list(self.shed_classes),
+            "preempt_slack_s": self.preempt_slack_s,
+            "queue_by_class": self._queue.depth_by_class(),
+            "rate_limits": buckets,
+            **counts,
+        }
+        if self._chaos is not None:
+            out["chaos"] = self._chaos.snapshot()
+        return out
+
+    def alerts(self) -> List[dict]:
+        """The active SLO alerts as plain dicts (empty while healthy);
+        the same list rides in ``stats()["alerts"]``."""
+        return self._slo_wd.alerts()
+
+    def debug_usage(self, top_n: int = 10) -> dict:
+        """The usage payload the JAX engine serves at ``/debug/usage``:
+        the per-tenant table, engine-wide totals, the goodput block and
+        the ``top_n`` recently finished requests by device-seconds."""
+        return {"service": self.service_name,
+                **self._usage.summary(top_n=top_n)}
 
     def _quant_summary(self) -> dict:
         """Which numerics the hot path runs and what one KV row costs:
@@ -1046,6 +1329,8 @@ class ContinuousBatchingEngine:
         # paged: a fresh iteration may admit again (pages freed since
         # can satisfy what the pool refused before)
         self._adm_blocked = False
+        if self._chaos is not None:
+            self._chaos.begin_iteration()
         # 1. running slots: cancellation and deadline eviction
         for sid, st in enumerate(self._slots):
             if st is None:
@@ -1087,12 +1372,22 @@ class ContinuousBatchingEngine:
             self._prefill_round()
             worked = True
 
-        # 4. one fused decode step over every occupied slot
+        # 4. one fused decode step over every occupied slot but the
+        #    ones a chaos freeze holds out (a simulated straggler: its KV
+        #    and handle wait untouched until the freeze expires)
         active = [sid for sid, st in enumerate(self._slots)
                   if st is not None]
+        if self._chaos is not None:
+            active = [sid for sid in active
+                      if not self._chaos.slot_frozen(sid)]
         if active:
             self._decode_all(active)
             worked = True
+
+        # 5. paged KV billing and the SLO watchdog's sample
+        if self.paged:
+            self._accrue_paged_kv()
+        self._slo_wd.sample()
         return worked
 
     # ------------------------------------------------ admission stages
@@ -1156,16 +1451,31 @@ class ContinuousBatchingEngine:
                 avail = self._pages.free_pages + self._prefix.device_pages
                 return page_fit_score(base, fresh, avail)
         while len(self._adms) < self._policy.prefill_rows:
-            slot = self._free_slot()
-            if slot is None:
-                return
             row = self._free_staging_row()
             if row is None:
                 return
-            h, dropped = self._queue.pop_ready(
-                now, scorer=scorer, window=self.admission_window)
-            for hd, err in dropped:
-                self._finish_dropped(hd, err)
+            slot = self._free_slot()
+            h = None
+            if slot is None:
+                # slot pool exhausted: a high-class request waiting past
+                # its slack may preempt a lower-class victim
+                if not self._maybe_preempt(now):
+                    return
+                slot = self._free_slot()
+                if slot is None:
+                    return
+                # the freed slot goes to the longest-waiting high-class
+                # request. The JAX engine pops with the scored window
+                # here, which misses that request once requeued victims
+                # fill the window, and re-admits a victim: the next
+                # iteration preempts again, a loop that under a storm
+                # preempts over and over while the high request waits
+                h = self._queue.pop_oldest("high", now)
+            if h is None:
+                h, dropped = self._queue.pop_ready(
+                    now, scorer=scorer, window=self.admission_window)
+                for hd, err in dropped:
+                    self._finish_dropped(hd, err)
             if h is None:
                 return
             try:
@@ -1182,8 +1492,9 @@ class ContinuousBatchingEngine:
     @staticmethod
     def _effective_prompt(h: RequestHandle) -> np.ndarray:
         """What an admission must have in the KV cache before decode can
-        continue: the prompt plus every already-generated token (none,
-        until preemption is ported)."""
+        continue: the prompt plus every already-generated token (a
+        preempted request's resume re-prefills them, past what its
+        donated prefix entry covers)."""
         if h._tokens:
             return np.concatenate(
                 [h.prompt, np.asarray(h._tokens, np.int32)])
@@ -1320,9 +1631,21 @@ class ContinuousBatchingEngine:
         a = _Admission(h, slot, row, ids, t0, base, n_chunks, entry, d_ids,
                        d_n_chunks)
         self._adms.append(a)
+        # the preemption pin held the donated entry across the queue
+        # wait; the admission now holds its own reference (a dense hit's
+        # pin, a paged hit's shared pages) or took a clean miss
+        pin = h.__dict__.pop("_preempt_pin", None)
+        if pin is not None:
+            self._prefix.release(pin)
         h.prefix_tokens = base
+        t_adm = time.monotonic()
         if h.admitted_at is None:
-            h.admitted_at = time.monotonic()
+            # set-once: a resumed request keeps its first admission stamp
+            h.admitted_at = t_adm
+        if h._usage is not None:
+            # queue wait closes (a re-admission accumulates from its
+            # requeue), staging residency opens, the reuse is credited
+            self._usage.admitted(h._usage, t_adm, reused_tokens=base)
         self._count("admitted")
         return a
 
@@ -1355,8 +1678,16 @@ class ContinuousBatchingEngine:
                 last[a.row] = a.tail - 1 - (a.n_chunks - 1) * c
                 if not spec or a.d_next_chunk >= a.d_n_chunks - 1:
                     finals.append(a)
+        # a program's first call is set-up, not work: unbilled
+        was_warm = "chunk" in self._warm and (
+            not spec or "d_chunk" in self._warm) and (
+            not finals or "sample0" in self._warm)
+        if self._chaos is not None:
+            self._chaos.on_dispatch()
+        t_disp = time.monotonic()
         logits = self._chunk(self._h2d(ids), self._h2d(pos0),
                              self._h2d(last))
+        self._warm.add("chunk")
         if spec:
             d_ids = np.zeros((rows, c), np.int64)
             d_pos0 = np.zeros((rows,), np.int64)
@@ -1365,11 +1696,39 @@ class ContinuousBatchingEngine:
                 d_ids[a.row] = a.d_ids[dk * c:(dk + 1) * c]
                 d_pos0[a.row] = dk * c
             self._d_chunk(self._h2d(d_ids), self._h2d(d_pos0))
-        toks = self._pick(logits).tolist() if finals else None
+            self._warm.add("d_chunk")
+        toks = None
+        if finals:
+            # the host read blocks on the chunk's logits, so a round that
+            # finishes a prompt measures the device work; one that does
+            # not measures its launches (the JAX ledger's rule: no sync
+            # is added for the bill)
+            toks = self._pick(logits).tolist()
+            self._warm.add("sample0")
+        wall = time.monotonic() - t_disp
         self._count("prefill_rounds")
+        # pro-rata by the real tokens each row advanced (a final chunk's
+        # pads and a replayed chunk earn nothing; draft chunks are real
+        # mirrored work); the weights sum to 1
+        done_by = []
         for a in self._adms:
-            if a.next_chunk < a.n_chunks:
-                self._prefilled_tokens += min(c, a.tail - a.next_chunk * c)
+            t_done = (min(c, a.tail - a.next_chunk * c)
+                      if a.next_chunk < a.n_chunks else 0)
+            d_done = min(c, a.t0 - a.d_next_chunk * c) if spec else 0
+            done_by.append((a, t_done, d_done))
+        if was_warm:
+            total_done = sum(t + d for _, t, d in done_by) or 1
+            self._usage.charge_dispatch(
+                "prefill", wall,
+                [(a.handle._usage, (t + d) / total_done)
+                 for a, t, d in done_by],
+                rows_advanced=len(self._adms),
+                capacity_rows=self._policy.prefill_rows)
+        for a, t_done, _ in done_by:
+            if t_done:
+                self._prefilled_tokens += t_done
+                if a.handle._usage is not None:
+                    self._usage.add_prefill(a.handle._usage, t_done)
                 a.next_chunk += 1
             if spec:
                 a.d_next_chunk += 1
@@ -1398,7 +1757,17 @@ class ContinuousBatchingEngine:
         self._adms.remove(a)
         now = time.monotonic()
         h = a.handle
+        first = h.first_token_at is None
         h._deliver(tok, now)
+        if h._usage is not None:
+            # staging residency closes, the slot row's opens; the first
+            # token counts as delivered
+            self._usage.slot_acquired(h._usage, now)
+            self._usage.delivered(h._usage, 1)
+        if first:
+            # a resumed request's first token shipped long ago: one TTFT
+            # observation per request
+            self._hists["ttft"].observe(now - h.submitted_at)
         if (self.eos_id is not None and tok == self.eos_id) \
                 or len(h._tokens) >= h.max_new_tokens:
             # instant finisher: the slot holds the prompt's KV; donate it
@@ -1409,7 +1778,10 @@ class ContinuousBatchingEngine:
             self._finish_handle(h, None, "finished")
             self._count("finished")
             return
-        st = _SlotState(h, a.t0, tok)
+        # a resumed request picks up where it was preempted: pos is the
+        # effective prompt's length, its KV covers [0, pos) as for a
+        # fresh one
+        st = _SlotState(h, a.t0, tok, now)
         st.delivered = len(h._tokens)
         self._slots[a.slot] = st
 
@@ -1442,6 +1814,94 @@ class ContinuousBatchingEngine:
             # copy to host is enqueued before this copy overwrites it
             self._resolve_pending_demotion()
             self._copy_row(self._pool, self._caches, row, sid)
+
+    # ------------------------------------------------------ preemption
+    def _maybe_preempt(self, now: float) -> bool:
+        """With the slot pool exhausted and a high-class request waiting
+        past ``preempt_slack_s``, evict one lower-class slot: lowest
+        class first, then the most decode left (the victim loses the
+        least sunk progress per unit of freed time). High-class slots
+        are never preempted. True when a slot was freed."""
+        if self.preempt_slack_s is None:
+            return False
+        wait = self._queue.oldest_waiting("high", now)
+        if wait is None or wait <= self.preempt_slack_s:
+            return False
+        victim_sid, victim_key = None, None
+        for sid, st in enumerate(self._slots):
+            if st is None:
+                continue
+            rank = PRIORITY_RANK.get(st.handle.priority, 1)
+            if rank <= 0:
+                continue
+            key = (rank, st.handle.max_new_tokens - st.delivered)
+            if victim_key is None or key > victim_key:
+                victim_sid, victim_key = sid, key
+        if victim_sid is None:
+            return False
+        self._preempt_slot(victim_sid, now)
+        return True
+
+    def _preempt_slot(self, sid: int, now: float) -> None:
+        """Donate the slot's KV (prompt + generated[:-1], what a
+        finishing slot donates), pin the entry covering it so the LRU
+        cannot evict or demote it while the victim waits (released at
+        re-admission or by ``_finish_handle``), free the slot (in paged
+        mode its target and draft tables), and requeue the victim at
+        the head. A declined donation leaves no pin: the resume then
+        re-prefills from scratch, still token-identical."""
+        st = self._slots[sid]
+        h = st.handle
+        tokens = np.concatenate(
+            [h.prompt, np.asarray(h._tokens[:-1], np.int32)])
+        self._maybe_donate(sid, tokens)
+        if self._prefix is not None:
+            pin = self._prefix.pin_covering(tokens)
+            if pin is not None:
+                stale = h.__dict__.pop("_preempt_pin", None)
+                if stale is not None:
+                    self._prefix.release(stale)
+                h._preempt_pin = pin
+        self._free_slot_table(sid)
+        self._slots[sid] = None
+        self._count("evicted")
+        h.preempted += 1
+        if h._usage is not None:
+            # residency closes and a second queue wait opens; the
+            # device-seconds already charged stay charged
+            self._usage.preempted(h._usage, now)
+        with self._counts_lock:
+            self._qos_counts["preempted"] += 1
+        self._queue.requeue(h)
+
+    def _accrue_paged_kv(self) -> None:
+        """Per-iteration paged-KV billing: each request's actually-held
+        page bytes (``holder_bytes``: a page shared by k holders bills
+        1/k to each) integrated over the interval since the last call,
+        target and draft pools, slots and admissions."""
+        now = time.monotonic()
+        last, self._last_kv_accrue = self._last_kv_accrue, now
+        if last is None or now <= last:
+            return
+        dt = now - last
+
+        def bill(h, tbl, d_tbl):
+            if h._usage is None:
+                return
+            b = (self._pages.holder_bytes(tbl.pages)
+                 if tbl is not None else 0.0)
+            if d_tbl is not None:
+                b += self._d_pages.holder_bytes(d_tbl.pages)
+            if b > 0.0:
+                self._usage.accrue_kv(h._usage, b * dt)
+
+        for sid, st in enumerate(self._slots):
+            if st is not None:
+                bill(st.handle, self._tables[sid],
+                     self._d_tables[sid]
+                     if self._d_tables is not None else None)
+        for a in self._adms:
+            bill(a.handle, a.table, a.d_table)
 
     # ------------------------------------------------ host-tier moves
     # Every copy below is enqueued on the engine's (current) stream, as
@@ -1591,18 +2051,43 @@ class ContinuousBatchingEngine:
             return None
 
     # --------------------------------------------------------- decode
+    def _ride_along(self):
+        """The decode call's (max_slots,) tokens and positions: every
+        occupied slot at its own (last token, pos), free slots at (0,
+        0). An occupied slot held out of the round (a chaos freeze) thus
+        writes only at its own position ``pos``, which its KV does not
+        cover yet and its next real round rewrites before attending; at
+        (0, 0) it would overwrite its own first prompt position (the
+        JAX engine's frozen rows do, and in paged mode that position
+        may sit on a page shared with the prefix index)."""
+        tok = np.zeros((self.max_slots,), np.int64)
+        pos = np.zeros((self.max_slots,), np.int64)
+        for sid, st in enumerate(self._slots):
+            if st is not None:
+                tok[sid] = st.last_token
+                pos[sid] = st.pos
+        return tok, pos
+
     def _decode_all(self, active: List[int]) -> None:
         if self.draft is not None:
             return self._decode_all_spec(active)
-        tok = np.zeros((self.max_slots,), np.int64)
-        pos = np.zeros((self.max_slots,), np.int64)
-        for sid in active:
-            st = self._slots[sid]
-            tok[sid] = st.last_token
-            pos[sid] = st.pos
+        tok, pos = self._ride_along()
+        was_warm = "step" in self._warm
+        if self._chaos is not None:
+            self._chaos.on_dispatch()
+        t_disp = time.monotonic()
         nxt = self._step(self._h2d(tok), self._h2d(pos)).tolist()
-        self._count("decode_steps")
+        self._warm.add("step")
         now = time.monotonic()
+        self._count("decode_steps")
+        # every advanced row got one token: the wall splits evenly (idle
+        # and frozen rows ride along as padding waste, unbilled)
+        if was_warm:
+            w = 1.0 / len(active)
+            self._usage.charge_dispatch(
+                "decode", now - t_disp,
+                [(self._slots[sid].handle._usage, w) for sid in active],
+                rows_advanced=len(active), capacity_rows=self.max_slots)
         for sid in active:
             self._deliver_burst(sid, nxt[sid:sid + 1], now)
 
@@ -1613,29 +2098,31 @@ class ContinuousBatchingEngine:
         the emitted tokens together. Acceptance is per row, and eos or
         the request's token budget can cut a burst short."""
         g = self._spec.gamma
-        tok = np.zeros((self.max_slots,), np.int64)
-        pos = np.zeros((self.max_slots,), np.int64)
-        for sid in active:
-            st = self._slots[sid]
-            tok[sid] = st.last_token
-            pos[sid] = st.pos
+        tok, pos = self._ride_along()
+        was_warm = "spec" in self._warm
+        if self._chaos is not None:
+            self._chaos.on_dispatch()
+        t_disp = time.monotonic()
         tok_d, pos_d = self._h2d(tok), self._h2d(pos)
         props, qlogits = self._propose(tok_d, pos_d)
         emit, n_acc = self._spec_verify(tok_d, props, qlogits, pos_d)
         host = torch.cat([emit, n_acc[:, None]], 1).cpu().numpy()
+        wall = time.monotonic() - t_disp
+        self._warm.add("spec")
         emit_np, n_np = host[:, :-1], host[:, -1]
         self._count("decode_steps")
         # a row that accepted all gamma proposals lacks the draft KV of
         # its last one: re-write each row's last accepted token at its
-        # own position (no-ops for the others); launched after the sync,
-        # ordered before the next propose by the stream
+        # own position (no-ops for the others, a held-out row's own
+        # pos included); launched after the sync, ordered before the
+        # next propose by the stream
         if any(int(n_np[sid]) == g for sid in active):
-            sync_tok = np.zeros((self.max_slots,), np.int64)
-            sync_pos = np.zeros((self.max_slots,), np.int64)
+            sync_tok, sync_pos = tok.copy(), pos.copy()
             for sid in active:
                 n_r = int(n_np[sid])
-                sync_tok[sid] = tok[sid] if n_r == 0 else emit_np[sid, n_r - 1]
-                sync_pos[sid] = pos[sid] + n_r
+                if n_r:
+                    sync_tok[sid] = emit_np[sid, n_r - 1]
+                    sync_pos[sid] = pos[sid] + n_r
             self._d_sync(self._h2d(sync_tok), self._h2d(sync_pos))
         now = time.monotonic()
         bursts = {}
@@ -1653,6 +2140,15 @@ class ContinuousBatchingEngine:
                 if hits.size:     # eos mid-burst: stop AT it
                     toks = toks[:hits[0] + 1]
             bursts[sid] = toks
+        if was_warm:
+            # the round's wall splits by each row's delivered tokens,
+            # billed before any row can finalize
+            total = sum(len(b) for b in bursts.values()) or 1
+            self._usage.charge_dispatch(
+                "decode", wall,
+                [(self._slots[sid].handle._usage, len(b) / total)
+                 for sid, b in bursts.items()],
+                rows_advanced=len(active), capacity_rows=self.max_slots)
         for sid in active:
             self._deliver_burst(sid, bursts[sid], now)
 
@@ -1661,14 +2157,22 @@ class ContinuousBatchingEngine:
         of 1..gamma+1, in order) into the slot's handle and advance the
         slot's position by the delivered count: afterwards its KV covers
         ``[0, pos)`` and the last token's KV is not cached yet, as after
-        a one-token step. Finishes the row at eos or its token budget."""
+        a one-token step. Observes the inter-token histogram per token
+        (the round's gap split evenly across its burst) and finishes the
+        row at eos or its token budget."""
         st = self._slots[sid]
         h = st.handle
+        m = len(toks)
+        gap = (now - st.last_token_at) / m
         for t in toks:
             st.delivered += 1
             h._deliver(int(t), now)
-        st.pos += len(toks)
+            self._hists["inter_token"].observe(gap)
+        st.pos += m
         st.last_token = int(toks[-1])
+        st.last_token_at = now
+        if h._usage is not None:
+            self._usage.delivered(h._usage, m)
         if (self.eos_id is not None and st.last_token == self.eos_id) \
                 or st.delivered >= h.max_new_tokens:
             self._release(sid, None, "finished")

@@ -265,6 +265,32 @@ class AdmissionQueue:
                              tenant=getattr(handle, "tenant", None))
             self._lock.notify_all()
 
+    def pop_oldest(self, priority: str, now: Optional[float] = None
+                   ) -> Optional[RequestHandle]:
+        """Remove and return the longest-waiting live handle of one
+        priority class (None when none is queued): the engine's pop
+        right after a preemption, which frees the slot for the
+        high-class request whose wait triggered it. ``pop_ready``'s
+        window could miss that request behind requeued victims (the
+        JAX queue has no such pop; see the engine's
+        ``_fill_admissions``)."""
+        now = time.monotonic() if now is None else now
+        with self._lock:
+            pick = None
+            for h in self._q:
+                if (getattr(h, "priority", "normal") == priority
+                        and self._terminal(h, now) is None
+                        and (pick is None
+                             or h.submitted_at < pick.submitted_at)):
+                    pick = h
+            if pick is None:
+                return None
+            self._q.remove(pick)
+            if self._wait_hist is not None:
+                self._wait_hist.observe(max(0.0, now - pick.submitted_at))
+            self._lock.notify_all()
+            return pick
+
     def oldest_waiting(self, priority: str,
                        now: Optional[float] = None) -> Optional[float]:
         """Longest current submit→now wait (seconds) among live queued
@@ -346,6 +372,11 @@ class TokenBucket:
     eos, speculative acceptance, preemption all change it) and the
     UsageLedger already meters the true figure — the bucket just
     consumes ``UsageRecord.device_s`` at the same finalize point.
+    ``pending`` is what the tenant's requests still in flight have
+    already been metered: the caller counts it against the balance at
+    admission, so concurrent submits cannot all pass a bucket that
+    nothing has been debited from yet (the JAX bucket has no such
+    argument).
 
     Thread-safe; monotonic-clock based; rate and burst are in
     device-seconds (per wall second / absolute)."""
@@ -369,24 +400,26 @@ class TokenBucket:
                               * self.rate)
         self._last = now
 
-    def try_admit(self, now: Optional[float] = None) -> bool:
-        """True while the balance is positive (admit); no tokens are
-        taken here — the debit lands at finalize with the measured
-        cost."""
+    def try_admit(self, now: Optional[float] = None,
+                  pending: float = 0.0) -> bool:
+        """True while the balance less ``pending`` is positive (admit);
+        no tokens are taken here — the debit lands at finalize with the
+        measured cost."""
         now = time.monotonic() if now is None else now
         with self._lock:
             self._refill(now)
-            return self._level > 0.0
+            return self._level - pending > 0.0
 
-    def retry_after(self, now: Optional[float] = None) -> float:
-        """Seconds until the balance refills back above zero (0.0
-        when already positive)."""
+    def retry_after(self, now: Optional[float] = None,
+                    pending: float = 0.0) -> float:
+        """Seconds until the balance less ``pending`` refills back
+        above zero (0.0 when already positive)."""
         now = time.monotonic() if now is None else now
         with self._lock:
             self._refill(now)
-            if self._level > 0.0:
+            if self._level - pending > 0.0:
                 return 0.0
-            return (-self._level) / self.rate + 1e-9
+            return (pending - self._level) / self.rate + 1e-9
 
     def debit(self, amount: float,
               now: Optional[float] = None) -> None:

@@ -153,6 +153,9 @@ class RequestHandle:
         #: ``engine.submit(tenant=...)`` after cardinality-cap
         #: resolution (None outside an engine)
         self.tenant: Optional[str] = None
+        #: the engine's UsageRecord for this request (engine-stamped;
+        #: read through ``usage()``)
+        self._usage = None
         #: speculative decoding tallies (engine-stamped per decode
         #: round; both stay 0 without a draft): draft tokens proposed
         #: for this request vs accepted by the target's verify — the
@@ -260,9 +263,16 @@ class RequestHandle:
         }
 
     def usage(self) -> Optional[dict]:
-        """The request's metered resource consumption. The port has no
-        usage ledger yet, so this is always None."""
-        return None
+        """The request's metered resource consumption from the
+        engine's usage ledger (``observability.accounting``): tenant,
+        queue wait, prefilled vs prefix-reused prompt tokens (and KV
+        bytes the reuse saved), delivered tokens, pro-rata
+        device-seconds by dispatch kind, and KV byte-seconds held.
+        Final once the request is ``done()`` (the ``outcome`` field is
+        set); a live snapshot before that. None when the handle never
+        entered an engine."""
+        rec = self._usage
+        return rec.to_dict() if rec is not None else None
 
     def tokens(self) -> Iterator[int]:
         """Stream generated token ids in order as the engine produces

@@ -94,6 +94,23 @@ a non-zero exit, at the first phase that does not hold:
    - tier_serving (bf16): ``run_working_set_sweep`` (2 and 8 templates of
      256 tokens against a 2-row prefix pool): hit rate and TTFT with the
      host tier against device only, demotions and promotions;
+   - qos_gate (f32, TF32 off, one slot, ``preempt_slack_s=0.002``): the
+     preemption drill (a low-class victim decoding in the only slot, a
+     high-class arrival) dense, paged, with a prefix host tier and
+     speculative with draft (a), both rows held to a lone ``generate``
+     and the paged pool holding only the prefix index's pages after
+     drain; the chaos shed drill (low shed on a burn, normal served;
+     normal shed on a severe burn; high always served); a scripted
+     dispatch fault on a prefill round and on a decode (the loop stops,
+     every handle fails within 10 s); a frozen slot that stalls while
+     the other streams and resumes equal to a lone ``generate``; a
+     tenant bucket refusing with a retry hint; the usage ledger's
+     conservation within 1e-9;
+   - qos_serving (bf16): ``run_qos_storm`` at the JAX defaults (24
+     requests at 20/s into 2 slots, 3 greedy-tenant requests, then the
+     high class alone): high-class TTFT p50 / p99 ratios, the shed,
+     preempted and rate-limited counts (each > 0), the outcomes and
+     their conservation, the tenants' device-seconds, the goodput block;
    - quant_scoring (bf16): the int8 clone's ``forward`` over 4 x 2048
      tokens launches the flash kernel once a layer; its tokens/s beside
      the float forward's, the max |logit| difference;
@@ -113,7 +130,7 @@ a non-zero exit, at the first phase that does not hold:
    main paths (phases 4-6, and the timed bf16 training run of phase 8,
    each counted from 0 just before it and read just after; the engine
    phases, the remat run and the f32 gate are counted on their own
-   lines; ``launches_engine`` is the sum of the ten engine phases'
+   lines; ``launches_engine`` is the sum of the twelve engine phases'
    counts, each asserted 0; ``launches_quant`` is quant_scoring's),
    error, times and bound.
 
@@ -291,6 +308,18 @@ QUANT_SERVING = dict(n_requests=24, rate_hz=30.0, max_slots=8,
 TIER_SERVING = dict(working_sets=(2, 8), device_rows=2,
                     requests_per_template=3, rate_hz=40.0, max_slots=4,
                     prefill_chunk=64, prefill_rows=2, template_len=256)
+# qos_gate: the preempted victim's new tokens (it must still be decoding
+# when the urgent request arrives), the bound on a crashed engine's
+# handles failing, the frozen iterations, and the ledger's conservation
+# (tenants' device-seconds against the busy total, unrounded sums: they
+# differ only by float summation order)
+QOS_VICTIM_NEW = 96
+FAULT_WAIT_S = 10.0
+FREEZE_ITERATIONS = 8
+CONSERVATION_RTOL = 1e-9
+# qos_serving: run_qos_storm at the JAX package's defaults (bf16)
+QOS_SERVING = dict(n_requests=24, rate_hz=20.0, max_slots=2,
+                   prefill_chunk=8, prefill_rows=2, n_greedy=3, seed=0)
 
 
 def emit(obj) -> None:
@@ -1659,6 +1688,315 @@ def tier_serving(torch, fa, smi, model) -> int:
     return launches
 
 
+def qos_requests():
+    """qos_gate's prompts (seed 17): the victim, the urgent request, a
+    short probe, and two freeze-drill prompts of one prefill chunk."""
+    import numpy as np
+
+    g = np.random.RandomState(17)
+    v = FLAGSHIP["vocab_size"]
+    return {name: g.randint(0, v, n).astype(np.int32)
+            for name, n in (("victim", 96), ("urgent", 128), ("probe", 16),
+                            ("frozen", 48), ("other", 40))}
+
+
+def ledger_conservation(eng) -> float:
+    """|sum of the tenants' device-seconds - the ledger's busy total| over
+    the busy total, from the ledger's unrounded sums (every request
+    finalized)."""
+    led = eng._usage
+    with led._lock:
+        tenants = sum(a["device_s"] for a in led._tenants.values())
+        busy = sum(led._busy.values())
+        open_records = led._open
+    assert open_records == 0, open_records
+    assert busy > 0, busy
+    return abs(tenants - busy) / busy
+
+
+def preemption_drill(torch, model32, reqs, label, **engine_kw) -> dict:
+    """One slot; the victim (96 tokens, ``QOS_VICTIM_NEW`` new, low class)
+    provably decoding in it, then the urgent request (128 tokens, 16 new,
+    high class) whose 2 ms slack expires at once: both rows held to a lone
+    ``generate``, the victim preempted, the urgent one not; paged, the
+    pool holds exactly the prefix index's pages after drain and none
+    after stop; the ledger conserves."""
+    from bigdl_tpu_torch.serving import ContinuousBatchingEngine
+
+    t0 = time.monotonic()
+    victim, urgent = reqs["victim"], reqs["urgent"]
+    eng = ContinuousBatchingEngine(model32, max_slots=1, prefill_chunk=64,
+                                   preempt_slack_s=0.002, **engine_kw)
+    with eng:
+        eng.submit(victim, 2, priority="low").result(timeout=120)
+        eng.submit(urgent, 2, priority="high").result(timeout=120)
+        h_low = eng.submit(victim, QOS_VICTIM_NEW, priority="low",
+                           tenant="batch")
+        next(h_low.tokens())
+        h_high = eng.submit(urgent, 16, priority="high",
+                            tenant="interactive")
+        row_high = h_high.result(timeout=300)
+        row_low = h_low.result(timeout=300)
+        deadline = time.monotonic() + 30
+        while eng._has_work() and time.monotonic() < deadline:
+            time.sleep(0.005)
+        stats = eng.stats()
+        held = None
+        if eng.paged:
+            held = len({p for e in eng._prefix.snapshot()
+                        for p in e["pages"]})
+            in_use_after_drain = eng._pages.pages_in_use
+    ties = held_to_lone(model32, [(victim, QOS_VICTIM_NEW), (urgent, 16)],
+                        [row_low, row_high], label)
+    rec = {"drill": label, "seconds": time.monotonic() - t0,
+           "rows_equal_lone_generate": 2 - len(ties), "near_ties": ties,
+           "victim_preempted": h_low.preempted,
+           "urgent_preempted": h_high.preempted,
+           "qos_preempted": stats["qos"]["preempted"],
+           "victim_usage": h_low.usage(),
+           "conservation_rel": ledger_conservation(eng)}
+    assert h_low.preempted >= 1 and stats["qos"]["preempted"] >= 1, rec
+    assert h_high.preempted == 0, rec
+    assert h_low.usage()["decode_tokens"] == QOS_VICTIM_NEW, rec
+    if eng.paged:
+        rec.update(pages_in_use_after_drain=in_use_after_drain,
+                   prefix_held_pages=held,
+                   pages_in_use_after_stop=eng._pages.pages_in_use)
+        assert in_use_after_drain == held > 0, rec
+        assert eng._pages.pages_in_use == 0, rec
+    return rec
+
+
+def qos_gate(torch, fa, smi, model32) -> int:
+    """qos_gate (f32, TF32 off, ``max_slots=1``, ``prefill_chunk=64``,
+    ``preempt_slack_s=0.002``): the preemption drill dense, paged
+    (``page_size=16``), with a prefix host tier and speculative with draft
+    (a); the chaos shed drill (a burn sheds low and serves normal, a
+    severe burn sheds normal too, high is always served); ``fail_dispatch``
+    on a prefill round and on a decode (the loop stops, every handle fails
+    within a bounded wait); ``freeze_slot`` (the frozen row stalls while
+    the other streams, then resumes equal to a lone ``generate``); a
+    tenant bucket refusing with ``retry_after_s > 0``; the ledger's
+    conservation (tenants' device-seconds against the busy total, within
+    ``CONSERVATION_RTOL``) in every engine that served to the end.
+    Returns the flash kernel's launches."""
+    from bigdl_tpu_torch.serving import (
+        ChaosFault, ChaosInjector, ContinuousBatchingEngine, EngineStopped,
+        RequestHandle, RequestRateLimited, RequestShed)
+
+    t_phase = time.monotonic()
+    reqs = qos_requests()
+    draft_a = make_draft(torch, torch.float32)
+    fa.launches = 0
+    drills = [
+        preemption_drill(torch, model32, reqs, "dense"),
+        preemption_drill(torch, model32, reqs, "paged",
+                         page_size=PAGE_SIZE),
+        preemption_drill(torch, model32, reqs, "host_tier",
+                         prefix_host_rows=4),
+        preemption_drill(torch, model32, reqs, "speculative",
+                         draft=draft_a, spec_gamma=SPEC_GAMMA)]
+
+    # the chaos shed drill
+    probe = reqs["probe"]
+    chaos = ChaosInjector()
+    shed = {}
+    eng = ContinuousBatchingEngine(model32, max_slots=1, prefill_chunk=64,
+                                   shed_classes=("low", "normal"),
+                                   chaos=chaos)
+    with eng:
+        chaos.force_burn(True)
+        try:
+            eng.submit(probe, 4, priority="low")
+        except RequestShed as e:
+            shed["low_on_burn"] = e.retry_after_s
+        shed["normal_on_burn_served"] = bool(
+            eng.submit(probe, 4, priority="normal").result(
+                timeout=120).shape == (len(probe) + 4,))
+        chaos.force_burn(True, severe=True)
+        try:
+            eng.submit(probe, 4, priority="normal")
+        except RequestShed as e:
+            shed["normal_on_severe_burn"] = e.retry_after_s
+        shed["high_on_severe_burn_served"] = bool(
+            eng.submit(probe, 4, priority="high").result(
+                timeout=120).shape == (len(probe) + 4,))
+        chaos.force_burn(False)
+        shed["low_after_burn_served"] = bool(
+            eng.submit(probe, 4, priority="low").result(
+                timeout=120).shape == (len(probe) + 4,))
+        shed["qos"] = {k: v for k, v in eng.stats()["qos"].items()
+                       if k in ("shed", "shedding")}
+    shed["conservation_rel"] = ledger_conservation(eng)
+
+    # fail_dispatch on a prefill round (the first dispatch after an idle
+    # engine admits) and on a decode (the second, after a one-chunk
+    # prompt's single round)
+    faults = []
+    for target, nth in (("prefill", 1), ("decode", 2)):
+        chaos = ChaosInjector()
+        eng = ContinuousBatchingEngine(model32, max_slots=1,
+                                       prefill_chunk=64, chaos=chaos)
+        eng.submit(probe, 2).result(timeout=120)
+        before = eng.stats()
+        chaos.fail_dispatch(nth)
+        handles, at_submit = [], 0
+        for p, n in ((reqs["frozen"], 32), (reqs["victim"], 8),
+                     (reqs["urgent"], 8)):
+            try:
+                handles.append(eng.submit(p, n))
+            except EngineStopped:
+                at_submit += 1
+        waits, causes = [], []
+        for h in handles:
+            t = time.monotonic()
+            try:
+                h.result(timeout=FAULT_WAIT_S)
+                causes.append("served")
+            except EngineStopped as e:
+                causes.append(type(e.__cause__).__name__)
+            waits.append(time.monotonic() - t)
+        eng.stop()
+        after = eng.stats()
+        rec = {"target": target, "nth": nth, "handles": len(handles),
+               "stopped_at_submit": at_submit, "causes": causes,
+               "fail_wait_s": waits,
+               "prefill_rounds": after["prefill_rounds"]
+               - before["prefill_rounds"],
+               "decode_steps": after["decode_steps"]
+               - before["decode_steps"],
+               "crashed": type(eng._crashed).__name__,
+               "in_flight_records": after["usage"]["totals"]["in_flight"]}
+        faults.append(rec)
+        assert isinstance(eng._crashed, ChaosFault), rec
+        assert causes == ["ChaosFault"] * len(handles), rec
+        assert len(handles) + at_submit == 3, rec
+        assert max(waits, default=0.0) < FAULT_WAIT_S, rec
+        assert rec["decode_steps"] == 0, rec
+        assert rec["prefill_rounds"] == (0 if target == "prefill" else 1), \
+            rec
+        assert rec["in_flight_records"] == 0, rec
+
+    # freeze_slot, driven on this thread: two slots, the first request's
+    # slot frozen for FREEZE_ITERATIONS iterations once both stream
+    chaos = ChaosInjector()
+    eng = ContinuousBatchingEngine(model32, max_slots=2, prefill_chunk=64,
+                                   chaos=chaos)
+    ha = RequestHandle(reqs["frozen"], 48)
+    hb = RequestHandle(reqs["other"], 24)
+    eng._queue.put(ha)
+    eng._queue.put(hb)
+    with torch.inference_mode():
+        while len(ha._tokens) < 1 or len(hb._tokens) < 1:
+            eng._iterate()
+        sid = next(s for s, st in enumerate(eng._slots)
+                   if st is not None and st.handle is ha)
+        chaos.freeze_slot(sid, FREEZE_ITERATIONS)
+        a_seen, b_seen = [], []
+        for _ in range(FREEZE_ITERATIONS):
+            eng._iterate()
+            a_seen.append(len(ha._tokens))
+            b_seen.append(len(hb._tokens))
+        while not (ha.done() and hb.done()):
+            eng._iterate()
+    eng.stop()
+    freeze_ties = held_to_lone(
+        model32, [(reqs["frozen"], 48), (reqs["other"], 24)],
+        [ha.result(timeout=1), hb.result(timeout=1)], "freeze")
+    freeze = {"iterations": FREEZE_ITERATIONS,
+              "frozen_tokens_while_frozen": a_seen,
+              "other_tokens_while_frozen": b_seen,
+              "rows_equal_lone_generate": 2 - len(freeze_ties),
+              "near_ties": freeze_ties}
+    assert a_seen == [a_seen[0]] * len(a_seen), freeze
+    assert b_seen[-1] > b_seen[0], freeze
+
+    # a tenant bucket: the first request lands (post-paid), its measured
+    # device-seconds overdraw the bucket, a later submit is refused
+    with ContinuousBatchingEngine(
+            model32, max_slots=1, prefill_chunk=64,
+            tenant_rate_limits={"greedy": (0.001, 0.0005)}) as eng:
+        eng.submit(reqs["probe"], 32, tenant="greedy").result(timeout=120)
+        limited, probes = None, 0
+        deadline = time.monotonic() + 30
+        while limited is None and time.monotonic() < deadline:
+            probes += 1
+            try:
+                eng.submit(reqs["probe"], 32, tenant="greedy").result(
+                    timeout=120)
+            except RequestRateLimited as e:
+                limited = e
+        polite = eng.submit(reqs["probe"], 4, tenant="polite").result(
+            timeout=120)
+        bucket = eng.stats()["qos"]["rate_limits"]["greedy"]
+    rate = {"probes": probes, "bucket": bucket,
+            "retry_after_s": limited.retry_after_s if limited else None,
+            "polite_served": bool(polite.shape == (len(probe) + 4,)),
+            "conservation_rel": ledger_conservation(eng)}
+    launches = fa.launches
+    emit({"phase": "qos_gate", "dtype": "float32",
+          "allow_tf32": torch.backends.cuda.matmul.allow_tf32,
+          "nvidia_smi": smi, "victim_new_tokens": QOS_VICTIM_NEW,
+          "preemption": drills, "shed": shed, "fail_dispatch": faults,
+          "freeze": freeze, "rate_limit": rate,
+          "near_tie_limit": NEAR_TIE,
+          "conservation_rtol": CONSERVATION_RTOL,
+          "flash_launches": launches,
+          "phase_s": time.monotonic() - t_phase})
+    assert launches == 0, launches
+    assert shed.get("low_on_burn", 0) > 0, shed
+    assert shed.get("normal_on_severe_burn", 0) > 0, shed
+    assert shed["normal_on_burn_served"], shed
+    assert shed["high_on_severe_burn_served"], shed
+    assert shed["low_after_burn_served"] and shed["qos"]["shed"] == 2, shed
+    assert limited is not None and limited.retry_after_s > 0, rate
+    assert rate["polite_served"], rate
+    for rel in ([d["conservation_rel"] for d in drills]
+                + [shed["conservation_rel"], rate["conservation_rel"]]):
+        assert rel <= CONSERVATION_RTOL, rel
+    return launches
+
+
+def qos_serving(torch, fa, smi, model) -> int:
+    """qos_serving (bf16): ``run_qos_storm`` at the JAX defaults
+    (``QOS_SERVING``: 24 requests at 20/s into 2 slots with the whole QoS
+    stack on, 3 greedy-tenant requests, then the high class alone): the
+    high-class TTFT ratios, the shed / preempted / rate-limited counts
+    (each must be > 0: a storm that never fired measured nothing), the
+    outcomes, outcome conservation, the tenants' device-seconds and the
+    goodput block. No limit is set on the ratios. Returns the flash
+    kernel's launches."""
+    from bigdl_tpu_torch.serving import run_qos_storm
+
+    t_phase = time.monotonic()
+    fa.launches = 0
+    res = run_qos_storm(model, **QOS_SERVING)
+    launches = fa.launches
+    storm, uncont = res["qos"], res["uncontended"]
+    emit({"phase": "qos_serving", "dtype": "bfloat16", "nvidia_smi": smi,
+          "workload": res["workload"],
+          "high_ttft_p50_ratio": res["high_ttft_p50_ratio"],
+          "high_ttft_p99_ratio": res["high_ttft_p99_ratio"],
+          "shed": res["shed"], "preempted": res["preempted"],
+          "rate_limited": res["rate_limited"],
+          "conservation_ok": res["conservation_ok"],
+          "storm": {k: storm[k] for k in (
+              "outcomes", "ttft_by_class", "ttft", "inter_token",
+              "latency", "tokens_per_sec", "wall_s", "submitted",
+              "retry_after_s_max", "tenants", "goodput", "alerts")},
+          "uncontended": {k: uncont[k] for k in (
+              "outcomes", "ttft", "inter_token", "latency",
+              "tokens_per_sec", "wall_s", "submitted", "tenants",
+              "goodput")},
+          "flash_launches": launches,
+          "phase_s": time.monotonic() - t_phase})
+    assert launches == 0, launches
+    assert res["shed"] > 0 and res["preempted"] > 0 \
+        and res["rate_limited"] > 0, storm["qos_state"]
+    assert res["conservation_ok"], (storm["outcomes"], uncont["outcomes"])
+    return launches
+
+
 def rel_diff(a, b) -> float:
     return ((a.float() - b.float()).abs().max()
             / b.float().abs().max()).item()
@@ -2244,7 +2582,10 @@ def main() -> int:
         # int8 KV and weights, and the prefix host tier
         + quant_gate(torch, fa, smi, model32)
         + quant_serving(torch, fa, smi, model16)
-        + tier_serving(torch, fa, smi, model16))
+        + tier_serving(torch, fa, smi, model16)
+        # QoS: preemption, shedding, rate limits, chaos, the ledger
+        + qos_gate(torch, fa, smi, model32)
+        + qos_serving(torch, fa, smi, model16))
     # the int8 clone's scoring forward goes through the flash kernel
     quant_launches = quant_scoring(torch, fa, smi, model16)
     del model32, model16

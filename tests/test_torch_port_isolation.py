@@ -1,8 +1,9 @@
 """The port stands alone: bigdl_tpu_torch imports neither JAX nor the JAX
 package (a subprocess that serves and trains with it on the CPU, the
-continuous-batching engine, int8 with a prefix host tier, and a
-ResNet-20 through the LocalOptimizer included, and a scan of every
-module's imports), and its entry points run on the card
+continuous-batching engine, int8 with a prefix host tier, QoS with
+preemption, shedding, a token bucket, the chaos injector, the usage
+ledger and the SLO watchdog, and a ResNet-20 through the LocalOptimizer
+included, and a scan of every module's imports), and its entry points run on the card
 unless asked for the CPU, never falling back to it by themselves."""
 
 import ast
@@ -57,8 +58,30 @@ with ContinuousBatchingEngine(m, max_slots=2, prefill_chunk=4,
     pc = eng.stats()["prefix_cache"]
 assert pc["demotions"] >= 1 and pc["promotions"] >= 1, pc
 assert eng.stats()["quantization"]["row_bytes_ratio"] < 1.0
-from bigdl_tpu_torch.serving import (run_paged_comparison,
+from bigdl_tpu_torch.serving import (ChaosInjector, RequestShed,
+                                     run_paged_comparison, run_qos_storm,
                                      run_speculative_comparison)
+chaos = ChaosInjector()
+with ContinuousBatchingEngine(
+        m, max_slots=1, prefill_chunk=4, preempt_slack_s=0.002,
+        chaos=chaos, tenant_rate_limits={"t": (1.0, 1.0)},
+        slo_objectives=[dict(name="x", metric="ttft", threshold_s=1.0)],
+        page_size=4) as eng:
+    low = eng.submit(list(range(6)), 30, priority="low", tenant="t")
+    next(low.tokens())
+    high = eng.submit(list(range(4)), 3, priority="high")
+    assert high.result(timeout=60).shape == (7,)
+    assert low.result(timeout=60).shape == (36,)
+    chaos.force_burn(True)
+    try:
+        eng.submit([1, 2], 2, priority="low")
+        raise AssertionError("not shed")
+    except RequestShed:
+        pass
+    st = eng.stats()
+assert low.preempted >= 1 and st["qos"]["shed"] == 1, st["qos"]
+assert st["usage"]["tenants"]["t"]["device_s"] > 0, st["usage"]
+assert eng._pages.pages_in_use == 0
 from bigdl_tpu_torch.models.perf import transformer_perf
 s = transformer_perf(2, 1, 1, torch.float32, log=lambda *_: None,
                      seq_len=16, vocab=64, embed_dim=32, layers=1, heads=4,
@@ -107,9 +130,11 @@ def test_no_jax_or_jax_package_import_in_the_port():
     files.append(REPO / "chip_smoke.py")
     files += sorted((REPO / "scripts").glob("torch_*.py"))
     assert len(files) > 10
-    assert {"__init__", "benchmark", "engine", "paging", "prefix_cache",
-            "scheduler", "streams"} <= {f.stem for f in files
-                                        if f.parent.name == "serving"}
+    assert {"__init__", "benchmark", "chaos", "engine", "paging",
+            "prefix_cache", "scheduler", "streams"} <= {
+        f.stem for f in files if f.parent.name == "serving"}
+    assert {"__init__", "accounting", "histogram", "watchdog"} <= {
+        f.stem for f in files if f.parent.name == "observability"}
     assert {"attention", "linear", "quantized"} <= {
         f.stem for f in files if f.parent.name == "nn"}
     found = [(str(f.relative_to(REPO)), name) for f in files

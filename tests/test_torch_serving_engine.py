@@ -244,7 +244,10 @@ def test_streaming_iterator_ordering(lm):
     assert h.first_token_at is not None \
         and h.first_token_at <= h.finished_at
     assert (h.tenant, h.priority, h.trace_id) == ("t1", "low", "x1")
-    assert h.usage() is None and h.request_id.startswith("req-")
+    u = h.usage()
+    assert (u["outcome"], u["tenant"], u["decode_tokens"]) == \
+        ("finished", "t1", 10)
+    assert h.request_id.startswith("req-")
 
 
 def test_backpressure_queue_full(lm):
@@ -305,8 +308,6 @@ def test_validation_and_sampled_mode(lm):
 
 
 @pytest.mark.parametrize("option,value,item,step", [
-    ("tenant_rate_limits", {"*": (1.0, 1.0)}, 5, "rate limits"),
-    ("chaos", object(), 6, "chaos.py"),
     ("mesh", object(), 10, "tensor-parallel serving"),
     ("tp_rules", object(), 10, "tensor-parallel serving"),
 ])
@@ -317,13 +318,27 @@ def test_later_options_raise_naming_their_roadmap_item(lm, option, value,
         ContinuousBatchingEngine(lm, **{option: value})
 
 
+def test_later_holds_only_the_tensor_parallel_options():
+    """QoS (item 5) and chaos (item 6) left ``_LATER``: only the mesh
+    options of item 10 still raise."""
+    from bigdl_tpu_torch.serving.engine import _LATER
+
+    assert set(_LATER) == {"mesh", "tp_rules"}
+    assert {item for item, _ in _LATER.values()} == {10}
+
+
 def test_high_priority_raises_and_engine_keeps_serving(lm):
+    """``priority="high"`` is served since QoS was ported (it raised
+    before): its row equals a lone generate, and the engine keeps
+    serving; an unknown class still raises."""
     p = np.asarray([1, 2, 3])
     with ContinuousBatchingEngine(lm, max_slots=1,
                                   prefill_chunk=4) as eng:
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP.md, Queue 1 item 5: QoS"):
-            eng.submit(p, 2, priority="high")
+        np.testing.assert_array_equal(
+            eng.submit(p, 2, priority="high").result(60),
+            _direct(lm, p, 2))
+        with pytest.raises(ValueError, match="priority"):
+            eng.submit(p, 2, priority="urgent")
         np.testing.assert_array_equal(eng.submit(p, 2).result(60),
                                       _direct(lm, p, 2))
 
