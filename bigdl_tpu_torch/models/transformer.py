@@ -1,10 +1,12 @@
 """Transformer language model (port of ``bigdl_tpu/models/transformer.py``).
 
-Decoder-only, causal, pre-norm, tanh-GELU MLP, learned positions or
-RoPE, a tied output head (logits = x @ tok_embed.T) or, with
-``tie_embeddings=False``, a bias-free ``head`` Linear (the JAX package's
-non-causal option, MoE blocks and sequence parallelism are not ported
-yet). Training runs through the full-sequence ``forward``
+Decoder-only, pre-norm, tanh-GELU MLP, learned positions or RoPE, a
+tied output head (logits = x @ tok_embed.T) or, with
+``tie_embeddings=False``, a bias-free ``head`` Linear; causal unless
+``causal=False``, which masks nothing in the full-sequence ``forward``
+(the flash kernel then runs with ``causal=False``) and, as in the JAX
+package, leaves the KV-cache entry points causal (MoE blocks and
+sequence parallelism are not ported yet). Training runs through the full-sequence ``forward``
 with ``dropout`` and ``remat`` (each block under
 ``torch.utils.checkpoint``, its dropout masks replayed in the
 recompute), differentiable through the flash kernel; ``param_count`` /
@@ -16,7 +18,8 @@ entry points of the JAX package are ported: the full-sequence
 their paged twins over a page pool and block tables
 (``prefill_chunk_at_paged`` / ``decode_step_paged``), the speculative
 verifier ``verify_chunk`` (and ``verify_chunk_paged``), greedy or sampled
-``generate``, ``generate_ragged`` and ``speculative_generate``. The JAX
+``generate``, ``generate_ragged``, ``speculative_generate`` and
+``beam_search``. The JAX
 package's one-dispatch ``lax.scan`` decode (and the draft's proposal
 scan) becomes a Python loop over ``decode_step``; eager PyTorch compiles nothing, so the JAX package's
 shape buckets (``bucket_tokens``) have no counterpart here. With
@@ -30,6 +33,7 @@ JAX package's draws: only greedy decoding is comparable token for token.
 
 from __future__ import annotations
 
+import math
 from typing import Callable, Optional
 
 import numpy as np
@@ -134,6 +138,15 @@ def _spec_accept(p_logits, q_logits, props, temperature: float, generator):
     return accept, resid_toks, bonus
 
 
+def _top_k(x, k: int):
+    """(values, indices) of the ``k`` largest entries of each row of
+    ``x``, ties broken lowest index first as ``jax.lax.top_k`` does
+    (``torch.topk`` promises no order among ties): a stable descending
+    sort."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
 def _checkpointed(blk, x):
     """``blk(x)`` under ``torch.utils.checkpoint``: the block's
     activations are recomputed in the backward. PyTorch restores its
@@ -180,7 +193,7 @@ class TransformerLM(Module):
                  remat: bool = False,
                  num_kv_heads: Optional[int] = None,
                  use_rope: bool = False, tie_embeddings: bool = True, *,
-                 seed: int = 1,
+                 causal: bool = True, seed: int = 1,
                  device=DEFAULT_DEVICE, dtype=torch.float32):
         super().__init__()
         dev = resolve_device(device)
@@ -191,6 +204,7 @@ class TransformerLM(Module):
         self.max_len = max_len
         self.num_layers = num_layers
         self.remat = remat
+        self.causal = causal
         self.tie_embeddings = tie_embeddings
         normal = bt_init.RandomNormal(0.0, 0.02)
         self.new_param("tok_embed", normal((vocab_size, embed_dim), rng),
@@ -202,7 +216,7 @@ class TransformerLM(Module):
             setattr(self, f"block{i}", TransformerBlock(
                 embed_dim, num_heads, mlp_ratio=mlp_ratio, use_flash=use_flash,
                 num_kv_heads=num_kv_heads, rotary=use_rope, dropout=dropout,
-                rng=rng, device=dev, dtype=dtype))
+                causal=causal, rng=rng, device=dev, dtype=dtype))
         self.ln_f = LayerNorm(embed_dim, device=dev, dtype=dtype)
         if not tie_embeddings:
             self.head = Linear(embed_dim, vocab_size, with_bias=False,
@@ -504,6 +518,98 @@ class TransformerLM(Module):
             top_p, on_token, return_logits)
         ids = torch.cat([prompt, toks], 1)
         return (ids, seen) if return_logits else ids
+
+    # ---------------------------------------------------- beam search
+    @torch.no_grad()
+    def beam_search(self, prompt_ids, max_new_tokens: int,
+                    num_beams: int = 4, length_penalty: float = 1.0,
+                    eos_id: Optional[int] = None, max_len=None,
+                    host_loop: bool = False):
+        """Deterministic beam search over the KV cache. Returns (B, t0 +
+        max_new_tokens) ids of the best beam of each row. A finished beam
+        (after ``eos_id``) may only emit eos, at log-prob 0; the step
+        that emits eos is scored and counts toward the beam's length.
+        Ranking: summed token log-probs / L ** ``length_penalty``, L the
+        beam's own length. Candidates tied on score go lowest flat index
+        first (``jax.lax.top_k``'s order; bf16 logits tie often).
+
+        One loop keeps every piece of state on the device: each layer's
+        cache is reordered with ``index_select`` over the B·K rows, each
+        step's tokens and parent pointers go into preallocated tensors,
+        and the winners are read back through the parent pointers at the
+        end. Nothing is read on the host inside the loop. ``host_loop``
+        is accepted: in the JAX package it picks between a per-step jit
+        and one ``lax.scan`` program with the same results; eager
+        PyTorch has only this one form."""
+        prompt, logits, caches = self._decode_setup(
+            prompt_ids, max_new_tokens, max_len)
+        if max_new_tokens == 0:
+            return prompt
+        gen = self._beam_loop(logits, prompt.shape[1], caches, num_beams,
+                              max_new_tokens, eos_id, length_penalty)
+        return torch.cat([prompt, gen], 1)
+
+    @torch.no_grad()
+    def _beam_loop(self, logits, pos0: int, caches, k: int, n: int,
+                   eos_id, length_penalty: float, with_scores: bool = False):
+        """The beam loop from the prefill's last logits (B, V) and the
+        prompt caches of B rows (any cache form: every tensor of a
+        layer's cache, int8 codes and their scales alike, is tiled and
+        reordered together). Returns the best beams' (B, n) tokens; with
+        ``with_scores`` a dict of them (``tokens``), their summed
+        log-probs and lengths (``score``, ``length``, (B,)) and the
+        lineage of every step's beams (``first`` (B, K), ``toks`` and
+        ``parents`` (n - 1, B, K))."""
+        b, v = logits.shape
+        dev = logits.device
+        scores, first = _top_k(torch.log_softmax(logits.float(), -1), k)
+        caches = [tuple(t.repeat_interleave(k, 0) for t in c)
+                  for c in caches]
+        alive = (torch.ones((b, k), dtype=torch.bool, device=dev)
+                 if eos_id is None else first != eos_id)
+        lengths = torch.ones((b, k), dtype=torch.float32, device=dev)
+        frozen = None
+        if eos_id is not None:
+            frozen = torch.full((v,), -math.inf, device=dev)
+            frozen[eos_id] = 0.0
+        ident = torch.arange(k, device=dev).expand(b, k)
+        base = (torch.arange(b, device=dev) * k)[:, None]
+        toks_all = torch.empty((n - 1, b, k), dtype=torch.long, device=dev)
+        parents = torch.empty_like(toks_all)
+        tok = first
+        for i in range(n - 1):
+            if i:  # the first step's beams are in tile order
+                rows = (base + parents[i - 1]).reshape(-1)
+                caches = [tuple(t.index_select(0, rows) for t in c)
+                          for c in caches]
+            logits, caches = self.decode_step(tok.reshape(b * k), pos0 + i,
+                                              caches)
+            logp = torch.log_softmax(logits.float(), -1).reshape(b, k, v)
+            if eos_id is not None:
+                logp = torch.where(alive[..., None], logp, frozen)
+            scores, flat = _top_k((scores[..., None] + logp).reshape(
+                b, k * v), k)
+            parent, tok = flat // v, flat % v
+            was_alive = alive.gather(1, parent)
+            lengths = lengths.gather(1, parent) + was_alive.float()
+            alive = (was_alive if eos_id is None
+                     else was_alive & (tok != eos_id))
+            toks_all[i], parents[i] = tok, parent
+        # backtrack from the final beams through the parent pointers
+        idx = ident
+        gen = [None] * n
+        for i in range(n - 2, -1, -1):
+            gen[i + 1] = toks_all[i].gather(1, idx)
+            idx = parents[i].gather(1, idx)
+        gen[0] = first.gather(1, idx)
+        gen = torch.stack(gen, 0)                                # (n, B, K)
+        best = (scores / lengths ** length_penalty).argmax(1)    # (B,)
+        toks = gen.gather(2, best[None, :, None].expand(n, b, 1))[..., 0].T
+        if not with_scores:
+            return toks
+        return {"tokens": toks, "score": scores.gather(1, best[:, None])[:, 0],
+                "length": lengths.gather(1, best[:, None])[:, 0],
+                "first": first, "toks": toks_all, "parents": parents}
 
     # --------------------------------------------- speculative decoding
     @torch.no_grad()

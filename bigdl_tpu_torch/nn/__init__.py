@@ -1,7 +1,7 @@
 """Layers of the port (counterparts of ``bigdl_tpu.nn``)."""
 
 from bigdl_tpu_torch.nn.activation import (
-    Identity, LogSoftMax, MulConstant, ReLU, Tanh,
+    Identity, LogSoftMax, MulConstant, ReLU, SoftMax, Tanh,
 )
 from bigdl_tpu_torch.nn.attention import (
     LayerNorm, MultiHeadAttention, TransformerBlock, dot_product_attention,
@@ -11,9 +11,8 @@ from bigdl_tpu_torch.nn.container import (
     Concat, ConcatTable, Container, Sequential,
 )
 from bigdl_tpu_torch.nn.conv import SpatialConvolution
-from bigdl_tpu_torch.nn.criterion import (
-    ClassNLLCriterion, Criterion, CrossEntropyCriterion,
-)
+from bigdl_tpu_torch.nn.criterion import *  # noqa: F401,F403
+from bigdl_tpu_torch.nn.criterion import __all__ as _CRITERIONS
 from bigdl_tpu_torch.nn.dropout import Dropout, bind_generator
 from bigdl_tpu_torch.nn.linear import Linear
 from bigdl_tpu_torch.nn.module import Module
@@ -25,13 +24,12 @@ from bigdl_tpu_torch.nn.quantized import Quantizer
 from bigdl_tpu_torch.nn.shape_ops import Reshape, View
 from bigdl_tpu_torch.nn.table_ops import CAddTable
 
-__all__ = ["BatchNormalization", "CAddTable", "ClassNLLCriterion", "Concat",
-           "ConcatTable", "Container", "Criterion", "CrossEntropyCriterion",
-           "Dropout", "Identity", "LayerNorm", "Linear", "LogSoftMax",
-           "Module", "MulConstant", "MultiHeadAttention", "Quantizer",
-           "ReLU", "Reshape",
+__all__ = ["BatchNormalization", "CAddTable", "Concat", "ConcatTable",
+           "Container", "Dropout", "Identity", "LayerNorm", "Linear",
+           "LogSoftMax", "Module", "MulConstant", "MultiHeadAttention",
+           "Quantizer", "ReLU", "Reshape", "SoftMax",
            "Sequential", "SpatialAveragePooling", "SpatialBatchNormalization",
            "SpatialConvolution", "SpatialMaxPooling", "Tanh",
            "TransformerBlock", "View", "bind_generator",
            "dot_product_attention", "rotary_embedding",
-           "rotary_embedding_rowwise"]
+           "rotary_embedding_rowwise"] + _CRITERIONS

@@ -1,5 +1,6 @@
-"""Activation layers (port of ``ReLU``, ``Tanh``, ``LogSoftMax``,
-``MulConstant`` and ``Identity`` in ``bigdl_tpu/nn/activation.py``).
+"""Activation layers (port of ``ReLU``, ``Tanh``, ``SoftMax``,
+``LogSoftMax``, ``MulConstant`` and ``Identity`` in
+``bigdl_tpu/nn/activation.py``).
 
 Stateless elementwise maps. The reference's in-place flags (``ip``) are
 accepted for API compatibility and ignored, as in the JAX package.
@@ -23,6 +24,14 @@ class ReLU(Module):
 class Tanh(Module):
     def forward(self, input):
         return torch.tanh(input)
+
+
+class SoftMax(Module):
+    """Softmax over the feature dim: the last for 1-2-D input, dim 1 for
+    3-4-D (batched maps), as in the JAX package."""
+
+    def forward(self, input):
+        return torch.softmax(input, dim=-1 if input.dim() <= 2 else 1)
 
 
 class LogSoftMax(Module):

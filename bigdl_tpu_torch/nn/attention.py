@@ -521,21 +521,23 @@ class MultiHeadAttention(Module):
 
 
 class TransformerBlock(Module):
-    """Pre-norm causal block: x + MHA(LN(x)); x + MLP(LN(x)), with a
-    tanh-GELU MLP of ``mlp_ratio`` x embed; with ``dropout > 0`` the
-    attention output and the MLP output are dropped in ``forward``."""
+    """Pre-norm block: x + MHA(LN(x)); x + MLP(LN(x)), with a tanh-GELU
+    MLP of ``mlp_ratio`` x embed; with ``dropout > 0`` the attention
+    output and the MLP output are dropped in ``forward``. ``causal``
+    masks the full-sequence ``forward`` only: the KV-cache paths are
+    causal whatever it says, as in the JAX package."""
 
     def __init__(self, embed_dim: int, num_heads: int, mlp_ratio: int = 4,
                  use_flash: bool = False,
                  num_kv_heads: Optional[int] = None, rotary: bool = False,
-                 dropout: float = 0.0, *,
+                 dropout: float = 0.0, *, causal: bool = True,
                  rng: Optional[RandomGenerator] = None,
                  device=DEFAULT_DEVICE, dtype=torch.float32):
         super().__init__()
         rng = rng or RandomGenerator()
         kw = dict(device=device, dtype=dtype)
         self.ln1 = LayerNorm(embed_dim, **kw)
-        self.attn = MultiHeadAttention(embed_dim, num_heads, causal=True,
+        self.attn = MultiHeadAttention(embed_dim, num_heads, causal=causal,
                                        num_kv_heads=num_kv_heads,
                                        rotary=rotary, use_flash=use_flash,
                                        dropout=dropout, rng=rng, **kw)

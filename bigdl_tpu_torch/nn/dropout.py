@@ -23,6 +23,8 @@ class Dropout(Module):
     probability ``1 - p`` and scaled by ``1 / (1 - p)``; in evaluation
     mode (or at p = 0) the input passes unchanged."""
 
+    draws_random = True
+
     def __init__(self, init_p: float = 0.5,
                  generator: Optional[torch.Generator] = None):
         super().__init__()

@@ -7,8 +7,9 @@ training slices need: parameter and buffer naming (``new_param`` /
 ``trainable_dict``), the trees ``params_dict`` / ``buffers_dict`` and
 their checked loaders ``load_params_dict`` / ``load_buffers_dict``
 (:func:`load_tree`, which the weight bridge uses too), and
-per-parameter regularizers (``regularization_loss``). Parameters and
-buffers are registered under the same names as in the JAX package, so
+per-parameter regularizers (``regularization_loss``), and the eager
+API of ``bigdl_tpu/nn/module.py:230-517`` (see :class:`Module`).
+Parameters and buffers are registered under the same names as in the JAX package, so
 :meth:`Module.params_dict` returns the JAX ``params_dict()`` tree key
 for key: ``{child: {...}, "~params": {name: tensor}}``, and
 :meth:`Module.buffers_dict` the ``"~buffers"`` tree.
@@ -20,9 +21,13 @@ name (``block0.attn.qkv.weight``).
 
 from __future__ import annotations
 
+import copy
+from contextlib import contextmanager
 from typing import Dict, Iterator, List, Optional, Tuple
 
 import torch
+
+from bigdl_tpu_torch.utils.table import Table
 
 PARAMS_KEY = "~params"
 BUFFERS_KEY = "~buffers"
@@ -87,10 +92,107 @@ def load_tree(ours: Dict, theirs: Dict, leaf_key: str,
                 dst.copy_(src)
 
 
+# ------------------------------------------------------------ RNG replay
+def _generator_states(module: torch.nn.Module) -> List[Tuple[object, object]]:
+    """(generator key, state) of every stream a forward of ``module`` may
+    draw from: the explicit generators of its layers (a Dropout's
+    ``generator``), the CPU default generator and, once CUDA is up, the
+    default generator of each card its tensors live on (or of the
+    current card). The key is the generator itself, or ``("cuda", i)``
+    / ``"cpu"`` for the defaults."""
+    seen, cards = {}, set()
+    for m in module.modules():
+        g = getattr(m, "generator", None)
+        if isinstance(g, torch.Generator):
+            seen[id(g)] = g
+        cards.update(t.device.index for t in
+                     (*m._parameters.values(), *m._buffers.values())
+                     if t is not None and t.is_cuda)
+    out = [(g, g.get_state()) for g in seen.values()]
+    out.append(("cpu", torch.get_rng_state()))
+    if torch.cuda.is_initialized():
+        cards.add(torch.cuda.current_device())
+        out.extend((("cuda", i), torch.cuda.get_rng_state(i))
+                   for i in sorted(cards))
+    return out
+
+
+def _get_state(key):
+    if key == "cpu":
+        return torch.get_rng_state()
+    if isinstance(key, tuple):
+        return torch.cuda.get_rng_state(key[1])
+    return key.get_state()
+
+
+def _set_state(key, state) -> None:
+    if key == "cpu":
+        torch.set_rng_state(state)
+    elif isinstance(key, tuple):
+        torch.cuda.set_rng_state(state, key[1])
+    else:
+        key.set_state(state)
+
+
+@contextmanager
+def _replaying(states):
+    """Every stream in ``states`` set back to its recorded state for the
+    body, then to where it was before: a replayed forward draws what the
+    recorded one drew and the streams go on as if it had not run."""
+    now = [(key, _get_state(key)) for key, _ in states]
+    for key, state in states:
+        _set_state(key, state)
+    try:
+        yield
+    finally:
+        for key, state in now:
+            _set_state(key, state)
+
+
+def activity_tensors(activity) -> List:
+    """The tensors of an activity (a tensor, a Table, a list or tuple)."""
+    if isinstance(activity, Table):
+        return [x for v in activity.values() for x in activity_tensors(v)]
+    if isinstance(activity, (list, tuple)):
+        return [x for v in activity for x in activity_tensors(v)]
+    return [activity] if torch.is_tensor(activity) else []
+
+
+def with_tensors(activity, leaves: Iterator):
+    """``activity`` with its tensors replaced, in
+    :func:`activity_tensors` order, by ``leaves``."""
+    if isinstance(activity, Table):
+        out = Table()
+        for k, v in activity.items():
+            out[k] = with_tensors(v, leaves)
+        return out
+    if isinstance(activity, (list, tuple)):
+        return type(activity)(with_tensors(v, leaves) for v in activity)
+    return next(leaves) if torch.is_tensor(activity) else activity
+
+
 class Module(torch.nn.Module):
-    """Base of the port's layers."""
+    """Base of the port's layers.
+
+    The eager API of the JAX package: ``backward(input, grad_output)``
+    recomputes the forward under autograd and accumulates each
+    parameter's gradient in ``param.grad`` until
+    ``zero_grad_parameters``; ``update_grad_input``, ``grads_dict`` /
+    ``load_grads_dict``, ``get_parameters`` (a flat copy, as in JAX),
+    ``update_parameters``, ``copy_parameters_from``, ``clone_module``,
+    ``save`` / ``load`` and ``predict`` / ``predict_class`` /
+    ``evaluate_on``. The JAX package's ``parameters()`` pair of lists is
+    :meth:`parameters_and_grads`: ``parameters()`` stays the iterator
+    PyTorch and the port's train step use.
+
+    A layer that draws random numbers sets ``draws_random``. In training
+    mode a call of a module holding one records the state of every
+    generator the forward may draw from, and ``backward`` replays the
+    forward from those states, so a Dropout's mask in the backward is the
+    forward's (the JAX package's ``_forward_key``)."""
 
     _instance_counters: Dict[str, int] = {}
+    draws_random = False
 
     def __init__(self):
         super().__init__()
@@ -101,6 +203,14 @@ class Module(torch.nn.Module):
         self._name: Optional[str] = None
         self._frozen = False
         self._regularizers: Dict[str, object] = {}
+        self._forward_rng = None
+        self.grad_input = None
+
+    def __call__(self, *args, **kwargs):
+        if self.training and any(m.draws_random for m in self.modules()
+                                 if isinstance(m, Module)):
+            self._forward_rng = _generator_states(self)
+        return super().__call__(*args, **kwargs)
 
     def new_param(self, name: str, value: torch.Tensor, device, dtype,
                   regularizer=None) -> None:
@@ -220,3 +330,151 @@ class Module(torch.nn.Module):
             if isinstance(child, Module) and name in params:
                 total = total + child.regularization_loss(params[name])
         return total
+
+
+    # ------------------------------------------------------ eager API
+    def _vjp(self, input, grad_output, with_params: bool):
+        """(grad of input, grads of every parameter or None): the forward
+        recomputed under autograd (the caller's forward may have run
+        under ``no_grad``) from the generator states of the last call,
+        with every buffer the recompute writes (BatchNorm's running
+        statistics) set back afterwards."""
+        xs = [x.detach().requires_grad_(x.is_floating_point())
+              for x in activity_tensors(input)]
+        x = with_tensors(input, iter(xs))
+        params = list(self.parameters()) if with_params else []
+        wrt = [t for t in xs + params if t.requires_grad]
+        saved = [(m._buffers, k, b) for m in self.modules()
+                 for k, b in m._buffers.items()]
+        try:
+            with _replaying(self._forward_rng or []), torch.enable_grad():
+                out = self.forward(x)
+        finally:
+            for table, k, b in saved:
+                table[k] = b
+        outs, gos = activity_tensors(out), activity_tensors(grad_output)
+        pairs = [(o, g) for o, g in zip(outs, gos) if o.requires_grad]
+        grads = torch.autograd.grad([o for o, _ in pairs],
+                                    wrt, [g for _, g in pairs],
+                                    allow_unused=True) if pairs and wrt \
+            else [None] * len(wrt)
+        by_id = {id(t): g for t, g in zip(wrt, grads)}
+
+        def grad_of(t):
+            g = by_id.get(id(t))
+            return torch.zeros_like(t) if g is None and t.is_floating_point() \
+                else g
+
+        dinput = with_tensors(input, iter([grad_of(t) for t in xs]))
+        return dinput, [grad_of(p) for p in params]
+
+    def backward(self, input, grad_output):
+        """gradInput of the last forward, and every parameter's gradient
+        added to ``param.grad`` (the JAX package's ``_gradients``)."""
+        dinput, dparams = self._vjp(input, grad_output, with_params=True)
+        with torch.no_grad():
+            for p, g in zip(self.parameters(), dparams):
+                p.grad = g.detach().clone() if p.grad is None \
+                    else p.grad + g
+        self.grad_input = dinput
+        return dinput
+
+    def update_grad_input(self, input, grad_output):
+        """gradInput only: no parameter gradient is accumulated."""
+        self.grad_input, _ = self._vjp(input, grad_output, with_params=False)
+        return self.grad_input
+
+    def _grad(self, p: torch.Tensor) -> torch.Tensor:
+        return p.grad if p.grad is not None else torch.zeros_like(p)
+
+    def parameters_and_grads(self) -> Tuple[List[torch.Tensor],
+                                            List[torch.Tensor]]:
+        """(weights, gradients) in tree order: the JAX package's
+        ``parameters()``."""
+        ws = list(self.parameters())
+        return ws, [self._grad(p) for p in ws]
+
+    def get_parameters(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Flat 1-D (weights, gradients): a copy, as in the JAX package
+        (the reference's views into one storage are not kept)."""
+        ws, gs = self.parameters_and_grads()
+        if not ws:
+            return torch.zeros(0), torch.zeros(0)
+        return (torch.cat([w.detach().reshape(-1) for w in ws]),
+                torch.cat([g.detach().reshape(-1) for g in gs]))
+
+    def grads_dict(self) -> Dict:
+        """The gradients as a :meth:`params_dict`-shaped tree (zeros
+        where nothing was accumulated)."""
+        return self._tree(PARAMS_KEY, lambda m: {
+            n: m._grad(p) for n, p in m.named_parameters(recurse=False)})
+
+    def load_grads_dict(self, d: Dict) -> None:
+        """Set the gradients from a :meth:`grads_dict`-shaped tree."""
+        params = dict(tree_leaves(self.params_dict()))
+        for name, g in tree_leaves(d):
+            p = params[name]
+            p.grad = torch.as_tensor(g).to(device=p.device, dtype=p.dtype)
+
+    def zero_grad_parameters(self) -> None:
+        for p in self.parameters():
+            p.grad = torch.zeros_like(p)
+
+    def update_parameters(self, learning_rate: float) -> None:
+        """Eager SGD step: ``p - learning_rate * grad`` for every
+        parameter, in place."""
+        with torch.no_grad():
+            for p in self.parameters():
+                p.copy_(p - learning_rate * self._grad(p))
+
+    def copy_parameters_from(self, other: "Module") -> "Module":
+        self.load_params_dict(other.params_dict())
+        self.load_buffers_dict(other.buffers_dict())
+        return self
+
+    def clone_module(self) -> "Module":
+        return copy.deepcopy(self)
+
+    def save(self, path: str, overwrite: bool = False) -> "Module":
+        """Pickle this module with its tensors on the host
+        (``utils/file.py``)."""
+        from bigdl_tpu_torch.utils import file as bt_file
+
+        bt_file.save_module(self, path, overwrite=overwrite)
+        return self
+
+    @staticmethod
+    def load(path: str, device="cuda") -> "Module":
+        """A module saved by :meth:`save`, on ``device`` (default: the
+        card; ``device="cpu"`` on a machine without one)."""
+        from bigdl_tpu_torch.utils import file as bt_file
+
+        return bt_file.load_module(path, device=device)
+
+    def save_module(self, path: str, overwrite: bool = False):
+        raise NotImplementedError(
+            "the structured serializer (saveModule) is not ported yet: "
+            "see ROADMAP.md, Queue 1 item 12; Module.save pickles")
+
+    @staticmethod
+    def load_module(path: str):
+        raise NotImplementedError(
+            "the structured serializer (loadModule) is not ported yet: "
+            "see ROADMAP.md, Queue 1 item 12; Module.load reads pickles")
+
+    # ------------------------------------------------------ inference
+    def predict(self, dataset, batch_size: int = 32):
+        from bigdl_tpu_torch.optim.predictor import LocalPredictor
+
+        return LocalPredictor(self, batch_size=batch_size).predict(dataset)
+
+    def predict_class(self, dataset, batch_size: int = 32):
+        from bigdl_tpu_torch.optim.predictor import LocalPredictor
+
+        return LocalPredictor(self, batch_size=batch_size).predict_class(
+            dataset)
+
+    def evaluate_on(self, dataset, methods, batch_size: int = 32):
+        from bigdl_tpu_torch.optim.evaluator import Evaluator
+
+        return Evaluator(self).test(dataset, methods, batch_size=batch_size)

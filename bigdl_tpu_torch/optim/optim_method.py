@@ -1,6 +1,9 @@
 """Optimization methods and learning-rate schedules (port of
-``bigdl_tpu/optim/optim_method.py``: the schedules, ``OptimMethod``,
-``SGD``, ``Adam`` and ``AdamW``).
+``bigdl_tpu/optim/optim_method.py``: the schedules, ``OptimMethod`` with
+the flat ``optimize(feval, x)`` API and ``save`` / ``load`` /
+``clear_history``, ``SGD``, ``Adam``, ``AdamW``, ``Adagrad``,
+``Adadelta``, ``Adamax``, ``RMSprop``, ``Ftrl``, ``LBFGS`` (flat API
+only, as in JAX) and ``ParallelAdam``).
 
 As in the JAX package each method is split in two:
 
@@ -15,6 +18,10 @@ These are not ``torch.optim`` wrappers: ``SGD``'s ``dampening``
 defaults to ``momentum`` (BigDL's rule; ``torch.optim.SGD`` defaults it
 to 0), weight decay enters the gradient, and Adam's bias correction is
 computed in f32 from an integer step count kept in its slots.
+
+``save`` pickles the method (its state table, schedule and the slots
+of the flat API, ``_flat_slots``, or of a training loop's checkpoint,
+``_train_slots``) with every tensor copied to the host.
 """
 
 from __future__ import annotations
@@ -97,6 +104,17 @@ class EpochStep(LearningRateSchedule):
     def rate(self, method, state):
         e = state.get("epoch", 1)
         return method.learning_rate * self.gamma ** ((e - 1) // self.step_size)
+
+
+class EpochDecay(LearningRateSchedule):
+    """lr * 0.1 ^ decay_fn(epoch)."""
+
+    def __init__(self, decay_fn):
+        self.decay_fn = decay_fn
+
+    def rate(self, method, state):
+        e = state.get("epoch", 1)
+        return method.learning_rate * 0.1 ** self.decay_fn(e)
 
 
 class Exponential(LearningRateSchedule):
@@ -278,8 +296,43 @@ class OptimMethod:
             return self.schedule.rate(self, self.state)
         return self.learning_rate
 
+    def get_learning_rate(self) -> float:
+        return self.get_current_rate()
+
     def update_state(self, **kv) -> None:
         self.state.update(kv)
+
+    # ------------------------------------------------ flat API (parity)
+    def optimize(self, feval, x):
+        """The reference's ``optimize(feval, parameter)`` on one flat
+        tensor: ``feval(x) -> (loss, grad)``; returns (new x, [loss])."""
+        loss, grad = feval(x)
+        if not hasattr(self, "_flat_slots"):
+            self._flat_slots = self.init_slots(x)
+        lr = self.get_current_rate()
+        x, self._flat_slots = self.step(x, grad, self._flat_slots, lr)
+        self.state["neval"] = self.state.get("neval", 1) + 1
+        return x, [float(loss)]
+
+    # ------------------------------------------------------ persistence
+    def save(self, path: str, overwrite: bool = False) -> "OptimMethod":
+        from bigdl_tpu_torch.utils import file as bt_file
+
+        bt_file.save(self, path, overwrite=overwrite)
+        return self
+
+    @staticmethod
+    def load(path: str) -> "OptimMethod":
+        """The method saved at ``path``; its slot tensors are on the host
+        (the training loop moves them to the model's device)."""
+        from bigdl_tpu_torch.utils import file as bt_file
+
+        return bt_file.load(path)
+
+    def clear_history(self) -> None:
+        self.state = {"epoch": 1, "neval": 1}
+        for name in ("_flat_slots", "_train_slots"):
+            self.__dict__.pop(name, None)
 
 
 def _apply_weight_decay(grads, params, wd: float):
@@ -376,3 +429,234 @@ class AdamW(Adam):
         if wd:
             new = _map(lambda n, p: n - lr * wd * p, new, params)
         return new, slots
+
+
+class Adagrad(OptimMethod):
+    """Adagrad with L2 weight decay added to the gradient."""
+
+    def __init__(self, learning_rate: float = 1e-3,
+                 learning_rate_decay: float = 0.0,
+                 weight_decay: float = 0.0, epsilon: float = 1e-10):
+        super().__init__(learning_rate)
+        self.learning_rate_decay = float(learning_rate_decay)
+        self.weight_decay = float(weight_decay)
+        self.epsilon = epsilon
+        self.schedule = Default()
+
+    def init_slots(self, params):
+        return {"accum": _map(torch.zeros_like, params)}
+
+    def step(self, params, grads, slots, lr):
+        grads = _apply_weight_decay(grads, params, self.weight_decay)
+        accum = _map(lambda a, g: a + g * g, slots["accum"], grads)
+        new = _map(lambda p, g, a: p - lr * g / (torch.sqrt(a)
+                                                 + self.epsilon),
+                   params, grads, accum)
+        return new, {"accum": accum}
+
+
+class Adadelta(OptimMethod):
+    """Adadelta: no learning rate (fixed at 1), ``decay_rate`` rho."""
+
+    def __init__(self, decay_rate: float = 0.9, epsilon: float = 1e-10):
+        super().__init__(1.0)
+        self.rho = decay_rate
+        self.epsilon = epsilon
+
+    def init_slots(self, params):
+        return {"accum": _map(torch.zeros_like, params),
+                "accum_update": _map(torch.zeros_like, params)}
+
+    def step(self, params, grads, slots, lr):
+        rho, eps = self.rho, self.epsilon
+        accum = _map(lambda a, g: rho * a + (1 - rho) * g * g,
+                     slots["accum"], grads)
+        delta = _map(lambda au, a, g: torch.sqrt(au + eps)
+                     / torch.sqrt(a + eps) * g,
+                     slots["accum_update"], accum, grads)
+        accum_update = _map(lambda au, d: rho * au + (1 - rho) * d * d,
+                            slots["accum_update"], delta)
+        new = _map(lambda p, d: p - lr * d, params, delta)
+        return new, {"accum": accum, "accum_update": accum_update}
+
+
+class Adamax(OptimMethod):
+    """Adamax: the infinity-norm Adam; ``t`` an int32 tensor slot."""
+
+    def __init__(self, learning_rate: float = 2e-3, beta1: float = 0.9,
+                 beta2: float = 0.999, epsilon: float = 1e-38):
+        super().__init__(learning_rate)
+        self.beta1 = beta1
+        self.beta2 = beta2
+        self.epsilon = epsilon
+
+    def init_slots(self, params):
+        leaves = params if isinstance(params, (list, tuple)) else [params]
+        return {"m": _map(torch.zeros_like, params),
+                "u": _map(torch.zeros_like, params),
+                "t": torch.zeros((), dtype=torch.int32,
+                                 device=leaves[0].device if leaves
+                                 else None)}
+
+    def step(self, params, grads, slots, lr):
+        t = slots["t"] + 1
+        b1, b2 = self.beta1, self.beta2
+        m = _map(lambda m_, g: b1 * m_ + (1 - b1) * g, slots["m"], grads)
+        u = _map(lambda u_, g: torch.maximum(b2 * u_, g.abs() + self.epsilon),
+                 slots["u"], grads)
+        c1 = 1 - torch.pow(b1, t.float())
+        new = _map(lambda p, m_, u_: p - (lr / c1) * m_ / u_, params, m, u)
+        return new, {"m": m, "u": u, "t": t}
+
+
+class RMSprop(OptimMethod):
+    """RMSprop: ``decay_rate`` rho over the squared gradients."""
+
+    def __init__(self, learning_rate: float = 1e-2,
+                 learning_rate_decay: float = 0.0, decay_rate: float = 0.99,
+                 epsilon: float = 1e-8):
+        super().__init__(learning_rate)
+        self.learning_rate_decay = float(learning_rate_decay)
+        self.rho = decay_rate
+        self.epsilon = epsilon
+        self.schedule = Default()
+
+    def init_slots(self, params):
+        return {"accum": _map(torch.zeros_like, params)}
+
+    def step(self, params, grads, slots, lr):
+        rho = self.rho
+        accum = _map(lambda a, g: rho * a + (1 - rho) * g * g,
+                     slots["accum"], grads)
+        new = _map(lambda p, g, a: p - lr * g / (torch.sqrt(a)
+                                                 + self.epsilon),
+                   params, grads, accum)
+        return new, {"accum": accum}
+
+
+class Ftrl(OptimMethod):
+    """Follow the regularized leader, with L1, L2 and L2-shrinkage
+    strengths."""
+
+    def __init__(self, learning_rate: float = 1e-3,
+                 learning_rate_power: float = -0.5,
+                 initial_accumulator_value: float = 0.1,
+                 l1_regularization_strength: float = 0.0,
+                 l2_regularization_strength: float = 0.0,
+                 l2_shrinkage_regularization_strength: float = 0.0):
+        super().__init__(learning_rate)
+        self.lr_power = learning_rate_power
+        self.init_accum = initial_accumulator_value
+        self.l1 = l1_regularization_strength
+        self.l2 = l2_regularization_strength
+        self.l2_shrinkage = l2_shrinkage_regularization_strength
+
+    def init_slots(self, params):
+        return {"accum": _map(lambda p: torch.full_like(p, self.init_accum),
+                              params),
+                "linear": _map(torch.zeros_like, params)}
+
+    def step(self, params, grads, slots, lr):
+        lp = self.lr_power
+
+        def upd(p, g, a, lin):
+            g_shrunk = g + 2 * self.l2_shrinkage * p
+            new_a = a + g * g
+            sigma = (new_a ** -lp - a ** -lp) / lr
+            new_l = lin + g_shrunk - sigma * p
+            quad = new_a ** -lp / lr + 2 * self.l2
+            if self.l1 == 0.0:
+                new_p = -new_l / quad
+            else:
+                new_p = (new_l.clamp(-self.l1, self.l1) - new_l) / quad
+            return new_p, new_a, new_l
+
+        outs = _map(upd, params, grads, slots["accum"], slots["linear"])
+        if not isinstance(params, (list, tuple)):
+            return outs[0], {"accum": outs[1], "linear": outs[2]}
+        return ([o[0] for o in outs],
+                {"accum": [o[1] for o in outs],
+                 "linear": [o[2] for o in outs]})
+
+
+class LBFGS(OptimMethod):
+    """Limited-memory BFGS over the flat ``optimize(feval, x)`` API (a
+    host loop: each iteration reads its dot products on the host), for
+    small full-batch problems; the train step's ``step`` is plain
+    gradient descent, as in the JAX package."""
+
+    def __init__(self, max_iter: int = 20, max_eval: Optional[float] = None,
+                 tolerance_fun: float = 1e-5, tolerance_x: float = 1e-9,
+                 n_correction: int = 100, learning_rate: float = 1.0,
+                 line_search: bool = False):
+        super().__init__(learning_rate)
+        self.max_iter = max_iter
+        self.max_eval = max_eval if max_eval is not None else max_iter * 1.25
+        self.tol_fun = tolerance_fun
+        self.tol_x = tolerance_x
+        self.n_correction = n_correction
+        self.line_search = line_search
+
+    def step(self, params, grads, slots, lr):
+        return _map(lambda p, g: p - lr * g, params, grads), slots
+
+    def optimize(self, feval, x):
+        x = torch.as_tensor(x)
+        loss, g = feval(x)
+        losses = [float(loss)]
+        old_dirs, old_steps = [], []
+        hdiag = 1.0
+        prev_g = g
+        t = min(1.0, 1.0 / float(g.abs().sum() + 1e-10)) * self.learning_rate
+        n_eval = 1
+        for _ in range(self.max_iter):
+            if float(g.abs().max()) <= 1e-10:
+                break
+            if old_dirs:  # two-loop recursion
+                q = -g
+                alphas = []
+                rhos = [1.0 / float(torch.dot(yd, sd))
+                        for yd, sd in zip(old_dirs, old_steps)]
+                for i in range(len(old_dirs) - 1, -1, -1):
+                    a = rhos[i] * float(torch.dot(old_steps[i], q))
+                    alphas.append((i, a))
+                    q = q - a * old_dirs[i]
+                r = q * hdiag
+                for i, a in reversed(alphas):
+                    b = rhos[i] * float(torch.dot(old_dirs[i], r))
+                    r = r + (a - b) * old_steps[i]
+                d = r
+            else:
+                d = -g
+            gtd = float(torch.dot(g, d))
+            if gtd > -self.tol_x:
+                break
+            x_new = x + t * d
+            new_loss, new_g = feval(x_new)
+            n_eval += 1
+            y = new_g - prev_g
+            s = t * d
+            ys = float(torch.dot(y, s))
+            if ys > 1e-10:
+                if len(old_dirs) == self.n_correction:
+                    old_dirs.pop(0)
+                    old_steps.pop(0)
+                old_dirs.append(y)
+                old_steps.append(s)
+                hdiag = ys / float(torch.dot(y, y))
+            if abs(float(new_loss) - losses[-1]) < self.tol_fun:
+                x, g = x_new, new_g
+                losses.append(float(new_loss))
+                break
+            x, g, prev_g = x_new, new_g, new_g
+            losses.append(float(new_loss))
+            t = self.learning_rate
+            if n_eval > self.max_eval:
+                break
+        self.state["neval"] = self.state.get("neval", 1) + 1
+        return x, losses
+
+
+class ParallelAdam(Adam):
+    """Adam: the reference shards the update across threads; one device
+    update does that work here, as in the JAX package."""

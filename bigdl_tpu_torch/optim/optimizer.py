@@ -45,14 +45,29 @@ the state table (``epoch``, ``neval``, ``Loss``, ``LearningRate``,
 ``score``) that triggers and schedules read, one log line per iteration
 with its throughput, validation on its trigger, gradient clipping and
 accumulation, and the write-back of the parameters and buffers into the
-model. Not ported yet: checkpoints, train and validation summaries and
-the observability instruments (``ROADMAP.md``); the distributed loop
-(a ``ShardedDataSet``) belongs to the distributed slice.
+model; train and validation summaries (Loss, LearningRate and Throughput
+each iteration, parameter histograms on the summary's "Parameters"
+trigger, each validation method's value); checkpoints on a trigger
+(``set_checkpoint``): ``model.{tag}`` and ``optimMethod.{tag}``, tag the
+iteration just finished, as in the JAX loop, written in the loop or,
+with ``async_write``, on a writer thread, under temporary names renamed
+into place when both are written, so a failed write never leaves a torn
+newest pair. The snapshot a write takes is a host copy of the model and
+of the optim method, made before the next step can change a tensor in
+place (pinned copies queued on the stream and an event the writer waits
+on); the method carries the loop's optimizer slots (``_train_slots``),
+which the JAX local loop drops, so ``load_latest_checkpoint`` and a new
+``optimize()`` resume the run exactly. Not ported yet: the
+observability instruments (ROADMAP.md, Queue 1 item 11); the
+distributed loop (a ``ShardedDataSet``) and orbax slot checkpoints
+belong to the distributed slice (item 10).
 """
 
 from __future__ import annotations
 
 import logging
+import os
+import threading
 import time
 from contextlib import contextmanager
 from typing import Dict, List, Optional, Sequence
@@ -63,6 +78,7 @@ from bigdl_tpu_torch.dataset.dataset import (AbstractDataSet, ShardedDataSet,
                                              as_dataset, dataset_base,
                                              minibatches)
 from bigdl_tpu_torch.dataset.prefetch import prefetch
+from bigdl_tpu_torch.device import resolve_device
 from bigdl_tpu_torch.nn.dropout import bind_generator
 from bigdl_tpu_torch.nn.module import (PARAMS_KEY, Module, tree_leaves,
                                        tree_unflatten)
@@ -72,6 +88,7 @@ from bigdl_tpu_torch.optim.metrics import Metrics
 from bigdl_tpu_torch.optim.optim_method import SGD, OptimMethod
 from bigdl_tpu_torch.optim.trigger import Trigger
 from bigdl_tpu_torch.optim.validation import ValidationMethod
+from bigdl_tpu_torch.utils import file as bt_file
 
 logger = logging.getLogger("bigdl_tpu_torch.optim")
 
@@ -310,6 +327,54 @@ class TrainStep:
             m.state.update(kv)
 
 
+def _named_param_leaves(params, prefix: str = ""):
+    """(dotted path, leaf) over a params tree in its own key order, the
+    ``~params`` level kept: the JAX loop's histogram tags
+    (``m0.~params.weight``)."""
+    for key, sub in params.items():
+        path = f"{prefix}.{key}" if prefix else key
+        if isinstance(sub, dict):
+            yield from _named_param_leaves(sub, path)
+        else:
+            yield path, sub
+
+
+def _on_device(tree, device):
+    """A slot tree (dicts, lists and tuples of tensors) on ``device``."""
+    if torch.is_tensor(tree):
+        return tree.to(device)
+    if isinstance(tree, dict):
+        return {k: _on_device(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_on_device(v, device) for v in tree)
+    return tree
+
+
+def load_latest_checkpoint(path: str, device="cuda"):
+    """(model, optim method, tag) of the newest complete pair in the
+    checkpoint directory ``path`` (a ``model.{tag}`` with its
+    ``optimMethod.{tag}``), the model on ``device``; (None, None, None)
+    when there is none."""
+    device = resolve_device(device)
+    if not bt_file.is_remote(path) and not os.path.isdir(path):
+        return None, None, None
+    try:
+        names = bt_file.listdir(path)
+    except (FileNotFoundError, NotADirectoryError, OSError):
+        return None, None, None
+    name_set = set(names)
+    tags = [int(f[len("model."):]) for f in names
+            if f.startswith("model.") and f[len("model."):].isdigit()
+            and f"optimMethod.{f[len('model.'):]}" in name_set]
+    if not tags:
+        return None, None, None
+    tag = max(tags)
+    model = bt_file.load_module(os.path.join(path, f"model.{tag}"),
+                                device=device)
+    method = OptimMethod.load(os.path.join(path, f"optimMethod.{tag}"))
+    return model, method, tag
+
+
 def make_train_step(model: Module, criterion, optim_method: OptimMethod,
                     grad_clip: Optional[dict] = None, sub_methods=None,
                     compute_dtype=None, grad_accum: int = 1) -> TrainStep:
@@ -355,7 +420,15 @@ class Optimizer:
         self.validation_batch_size: Optional[int] = None
         self.grad_clip: dict = {}
         self.grad_accum = 1
+        self.compute_dtype = None
         self.metrics = Metrics()
+        self.checkpoint_path: Optional[str] = None
+        self.checkpoint_trigger: Optional[Trigger] = None
+        self.checkpoint_async = False
+        self.train_summary = None
+        self.validation_summary = None
+        self._ckpt_thread = None
+        self._ckpt_error = None
 
     def set_optim_method(self, method: OptimMethod) -> "Optimizer":
         self.optim_method = method
@@ -377,6 +450,44 @@ class Optimizer:
         self.validation_dataset = as_dataset(dataset)
         self.validation_methods = list(methods)
         self.validation_batch_size = batch_size or self.batch_size
+        return self
+
+    def set_checkpoint(self, path: str, trigger: Trigger,
+                       is_overwrite: bool = True, async_write: bool = False,
+                       slots_backend: str = "pickle") -> "Optimizer":
+        """Write ``model.{tag}`` and ``optimMethod.{tag}`` under ``path``
+        whenever ``trigger`` fires. ``async_write`` snapshots in the loop
+        and writes on a thread (one write in flight: the next checkpoint,
+        and ``optimize()`` before it returns, join it and raise its
+        error)."""
+        if slots_backend == "orbax":
+            raise NotImplementedError(
+                "slots_backend='orbax' writes sharded slots of the "
+                "distributed loop, not ported yet: see ROADMAP.md, Queue 1 "
+                "item 10")
+        if slots_backend != "pickle":
+            raise ValueError(f"unknown slots_backend {slots_backend!r}")
+        self.checkpoint_path = path
+        self.checkpoint_trigger = trigger
+        self.checkpoint_overwrite = is_overwrite
+        self.checkpoint_async = async_write
+        self.checkpoint_slots_backend = slots_backend
+        return self
+
+    def set_compute_dtype(self, dtype) -> "Optimizer":
+        """Train in ``dtype`` (bf16) over the parameters' own (f32)
+        masters: the train step's ``compute_dtype``, which the JAX
+        package sets in its perf harness (``models/perf.py``) and its
+        loop does not offer."""
+        self.compute_dtype = dtype
+        return self
+
+    def set_train_summary(self, summary) -> "Optimizer":
+        self.train_summary = summary
+        return self
+
+    def set_validation_summary(self, summary) -> "Optimizer":
+        self.validation_summary = summary
         return self
 
     def set_gradient_accumulation(self, n_micro_batches: int
@@ -443,9 +554,12 @@ class LocalOptimizer(Optimizer):
         self._device = model_device(model)
         ts = make_train_step(model, self.criterion, self.optim_method,
                              self.grad_clip, self.sub_optim_methods,
-                             grad_accum=ga)
+                             compute_dtype=self.compute_dtype, grad_accum=ga)
         params, buffers = model.params_dict(), model.buffers_dict()
-        slots = ts.init_slots(params)
+        restored = self.optim_method.__dict__.pop("_train_slots", None)
+        slots = (_on_device(restored, self._device)
+                 if restored is not None and len(restored) == len(ts.methods)
+                 else ts.init_slots(params))
         data_iter = prefetch(self._batch_stream(), buffer_size=PREFETCH_DEPTH,
                              transfer=self._prepare_batch)
         try:
@@ -453,6 +567,8 @@ class LocalOptimizer(Optimizer):
                                                   slots, data_iter)
         finally:
             data_iter.close()
+            # never abandon a write in flight, even on an error
+            self.join_pending_checkpoint()
         model.load_params_dict(params)
         model.load_buffers_dict(buffers)
         return model
@@ -480,18 +596,110 @@ class LocalOptimizer(Optimizer):
                 state["epoch"], state["recordsProcessedThisEpoch"],
                 num_samples, state["neval"], time.time() - wall_start, n, dt,
                 n / max(dt, 1e-9), loss)
+            if self.train_summary is not None:
+                self._write_train_summary(state, params, loss, lr,
+                                          n / max(dt, 1e-9))
             state["neval"] += 1
             if state["recordsProcessedThisEpoch"] >= num_samples:
                 state["epoch"] += 1
                 state["recordsProcessedThisEpoch"] = 0
             ts.update_states(neval=state["neval"], epoch=state["epoch"],
                              Loss=loss)
-            if (self.validation_trigger is not None
-                    and self.validation_trigger(state)):
+            if self._should_fire_aux(state):
                 self.model.load_params_dict(params)
                 self.model.load_buffers_dict(buffers)
-                self._run_validation(state)
+                if self._val_now:
+                    self._run_validation(state)
+                if self._ckpt_now:
+                    self._run_checkpoint(state, slots)
         return params, buffers
+
+    def _write_train_summary(self, state, params, loss, lr, throughput):
+        summ, step = self.train_summary, state["neval"]
+        summ.add_scalar("Loss", loss, step)
+        summ.add_scalar("LearningRate", lr, step)
+        summ.add_scalar("Throughput", throughput, step)
+        trig = getattr(summ, "get_summary_trigger",
+                       lambda _name: None)("Parameters")
+        if trig is not None and trig(state):
+            for name, leaf in _named_param_leaves(params):
+                summ.add_histogram(name, leaf.detach().float().cpu().numpy(),
+                                   step)
+
+    def _should_fire_aux(self, state) -> bool:
+        """Ask each trigger once: validation, then checkpoint."""
+        self._val_now = (self.validation_trigger is not None
+                         and bool(self.validation_trigger(state)))
+        self._ckpt_now = (self.checkpoint_trigger is not None
+                          and bool(self.checkpoint_trigger(state)))
+        return self._val_now or self._ckpt_now
+
+    def _snapshot(self, slots):
+        """(model copy, method copy, wait): host copies of the model and of
+        the optim method carrying ``slots``, taken now (see
+        ``utils/file.py::snapshot``)."""
+        method = self.optim_method
+        model_snap, wait_model = bt_file.snapshot(self.model)
+        method._train_slots = slots
+        try:
+            method_snap, wait_method = bt_file.snapshot(method)
+        finally:
+            del method._train_slots
+
+        def wait():
+            wait_model()
+            wait_method()
+
+        return model_snap, method_snap, wait
+
+    def _run_checkpoint(self, state, slots):
+        if self.checkpoint_path is None:
+            return
+        path = self.checkpoint_path
+        bt_file.makedirs(path)
+        tag = f"{state['neval'] - 1}"
+        model_f = os.path.join(path, f"model.{tag}")
+        method_f = os.path.join(path, f"optimMethod.{tag}")
+        if not self.checkpoint_async:
+            model_snap, method_snap, wait = self._snapshot(slots)
+            wait()
+            bt_file.save_module(None, model_f, overwrite=True,
+                                snapshot=model_snap)
+            bt_file.save(None, method_f, overwrite=True,
+                         snapshot=method_snap)
+            return
+        self.join_pending_checkpoint()  # one in flight; raise its error
+        model_snap, method_snap, wait = self._snapshot(slots)
+
+        def write():
+            mtmp = os.path.join(path, f".model.{tag}.tmp")
+            otmp = os.path.join(path, f".optimMethod.{tag}.tmp")
+            try:
+                wait()
+                bt_file.save_module(None, mtmp, overwrite=True,
+                                    snapshot=model_snap)
+                bt_file.save(None, otmp, overwrite=True,
+                             snapshot=method_snap)
+                os.replace(mtmp, model_f)
+                os.replace(otmp, method_f)
+            except BaseException as e:  # raised again at the next join
+                self._ckpt_error = e
+
+        self._ckpt_thread = threading.Thread(target=write, daemon=True,
+                                             name=f"ckpt-{tag}")
+        self._ckpt_thread.start()
+
+    def join_pending_checkpoint(self) -> None:
+        """Wait for the write in flight, if any, and raise the error it
+        hit."""
+        t = self._ckpt_thread
+        if t is not None:
+            t.join()
+            self._ckpt_thread = None
+        err = self._ckpt_error
+        if err is not None:
+            self._ckpt_error = None
+            raise RuntimeError("async checkpoint write failed") from err
 
     def _run_validation(self, state):
         if self.validation_dataset is None:
@@ -504,3 +712,6 @@ class LocalOptimizer(Optimizer):
             logger.info("%s is %s", method.name(), res)
             if method.name() in ("Top1Accuracy", "Top5Accuracy"):
                 state["score"] = value
+            if self.validation_summary is not None:
+                self.validation_summary.add_scalar(method.name(), value,
+                                                   state["neval"] - 1)

@@ -114,6 +114,23 @@ a non-zero exit, at the first phase that does not hold:
    - quant_scoring (bf16): the int8 clone's ``forward`` over 4 x 2048
      tokens launches the flash kernel once a layer; its tokens/s beside
      the float forward's, the max |logit| difference;
+   - beam_serving (bf16): ``beam_search`` of 4 prompts of 128 tokens, 4
+     beams, 64 new tokens, with eos and without (ms, tokens/s); one beam
+     equal to greedy ``generate`` (or a near tie); a best beam below the
+     greedy row only where the greedy prefix left the beams; the best
+     beam's score against an f32 teacher-forced rescoring of its tokens
+     within 2e-2; a run filling the 2048-token window; no flash launch;
+   - predict_serving (bf16): ``PredictionService`` over the flash
+     forward, 16 clients sending 32 requests of 512 tokens, half as
+     bytes (``max_batch`` 8, ``sample_ndim`` 1): each answer held to a
+     lone ``forward`` by phase 3's row-RMS rule, a malformed request and
+     payload answered with the error tensor, 8 launches a forward
+     dispatch, requests a dispatch and latency p50/p99; then
+     ``LocalPredictor.predict_class`` over a ResNet-50 f32 eval batch of
+     256 against 1 + the argmax of a lone forward;
+   - noncausal_scoring (bf16): the ``causal=False`` flagship's forward
+     over 4 x 2048 tokens, 8 launches, against ``use_flash=False`` by
+     phase 4's rule;
 7. flash_backward: the differentiable flash attention (the kernel's
    forward, the plain blocked backward) against the plain forward (out
    and lse) and autograd through it (dq / dk / dv and the lse
@@ -126,13 +143,26 @@ a non-zero exit, at the first phase that does not hold:
    step; a remat step launches 16), a ``torch.profiler`` pass over one
    step, and at batch 4 in f32 with TF32 off the flash path's gradients
    against the dense path's, then f32 SGD steps that lower the loss;
+   then checkpoint_train: the training flagship through the
+   ``LocalOptimizer`` (bf16 over f32 masters, ``RMSprop``, a
+   ``TrainSummary``, async checkpoints after iterations 1, 3 and 5 of
+   8; 8 launches a step), ``load_latest_checkpoint`` into a fresh model
+   and method (parameters, slots and state bit-equal to device copies
+   taken at the checkpoint) and iterations 6 and 7 again (losses within
+   1e-3 of the uninterrupted run's), with the checkpoint bytes, write
+   seconds, the loop's stall and the step time with and without a write
+   in flight; and optim_criterion_gate (f32, TF32 off): each new optim
+   method five steps of a small model and its flat ``optimize``, LBFGS,
+   and every criterion's value and input gradient, card against CPU;
 9. the kernels line: one JSON object with each kernel's launches on the
    main paths (phases 4-6, and the timed bf16 training run of phase 8,
    each counted from 0 just before it and read just after; the engine
    phases, the remat run and the f32 gate are counted on their own
    lines; ``launches_engine`` is the sum of the twelve engine phases'
-   counts, each asserted 0; ``launches_quant`` is quant_scoring's),
-   error, times and bound.
+   counts, each asserted 0; ``launches_quant`` is quant_scoring's;
+   ``launches_beam``, ``launches_predict``, ``launches_noncausal`` and
+   ``launches_checkpoint_train`` are the PR 9 phases'), error, times and
+   bound.
 
 Before the kernels line, the vision path (ResNet-50 at full width and
 depth, LeNet-5, the LocalOptimizer), which launches no kernel of the
@@ -320,6 +350,34 @@ CONSERVATION_RTOL = 1e-9
 # qos_serving: run_qos_storm at the JAX package's defaults (bf16)
 QOS_SERVING = dict(n_requests=24, rate_hz=20.0, max_slots=2,
                    prefill_chunk=8, prefill_rows=2, n_greedy=3, seed=0)
+
+# beam_serving: the serving flagship's beam search (bf16)
+BEAM = dict(prompts=4, prompt_len=128, new=64, beams=4)
+# the best beam's summed log-prob (bf16 logits of the KV-cache decode)
+# against an f32 teacher-forced rescoring of its tokens on the same
+# weights, relative: bf16 rounds each logit to 8 bits of mantissa and
+# the 64 terms' errors add up
+BEAM_SCORE_RTOL = 2e-2
+# a best beam's normalized score and the greedy row's come from runs of
+# other batch shapes (16 rows, 4 rows): equal sequences may differ by
+# their bf16 rounding, far below this
+BEAM_RANK_ATOL = 1e-3
+# predict_serving: PredictionService over the serving flagship (bf16),
+# and LocalPredictor over a ResNet-50 eval batch (f32)
+PREDICT_SERVING = dict(clients=16, per_client=2, tokens=512, max_batch=8,
+                       timeout_ms=20.0, resnet_batch=256)
+# checkpoint_train: the training flagship through the LocalOptimizer,
+# async checkpoints after iterations 1, 3 and 5 of 8
+CHECKPOINT_TRAIN = dict(iterations=8, last_ckpt=6, lr=1e-3)
+# a resumed iteration's loss against the uninterrupted run's: the same
+# inputs, weights, slots and state on the same card give the same loss
+# but for a reduction whose order the card does not fix
+RESUME_RTOL = 1e-3
+# optim_criterion_gate (f32, TF32 off): card against CPU, max |diff| over
+# max |reference| per tensor; five steps of a small model, or one
+# criterion's value and input gradient
+OPTIM_TOL = 1e-4
+CRITERION_TOL = 1e-5
 
 
 def emit(obj) -> None:
@@ -2381,6 +2439,642 @@ def local_optimizer_phase(torch, smi):
     assert all(map(math.isfinite, perf["losses"])), perf["losses"]
 
 
+# ------------------------------------------------------------ slice 9
+def beam_serving(torch, fa, smi, model, prompts) -> int:
+    """beam_serving (bf16 serving flagship): ``beam_search`` over 4
+    prompts of 128 tokens, 4 beams, 64 new tokens, with eos and without;
+    one beam against greedy ``generate`` (equal, or a near tie of the
+    greedy run at the first difference); the best beam's normalized
+    score against the greedy row's; the reported score against an f32
+    teacher-forced rescoring of the beam's tokens on the same weights;
+    a run that fills the whole 2048-token window. Beam search runs over
+    the KV cache: no flash launch, counted from 0 and asserted."""
+    import copy
+
+    b, t0, n, k = BEAM["prompts"], BEAM["prompt_len"], BEAM["new"], \
+        BEAM["beams"]
+    p = prompts[:b, :t0]
+    greedy, greedy_logits = model.generate(p, n, return_logits=True)
+    # eos: a token the greedy run of prompt 0 emits early, so beams finish
+    eos = int(greedy[0, t0 + 2])
+    fa.launches = 0
+    timings = {}
+    for label, eos_id in (("no_eos", None), ("eos", eos)):
+        model.beam_search(p[:, :16], 4, num_beams=k, eos_id=eos_id)
+        torch.cuda.synchronize()
+        t_s = time.monotonic()
+        out = model.beam_search(p, n, num_beams=k, eos_id=eos_id)
+        torch.cuda.synchronize()
+        dt = time.monotonic() - t_s
+        assert out.shape == (b, t0 + n) and torch.equal(out[:, :t0], p)
+        if eos_id is not None:
+            for row in out[:, t0:].cpu().numpy():
+                hits = (row == eos_id).nonzero()[0]
+                if hits.size:
+                    assert (row[hits[0]:] == eos_id).all(), row
+        timings[label] = {"ms": dt * 1e3, "tokens_per_s": b * n / dt}
+    # the scores each run ranked on, for the checks below
+    _, logits, caches = model._decode_setup(p, n, None)
+    run = model._beam_loop(logits, t0, caches, k, n, None, 1.0,
+                           with_scores=True)
+    best, score, length = run["tokens"], run["score"], run["length"]
+    _, logits, caches = model._decode_setup(p, n, None)
+    one = model._beam_loop(logits, t0, caches, 1, n, None, 1.0,
+                           with_scores=True)
+    # the window's edge: a prompt of 2048 - 64 tokens, one row
+    edge_prompt = prompts[:1].repeat(1, FLAGSHIP["max_len"] // 256)[
+        :, :FLAGSHIP["max_len"] - n]
+    edge = model.beam_search(edge_prompt, n, num_beams=k)
+    torch.cuda.synchronize()
+    launches = fa.launches
+    assert launches == 0, launches
+    assert edge.shape == (1, FLAGSHIP["max_len"])
+    assert 0 <= int(edge.min()) and int(edge.max()) < FLAGSHIP["vocab_size"]
+    # one beam is greedy
+    ties = []
+    g_np, o_np = greedy.cpu().numpy(), one["tokens"].cpu().numpy()
+    for r in range(b):
+        diff = (o_np[r] != g_np[r, t0:]).nonzero()[0]
+        if diff.size:
+            j = int(diff[0])
+            top2 = greedy_logits[r, j].topk(2).values
+            ties.append({"row": r, "position": j,
+                         "margin": (top2[0] - top2[1]).item()})
+            assert ties[-1]["margin"] < NEAR_TIE, ties[-1]
+    # normalized scores (penalty 1, every length n without eos). Beam
+    # search keeps the K best prefixes by summed log-prob, so it may drop
+    # the greedy prefix and end below it (the JAX package's beam search
+    # too: tests/test_torch_beam_search.py); a best beam below the greedy
+    # row is allowed only where the greedy prefix left the beams
+    norm = score / length
+    one_norm = one["score"] / one["length"]
+    kept = greedy_kept(run, o_np)
+    below = [r for r in range(b)
+             if norm[r].item() < one_norm[r].item() - BEAM_RANK_ATOL]
+    assert not [r for r in below if kept[r]], (below, kept)
+    # f32 rescoring of the best beams' tokens on the same (bf16) weights
+    ref = copy.deepcopy(model).float()
+    for blk in ref.blocks():
+        blk.attn.use_flash = False
+    seq = torch.cat([p, best], 1)
+    with torch.inference_mode():
+        lp = torch.log_softmax(ref(seq)[:, t0 - 1:-1].float(), -1)
+    rescored = lp.gather(-1, best[..., None])[..., 0].sum(1)
+    del ref
+    score_rel = ((score - rescored).abs() / rescored.abs()).max().item()
+    emit({"phase": "beam_serving", "nvidia_smi": smi, "dtype": "bfloat16",
+          "prompts": b, "prompt_len": t0, "new_tokens": n, "beams": k,
+          "eos_id": eos, "runs": timings,
+          "best_normalized": norm.tolist(),
+          "greedy_normalized": one_norm.tolist(),
+          "rows_best_at_least_greedy": b - len(below),
+          "rows_greedy_prefix_pruned": b - sum(kept),
+          "score_vs_f32_rescoring_max_rel": score_rel,
+          "score_rtol": BEAM_SCORE_RTOL, "one_beam_near_ties": ties,
+          "window_edge": {"prompt_len": int(edge_prompt.shape[1]),
+                          "new_tokens": n, "max_len": FLAGSHIP["max_len"]},
+          "flash_launches": launches})
+    assert score_rel <= BEAM_SCORE_RTOL, score_rel
+    return launches
+
+
+def greedy_kept(run, greedy):
+    """For each row, whether the greedy tokens ``greedy`` (B, n) stayed a
+    prefix of one of the K beams after every step of ``run`` (the
+    lineage ``_beam_loop(with_scores=True)`` returns)."""
+    first = run["first"].cpu().numpy()
+    toks = run["toks"].cpu().numpy()
+    parents = run["parents"].cpu().numpy()
+    b, k = first.shape
+    kept = []
+    for r in range(b):
+        beams = [[int(first[r, j])] for j in range(k)]
+        ok = [int(greedy[r, 0])] in beams
+        for i in range(toks.shape[0]):
+            beams = [beams[int(parents[i, r, j])] + [int(toks[i, r, j])]
+                     for j in range(k)]
+            ok = ok and [int(x) for x in greedy[r, :i + 2]] in beams
+        kept.append(ok)
+    return kept
+
+
+def predict_serving(torch, fa, smi, model) -> int:
+    """predict_serving (bf16): ``PredictionService`` over the flash-on
+    serving flagship, 16 client threads sending requests of 512 tokens,
+    half as bytes (``max_batch`` 8, ``sample_ndim`` 1): every answer
+    held to a lone ``forward`` of the same input by the phase-3 rule; a
+    malformed request (strings) and a malformed payload get the error
+    tensor while the requests around them are answered. Then
+    ``LocalPredictor.predict_class`` over a ResNet-50 eval batch of 256,
+    held to 1 + the argmax of a lone forward of that batch. Returns the
+    service's flash launches: 8 a dispatch that ran a forward."""
+    import numpy as np
+
+    from bigdl_tpu_torch.dataset import Sample
+    from bigdl_tpu_torch.models import ResNet
+    from bigdl_tpu_torch.optim import LocalPredictor, PredictionService
+    from bigdl_tpu_torch.optim.prediction_service import (
+        deserialize_activity, serialize_activity)
+
+    cfg = PREDICT_SERVING
+    rs = np.random.RandomState(0)
+    reqs = [rs.randint(0, FLAGSHIP["vocab_size"], cfg["tokens"])
+            for _ in range(cfg["clients"] * cfg["per_client"])]
+    svc = PredictionService(model, num_threads=cfg["clients"],
+                            max_batch=cfg["max_batch"],
+                            batch_timeout_ms=cfg["timeout_ms"],
+                            sample_ndim=1)
+    answers, lat = [None] * len(reqs), [None] * len(reqs)
+    bad = {}
+
+    def client(c):
+        for i in range(c, len(reqs), cfg["clients"]):
+            t_s = time.monotonic()
+            if i % 2:
+                answers[i] = deserialize_activity(
+                    svc.predict(serialize_activity(reqs[i])))
+            else:
+                answers[i] = svc.predict(reqs[i])
+            lat[i] = time.monotonic() - t_s
+        if c == 0:
+            bad["strings"] = svc.predict(np.asarray(["a", "b", "c"]))
+        if c == 1:
+            bad["bytes"] = deserialize_activity(svc.predict(b"\x00 no npz"))
+
+    fa.launches = 0
+    threads = [threading.Thread(target=client, args=(c,), daemon=True)
+               for c in range(cfg["clients"])]
+    t_s = time.monotonic()
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    wall = time.monotonic() - t_s
+    torch.cuda.synchronize()
+    launches = fa.launches
+    stats = svc.stats()
+    # the strings request took a dispatch of its own and failed before
+    # its forward
+    assert launches == model.num_layers * (stats["dispatches"] - 1), \
+        (launches, stats)
+    assert bad["strings"].dtype.kind == "U" and \
+        "running forward" in str(bad["strings"]), bad["strings"]
+    assert "DeSerialize Input" in str(bad["bytes"]), bad["bytes"]
+    worst = 0.0
+    with torch.inference_mode():
+        for i, req in enumerate(reqs):
+            assert answers[i] is not None and answers[i].dtype.kind == "f", i
+            lone = model(torch.from_numpy(req).cuda()[None])[0]
+            worst = max(worst, tol_excess(
+                torch, torch.from_numpy(answers[i]).cuda(), lone,
+                RTOL["bfloat16"]))
+    lat_ms = sorted(x * 1e3 for x in lat)
+    rec = {"phase": "predict_serving", "nvidia_smi": smi,
+           "dtype": "bfloat16", **cfg, "requests": len(reqs),
+           "bytes_requests": len(reqs) // 2, "seconds": wall,
+           "stats": stats,
+           "requests_per_dispatch": stats["mean_batch_occupancy"],
+           "latency_ms_p50": lat_ms[len(lat_ms) // 2],
+           "latency_ms_p99": lat_ms[min(len(lat_ms) - 1,
+                                        int(0.99 * len(lat_ms)))],
+           "vs_lone_forward_excess": worst, "rtol": RTOL["bfloat16"],
+           "flash_launches": launches}
+    del svc, answers
+    assert worst < 1.0, worst
+
+    # LocalPredictor.predict_class over a ResNet-50 eval batch (f32)
+    net = ResNet(1000, {"depth": 50, "dataSet": "ImageNet"}, seed=0,
+                 device="cuda")
+    images = rs.randn(cfg["resnet_batch"], 3, 224, 224).astype(np.float32)
+    samples = [Sample(x, np.float32(1)) for x in images]
+    fa.launches = 0
+    t_s = time.monotonic()
+    cls = LocalPredictor(net, batch_size=cfg["resnet_batch"]).predict_class(
+        samples)
+    torch.cuda.synchronize()
+    pred_s = time.monotonic() - t_s
+    assert fa.launches == 0, fa.launches
+    net.evaluate()
+    with torch.inference_mode():
+        ref = net(torch.from_numpy(images).cuda()).float()
+    want = ref.argmax(-1).cpu().numpy() + 1
+    ties = []
+    for i in (cls != want).nonzero()[0]:
+        top2 = ref[i].topk(2).values
+        ties.append({"image": int(i), "margin": (top2[0] - top2[1]).item()})
+        assert ties[-1]["margin"] < NEAR_TIE, ties[-1]
+    rec["resnet50_predict_class"] = {
+        "batch": cfg["resnet_batch"], "dtype": "float32", "seconds": pred_s,
+        "images_per_s": cfg["resnet_batch"] / pred_s,
+        "equal_lone_argmax": int((cls == want).sum()), "near_ties": ties,
+        "one_based": bool(cls.min() >= 1)}
+    emit(rec)
+    assert cls.min() >= 1
+    del net
+    return launches
+
+
+def noncausal_scoring(torch, fa, smi) -> int:
+    """noncausal_scoring (bf16): the non-causal flagship's forward over 4
+    x 2048 tokens launches the flash kernel once a layer with
+    ``causal=False``; its logits against the same model with
+    ``use_flash=False`` (phase 4's model-level rule), the phase-3
+    row-RMS excess reported beside it."""
+    from bigdl_tpu_torch.models.transformer import TransformerLM
+
+    model = TransformerLM(**FLAGSHIP, causal=False, seed=0, device="cuda",
+                          dtype=torch.bfloat16)
+    model.evaluate()
+    g = torch.Generator(device="cuda").manual_seed(2)
+    ids = torch.randint(0, FLAGSHIP["vocab_size"], (4, 2048), device="cuda",
+                        generator=g)
+    with torch.inference_mode():
+        fa.launches = 0
+        logits = model(ids)
+        torch.cuda.synchronize()
+        launches = fa.launches
+        assert launches == model.num_layers, launches
+        fwd_ms = time_ms(torch, lambda: model(ids), warmup=1, iters=3)
+        for blk in model.blocks():
+            blk.attn.use_flash = False
+        dense = model(ids)
+    rel = rel_diff(logits, dense)
+    excess = tol_excess(torch, logits, dense, RTOL["bfloat16"])
+    agree = (logits.argmax(-1) == dense.argmax(-1)).float().mean().item()
+    emit({"phase": "noncausal_scoring", "nvidia_smi": smi, "batch": 4,
+          "seq": 2048, "dtype": "bfloat16", "causal": False,
+          "forward_ms": fwd_ms, "tokens_per_s": 4 * 2048 / fwd_ms * 1e3,
+          "flash_vs_dense_max_rel": rel, "rtol": LOGIT_RTOL,
+          "row_rms_excess": excess, "argmax_agreement": agree,
+          "flash_launches": launches})
+    assert rel <= LOGIT_RTOL, rel
+    return launches
+
+
+def checkpoint_train(torch, fa, smi) -> int:
+    """checkpoint_train: the training flagship (32 x 1024, bf16 over f32
+    masters) through the ``LocalOptimizer`` with ``RMSprop``, a
+    ``TrainSummary`` and async checkpoints after iterations 1, 3 and 5,
+    eight iterations; ``load_latest_checkpoint`` into a fresh model and
+    method, then iterations 6 and 7 again. The loaded parameters, slots
+    and state equal device copies taken when the checkpoint was, bit for
+    bit; the resumed losses equal the uninterrupted run's within
+    ``RESUME_RTOL``; the summary's Loss scalars read back. Returns the
+    flash launches of the checkpointed run: 8 an iteration."""
+    import tempfile
+
+    import numpy as np
+
+    from bigdl_tpu_torch.dataset import MiniBatch
+    from bigdl_tpu_torch.models.perf import LMLoss
+    from bigdl_tpu_torch.models.transformer import TransformerLM
+    from bigdl_tpu_torch.optim import (Optimizer, RMSprop, Trigger,
+                                       load_latest_checkpoint)
+    from bigdl_tpu_torch.utils import file as bt_file
+    from bigdl_tpu_torch.visualization import TrainSummary
+
+    cfg = CHECKPOINT_TRAIN
+    rs = np.random.RandomState(0)
+    ids = rs.randint(0, TRAIN["vocab"], (TRAIN_BATCH, TRAIN["seq_len"]))
+    data = [MiniBatch(ids, ids)]
+    writes, snaps = [], {}
+    real_save_module, real_save = bt_file.save_module, bt_file.save
+
+    def timed(real, kind):
+        def run(obj, path, overwrite=False, snapshot=None):
+            t_s = time.monotonic()
+            real(obj, path, overwrite=overwrite, snapshot=snapshot)
+            writes.append({"file": kind, "seconds": time.monotonic() - t_s,
+                           "bytes": os.path.getsize(path)})
+        return run
+
+    def build():
+        return TransformerLM(TRAIN["vocab"], TRAIN["embed_dim"],
+                             TRAIN["heads"], TRAIN["layers"],
+                             TRAIN["seq_len"], use_flash=True, seed=0,
+                             device="cuda", dtype=torch.float32)
+
+    def fires(state):
+        return state["neval"] % 2 == 0 and state["neval"] <= cfg["last_ckpt"]
+
+    def run(model, method, iters, path=None, summary=None):
+        opt = Optimizer(model=model, dataset=data,
+                        criterion=LMLoss(TRAIN["vocab"]),
+                        batch_size=TRAIN_BATCH,
+                        end_when=Trigger.max_iteration(iters))
+        opt.set_optim_method(method).set_compute_dtype(torch.bfloat16)
+        if path is not None:
+            opt.set_checkpoint(path, fires, async_write=True)
+            snapshot, stalls = opt._snapshot, []
+
+            def recorded(slots):
+                # device copies at the instant of the snapshot, to hold
+                # the written files to
+                tag = opt.optim_method.state["neval"] - 1
+                snaps[tag] = ([p.detach().clone()
+                               for p in opt.model.parameters()],
+                              [a.clone() for a in slots[0]["accum"]],
+                              dict(opt.optim_method.state))
+                return snapshot(slots)
+
+            checkpoint = opt._run_checkpoint
+
+            def timed_checkpoint(state, slots):
+                t_s = time.monotonic()
+                checkpoint(state, slots)
+                stalls.append(time.monotonic() - t_s)
+
+            opt._snapshot = recorded
+            opt._run_checkpoint = timed_checkpoint
+            opt.stalls = stalls
+        if summary is not None:
+            opt.set_train_summary(summary)
+        rows = logged("bigdl_tpu_torch.optim", opt.optimize)
+        return opt, rows
+
+    with tempfile.TemporaryDirectory() as tmp:
+        bt_file.save_module = timed(real_save_module, "model")
+        bt_file.save = timed(real_save, "optimMethod")
+        try:
+            summary = TrainSummary(tmp, "flagship")
+            fa.launches = 0
+            t_s = time.monotonic()
+            opt, rows = run(build(), RMSprop(cfg["lr"]), cfg["iterations"],
+                            tmp, summary)
+            run_s = time.monotonic() - t_s
+            torch.cuda.synchronize()
+            launches = fa.launches
+            loss_rows = summary.read_scalar("Loss")
+            summary.close()
+            model, method, tag = load_latest_checkpoint(tmp, device="cuda")
+            names = sorted(f for f in os.listdir(tmp) if "." in f
+                           and not f.startswith("."))
+        finally:
+            bt_file.save_module, bt_file.save = real_save_module, real_save
+    assert launches == TRAIN["layers"] * cfg["iterations"], launches
+    assert tag == cfg["last_ckpt"] - 1, (tag, names)
+    want_p, want_s, want_state = snaps[tag]
+    same_params = all(torch.equal(a.cpu(), b.cpu()) for a, b in
+                      zip(model.parameters(), want_p))
+    same_slots = all(torch.equal(a.cpu(), b.cpu()) for a, b in
+                     zip(method._train_slots[0]["accum"], want_s))
+    same_state = method.state == want_state
+    fa.launches = 0
+    _, resumed = run(model, method, cfg["iterations"] - 1)
+    resumed_launches = fa.launches
+    losses = [r[0] for r in rows]
+    again = [r[0] for r in resumed]
+    ref = losses[tag:tag + len(again)]
+    resume_rel = max(abs(a - b) / abs(b) for a, b in zip(again, ref))
+    step_ms = [TRAIN_BATCH / r[1] * 1e3 for r in rows]
+    # a write is in flight during the iterations right after a checkpoint
+    in_flight = [step_ms[t] for t in sorted(snaps) if t < len(step_ms)]
+    quiet = [ms for i, ms in enumerate(step_ms[1:], 1)
+             if i not in snaps]
+    emit({"phase": "checkpoint_train", "nvidia_smi": smi,
+          "config": {**TRAIN, "batch": TRAIN_BATCH,
+                     "compute_dtype": "bfloat16", "masters": "float32",
+                     "optimizer": f"RMSprop({cfg['lr']})",
+                     "iterations": cfg["iterations"],
+                     "checkpoints_after": sorted(snaps), "async": True},
+          "files": names, "latest_tag": tag, "writes": writes,
+          "checkpoint_bytes": sum(w["bytes"] for w in writes) // len(snaps),
+          "loop_stall_s_at_checkpoint": opt.stalls,
+          "step_ms": step_ms, "step_ms_write_in_flight": in_flight,
+          "step_ms_no_write": quiet, "run_seconds": run_s,
+          "losses": losses, "resumed_losses": again,
+          "resume_max_rel": resume_rel, "resume_rtol": RESUME_RTOL,
+          "loaded_equal": {"params": same_params, "slots": same_slots,
+                           "state": same_state},
+          "summary_loss_rows": len(loss_rows),
+          "flash_launches": launches,
+          "flash_launches_resumed": resumed_launches})
+    assert same_params and same_slots and same_state
+    assert resumed_launches == TRAIN["layers"] * len(again)
+    assert len(again) == cfg["iterations"] - 1 - tag
+    assert resume_rel <= RESUME_RTOL, (again, ref)
+    assert [r[0] for r in loss_rows] == list(range(1, cfg["iterations"] + 1))
+    np.testing.assert_allclose([r[2] for r in loss_rows], losses, rtol=1e-6)
+    return launches
+
+
+def _criterion_cases(np, nn, Table):
+    """(name, criterion, input, target) on the host: every criterion of
+    the port, f32."""
+    rs = np.random.RandomState(0)
+    r, c = 64, 10
+
+    def f(*shape):
+        return rs.randn(*shape).astype(np.float32)
+
+    def probs(*shape):
+        e = np.exp(f(*shape))
+        return e / e.sum(-1, keepdims=True)
+
+    def labels(*shape):
+        return rs.randint(1, c + 1, shape).astype(np.float32)
+
+    def sign(*shape):
+        return np.where(rs.rand(*shape) > 0.5, 1.0, -1.0).astype(np.float32)
+
+    def onehot():
+        return np.eye(c, dtype=np.float32)[rs.randint(0, c, r)]
+
+    multi = np.zeros((r, c), np.float32)
+    for i in range(r):
+        multi[i, :1 + i % 3] = rs.permutation(c)[:1 + i % 3] + 1
+    tmask = labels(r, 4)
+    tmask[:, -1] = 0
+    return [
+        ("ClassNLL", nn.ClassNLLCriterion(), np.log(probs(r, c)), labels(r)),
+        ("CrossEntropy", nn.CrossEntropyCriterion(label_smoothing=0.1),
+         f(r, c), labels(r)),
+        ("CategoricalCrossEntropy", nn.CategoricalCrossEntropy(),
+         probs(r, c), onehot()),
+        ("MSE", nn.MSECriterion(), f(r, c), f(r, c)),
+        ("Abs", nn.AbsCriterion(), f(r, c), f(r, c)),
+        ("BCE", nn.BCECriterion(), 1 / (1 + np.exp(-f(r, c))),
+         (rs.rand(r, c) > 0.5).astype(np.float32)),
+        ("SmoothL1", nn.SmoothL1Criterion(), 2 * f(r, c), f(r, c)),
+        ("DistKLDiv", nn.DistKLDivCriterion(), np.log(probs(r, c)),
+         probs(r, c)),
+        ("KLD", nn.KLDCriterion(), Table(f(r, c), 0.5 * f(r, c)), None),
+        ("Gaussian", nn.GaussianCriterion(), Table(f(r, c), 0.5 * f(r, c)),
+         f(r, c)),
+        ("Margin", nn.MarginCriterion(squared=True), f(r, c), sign(r, c)),
+        ("HingeEmbedding", nn.HingeEmbeddingCriterion(), f(r, c),
+         sign(r, c)),
+        ("L1HingeEmbedding", nn.L1HingeEmbeddingCriterion(40.0),
+         Table(f(c), f(c)), np.float32(-1)),
+        ("CosineEmbedding", nn.CosineEmbeddingCriterion(0.1),
+         Table(f(r, c), f(r, c)), sign(r)),
+        ("MarginRanking", nn.MarginRankingCriterion(), Table(f(r), f(r)),
+         sign(r)),
+        ("MultiMargin", nn.MultiMarginCriterion(p=2), f(r, c), labels(r)),
+        ("MultiLabelMargin", nn.MultiLabelMarginCriterion(), f(r, c), multi),
+        ("MultiLabelSoftMargin", nn.MultiLabelSoftMarginCriterion(),
+         f(r, c), (rs.rand(r, c) > 0.5).astype(np.float32)),
+        ("SoftMargin", nn.SoftMarginCriterion(), f(r, c), sign(r, c)),
+        ("L1Cost", nn.L1Cost(), f(r, c), None),
+        ("DotProduct", nn.DotProductCriterion(True), f(r, c), f(r, c)),
+        ("CosineDistance", nn.CosineDistanceCriterion(), f(r, c), f(r, c)),
+        ("CosineProximity", nn.CosineProximityCriterion(), f(r, c),
+         f(r, c)),
+        ("Poisson", nn.PoissonCriterion(), np.exp(f(r, c)), np.exp(f(r, c))),
+        ("MeanAbsolutePercentage", nn.MeanAbsolutePercentageCriterion(),
+         f(r, c), f(r, c)),
+        ("MeanSquaredLogarithmic", nn.MeanSquaredLogarithmicCriterion(),
+         np.exp(f(r, c)), np.exp(f(r, c))),
+        ("KullbackLeiblerDivergence",
+         nn.KullbackLeiblerDivergenceCriterion(), probs(r, c), probs(r, c)),
+        ("DiceCoefficient", nn.DiceCoefficientCriterion(),
+         1 / (1 + np.exp(-f(r, 4, 5))),
+         (rs.rand(r, 4, 5) > 0.5).astype(np.float32)),
+        ("ClassSimplex", nn.ClassSimplexCriterion(c), f(r, c), labels(r)),
+        ("Parallel", nn.ParallelCriterion().add(nn.MSECriterion(), 0.5)
+         .add(nn.AbsCriterion(), 2.0), Table(f(r, c), f(r)),
+         Table(f(r, c), f(r))),
+        ("Multi", nn.MultiCriterion().add(nn.MSECriterion())
+         .add(nn.SmoothL1Criterion(), 0.3), f(r, c), f(r, c)),
+        ("TimeDistributed", nn.TimeDistributedCriterion(
+            nn.MSECriterion(), size_average=True), f(r, 3, c), f(r, 3, c)),
+        ("PG", nn.PGCriterion(), probs(r, c), f(r, c)),
+        ("ActivityRegularization", nn.ActivityRegularization(0.1, 0.2),
+         f(r, c), None),
+        ("SmoothL1WithWeights", nn.SmoothL1CriterionWithWeights(2.0, 3),
+         f(r, c), Table(f(r, c), rs.rand(r, c).astype(np.float32),
+                        rs.rand(r, c).astype(np.float32))),
+        ("SoftmaxWith", nn.SoftmaxWithCriterion(ignore_label=2),
+         f(4, c, 6, 7), labels(4, 6, 7)),
+        ("TimeDistributedMask", nn.TimeDistributedMaskCriterion(
+            nn.ClassNLLCriterion()), np.log(probs(r, 4, c)), tmask),
+        ("Transformer", nn.TransformerCriterion(
+            nn.MSECriterion(), nn.Tanh(), nn.Tanh()), f(r, c), f(r, c)),
+    ]
+
+
+def optim_criterion_gate(torch, smi) -> None:
+    """optim_criterion_gate (f32, TF32 off): each new optim method trains
+    a small model five steps through the train step on the card and on
+    the CPU from the same weights and batch; the flat ``optimize`` of
+    each, and LBFGS, on a quadratic; every criterion's forward and input
+    gradient. Card against CPU within OPTIM_TOL / CRITERION_TOL: the
+    same math, other reduction orders, and CUDA divides by a Python
+    number through its reciprocal."""
+    import numpy as np
+
+    from bigdl_tpu_torch import nn
+    from bigdl_tpu_torch.nn.module import activity_tensors
+    from bigdl_tpu_torch.optim import (LBFGS, Adadelta, Adagrad, Adamax,
+                                       Ftrl, ParallelAdam, RMSprop,
+                                       make_train_step)
+    from bigdl_tpu_torch.utils.table import Table
+
+    methods = {
+        "Adagrad": lambda: Adagrad(0.05, weight_decay=0.01),
+        "Adadelta": lambda: Adadelta(0.9, 1e-6),
+        "Adamax": lambda: Adamax(0.01),
+        "RMSprop": lambda: RMSprop(0.01),
+        "Ftrl": lambda: Ftrl(0.1, l1_regularization_strength=0.01,
+                             l2_regularization_strength=0.01),
+        "ParallelAdam": lambda: ParallelAdam(0.01),
+    }
+    rs = np.random.RandomState(0)
+    x = rs.randn(128, 64).astype(np.float32)
+    y = rs.randint(1, 11, 128).astype(np.float32)
+    a = rs.randn(16, 16).astype(np.float32)
+    quad_a = a @ a.T / 16 + np.eye(16, dtype=np.float32)
+    quad_b = rs.randn(16).astype(np.float32)
+    rows = {}
+    for name, make in methods.items():
+        final = {}
+        for dev in ("cpu", "cuda"):
+            torch.manual_seed(0)
+            model = nn.Sequential(nn.Linear(64, 32, device="cpu"), nn.Tanh(),
+                                  nn.Linear(32, 10, device="cpu"),
+                                  nn.LogSoftMax()).to(dev)
+            ts = make_train_step(model, nn.ClassNLLCriterion(), make())
+            params, buffers = model.params_dict(), model.buffers_dict()
+            slots, lrs = ts.init_slots(params), ts.current_lrs()
+            xd, yd = torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev)
+            for _ in range(5):
+                loss, params, buffers, slots = ts.step(params, buffers, slots,
+                                                       xd, yd, lrs, None)
+            meth = make()
+            qa, qb = (torch.from_numpy(quad_a).to(dev),
+                      torch.from_numpy(quad_b).to(dev))
+            xq = torch.zeros(16, device=dev)
+            for _ in range(5):
+                xq, _ = meth.optimize(lambda v: (0.5 * v @ (qa @ v) - qb @ v,
+                                                 qa @ v - qb), xq)
+            final[dev] = ([p.detach().cpu() for p in
+                           (v for _, v in _leaves_of(params))], xq.cpu(),
+                          float(loss))
+        err = max(_rel_err(torch, c, g) for c, g in
+                  zip(final["cpu"][0], final["cuda"][0]))
+        flat = _rel_err(torch, final["cpu"][1], final["cuda"][1])
+        rows[name] = {"params_max_rel": err, "flat_max_rel": flat,
+                      "loss_cpu": final["cpu"][2],
+                      "loss_cuda": final["cuda"][2]}
+    lb = {}
+    for dev in ("cpu", "cuda"):
+        qa, qb = (torch.from_numpy(quad_a).to(dev),
+                  torch.from_numpy(quad_b).to(dev))
+        xq, losses = LBFGS(max_iter=30, learning_rate=0.5).optimize(
+            lambda v: (0.5 * v @ (qa @ v) - qb @ v, qa @ v - qb),
+            torch.zeros(16, device=dev))
+        lb[dev] = (xq.cpu(), losses)
+    rows["LBFGS"] = {"flat_max_rel": _rel_err(torch, lb["cpu"][0],
+                                              lb["cuda"][0]),
+                     "iterations_cpu": len(lb["cpu"][1]),
+                     "iterations_cuda": len(lb["cuda"][1])}
+    crit = {}
+    for name, c, xi, ti in _criterion_cases(np, nn, Table):
+        res = {}
+        for dev in ("cpu", "cuda"):
+            def put(v):
+                if isinstance(v, Table):
+                    return Table(*[torch.from_numpy(np.asarray(t)).to(dev)
+                                   for t in v.values()])
+                if v is None or np.ndim(v) == 0:
+                    return v
+                return torch.from_numpy(np.asarray(v)).to(dev)
+
+            xd, td = put(xi), put(ti)
+            value = float(c(xd, td))
+            grads = [g.cpu() for g in activity_tensors(c.backward(xd, td))]
+            res[dev] = (value, grads)
+        crit[name] = {
+            "value_rel": abs(res["cuda"][0] - res["cpu"][0])
+            / max(abs(res["cpu"][0]), 1e-30),
+            "grad_max_rel": max(_rel_err(torch, a_, b_) for a_, b_ in
+                                zip(res["cpu"][1], res["cuda"][1]))}
+    worst_optim = max(max(r.get("params_max_rel", 0.0), r["flat_max_rel"])
+                      for r in rows.values())
+    worst_crit = max(max(r["value_rel"], r["grad_max_rel"])
+                     for r in crit.values())
+    emit({"phase": "optim_criterion_gate", "nvidia_smi": smi,
+          "dtype": "float32", "tf32": False, "optim": rows,
+          "optim_tol": OPTIM_TOL, "criterions": len(crit),
+          "criterion_worst": worst_crit, "criterion_tol": CRITERION_TOL,
+          "criterion_rows": crit})
+    assert worst_optim <= OPTIM_TOL, rows
+    assert len(crit) == 38 and worst_crit <= CRITERION_TOL, crit
+
+
+def _leaves_of(tree):
+    from bigdl_tpu_torch.nn.module import tree_leaves
+
+    return tree_leaves(tree)
+
+
+def _rel_err(torch, ref, got) -> float:
+    """max |got - ref| over max(max |ref|, 1e-30): one number a tensor."""
+    ref, got = ref.float().cpu(), got.float().cpu()
+    return ((got - ref).abs().max() / ref.abs().max().clamp_min(1e-30)
+            ).item()
+
+
 def main() -> int:
     import torch
 
@@ -2588,6 +3282,11 @@ def main() -> int:
         + qos_serving(torch, fa, smi, model16))
     # the int8 clone's scoring forward goes through the flash kernel
     quant_launches = quant_scoring(torch, fa, smi, model16)
+    # beam search (no flash launch), the prediction service and the
+    # non-causal forward (the kernel with causal=False in a model)
+    beam_launches = beam_serving(torch, fa, smi, model16, prompts)
+    predict_launches = predict_serving(torch, fa, smi, model16)
+    noncausal_launches = noncausal_scoring(torch, fa, smi)
     del model32, model16
     _LONE.clear()
     _WINDOWS.clear()
@@ -2595,6 +3294,8 @@ def main() -> int:
     # ---------------------------------------- 7. and 8.: the train path
     flash_backward_phase(torch, fa)
     train_launches = train_phase(torch, fa, smi)
+    checkpoint_launches = checkpoint_train(torch, fa, smi)
+    optim_criterion_gate(torch, smi)
 
     # ---------------------------------------------------- the vision path
     gate_model = vision_gate(torch, smi)
@@ -2611,11 +3312,16 @@ def main() -> int:
         "replaces": "bigdl_tpu/ops/flash_attention.py:116",
         "tpu_kernel": "bigdl_tpu/ops/flash_attention.py::_flash_kernel",
         "launches": (serving_launches + engine_launches + train_launches
-                     + quant_launches),
+                     + quant_launches + beam_launches + predict_launches
+                     + noncausal_launches + checkpoint_launches),
         "launches_serving": serving_launches,
         "launches_train": train_launches,
         "launches_engine": engine_launches,
         "launches_quant": quant_launches,
+        "launches_beam": beam_launches,
+        "launches_predict": predict_launches,
+        "launches_noncausal": noncausal_launches,
+        "launches_checkpoint_train": checkpoint_launches,
         "max_abs_err": flagship["max_abs_err"],
         "ms": flagship["kernel_ms"], "kernel_ms": flagship["kernel_ms"],
         "device_ms": flagship["device_ms"],

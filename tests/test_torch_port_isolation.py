@@ -2,8 +2,10 @@
 package (a subprocess that serves and trains with it on the CPU, the
 continuous-batching engine, int8 with a prefix host tier, QoS with
 preemption, shedding, a token bucket, the chaos injector, the usage
-ledger and the SLO watchdog, and a ResNet-20 through the LocalOptimizer
-included, and a scan of every module's imports), and its entry points run on the card
+ledger and the SLO watchdog, a ResNet-20 through the LocalOptimizer,
+beam search, the PredictionService, the eager Module API and a loop
+with an async checkpoint and a train summary included, and a scan of
+every module's imports), and its entry points run on the card
 unless asked for the CPU, never falling back to it by themselves."""
 
 import ast
@@ -101,6 +103,37 @@ opt = Optimizer(model=net, dataset=data, criterion=CrossEntropyCriterion(),
                 batch_size=4, end_when=Trigger.max_iteration(1))
 opt.set_optim_method(SGD(learning_rate=0.01)).optimize()
 assert opt.optim_method.state["neval"] == 2
+import tempfile
+from bigdl_tpu_torch import nn
+from bigdl_tpu_torch.dataset import MiniBatch
+from bigdl_tpu_torch.optim import (PredictionService, RMSprop,
+                                   load_latest_checkpoint)
+from bigdl_tpu_torch.visualization import TrainSummary
+assert m.beam_search(torch.arange(6)[None], 4, num_beams=2,
+                     eos_id=3).shape == (1, 10)
+nc = TransformerLM(64, 32, 4, 1, 64, use_flash=True, causal=False,
+                   device="cpu")
+assert nc(torch.arange(6)[None]).shape == (1, 6, 64)
+svc = PredictionService(m, max_batch=2, sample_ndim=1)
+assert svc.predict(np.arange(6)).shape == (6, 64)
+lin = nn.Sequential(nn.Linear(4, 3, device="cpu"), nn.Dropout(0.2),
+                    nn.LogSoftMax())
+x, y = torch.randn(5, 4), torch.tensor([1.0, 2.0, 3.0, 1.0, 2.0])
+crit = nn.ClassNLLCriterion()
+lin.zero_grad_parameters()
+out = lin(x)
+lin.backward(x, crit.backward(out, y))
+lin.update_parameters(0.1)
+d = tempfile.mkdtemp()
+opt = Optimizer(model=lin, dataset=[MiniBatch(x.numpy(), y.numpy())],
+                criterion=crit, batch_size=5,
+                end_when=Trigger.max_iteration(4))
+opt.set_optim_method(RMSprop(0.01))
+opt.set_checkpoint(d, Trigger.several_iteration(2), async_write=True)
+opt.set_train_summary(TrainSummary(d, "app"))
+opt.optimize()
+assert len(opt.train_summary.read_scalar("Loss")) == 4
+assert load_latest_checkpoint(d, device="cpu")[2] == 3
 bad = sorted(n for n in sys.modules
              if n.split(".")[0] in ("jax", "jaxlib", "bigdl_tpu"))
 assert not bad, bad
@@ -135,8 +168,14 @@ def test_no_jax_or_jax_package_import_in_the_port():
         f.stem for f in files if f.parent.name == "serving"}
     assert {"__init__", "accounting", "histogram", "watchdog"} <= {
         f.stem for f in files if f.parent.name == "observability"}
-    assert {"attention", "linear", "quantized"} <= {
+    assert {"attention", "criterion", "linear", "module", "quantized"} <= {
         f.stem for f in files if f.parent.name == "nn"}
+    assert {"__init__", "proto", "tensorboard"} <= {
+        f.stem for f in files if f.parent.name == "visualization"}
+    assert {"optimizer", "predictor", "prediction_service"} <= {
+        f.stem for f in files if f.parent.name == "optim"}
+    assert {"file", "tfrecord"} <= {
+        f.stem for f in files if f.parent.name == "utils"}
     found = [(str(f.relative_to(REPO)), name) for f in files
              for name in _imports(f)
              if name.split(".")[0] in ("jax", "jaxlib", "bigdl_tpu")]
@@ -152,6 +191,8 @@ def test_entry_points_default_to_the_card_and_never_fall_back():
                                              transformer_perf)
     from bigdl_tpu_torch.nn import (BatchNormalization, LayerNorm, Linear,
                                     MultiHeadAttention, SpatialConvolution)
+    from bigdl_tpu_torch.nn.module import Module
+    from bigdl_tpu_torch.optim import load_latest_checkpoint
     from bigdl_tpu_torch.serving import ContinuousBatchingEngine
     from bigdl_tpu_torch.utils.random import RandomGenerator
 
@@ -159,6 +200,8 @@ def test_entry_points_default_to_the_card_and_never_fall_back():
                  lambda: MultiHeadAttention(32, 4),
                  lambda: LayerNorm(8), lambda: Linear(4, 4),
                  lambda: resolve_device(),
+                 lambda: Module.load("/nonexistent/model.1"),
+                 lambda: load_latest_checkpoint("/nonexistent"),
                  lambda: transformer_perf(2, 1, 1, seq_len=16),
                  lambda: RandomGenerator(0).next_generator(),
                  lambda: SpatialConvolution(3, 4, 3, 3),
