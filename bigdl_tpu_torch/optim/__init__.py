@@ -1,5 +1,6 @@
 """Training and serving of the port (counterparts of ``bigdl_tpu.optim``)."""
 
+from bigdl_tpu_torch.optim.ema import EMA
 from bigdl_tpu_torch.optim.evaluator import Evaluator
 from bigdl_tpu_torch.optim.generation_service import GenerationService
 from bigdl_tpu_torch.optim.metrics import Metrics
@@ -24,7 +25,7 @@ from bigdl_tpu_torch.optim.validation import (
 )
 
 __all__ = ["Adadelta", "Adagrad", "Adam", "Adamax", "AdamW", "CosineDecay",
-           "Default", "EpochDecay", "EpochSchedule", "EpochStep",
+           "Default", "EMA", "EpochDecay", "EpochSchedule", "EpochStep",
            "Evaluator", "Exponential", "Ftrl", "GenerationService",
            "LBFGS", "LocalPredictor", "ParallelAdam", "PredictionService",
            "RMSprop",

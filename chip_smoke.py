@@ -192,6 +192,29 @@ package and torch ops here.
   path per batch, the same step without the loop, and ``run_perf`` at
   batch 64 with one profiled step.
 
+After it, the image zoo (slice 10), which launches no kernel of the
+port either (each phase counts the flash launches from 0 and asserts 0):
+
+- zoo_gate: f32 with TF32 off, VGG CIFAR (batch 32), VGG-16, both
+  Inception v1 forms (batch 2), MobileNetV1 NCHW and NHWC (batch 8) and
+  the autoencoder (batch 8) at full width, each on the card against
+  the same weights and random BN state on the CPU in f64: eval outputs
+  (InceptionV1's three heads each) and one SGD step's update;
+  MobileNet NHWC against NCHW on the card;
+- zoo_train: ``run_perf`` for VGG-16 (batch 64, NCHW), Inception v1
+  (128) and MobileNetV1 (256, NHWC), bf16 over f32 masters: ms/step,
+  images/s, peak memory, analytic MFU (the built model's convolution
+  and linear MACs against the published ones), and one profiled step
+  each (zoo_profile);
+- zoo_mains: vgg.train / vgg.test and resnet.train on CIFAR binary
+  files, lenet.train / lenet.test on MNIST idx files, imagenet_gen over
+  a folder of 128 .npy images of 256 x 256, inception.train at batch 32
+  on its records, each train main one epoch with a checkpoint and then
+  resumed (the resumed model equal bit for bit);
+- input_pipeline: ``run_input_pipeline_perf`` (512 records of 256 x 256,
+  batch 64, crop 224, prefetch depths 0 / 2 / 4, composed and fused
+  augment), records/s beside zoo_train's Inception images/s.
+
 Earlier lines are one JSON object each; the last line is
 ``{"ok": true, "device": {...}}``. Exits non-zero without that line when
 CUDA is not available or the port cannot be imported.
@@ -378,6 +401,39 @@ RESUME_RTOL = 1e-3
 # criterion's value and input gradient
 OPTIM_TOL = 1e-4
 CRITERION_TOL = 1e-5
+
+# slice 10, the image zoo. zoo_gate (f32, TF32 off) holds each model on
+# the card to the port on the CPU in f64: eval outputs within
+# ZOO_EVAL_RTOL of the largest |output|, one SGD step's update within
+# ZOO_UPDATE_RTOL in L2 over all parameters: VGG-16's f32 step itself
+# reads 8.3e-4 (the CPU) and 8.8e-4 (the card, H100 80GB HBM3 at 700 W)
+# from the f64 step in this norm, where a wrong layer reads order 1.
+# MobileNet's training-mode
+# step is ill-conditioned (27 BNs, each normalizing over 8 images): the
+# port's own f32 step on the CPU reads 6.5e-3 (NCHW) and 6.2e-3 (NHWC)
+# from its f64 step, where VGG CIFAR's (14 BNs at batch 32) reads
+# 1.0e-3, so MobileNet is held to vision_gate's UPDATE_RTOL; the CPU's
+# f32 reading is printed beside the card's for every model
+ZOO_GATE = dict(batch=2, vgg_cifar_batch=32, mobilenet_batch=8,
+                autoencoder_batch=8)
+ZOO_EVAL_RTOL = 1e-4
+ZOO_UPDATE_RTOL = 2e-3
+# zoo_train: run_perf at full width, bf16 over f32 masters (model, batch,
+# format), warm-up and timed steps; the published multiply-accumulates of
+# one 224 x 224 image's forward (VGG-16 ~15.5 G, GoogLeNet ~1.5 G,
+# MobileNetV1 ~569 M), which the analytic count must match within
+# MACS_RTOL
+ZOO_TRAIN = [("vgg16", 64, "NCHW"), ("inception_v1", 128, "NCHW"),
+             ("mobilenet", 256, "NHWC")]
+ZOO_TRAIN_STEPS = (3, 10)
+PUBLISHED_MACS = {"vgg16": 15.5e9, "inception_v1": 1.5e9,
+                  "mobilenet": 569e6}
+MACS_RTOL = 0.1
+# zoo_mains: the data each main reads (one epoch each at these sizes)
+ZOO_MAINS = dict(cifar_images=512, mnist_images=1024, batch=64,
+                 folder_per_class=64, folder_side=256, inception_batch=32)
+# input_pipeline: run_input_pipeline_perf's JAX defaults
+PIPELINE = dict(batch_size=64, n_records=512, image=256, crop=224)
 
 
 def emit(obj) -> None:
@@ -3075,6 +3131,405 @@ def _rel_err(torch, ref, got) -> float:
             ).item()
 
 
+# ------------------------------------------------------------ slice 10
+def _randomize_all_bn(torch, model, seed: int) -> None:
+    """Random gamma in [0.5, 1.5), beta, running mean and variance in
+    every BN of ``model`` (any BatchNormalization)."""
+    from bigdl_tpu_torch.nn import BatchNormalization
+
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, BatchNormalization):
+                n, dev = m.n_output, m.running_mean.device
+                m.weight.copy_(torch.rand(n, generator=g) + 0.5)
+                m.bias.copy_(0.1 * torch.randn(n, generator=g))
+                m.running_mean = (0.1 * torch.randn(n, generator=g)).to(dev)
+                m.running_var = (torch.rand(n, generator=g) * 1.5
+                                 + 0.5).to(dev)
+
+
+def _zoo_cases():
+    """(name, make(device), input shape, criterion, NHWC input, the
+    update's tolerance): every zoo model at full width, at the gate's
+    batch sizes."""
+    from bigdl_tpu_torch import models as M
+
+    return [
+        ("vgg_cifar", lambda d: M.VggForCifar10(10, has_dropout=False,
+                                                seed=0, device=d),
+         (ZOO_GATE["vgg_cifar_batch"], 3, 32, 32), "nll", False,
+         ZOO_UPDATE_RTOL),
+        ("vgg16", lambda d: M.Vgg16(1000, has_dropout=False, seed=0,
+                                    device=d),
+         (ZOO_GATE["batch"], 3, 224, 224), "nll", False, ZOO_UPDATE_RTOL),
+        ("inception_v1_noaux", lambda d: M.InceptionV1NoAuxClassifier(
+            1000, has_dropout=False, seed=0, device=d),
+         (ZOO_GATE["batch"], 3, 224, 224), "nll", False, ZOO_UPDATE_RTOL),
+        ("inception_v1", lambda d: M.InceptionV1(1000, has_dropout=False,
+                                                 seed=0, device=d),
+         (ZOO_GATE["batch"], 3, 224, 224), "mse", False, ZOO_UPDATE_RTOL),
+        ("mobilenet_nchw", lambda d: M.MobileNetV1(1000, seed=0, device=d),
+         (ZOO_GATE["mobilenet_batch"], 3, 224, 224), "ce", False,
+         UPDATE_RTOL),
+        ("mobilenet_nhwc", lambda d: M.MobileNetV1(1000, format="NHWC",
+                                                   seed=0, device=d),
+         (ZOO_GATE["mobilenet_batch"], 3, 224, 224), "ce", True,
+         UPDATE_RTOL),
+        ("autoencoder", lambda d: M.Autoencoder(32, seed=0, device=d),
+         (ZOO_GATE["autoencoder_batch"], 28, 28), "mse", False,
+         ZOO_UPDATE_RTOL),
+    ]
+
+
+def _zoo_step(torch, model, crit, x, y):
+    """(loss, [new - old for every parameter]) of one SGD step at
+    learning rate 1: the update is the gradient, which the f32 rounding
+    of ``new`` does not hide (at rate 0.01 an update is ~1e-4 of its
+    weight, and storing the new weight in f32 alone moves it by ~1e-3)."""
+    from bigdl_tpu_torch.nn.module import tree_leaves
+    from bigdl_tpu_torch.optim import SGD, make_train_step
+
+    ts = make_train_step(model, crit, SGD(learning_rate=1.0))
+    p0, b0 = model.params_dict(), model.buffers_dict()
+    loss, p1, _, _ = ts.step(p0, b0, ts.init_slots(p0), x, y,
+                             ts.current_lrs(), None)
+    return loss.item(), [(b - a).double().cpu() for (_, a), (_, b) in
+                         zip(tree_leaves(p0), tree_leaves(p1))]
+
+
+def _rel_l2(ours, ref) -> float:
+    err = math.sqrt(sum(((a - b) ** 2).sum().item()
+                        for a, b in zip(ours, ref)))
+    return err / math.sqrt(sum((b ** 2).sum().item() for b in ref))
+
+
+def zoo_gate(torch, fa, smi) -> int:
+    """zoo_gate (f32, TF32 off): every zoo model on the card against the
+    same model (the card's weights and random BN state) on the CPU in
+    f64: eval outputs (InceptionV1's three heads each) within
+    ``ZOO_EVAL_RTOL`` of the largest |output|; one SGD step's update,
+    all parameters as one vector, within ``ZOO_UPDATE_RTOL`` in L2
+    (MobileNet within ``UPDATE_RTOL``, the ill-conditioned bound of
+    vision_gate; the CPU's own f32 step is read beside it); MobileNet
+    NHWC against NCHW on the card. Returns the flash launches (0)."""
+    from bigdl_tpu_torch.nn import (ClassNLLCriterion, CrossEntropyCriterion,
+                                    MSECriterion)
+
+    assert not torch.backends.cudnn.allow_tf32
+    assert not torch.backends.cuda.matmul.allow_tf32
+    fa.launches = 0
+    crits = {"nll": ClassNLLCriterion, "ce": CrossEntropyCriterion,
+             "mse": MSECriterion}
+    rows, outs, failed = [], {}, []
+    t0 = time.monotonic()
+    for i, (name, build, shape, crit, nhwc, tol) in enumerate(
+            _zoo_cases()):
+        card = build("cuda")
+        _randomize_all_bn(torch, card, seed=10)
+        refs = {}
+        for dtype in (torch.float64, torch.float32):
+            ref = build("cpu")
+            ref.load_params_dict(card.params_dict())
+            ref.load_buffers_dict(card.buffers_dict())
+            refs[dtype] = ref.to(dtype)
+        g = torch.Generator().manual_seed(100 + i)
+        x = torch.randn(shape, generator=g)
+        if nhwc:
+            x = x.permute(0, 2, 3, 1).contiguous()
+        with torch.no_grad():
+            for m in (card, *refs.values()):
+                m.evaluate()
+            out_card = card(x.cuda()).cpu()
+            out_ref = refs[torch.float64](x.double())
+            torch.cuda.synchronize()
+        outs[name] = out_card
+        row = {"model": name, "input": list(shape), "nhwc": nhwc,
+               "eval_max_rel": rel_diff(out_card, out_ref)}
+        if name == "inception_v1":
+            row["head_max_rel"] = {
+                head: rel_diff(out_card[:, 1000 * k:1000 * (k + 1)],
+                               out_ref[:, 1000 * k:1000 * (k + 1)])
+                for k, head in enumerate(("main", "aux2", "aux1"))}
+        for m in (card, *refs.values()):
+            m.training_mode()
+        if crit == "mse":
+            y = (x.reshape(x.shape[0], -1) / 4.0 if name == "autoencoder"
+                 else 0.1 * torch.randn(out_ref.shape, generator=g))
+        else:
+            y = torch.randint(1, out_ref.shape[-1] + 1, (shape[0],),
+                              generator=g)
+        steps = {}
+        for key, model, dev, dtype in (
+                ("card", card, "cuda", torch.float32),
+                ("cpu_f64", refs[torch.float64], "cpu", torch.float64),
+                ("cpu_f32", refs[torch.float32], "cpu", torch.float32)):
+            yy = y.to(dtype) if y.is_floating_point() else y
+            steps[key] = _zoo_step(torch, model, crits[crit](),
+                                   x.to(dev, dtype), yy.to(dev))
+        row.update(
+            loss={k: v[0] for k, v in steps.items()},
+            update_rel_l2=_rel_l2(steps["card"][1], steps["cpu_f64"][1]),
+            cpu_f32_update_rel_l2=_rel_l2(steps["cpu_f32"][1],
+                                          steps["cpu_f64"][1]),
+            update_rtol=tol, eval_rtol=ZOO_EVAL_RTOL)
+        if (row["eval_max_rel"] > ZOO_EVAL_RTOL
+                or max(row.get("head_max_rel", {0: 0}).values())
+                > ZOO_EVAL_RTOL or row["update_rel_l2"] > tol
+                or not all(map(math.isfinite, row["loss"].values()))):
+            failed.append(name)
+        rows.append(row)
+        del card, refs, steps
+        torch.cuda.empty_cache()
+    nhwc_rel = rel_diff(outs["mobilenet_nhwc"], outs["mobilenet_nchw"])
+    emit({"phase": "zoo_gate", "nvidia_smi": smi, "dtype": "float32",
+          "allow_tf32": False, "reference": "the port on the CPU in f64",
+          "update_tol": "||d_card - d_cpu_f64|| / ||d_cpu_f64|| over all "
+                        "parameters, d = new - old, SGD(1.0)",
+          "models": rows, "mobilenet_nhwc_vs_nchw_max_rel": nhwc_rel,
+          "seconds": time.monotonic() - t0, "flash_launches": fa.launches})
+    assert not failed, failed
+    assert nhwc_rel <= ZOO_EVAL_RTOL, nhwc_rel
+    assert fa.launches == 0, fa.launches
+    return fa.launches
+
+
+def zoo_train(torch, fa, smi) -> dict:
+    """zoo_train: ``run_perf`` at full width, bf16 over f32 masters, for
+    VGG-16, Inception v1 and MobileNetV1 (``ZOO_TRAIN``): ms/step,
+    images/s, peak memory, analytic MFU (FLOPs from the built model's
+    convolution and linear shapes, checked against the published MACs),
+    then one profiled step each (launches, device busy share, top
+    kernels, ATen's passes against the rest). Returns images/s by
+    model."""
+    from bigdl_tpu_torch.models.perf import analytic_macs, run_perf
+    from bigdl_tpu_torch.utils.profiling import device_profile
+
+    fa.launches = 0
+    warm, steps = ZOO_TRAIN_STEPS
+    ips = {}
+    for name, batch, fmt in ZOO_TRAIN:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        perf = run_perf(name, batch_size=batch, iterations=steps,
+                        warmup=warm, dtype=torch.bfloat16, format=fmt,
+                        master_f32=True, log=lambda *_: None, device="cuda",
+                        profile=lambda fn: device_profile(fn, top=400))
+        peak = torch.cuda.max_memory_allocated()
+        prof = perf.pop("profile")
+        kernels = prof.pop("top_kernels_ms")
+        aten_ms = sum(k[1] for k in kernels if "at::native" in k[0])
+        var_mean_ms = sum(op[2] for op in prof["top_ops_ms"]
+                          if op[0] == "aten::var_mean")
+        macs = perf["flops_per_iter"] / (6.0 * batch)
+        mfu = perf["flops_per_iter"] / (perf["ms_per_iter"] / 1e3) / \
+            PEAK_FLOPS["bfloat16"]
+        ips[name] = perf["records_per_sec"]
+        emit({"phase": "zoo_train", "nvidia_smi": smi,
+              "config": {"model": name, "batch": batch, "format": fmt,
+                         "compute_dtype": "bfloat16", "masters": "float32",
+                         "optimizer": "SGD(0.01)"},
+              "warmup_steps": warm, "timed_steps": steps,
+              "ms_per_step": perf["ms_per_iter"],
+              "images_per_s": perf["records_per_sec"],
+              "peak_memory_gb": peak / 1e9, "losses": perf["losses"],
+              "analytic_macs_per_image": macs,
+              "published_macs_per_image": PUBLISHED_MACS[name],
+              "analytic_flops_per_step": perf["flops_per_iter"],
+              "analytic_mfu": mfu, "mfu_peak": "989 TFLOP/s bf16 (H100 SXM)",
+              "timer": perf["timer"], "warmup_s": perf["warmup_s"]})
+        prof.update(top_kernels_ms=kernels[:12],
+                    top_ops_ms=prof["top_ops_ms"][:12],
+                    distinct_kernels=len(kernels), aten_kernel_ms=aten_ms,
+                    other_kernel_ms=prof["device_kernel_ms"] - aten_ms,
+                    var_mean_ms=var_mean_ms,
+                    device_busy_share=1.0 - prof["device_idle_share"])
+        emit({"phase": "zoo_profile", "nvidia_smi": smi,
+              "window": f"one {name} train step, batch {batch} {fmt} bf16",
+              **prof})
+        assert len(perf["losses"]) == warm + steps
+        assert all(map(math.isfinite, perf["losses"])), perf["losses"]
+        assert abs(macs / PUBLISHED_MACS[name] - 1.0) <= MACS_RTOL, \
+            (name, macs)
+    assert fa.launches == 0, fa.launches
+    return ips
+
+
+def _synth_digits(np, n, rng, size=28):
+    """A learnable 10-class image set: each class lights its own block."""
+    labels = rng.randint(0, 10, n)
+    imgs = rng.randint(0, 40, (n, size, size)).astype(np.uint8)
+    for i, lab in enumerate(labels):
+        r, c = divmod(int(lab), 4)
+        imgs[i, 6 * r + 1:6 * r + 5, 7 * c + 1:7 * c + 5] += 180
+    return imgs, labels.astype(np.uint8)
+
+
+def _run_main(torch, main, argv):
+    """(model, the loop's (loss, records/s) rows, seconds) of one main."""
+    out = {}
+    t0 = time.monotonic()
+    rows = logged("bigdl_tpu_torch.optim",
+                  lambda: out.setdefault("model", main(argv)))
+    torch.cuda.synchronize()
+    return out["model"], rows, time.monotonic() - t0
+
+
+def _params_equal(torch, a, b) -> bool:
+    from bigdl_tpu_torch.nn.module import tree_leaves
+
+    pa, pb = tree_leaves(a.params_dict()), tree_leaves(b.params_dict())
+    return len(pa) == len(pb) and all(
+        x.device == y.device and torch.equal(x, y)
+        for (_, x), (_, y) in zip(pa, pb))
+
+
+def zoo_mains(torch, fa, smi) -> int:
+    """zoo_mains: the train and test mains through their argument parsers
+    on the card, on files the phase writes: vgg.train (and vgg.test) and
+    resnet.train on CIFAR binary batches, lenet.train then lenet.test on
+    MNIST idx files, imagenet_gen over a folder of .npy images then
+    inception.train on its records. Each train main runs one epoch with
+    a checkpoint at its end, then again with ``--resume``: no iteration
+    is left, so the resumed model must equal the first run's bit for bit
+    and the checkpoint's. Returns the flash launches (0)."""
+    import tempfile
+
+    import numpy as np
+
+    from bigdl_tpu_torch.dataset import cifar, mnist
+    from bigdl_tpu_torch.models import imagenet_gen
+    from bigdl_tpu_torch.models.inception import train as inception_train
+    from bigdl_tpu_torch.models.lenet import test as lenet_test
+    from bigdl_tpu_torch.models.lenet import train as lenet_train
+    from bigdl_tpu_torch.models.resnet import train as resnet_train
+    from bigdl_tpu_torch.models.vgg import test as vgg_test
+    from bigdl_tpu_torch.models.vgg import train as vgg_train
+    from bigdl_tpu_torch.optim import load_latest_checkpoint
+
+    fa.launches = 0
+    cfg = ZOO_MAINS
+    rs = np.random.RandomState(0)
+    rec, bad = {"nvidia_smi": smi, "phase": "zoo_mains"}, []
+    with tempfile.TemporaryDirectory() as tmp:
+        cdir, mdir = os.path.join(tmp, "cifar"), os.path.join(tmp, "mnist")
+        os.makedirs(cdir)
+        os.makedirs(mdir)
+        n = cfg["cifar_images"]
+        labels = rs.randint(0, 10, n + n // 4).astype(np.uint8)
+        imgs = rs.randint(0, 40, (n + n // 4, 3, 32, 32)).astype(np.uint8)
+        for i, lab in enumerate(labels):
+            imgs[i, :, 3 * int(lab):3 * int(lab) + 3, :] += 180
+        cifar.write_batch(os.path.join(cdir, "data_batch_1.bin"),
+                          imgs[:n], labels[:n])
+        cifar.write_batch(os.path.join(cdir, "test_batch.bin"),
+                          imgs[n:], labels[n:])
+        n = cfg["mnist_images"]
+        imgs, labels = _synth_digits(np, n + n // 4, rs)
+        for split, sl in (("train", slice(0, n)), ("t10k", slice(n, None))):
+            mnist.write_images(os.path.join(mdir, f"{split}-images-idx3-ubyte"),
+                               imgs[sl])
+            mnist.write_labels(os.path.join(mdir, f"{split}-labels-idx1-ubyte"),
+                               labels[sl])
+        folder = os.path.join(tmp, "folder")
+        side = cfg["folder_side"]
+        for c in ("class_a", "class_b"):
+            os.makedirs(os.path.join(folder, c))
+            for i in range(cfg["folder_per_class"]):
+                np.save(os.path.join(folder, c, f"{i:03d}.npy"),
+                        rs.randint(0, 255, (side, side, 3)).astype(np.uint8))
+        records = os.path.join(tmp, "records")
+        t0 = time.monotonic()
+        shards = imagenet_gen.main(["-f", folder, "-o", records, "-p", "4",
+                                    "--resize", str(side)])
+        rec["imagenet_gen"] = {"images": 2 * cfg["folder_per_class"],
+                               "side": side, "shards": len(shards),
+                               "seconds": time.monotonic() - t0}
+
+        b = cfg["batch"]
+        runs = [
+            ("vgg", vgg_train.main, ["-f", cdir, "-b", str(b)],
+             cfg["cifar_images"] // b),
+            ("resnet", resnet_train.main,
+             ["-f", cdir, "--dataset", "cifar10", "--depth", "20", "-b",
+              str(b)], cfg["cifar_images"] // b),
+            ("lenet", lenet_train.main, ["-f", mdir, "-b", str(b)],
+             cfg["mnist_images"] // b),
+            ("inception", inception_train.main,
+             ["-f", records, "-b", str(cfg["inception_batch"]),
+              "--classes", "2", "-r", "0.01"],
+             2 * cfg["folder_per_class"] // cfg["inception_batch"]),
+        ]
+        snaps = {}
+        for name, main, argv, iters in runs:
+            ckpt = os.path.join(tmp, f"ckpt_{name}")
+            common = argv + ["--device", "cuda", "--max-iteration",
+                             str(iters), "--checkpoint", ckpt, "--overwrite"]
+            model, rows, secs = _run_main(torch, main, common)
+            resumed, rows2, secs2 = _run_main(torch, main,
+                                              common + ["--resume"])
+            saved, method, tag = load_latest_checkpoint(ckpt, device="cuda")
+            losses = [r[0] for r in rows]
+            row = {"iterations": len(rows), "losses": losses,
+                   "records_per_s_logged_median":
+                       float(np.median([r[1] for r in rows])),
+                   "seconds": secs, "checkpoint_tag": tag,
+                   "resumed_iterations": len(rows2),
+                   "resume_seconds": secs2,
+                   "resumed_equals_run": _params_equal(torch, resumed, model),
+                   "checkpoint_equals_run": _params_equal(torch, saved,
+                                                          model),
+                   "device": str(next(model.parameters()).device)}
+            rec[name] = row
+            if (len(rows) != iters or not all(map(math.isfinite, losses))
+                    or tag != iters or rows2 or row["device"] != "cuda:0"
+                    or not row["resumed_equals_run"]
+                    or not row["checkpoint_equals_run"]):
+                bad.append(name)
+            snap = os.path.join(tmp, f"{name}.model")
+            model.save(snap)
+            snaps[name] = snap
+        for name, main, folder_ in (("lenet_test", lenet_test.main, mdir),
+                                    ("vgg_test", vgg_test.main, cdir)):
+            t0 = time.monotonic()
+            results = main(["-f", folder_, "--model",
+                            snaps[name.split("_")[0]], "-b", str(b),
+                            "--device", "cuda"])
+            top1 = results[0][1].result()[0]
+            rec[name] = {"top1": top1, "seconds": time.monotonic() - t0}
+            if not 0.0 <= top1 <= 1.0:
+                bad.append(name)
+    rec["flash_launches"] = fa.launches
+    emit(rec)
+    assert not bad, bad
+    assert fa.launches == 0, fa.launches
+    return fa.launches
+
+
+def input_pipeline(torch, fa, smi, inception_ips: float) -> int:
+    """input_pipeline: ``run_input_pipeline_perf`` (records -> the
+    ImageNet augment chain, composed and fused -> minibatches -> the
+    pinned copy onto the card, at prefetch depths 0, 2, 4), each row's
+    records/s beside the images/s zoo_train's Inception step consumes.
+    Returns the flash launches (0)."""
+    from bigdl_tpu_torch.models.perf import run_input_pipeline_perf
+
+    fa.launches = 0
+    notes = []
+    t0 = time.monotonic()
+    rows = run_input_pipeline_perf(**PIPELINE, log=notes.append,
+                                   device="cuda")
+    for r in rows:
+        r["inception_images_per_s"] = inception_ips
+        r["feed_over_demand"] = r["records_per_sec"] / inception_ips
+    emit({"phase": "input_pipeline", "nvidia_smi": smi, "config": PIPELINE,
+          "host_cpus": os.cpu_count(), "rows": rows, "notes": notes,
+          "seconds": time.monotonic() - t0})
+    assert rows and all(r["records"] == PIPELINE["n_records"] for r in rows)
+    assert fa.launches == 0, fa.launches
+    return fa.launches
+
+
 def main() -> int:
     import torch
 
@@ -3304,6 +3759,13 @@ def main() -> int:
     del gate_model
     local_optimizer_phase(torch, smi)
 
+    # ------------------------------------------- the image zoo (slice 10)
+    zoo_launches = zoo_gate(torch, fa, smi)
+    zoo_ips = zoo_train(torch, fa, smi)
+    zoo_launches += fa.launches
+    zoo_launches += zoo_mains(torch, fa, smi)
+    zoo_launches += input_pipeline(torch, fa, smi, zoo_ips["inception_v1"])
+
     # ----------------------------------------------------- 9. kernels line
     print(nvidia_smi(), flush=True)
     emit({"kernels": [{
@@ -3313,7 +3775,8 @@ def main() -> int:
         "tpu_kernel": "bigdl_tpu/ops/flash_attention.py::_flash_kernel",
         "launches": (serving_launches + engine_launches + train_launches
                      + quant_launches + beam_launches + predict_launches
-                     + noncausal_launches + checkpoint_launches),
+                     + noncausal_launches + checkpoint_launches
+                     + zoo_launches),
         "launches_serving": serving_launches,
         "launches_train": train_launches,
         "launches_engine": engine_launches,
@@ -3322,6 +3785,7 @@ def main() -> int:
         "launches_predict": predict_launches,
         "launches_noncausal": noncausal_launches,
         "launches_checkpoint_train": checkpoint_launches,
+        "launches_zoo": zoo_launches,
         "max_abs_err": flagship["max_abs_err"],
         "ms": flagship["kernel_ms"], "kernel_ms": flagship["kernel_ms"],
         "device_ms": flagship["device_ms"],

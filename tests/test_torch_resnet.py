@@ -265,8 +265,8 @@ def test_run_perf_summary_on_the_cpu():
     """The run_perf twin on the CPU at a small size: the JAX summary's
     keys, finite losses of every step, bf16 over f32 masters for a
     ResNet (the model's own parameters untouched), params stored in
-    dtype otherwise, and a refusal that names the roadmap for the models
-    not ported yet."""
+    dtype otherwise, and the JAX refusal of a name that is no perf
+    model."""
     from bigdl_tpu_torch.models.perf import build_model, run_perf
 
     quiet = dict(log=lambda *_: None, device="cpu")
@@ -283,5 +283,5 @@ def test_run_perf_summary_on_the_cpu():
                  master_f32=True, **quiet)
     assert all(np.isfinite(s["losses"])) and s["model"] == "resnet18"
     assert torch.equal(model.m0.weight, w0)
-    with pytest.raises(ValueError, match="ROADMAP"):
-        build_model("vgg16", device="cpu")
+    with pytest.raises(ValueError, match="unknown perf model"):
+        build_model("vgg19", device="cpu")
