@@ -9,6 +9,7 @@ it: each numpy array is staged in pinned host memory and copied with
 the copy and moves on, and the step that reads the batch runs after it
 on the same stream. Pinned blocks go back to PyTorch's caching host
 allocator, which holds them until their copy has finished.
+:func:`device_prefetch` joins the two for a stream of batches.
 """
 
 from __future__ import annotations
@@ -19,6 +20,8 @@ from typing import Callable, Iterator, Optional
 
 import numpy as np
 import torch
+
+from bigdl_tpu_torch.device import DEFAULT_DEVICE, resolve_device
 
 
 class _Stop:
@@ -95,3 +98,35 @@ def to_device(value, device: torch.device):
         t = t.to(device)
     return t
 
+
+
+def device_prefetch(batch_iterator: Iterator, sharding=None,
+                    buffer_size: int = 2, device=DEFAULT_DEVICE) -> Iterator:
+    """Batches (``MiniBatch``es, arrays, or lists / tuples / dicts of
+    arrays) staged onto ``device`` by :func:`to_device` on a prefetch
+    thread, ``buffer_size`` ahead. ``sharding`` (the JAX placement of the
+    batch dimension over a mesh) waits for the distributed slice
+    (ROADMAP.md, Queue 1 item 10) and raises when given."""
+    from bigdl_tpu_torch.dataset.minibatch import MiniBatch
+
+    if sharding is not None:
+        raise NotImplementedError(
+            "device_prefetch(sharding=) places a batch over a mesh, which "
+            "is not ported yet: see ROADMAP.md, Queue 1 item 10")
+    dev = resolve_device(device)
+
+    def put(x):
+        if isinstance(x, dict):
+            return {k: put(v) for k, v in x.items()}
+        if isinstance(x, (list, tuple)):
+            return type(x)(put(v) for v in x)
+        return to_device(x, dev)
+
+    def transfer(b):
+        if isinstance(b, MiniBatch):
+            return MiniBatch([put(x) for x in b.inputs],
+                             [put(t) for t in b.targets] or None)
+        return put(b)
+
+    return prefetch(batch_iterator, buffer_size=buffer_size,
+                    transfer=transfer)

@@ -1,10 +1,13 @@
 """Transformer: composable iterator -> iterator transforms (port of
-``Transformer`` and ``SampleToMiniBatch`` in
-``bigdl_tpu/dataset/transformer.py``; ``>>`` chains them)."""
+``Transformer``, ``FuncTransformer``, ``SampleToMiniBatch`` and
+``Normalizer`` in ``bigdl_tpu/dataset/transformer.py``; ``>>`` chains
+them)."""
 
 from __future__ import annotations
 
 from typing import Iterator, List, Optional
+
+import numpy as np
 
 from bigdl_tpu_torch.dataset.minibatch import MiniBatch, PaddingParam
 from bigdl_tpu_torch.dataset.sample import Sample
@@ -26,6 +29,16 @@ class ChainedTransformer(Transformer):
 
     def __call__(self, it):
         return self.second(self.first(it))
+
+
+class FuncTransformer(Transformer):
+    """A per-record function as a transformer."""
+
+    def __init__(self, fn):
+        self.fn = fn
+
+    def __call__(self, it):
+        return (self.fn(x) for x in it)
 
 
 class SampleToMiniBatch(Transformer):
@@ -58,3 +71,17 @@ class SampleToMiniBatch(Transformer):
             yield MiniBatch.from_samples(buf, self.feature_padding,
                                          self.label_padding)
 
+
+
+class Normalizer(Transformer):
+    """Per-record ``(x - mean) / std`` of every feature, in f32; the
+    labels ride along."""
+
+    def __init__(self, mean: float, std: float):
+        self.mean, self.std = mean, std
+
+    def __call__(self, it):
+        for s in it:
+            f = [(x.astype(np.float32) - self.mean) / self.std
+                 for x in s.features]
+            yield Sample(f, s.labels if s.labels else None)

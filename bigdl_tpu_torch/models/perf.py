@@ -1,6 +1,5 @@
-"""Synthetic-data training throughput and the host input pipeline (port
-of ``build_model``, ``run_perf``, ``_transformer_perf`` and
-``run_input_pipeline_perf`` in ``bigdl_tpu/models/perf.py``).
+"""Synthetic-data training throughput, decode throughput, the host input
+pipeline and the perf CLI (port of ``bigdl_tpu/models/perf.py``).
 
 :func:`run_perf` trains a model chosen by name (``lenet5``, ``vgg16``,
 ``vggcifar``, ``inception_v1``, ``mobilenet[_v1|_<width>]``,
@@ -24,11 +23,15 @@ targets) and ``SGD(learning_rate=0.01)`` through the train step, in
 parameters stored in ``dtype``, as the JAX harness offers; ``use_flash``
 False: the dense attention), and times the steps after warm-up: with CUDA
 events on the card, with the host clock on the CPU (the summary names
-its device; a CPU time says nothing about the card). ``profile``, the
-twin of the JAX harness's ``profile_dir``, is called after the timed
-steps with a function that runs one more step, and its result is kept
-in the summary (``chip_smoke.py`` passes
-``bigdl_tpu_torch.utils.profiling.device_profile``).
+its device; a CPU time says nothing about the card). ``profile_dir``
+writes a ``torch.profiler`` Chrome trace of the timed steps into that
+directory (the JAX harness writes a ``jax.profiler`` trace there);
+``profile`` is called after the timed steps with a function that runs
+one more step, and its result is kept in the summary (``chip_smoke.py``
+passes ``bigdl_tpu_torch.utils.profiling.device_profile``).
+
+:func:`run_decode_perf` times greedy KV-cache decode, the prefill alone
+and, with a draft, speculative decoding, and returns the JAX row's keys.
 
 :func:`run_input_pipeline_perf` measures the feed side alone: records/s
 from TFRecord shards through the ImageNet augment chain (composed, or
@@ -37,10 +40,16 @@ staging copy onto the device, at several prefetch depths. The JAX
 harness's native-reader rows wait for the C++ reader (ROADMAP.md, Queue
 1 item 12): the function logs that they did not run and returns no row
 for them.
+
+:func:`main` is the command line (``python -m
+bigdl_tpu_torch.models.perf``), with the JAX CLI's flags and a
+``--device``.
 """
 
 from __future__ import annotations
 
+import contextlib
+import json
 import os
 import tempfile
 import time
@@ -159,41 +168,80 @@ def _cast_floating(tree, dtype):
                                  else v for _, v in tree_leaves(tree)])
 
 
+class _Clock:
+    """Times a stretch of work in ms: CUDA events on the card (read after
+    a synchronize), the host clock on the CPU."""
+
+    def __init__(self, dev: torch.device):
+        self.dev = dev
+        self.on_card = dev.type == "cuda"
+        self.name = "cuda_events" if self.on_card else "host_clock"
+
+    def sync(self):
+        if self.on_card:
+            torch.cuda.synchronize(self.dev)
+
+    def start(self):
+        if self.on_card:
+            self._start = torch.cuda.Event(enable_timing=True)
+            self._end = torch.cuda.Event(enable_timing=True)
+            self._start.record()
+        self._t0 = time.perf_counter()
+
+    def stop(self) -> float:
+        if self.on_card:
+            self._end.record()
+        self.sync()
+        if self.on_card:
+            return self._start.elapsed_time(self._end)
+        return (time.perf_counter() - self._t0) * 1e3
+
+
+@contextlib.contextmanager
+def traced(profile_dir: Optional[str], dev: torch.device, label: str):
+    """A ``torch.profiler`` trace of the block (CPU and, on the card,
+    CUDA activity) written to ``profile_dir`` as a Chrome trace JSON,
+    ``<label>.<pid>.<ns>.pt.trace.json``; nothing without a directory.
+    The profiler's own cost is inside whatever the block times, as the
+    JAX harness's ``jax.profiler.trace`` is."""
+    if not profile_dir:
+        yield
+        return
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU]
+    if dev.type == "cuda":
+        acts.append(ProfilerActivity.CUDA)
+    os.makedirs(profile_dir, exist_ok=True)
+    with profile(activities=acts) as prof:
+        yield
+    prof.export_chrome_trace(os.path.join(
+        profile_dir, f"{label}.{os.getpid()}.{time.time_ns()}.pt.trace.json"))
+
+
 def _timed_steps(ts, params, buffers, slots, x, y, lrs, iterations, warmup,
-                 dev, gen=None):
-    """Run ``warmup`` then ``iterations`` steps; (params, buffers, slots,
-    losses, warm-up seconds, timed ms, timer name): CUDA events on the
-    card, the host clock on the CPU."""
-    on_card = dev.type == "cuda"
-
-    def sync():
-        if on_card:
-            torch.cuda.synchronize(dev)
-
+                 dev, gen=None, profile_dir=None, label="perf"):
+    """Run ``warmup`` then ``iterations`` steps (traced into
+    ``profile_dir`` when given); (params, buffers, slots, losses, warm-up
+    seconds, timed ms, timer name)."""
+    clock = _Clock(dev)
     losses = []
     t0 = time.perf_counter()
     for _ in range(max(1, warmup)):
         loss, params, buffers, slots = ts.step(params, buffers, slots, x, y,
                                                lrs, gen)
         losses.append(loss)
-    sync()
+    clock.sync()
     warmup_s = time.perf_counter() - t0
-    if on_card:
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-    t0 = time.perf_counter()
-    for _ in range(iterations):
-        loss, params, buffers, slots = ts.step(params, buffers, slots, x, y,
-                                               lrs, gen)
-        losses.append(loss)
-    if on_card:
-        end.record()
-    sync()
-    elapsed_ms = (start.elapsed_time(end) if on_card
-                  else (time.perf_counter() - t0) * 1e3)
+    with traced(profile_dir, dev, label):
+        clock.start()
+        for _ in range(iterations):
+            loss, params, buffers, slots = ts.step(params, buffers, slots,
+                                                   x, y, lrs, gen)
+            losses.append(loss)
+        elapsed_ms = clock.stop()
     return (params, buffers, slots, [float(v) for v in losses], warmup_s,
-            elapsed_ms, "cuda_events" if on_card else "host_clock")
+            elapsed_ms, clock.name)
 
 
 def run_perf(model_name: str = None, batch_size: int = 32,
@@ -202,12 +250,14 @@ def run_perf(model_name: str = None, batch_size: int = 32,
              input_shape=None, class_num: int = 1000, log=print,
              format: str = "NCHW", master_f32: bool = False,
              profile: Optional[Callable] = None,
+             profile_dir: Optional[str] = None,
              device=DEFAULT_DEVICE) -> dict:
     """Records/s of the train step on one random batch. Returns the JAX
     summary's keys (``model``, ``batch_size``, ``iterations``,
     ``warmup_s``, ``time_s``, ``records_per_sec``, ``ms_per_iter``,
     ``loss``) with ``losses`` (every step, warm-up included), the device
-    and the timer; ``profile`` as in :func:`transformer_perf`. ResNets
+    and the timer; ``profile`` and ``profile_dir`` as in
+    :func:`transformer_perf`. ResNets
     train with ``CrossEntropyCriterion`` on their raw logits, the other
     models with ``ClassNLLCriterion``, as in the JAX harness (MobileNet's
     head emits logits too: its loss is then minus the label's logit).
@@ -221,9 +271,13 @@ def run_perf(model_name: str = None, batch_size: int = 32,
                 raise ValueError(
                     "the transformer bench fixes its own next-token CE "
                     "loss; custom criterion is not supported")
+            if format not in ("NCHW", None):
+                log(f"[perf] note: format={format!r} ignored for "
+                    "transformer")
             return transformer_perf(batch_size, iterations, warmup, dtype,
                                     log=log, master_f32=master_f32,
-                                    profile=profile, device=dev)
+                                    profile=profile,
+                                    profile_dir=profile_dir, device=dev)
         model, input_shape, class_num = build_model(
             model_name, class_num, format=format, device=dev)
     elif input_shape is None:
@@ -247,11 +301,11 @@ def run_perf(model_name: str = None, batch_size: int = 32,
     lrs = ts.current_lrs()
     params, buffers, slots, losses, warmup_s, elapsed_ms, timer = \
         _timed_steps(ts, params, buffers, slots, x, y, lrs, iterations,
-                     warmup, dev)
+                     warmup, dev, profile_dir=profile_dir,
+                     label=f"perf_{model_name}")
     s = {"model": model_name, "batch_size": batch_size,
          "iterations": iterations,
-         "device": (torch.cuda.get_device_name(dev) if dev.type == "cuda"
-                    else "cpu"),
+         "device": _device_name(dev),
          "timer": timer, "warmup_s": warmup_s, "time_s": elapsed_ms / 1e3,
          "records_per_sec": batch_size * iterations / (elapsed_ms / 1e3),
          "ms_per_iter": elapsed_ms / iterations, "losses": losses,
@@ -279,6 +333,7 @@ def transformer_perf(batch_size: int = 32, iterations: int = 20,
                      remat: bool = False, use_flash: bool = True,
                      master_f32: bool = True,
                      profile: Optional[Callable] = None,
+                     profile_dir: Optional[str] = None,
                      device=DEFAULT_DEVICE) -> dict:
     """Tokens/s of the train step on one random (batch_size, seq_len)
     batch, computing in ``dtype`` over f32 parameters (or, without
@@ -286,7 +341,9 @@ def transformer_perf(batch_size: int = 32, iterations: int = 20,
     summary: ``records_per_sec`` (tokens/s), ``ms_per_iter``, ``loss``
     (last step), ``losses`` (every step, warm-up included),
     ``flops_per_iter`` (3 x the model's analytic forward FLOPs,
-    ``flops_source`` "analytic") and the device it ran on."""
+    ``flops_source`` "analytic") and the device it ran on.
+    ``profile_dir`` writes a ``torch.profiler`` Chrome trace of the timed
+    steps there (see :func:`traced`)."""
     dev = resolve_device(device)
     model = TransformerLM(vocab, embed_dim=embed_dim, num_heads=heads,
                           num_layers=layers, max_len=seq_len,
@@ -305,12 +362,12 @@ def transformer_perf(batch_size: int = 32, iterations: int = 20,
                         generator=gen)
     params, buffers, slots, losses, warmup_s, elapsed_ms, timer = \
         _timed_steps(ts, params, buffers, slots, ids, ids, lrs, iterations,
-                     warmup, dev, gen)
+                     warmup, dev, gen, profile_dir=profile_dir,
+                     label="perf_transformer_lm")
     tokens = batch_size * seq_len
     s = {"model": "transformer_lm", "batch_size": batch_size,
          "seq_len": seq_len, "iterations": iterations,
-         "device": (torch.cuda.get_device_name(dev) if dev.type == "cuda"
-                    else "cpu"),
+         "device": _device_name(dev),
          "timer": timer, "warmup_s": warmup_s, "time_s": elapsed_ms / 1e3,
          "records_per_sec": tokens * iterations / (elapsed_ms / 1e3),
          "ms_per_iter": elapsed_ms / iterations, "losses": losses,
@@ -329,6 +386,136 @@ def transformer_perf(batch_size: int = 32, iterations: int = 20,
         f"{s['device']}: {s['records_per_sec']:.0f} tokens/s "
         f"({s['ms_per_iter']:.1f} ms/iter)")
     return s
+
+
+def run_decode_perf(batch_size: int = 8, prompt_len: int = 128,
+                    new_tokens: int = 128, vocab: int = 32000,
+                    embed_dim: int = 512, layers: int = 8, heads: int = 8,
+                    num_kv_heads: Optional[int] = None,
+                    use_rope: bool = True, dtype=torch.bfloat16,
+                    int8: bool = False, speculative: int = 0,
+                    spec_gamma: int = 4, spec_int8_draft: bool = False,
+                    profile_dir: Optional[str] = None, log=print,
+                    device=DEFAULT_DEVICE) -> dict:
+    """Serving-side throughput: greedy KV-cache decode tokens/s of a
+    TransformerLM (weights from seed 0, in ``dtype``, which the KV cache
+    takes too) over one random (batch_size, prompt_len) batch. A first
+    ``generate`` warms up; the second, timed, gives
+    ``decode_tokens_per_sec`` and ``ms_per_token``; a prefill alone
+    (``generate(prompt, 1, host_loop=True)`` with the warm call's cache
+    length) gives ``prefill_tokens_per_sec``. Timed with CUDA events on
+    the card, the host clock on the CPU.
+
+    ``int8`` times the ``Quantizer.quantize`` clone (int8 Linear
+    weights). ``speculative=K`` also times greedy
+    ``speculative_generate`` with a K-layer draft that shares the
+    target's first K blocks and its embeddings; ``spec_int8_draft`` with
+    the target's int8 clone as the draft (``spec_*`` keys: tokens/s,
+    rounds, accept rate, speedup over plain decode). On the CPU every
+    knob is clamped as the JAX harness clamps it (vocab 256, embed 64, 2
+    layers, 4 heads, prompt and new tokens at most 16, K below the
+    layer count), so any documented invocation still runs as a smoke;
+    the incompatible draft choices raise its ``ValueError``s.
+    ``profile_dir`` traces the timed decode (see :func:`traced`).
+    Returns the JAX row's keys, unrounded; ``main`` adds the device."""
+    from bigdl_tpu_torch.nn.quantized import Quantizer
+
+    dev = resolve_device(device)
+    if dev.type == "cpu":
+        vocab, embed_dim, layers, heads = 256, 64, 2, 4
+        prompt_len, new_tokens = min(prompt_len, 16), min(new_tokens, 16)
+        if speculative:
+            speculative = min(speculative, layers - 1)
+    if (speculative or spec_int8_draft) and int8:
+        raise ValueError("speculative modes build their draft from the "
+                         "float target; combine with --int8 is not "
+                         "supported")
+    if speculative and spec_int8_draft:
+        raise ValueError("--speculative K and --speculative-int8 are "
+                         "alternative draft choices; pick one")
+    if speculative and speculative >= layers:
+        raise ValueError(f"--speculative draft layers ({speculative}) must "
+                         f"be < target layers ({layers})")
+    spec = bool(speculative or spec_int8_draft)
+    max_len = prompt_len + new_tokens + (spec_gamma if spec else 0)
+    cfg = dict(embed_dim=embed_dim, num_heads=heads,
+               num_kv_heads=num_kv_heads, max_len=max_len,
+               use_rope=use_rope, seed=0, device=dev, dtype=dtype)
+    model = TransformerLM(vocab, num_layers=layers, **cfg)
+    model.evaluate()
+    draft = None
+    if speculative:
+        # truncated-depth draft on the target's first K blocks and
+        # embeddings: real acceptance rates without a trained draft
+        draft = TransformerLM(vocab, num_layers=speculative, **cfg)
+        draft.evaluate()
+        tp = dict(model.named_parameters())
+        with torch.no_grad():
+            for name, p in draft.named_parameters():
+                p.copy_(tp[name])
+    elif spec_int8_draft:
+        draft = Quantizer.quantize(model)
+        draft.evaluate()
+    if int8:
+        model = Quantizer.quantize(model)
+        model.evaluate()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    prompt = torch.randint(0, vocab, (batch_size, prompt_len), device=dev,
+                           generator=gen)
+    clock = _Clock(dev)
+    t0 = time.perf_counter()
+    model.generate(prompt, new_tokens)
+    clock.sync()
+    warm_s = time.perf_counter() - t0
+    with traced(profile_dir, dev, "decode"):
+        clock.start()
+        model.generate(prompt, new_tokens)
+        elapsed_ms = clock.stop()
+    # the prefill alone: the first token samples from the prefill's
+    # logits, no decode step runs; the cache keeps the warm call's length
+    clock.start()
+    model.generate(prompt, 1, max_len=prompt_len + new_tokens,
+                   host_loop=True)
+    prefill_ms = clock.stop()
+    tokens = batch_size * new_tokens
+    s = {"model": "transformer_lm_decode", "int8": bool(int8),
+         "batch_size": batch_size, "prompt_len": prompt_len,
+         "new_tokens": new_tokens, "num_kv_heads": num_kv_heads or heads,
+         "warmup_s": warm_s, "time_s": elapsed_ms / 1e3,
+         "decode_tokens_per_sec": tokens / (elapsed_ms / 1e3),
+         "prefill_tokens_per_sec": batch_size * prompt_len
+         / max(prefill_ms / 1e3, 1e-9),
+         "ms_per_token": elapsed_ms / tokens}
+    if draft is not None:
+        # the same tokens as greedy decoding; what changes is the number
+        # of target forwards
+        model.speculative_generate(prompt, new_tokens, draft=draft,
+                                   gamma=spec_gamma)
+        clock.start()
+        _, st = model.speculative_generate(prompt, new_tokens, draft=draft,
+                                           gamma=spec_gamma,
+                                           return_stats=True)
+        spec_ms = clock.stop()
+        s.update({
+            "speculative_draft_layers": speculative or "int8",
+            "spec_gamma": spec_gamma,
+            "spec_tokens_per_sec": tokens / (spec_ms / 1e3),
+            "spec_rounds": st["rounds"],
+            "spec_accept_rate": st["accept_rate"],
+            "spec_vs_plain": elapsed_ms / spec_ms,
+        })
+    log(f"[perf] decode batch={batch_size} prompt={prompt_len} "
+        f"new={new_tokens} on {_device_name(dev)}: "
+        f"{s['decode_tokens_per_sec']:.0f} tokens/s decode, "
+        f"{s['prefill_tokens_per_sec']:.0f} tokens/s prefill"
+        + (f"; speculative {s['spec_tokens_per_sec']:.0f} tokens/s "
+           f"({s['spec_vs_plain']:.2f}x, accept "
+           f"{s['spec_accept_rate']:.0%})" if draft is not None else ""))
+    return s
+
+
+def _device_name(dev: torch.device) -> str:
+    return torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
 
 
 # the ImageNet normalization of the input-pipeline chain (JAX's constants)
@@ -429,3 +616,109 @@ def run_input_pipeline_perf(batch_size: int = 64, n_records: int = 512,
                                               workers=workers),
                        max(depths), fused=True, workers=workers)
     return results
+
+
+def _append_rows_to_history(rows) -> None:
+    """Append result rows, each with a ``ts``, to the bench trend file:
+    ``bench_history.jsonl`` in the working directory, or the file
+    ``BIGDL_BENCH_HISTORY`` names (the JAX harness's contract). A file
+    that cannot be written is skipped."""
+    hist = (os.environ.get("BIGDL_BENCH_HISTORY")
+            or os.path.join(os.getcwd(), "bench_history.jsonl"))
+    try:
+        with open(hist, "a") as f:
+            for r in rows:
+                f.write(json.dumps(dict(r, ts=time.time())) + "\n")
+    except OSError:
+        pass
+
+
+def main(argv=None):
+    """``python -m bigdl_tpu_torch.models.perf``: the JAX perf CLI's
+    flags and errors (training by ``--model``, ``--decode``,
+    ``--input-pipeline``) plus ``--device`` (default ``cuda``, which
+    raises on a machine without a card; ``cpu`` for a smoke). Each run
+    prints its JSON result on the last line: the decode row (with the
+    device's name) and the input-pipeline rows are appended to the bench
+    history as in JAX; the training summary is printed but not
+    appended, as in JAX, where it is only logged. The JAX CLI's
+    ``enable_persistent_cache()`` turns on XLA's compile cache; eager
+    PyTorch compiles nothing, so it has no counterpart here."""
+    import argparse
+
+    p = argparse.ArgumentParser(
+        description="bigdl_tpu_torch training perf (≙ DistriOptimizerPerf)")
+    p.add_argument("--model", default="resnet50")
+    p.add_argument("--batch-size", type=int, default=32)
+    p.add_argument("--iterations", type=int, default=20)
+    p.add_argument("--dtype", default="float32",
+                   choices=["float32", "bfloat16"])
+    p.add_argument("--format", default="NCHW", choices=["NCHW", "NHWC"])
+    p.add_argument("--master-f32", action="store_true",
+                   help="f32 master params + compute-dtype cast in-step")
+    p.add_argument("--profile", default=None, metavar="DIR",
+                   help="write a torch.profiler Chrome trace of the timed "
+                        "loop into DIR")
+    p.add_argument("--decode", action="store_true",
+                   help="measure KV-cache decode tokens/sec instead of "
+                        "training throughput (transformer only)")
+    p.add_argument("--input-pipeline", action="store_true",
+                   help="measure host feed records/sec (records -> "
+                        "augments -> minibatch -> device copy), no model")
+    p.add_argument("--int8", action="store_true",
+                   help="--decode: post-training int8 weights")
+    p.add_argument("--records", type=int, default=512,
+                   help="--input-pipeline: records per config")
+    p.add_argument("--prompt-len", type=int, default=128,
+                   help="--decode: prompt length")
+    p.add_argument("--new-tokens", type=int, default=128,
+                   help="--decode: generated tokens per pass")
+    p.add_argument("--speculative", type=int, default=0, metavar="K",
+                   help="--decode: also time greedy speculative decoding "
+                        "with a K-layer truncated-depth draft (exact "
+                        "tokens; reports accept rate + speedup)")
+    p.add_argument("--spec-gamma", type=int, default=4,
+                   help="--speculative: draft proposals per round")
+    p.add_argument("--speculative-int8", action="store_true",
+                   help="--decode: speculative decoding with the int8 "
+                        "clone of the target as the draft")
+    p.add_argument("--device", default=DEFAULT_DEVICE,
+                   help="torch device to run on (default: cuda)")
+    args = p.parse_args(argv)
+    if args.decode and not args.input_pipeline:
+        if args.model not in ("resnet50", "transformer", "transformer_lm"):
+            p.error("--decode measures the transformer LM; --model does "
+                    "not apply")
+        if args.master_f32 or args.format != "NCHW":
+            p.error("--decode takes --batch-size/--dtype/--prompt-len/"
+                    "--new-tokens/--int8/--profile only")
+        if args.new_tokens < 1 or args.prompt_len < 1:
+            p.error("--prompt-len/--new-tokens must be >= 1")
+    dev = resolve_device(args.device)
+    dtype = torch.bfloat16 if args.dtype == "bfloat16" else torch.float32
+    if args.input_pipeline:
+        rows = run_input_pipeline_perf(batch_size=args.batch_size,
+                                       n_records=args.records, device=dev)
+        _append_rows_to_history(rows)
+        print(json.dumps(rows))
+        return
+    if args.decode:
+        s = run_decode_perf(batch_size=args.batch_size, dtype=dtype,
+                            prompt_len=args.prompt_len,
+                            new_tokens=args.new_tokens,
+                            int8=args.int8, speculative=args.speculative,
+                            spec_gamma=args.spec_gamma,
+                            spec_int8_draft=args.speculative_int8,
+                            profile_dir=args.profile, device=dev)
+        s["device"] = _device_name(dev)
+        _append_rows_to_history([s])
+        print(json.dumps(s))
+        return
+    s = run_perf(args.model, args.batch_size, args.iterations, dtype=dtype,
+                 format=args.format, master_f32=args.master_f32,
+                 profile_dir=args.profile, device=dev)
+    print(json.dumps(s))
+
+
+if __name__ == "__main__":
+    main()

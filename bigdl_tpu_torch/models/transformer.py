@@ -10,8 +10,8 @@ sequence parallelism are not ported yet). Training runs through the full-sequenc
 with ``dropout`` and ``remat`` (each block under
 ``torch.utils.checkpoint``, its dropout masks replayed in the
 recompute), differentiable through the flash kernel; ``param_count`` /
-``matmul_param_count`` / ``analytic_flops`` are the JAX package's
-analytic cost model. The inference
+``matmul_param_count`` / ``analytic_flops`` / ``analytic_bytes`` are the
+JAX package's analytic cost model. The inference
 entry points of the JAX package are ported: the full-sequence
 ``forward`` (through the flash kernel with ``use_flash=True``),
 ``prefill`` / ``prefill_chunk`` / ``decode_step`` over a KV cache,
@@ -20,9 +20,10 @@ their paged twins over a page pool and block tables
 verifier ``verify_chunk`` (and ``verify_chunk_paged``), greedy or sampled
 ``generate``, ``generate_ragged``, ``speculative_generate`` and
 ``beam_search``. The JAX
-package's one-dispatch ``lax.scan`` decode (and the draft's proposal
-scan) becomes a Python loop over ``decode_step``; eager PyTorch compiles nothing, so the JAX package's
-shape buckets (``bucket_tokens``) have no counterpart here. With
+package's one-dispatch ``lax.scan`` decode (``decode_scan``, and the
+draft's proposal scan) becomes a Python loop over ``decode_step``; eager
+PyTorch compiles nothing, so ``generate``'s ``host_loop`` and the shape
+buckets (``bucket_tokens``) keep only their token semantics here. With
 ``eos_id``, finished rows keep emitting eos and the loop stops once
 every row has finished.
 
@@ -276,6 +277,25 @@ class TransformerLM(Module):
                    * max(0, int(context)))
         return float(per_tok * max(0, int(tokens)))
 
+    @property
+    def num_kv_heads(self) -> int:
+        """KV head count of the attention stack (every block's)."""
+        return self.block0.attn.num_kv_heads
+
+    def analytic_bytes(self, tokens: int, context: int,
+                       dtype_bytes: int = 4) -> float:
+        """Analytic device-memory traffic of the same pass: one read of
+        every parameter, one K/V write per new token and a
+        ``context``-deep K/V read per token, at ``dtype_bytes`` per
+        cached element."""
+        param_bytes = sum(p.numel() * p.element_size()
+                          for p in self.parameters())
+        head_dim = self.embed_dim // self.block0.attn.num_heads
+        kv_tok = (2 * self.num_layers * self.num_kv_heads * head_dim
+                  * dtype_bytes)
+        t, c = max(0, int(tokens)), max(0, int(context))
+        return float(param_bytes + kv_tok * t * (1 + c))
+
     # ------------------------------------------------- KV-cache decoding
     def init_cache(self, batch: int, max_len: int, dtype=None,
                    kv_dtype: Optional[str] = None):
@@ -493,10 +513,30 @@ class TransformerLM(Module):
         return prompt, logits, caches
 
     @torch.no_grad()
+    def decode_scan(self, logits, pos0, caches, generator, temperature,
+                    n: int, sampled: bool = False, eos_id=None, top_k=None,
+                    top_p=None):
+        """``n`` tokens from the prefill ``logits`` (B, V): token 0
+        samples from them, then ``n - 1`` decode steps at ``pos0``,
+        ``pos0 + 1``, ... (an int or a (B,) tensor of per-row positions),
+        each sampling its next token (greedy unless ``sampled``). Returns
+        (n, B) tokens, the JAX package's layout. There the loop is one
+        ``lax.scan`` dispatch; here it is a host loop over
+        ``decode_step`` with the same tokens. With ``eos_id`` finished
+        rows keep emitting eos, and the loop stops once every row has
+        finished."""
+        toks, _ = self._decode_loop(
+            logits, pos0, caches, n, sampled,
+            temperature if sampled else 1.0, generator, eos_id, top_k,
+            top_p)
+        return toks.T
+
+    @torch.no_grad()
     def generate(self, prompt_ids, max_new_tokens: int,
                  temperature: float = 0.0,
                  generator: Optional[torch.Generator] = None,
-                 max_len=None, prefill_chunk=None, eos_id=None,
+                 max_len=None, prefill_chunk=None, host_loop: bool = False,
+                 bucket_tokens=None, eos_id=None,
                  top_k=None, top_p=None, on_token=None,
                  return_logits: bool = False):
         """Autoregressive generation with a KV cache: a batched prefill
@@ -505,19 +545,38 @@ class TransformerLM(Module):
         filtered by ``top_k`` / ``top_p``. Returns (B, len(prompt) +
         max_new_tokens) ids; with ``return_logits=True`` also the
         (B, max_new_tokens, V) f32 logits each token was chosen from.
-        ``on_token(step_tokens)`` fires with each step's (B,) tokens."""
+
+        ``host_loop`` and ``bucket_tokens`` keep the JAX package's token
+        semantics; there they choose between programs (one dispatch per
+        token or one ``lax.scan``, one scan length per bucket), while
+        here decoding is always a host loop. ``on_token(step_tokens)``
+        fires with each step's (B,) tokens and, as in JAX, needs
+        ``host_loop=True``. Without the host loop, ``bucket_tokens``
+        rounds the decoded count up to a multiple of it (as far as the
+        cache has room) and the result is cut back to
+        ``max_new_tokens``: the first tokens are the same either way."""
         sampled = temperature > 0.0
         _validate_sampling(sampled, top_k, top_p)
+        if on_token is not None and not host_loop:
+            raise ValueError("on_token streams per-step tokens, which "
+                             "only the host loop materializes; pass "
+                             "host_loop=True")
         prompt, logits, caches = self._decode_setup(
             prompt_ids, max_new_tokens, max_len, prefill_chunk)
         if max_new_tokens == 0:
             return (prompt, None) if return_logits else prompt
+        n = max_new_tokens
+        if bucket_tokens and not host_loop:
+            room = caches[0][0].shape[2] - prompt.shape[1] + 1
+            n = max(n, min(-(-n // bucket_tokens) * bucket_tokens, room))
         toks, seen = self._decode_loop(
-            logits, prompt.shape[1], caches, max_new_tokens, sampled,
+            logits, prompt.shape[1], caches, n, sampled,
             temperature if sampled else 1.0, generator, eos_id, top_k,
             top_p, on_token, return_logits)
-        ids = torch.cat([prompt, toks], 1)
-        return (ids, seen) if return_logits else ids
+        ids = torch.cat([prompt, toks[:, :max_new_tokens]], 1)
+        if not return_logits:
+            return ids
+        return ids, seen[:, :max_new_tokens]
 
     # ---------------------------------------------------- beam search
     @torch.no_grad()
@@ -733,13 +792,16 @@ class TransformerLM(Module):
     def generate_ragged(self, prompt_ids, prompt_lengths,
                         max_new_tokens: int, temperature: float = 0.0,
                         generator: Optional[torch.Generator] = None,
-                        eos_id=None, top_k=None, top_p=None, max_len=None):
+                        eos_id=None, top_k=None, top_p=None,
+                        bucket_tokens=None, max_len=None):
         """Mixed prompt lengths in one batch: ``prompt_ids`` (B, Tmax)
         right-padded, ``prompt_lengths`` (B,). Returns (B, max_new_tokens)
         generated tokens; row i continues its own length-``t0_i`` prompt
         exactly as ``generate`` would on that row alone. Pads sit after
         every valid query, so the causal prefill never attends them, and
-        each row's first decode step overwrites its first pad's KV."""
+        each row's first decode step overwrites its first pad's KV.
+        ``bucket_tokens`` rounds the decoded count up (as far as the
+        cache has room) and the result is cut back, as in ``generate``."""
         sampled = temperature > 0.0
         _validate_sampling(sampled, top_k, top_p)
         prompt = self._ids(prompt_ids)
@@ -767,7 +829,11 @@ class TransformerLM(Module):
                                  else min(window, tmax + n))
         logits, caches = self._prefill_impl(prompt, caches, 0, chunked=False,
                                             gather_last=lengths - 1)
+        n_c = n
+        if bucket_tokens:
+            room = caches[0][0].shape[2] - lmax + 1
+            n_c = max(n, min(-(-n // bucket_tokens) * bucket_tokens, room))
         toks, _ = self._decode_loop(
-            logits, lengths, caches, n, sampled,
+            logits, lengths, caches, n_c, sampled,
             temperature if sampled else 1.0, generator, eos_id, top_k, top_p)
-        return toks
+        return toks[:, :n]

@@ -15,7 +15,12 @@ from bigdl_tpu_torch.nn.attention import (
 from bigdl_tpu_torch.nn.container import (
     Concat, ConcatTable, Container, Sequential,
 )
-from bigdl_tpu_torch.nn.conv import SpatialConvolution
+from bigdl_tpu_torch.nn.conv import (
+    LocallyConnected1D, LocallyConnected2D, SpatialConvolution,
+    SpatialConvolutionMap, SpatialDilatedConvolution, SpatialFullConvolution,
+    SpatialSeparableConvolution, SpatialShareConvolution,
+    TemporalConvolution, VolumetricConvolution, VolumetricFullConvolution,
+)
 from bigdl_tpu_torch.nn.criterion import *  # noqa: F401,F403
 from bigdl_tpu_torch.nn.criterion import __all__ as _CRITERIONS
 from bigdl_tpu_torch.nn.dropout import (
@@ -30,29 +35,44 @@ from bigdl_tpu_torch.nn.normalization import (
     SpatialDivisiveNormalization, SpatialSubtractiveNormalization,
     SpatialWithinChannelLRN, VolumetricBatchNormalization,
 )
-from bigdl_tpu_torch.nn.pooling import SpatialAveragePooling, SpatialMaxPooling
+from bigdl_tpu_torch.nn.pooling import (
+    SpatialAveragePooling, SpatialMaxPooling, SpatialMaxPoolingWithIndices,
+    SpatialUnpooling, TemporalMaxPooling, VolumetricAveragePooling,
+    VolumetricMaxPooling,
+)
 from bigdl_tpu_torch.nn.quantized import Quantizer
 from bigdl_tpu_torch.nn.shape_ops import Reshape, View
 from bigdl_tpu_torch.nn.table_ops import CAddTable
 
 __all__ = ["Abs", "AddConstant", "BatchNormalization", "BinaryThreshold",
-           "CAddTable", "Clamp", "Concat", "ConcatTable", "Container",
-           "Dropout", "ELU", "Echo", "Exp", "GaussianDropout",
-           "GaussianNoise", "GaussianSampler", "GradientReversal",
-           "HardShrink", "HardSigmoid", "HardTanh", "Identity", "L1Penalty",
-           "LayerNorm", "LeakyReLU", "Linear", "Log", "Log1p", "LogSigmoid",
+           "CAddTable", "Clamp", "Concat", "ConcatTable",
+           "Container", "Dropout", "ELU", "Echo", "Exp",
+           "GaussianDropout", "GaussianNoise", "GaussianSampler",
+           "GradientReversal", "HardShrink", "HardSigmoid",
+           "HardTanh", "Identity", "L1Penalty", "LayerNorm",
+           "LeakyReLU", "Linear", "LocallyConnected1D",
+           "LocallyConnected2D", "Log", "Log1p", "LogSigmoid",
            "LogSoftMax", "Maxout", "Module", "MulConstant",
-           "MultiHeadAttention", "Negative", "NegativeEntropyPenalty",
-           "Normalize", "NormalizeScale", "PReLU", "Power", "Quantizer",
-           "RReLU", "ReLU", "ReLU6", "Reshape", "SReLU", "Sequential",
-           "Sigmoid", "SoftMax", "SoftMin", "SoftPlus", "SoftShrink",
-           "SoftSign", "SpatialAveragePooling", "SpatialBatchNormalization",
+           "MultiHeadAttention", "Negative",
+           "NegativeEntropyPenalty", "Normalize", "NormalizeScale",
+           "PReLU", "Power", "Quantizer", "RReLU", "ReLU", "ReLU6",
+           "Reshape", "SReLU", "Sequential", "Sigmoid", "SoftMax",
+           "SoftMin", "SoftPlus", "SoftShrink", "SoftSign",
+           "SpatialAveragePooling", "SpatialBatchNormalization",
            "SpatialContrastiveNormalization", "SpatialConvolution",
-           "SpatialCrossMapLRN", "SpatialDivisiveNormalization",
-           "SpatialDropout1D", "SpatialDropout2D", "SpatialDropout3D",
-           "SpatialMaxPooling", "SpatialSubtractiveNormalization",
+           "SpatialConvolutionMap", "SpatialCrossMapLRN",
+           "SpatialDilatedConvolution",
+           "SpatialDivisiveNormalization", "SpatialDropout1D",
+           "SpatialDropout2D", "SpatialDropout3D",
+           "SpatialFullConvolution", "SpatialMaxPooling",
+           "SpatialMaxPoolingWithIndices",
+           "SpatialSeparableConvolution", "SpatialShareConvolution",
+           "SpatialSubtractiveNormalization", "SpatialUnpooling",
            "SpatialWithinChannelLRN", "Sqrt", "Square", "Tanh",
-           "TanhShrink", "Threshold", "TransformerBlock", "View",
-           "VolumetricBatchNormalization", "bind_generator",
-           "dot_product_attention", "rotary_embedding",
-           "rotary_embedding_rowwise"] + _CRITERIONS
+           "TanhShrink", "TemporalConvolution",
+           "TemporalMaxPooling", "Threshold", "TransformerBlock",
+           "View", "VolumetricAveragePooling",
+           "VolumetricBatchNormalization", "VolumetricConvolution",
+           "VolumetricFullConvolution", "VolumetricMaxPooling",
+           "bind_generator", "dot_product_attention",
+           "rotary_embedding", "rotary_embedding_rowwise"] + _CRITERIONS

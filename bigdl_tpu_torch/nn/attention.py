@@ -13,7 +13,8 @@ Kept from the JAX package, where PyTorch's habits differ:
   sees no key, and casts the softmax weights to ``v.dtype`` before the
   PV product;
 - RoPE rotates interleaved pairs ``x[..., ::2], x[..., 1::2]``;
-- LayerNorm computes in f32, casts back, then applies the affine;
+- LayerNorm computes in f32, casts back, then applies the affine (none
+  with ``affine=False``);
 - the MLP's GELU is the tanh approximation (``jax.nn.gelu``'s default);
 - the fused projection splits q | k | v with ``kv_dim = h_kv * d``.
 
@@ -58,40 +59,51 @@ from bigdl_tpu_torch.utils.random import RandomGenerator
 
 
 class LayerNorm(Module):
-    """Layer normalization over the last dim, with an affine."""
+    """Layer normalization over the last dim, with an affine
+    (``affine=False``: none, and no parameters)."""
 
-    def __init__(self, n_output: int, eps: float = 1e-5, *,
-                 device=DEFAULT_DEVICE, dtype=torch.float32):
+    def __init__(self, n_output: int, eps: float = 1e-5,
+                 affine: bool = True, *, device=DEFAULT_DEVICE,
+                 dtype=torch.float32):
         super().__init__()
         dev = resolve_device(device)
         self.n_output = n_output
         self.eps = eps
-        self.new_param("weight", torch.ones(n_output), dev, dtype)
-        self.new_param("bias", torch.zeros(n_output), dev, dtype)
+        self.affine = affine
+        if affine:
+            self.new_param("weight", torch.ones(n_output), dev, dtype)
+            self.new_param("bias", torch.zeros(n_output), dev, dtype)
 
     def forward(self, input):
         x = input.float()
         mean = x.mean(-1, keepdim=True)
         var = (x - mean).square().mean(-1, keepdim=True)
         y = ((x - mean) * torch.rsqrt(var + self.eps)).to(input.dtype)
-        return y * self.weight + self.bias
+        return y * self.weight + self.bias if self.affine else y
 
 
-def dot_product_attention(q, k, v, causal: bool = False,
+def dot_product_attention(q, k, v, causal: bool = False, mask=None,
                           scale: Optional[float] = None):
-    """(B, H, T, D) attention; scores and softmax in f32."""
+    """(B, H, T, D) attention; scores and softmax in f32. ``mask``, a
+    bool tensor broadcast against the (B, H, Tq, Tk) scores, keeps the
+    keys where it is True (with ``causal``, both apply); a row that
+    keeps no key gives 0."""
     d = q.shape[-1]
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
     scores = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
-    if not causal:
+    if not causal and mask is None:
         return torch.matmul(torch.softmax(scores, -1).to(v.dtype), v)
     tq, tk = scores.shape[-2], scores.shape[-1]
-    cm = torch.ones((tq, tk), dtype=torch.bool, device=q.device).tril(tk - tq)
-    scores = scores.masked_fill(~cm, -math.inf)
-    # a row with every key masked (tq > tk) softmaxes to NaN: run it through
-    # a uniform softmax and zero its weights after (the flash kernel emits 0
+    keep = torch.ones((tq, tk), dtype=torch.bool, device=q.device)
+    if causal:
+        keep = keep.tril(tk - tq)
+    if mask is not None:
+        keep = keep & mask.to(device=q.device, dtype=torch.bool)
+    scores = scores.masked_fill(~keep, -math.inf)
+    # a row with every key masked softmaxes to NaN: run it through a
+    # uniform softmax and zero its weights after (the flash kernel emits 0
     # for such rows too)
-    dead = ~cm.any(-1, keepdim=True)
+    dead = ~keep.any(-1, keepdim=True)
     w = torch.softmax(scores.masked_fill(dead, 0.0), -1)
     return torch.matmul(w.masked_fill(dead, 0.0).to(v.dtype), v)
 
@@ -250,13 +262,14 @@ class MultiHeadAttention(Module):
     """Fused-QKV multi-head self attention with grouped-query heads
     (``num_kv_heads``), optional RoPE (``rotary``), the flash kernel
     (``use_flash``) and dropout of the output (``dropout``) on the
-    full-sequence forward."""
+    full-sequence forward; ``with_bias=False`` gives both projections no
+    bias."""
 
     def __init__(self, embed_dim: int, num_heads: int,
                  causal: bool = False, use_flash: bool = False,
                  num_kv_heads: Optional[int] = None,
                  rotary: bool = False, rotary_base: float = 10000.0,
-                 dropout: float = 0.0, *,
+                 dropout: float = 0.0, with_bias: bool = True, *,
                  rng: Optional[RandomGenerator] = None,
                  device=DEFAULT_DEVICE, dtype=torch.float32):
         super().__init__()
@@ -281,10 +294,11 @@ class MultiHeadAttention(Module):
         self.use_flash = use_flash
         self.dropout_p = dropout
         kv_dim = self.num_kv_heads * self.head_dim
-        self.qkv = Linear(embed_dim, embed_dim + 2 * kv_dim, rng=rng,
-                          device=device, dtype=dtype)
-        self.out_proj = Linear(embed_dim, embed_dim, rng=rng, device=device,
-                               dtype=dtype)
+        self.qkv = Linear(embed_dim, embed_dim + 2 * kv_dim,
+                          with_bias=with_bias, rng=rng, device=device,
+                          dtype=dtype)
+        self.out_proj = Linear(embed_dim, embed_dim, with_bias=with_bias,
+                               rng=rng, device=device, dtype=dtype)
         if dropout > 0:
             self.drop = Dropout(dropout)
 

@@ -109,6 +109,18 @@ class BilinearFiller(InitializationMethod):
         return k.expand(tuple(shape)).contiguous()
 
 
+def given(value, shape, what: str) -> torch.Tensor:
+    """An explicit initial value (``init_weight=`` / ``init_bias=``, a
+    numpy array, tensor or nested list) as an f32 CPU tensor copy;
+    raises unless it has ``shape``."""
+    t = torch.as_tensor(value.detach().cpu() if torch.is_tensor(value)
+                        else value, dtype=torch.float32).clone()
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{what} has shape {tuple(t.shape)}, the layer "
+                         f"needs {tuple(shape)}")
+    return t
+
+
 zeros = Zeros()
 ones = Ones()
 xavier = Xavier()

@@ -22,6 +22,7 @@ name (``block0.attn.qkv.weight``).
 from __future__ import annotations
 
 import copy
+import time
 from contextlib import contextmanager
 from typing import Dict, Iterator, List, Optional, Tuple
 
@@ -189,7 +190,12 @@ class Module(torch.nn.Module):
     mode a call of a module holding one records the state of every
     generator the forward may draw from, and ``backward`` replays the
     forward from those states, so a Dropout's mask in the backward is the
-    forward's (the JAX package's ``_forward_key``)."""
+    forward's (the JAX package's ``_forward_key``).
+
+    Also ported: ``set_training``, ``is_container``, ``reset`` (layers
+    with weights draw them again), ``quantize`` and the host timings
+    ``get_times`` / ``get_times_group_by_module_type`` / ``reset_times``
+    (each call and ``backward`` adds its host seconds)."""
 
     _instance_counters: Dict[str, int] = {}
     draws_random = False
@@ -205,12 +211,18 @@ class Module(torch.nn.Module):
         self._regularizers: Dict[str, object] = {}
         self._forward_rng = None
         self.grad_input = None
+        self._forward_time = 0.0
+        self._backward_time = 0.0
 
     def __call__(self, *args, **kwargs):
         if self.training and any(m.draws_random for m in self.modules()
                                  if isinstance(m, Module)):
             self._forward_rng = _generator_states(self)
-        return super().__call__(*args, **kwargs)
+        t0 = time.perf_counter()
+        try:
+            return super().__call__(*args, **kwargs)
+        finally:
+            self._forward_time += time.perf_counter() - t0
 
     def new_param(self, name: str, value: torch.Tensor, device, dtype,
                   regularizer=None) -> None:
@@ -256,6 +268,46 @@ class Module(torch.nn.Module):
 
     def is_training(self) -> bool:
         return self.training
+
+    def set_training(self, flag: bool) -> "Module":
+        return self.train(flag)
+
+    def is_container(self) -> bool:
+        """Whether this module holds sub-modules."""
+        return bool(self._modules)
+
+    def reset(self) -> None:
+        """Initialize the parameters again: each sub-module's ``reset``;
+        the layers with weights (``Linear``, ``SpatialConvolution``)
+        draw theirs again."""
+        for child in self.children():
+            if isinstance(child, Module):
+                child.reset()
+
+    # ----------------------------------------------------------- timing
+    def get_times(self):
+        """``[(module, forward_s, backward_s)]`` for this module and each
+        one under it: the host seconds spent in its calls and in its
+        ``backward`` since the last :meth:`reset_times`. A call on the
+        card returns once its work is queued, so on the card these are
+        the host's times, not the device's."""
+        return [(m, m._forward_time, m._backward_time)
+                for m in self._port_modules()]
+
+    def get_times_group_by_module_type(self):
+        """``{class name: (forward_s, backward_s)}`` summed over
+        :meth:`get_times`."""
+        agg: Dict[str, List[float]] = {}
+        for m, f, b in self.get_times():
+            t = agg.setdefault(type(m).__name__, [0.0, 0.0])
+            t[0] += f
+            t[1] += b
+        return {k: tuple(v) for k, v in agg.items()}
+
+    def reset_times(self) -> None:
+        for m in self._port_modules():
+            m._forward_time = 0.0
+            m._backward_time = 0.0
 
     # ----------------------------------------------------------- freeze
     def freeze(self, *names: str) -> "Module":
@@ -371,12 +423,14 @@ class Module(torch.nn.Module):
     def backward(self, input, grad_output):
         """gradInput of the last forward, and every parameter's gradient
         added to ``param.grad`` (the JAX package's ``_gradients``)."""
+        t0 = time.perf_counter()
         dinput, dparams = self._vjp(input, grad_output, with_params=True)
         with torch.no_grad():
             for p, g in zip(self.parameters(), dparams):
                 p.grad = g.detach().clone() if p.grad is None \
                     else p.grad + g
         self.grad_input = dinput
+        self._backward_time += time.perf_counter() - t0
         return dinput
 
     def update_grad_input(self, input, grad_output):
@@ -434,6 +488,12 @@ class Module(torch.nn.Module):
 
     def clone_module(self) -> "Module":
         return copy.deepcopy(self)
+
+    def quantize(self) -> "Module":
+        """The int8 clone for inference (``Quantizer.quantize``)."""
+        from bigdl_tpu_torch.nn.quantized import Quantizer
+
+        return Quantizer.quantize(self)
 
     def save(self, path: str, overwrite: bool = False) -> "Module":
         """Pickle this module with its tensors on the host

@@ -28,13 +28,20 @@ class Reshape(Module):
 
 
 class View(Module):
-    """Reshape with -1 support and batch passthrough."""
+    """Reshape with -1 support and batch passthrough.
+    ``set_num_input_dims`` records the count, as the JAX layer does; the
+    batch inference above does not read it there either."""
 
     def __init__(self, *sizes):
         super().__init__()
         if len(sizes) == 1 and isinstance(sizes[0], (tuple, list)):
             sizes = tuple(sizes[0])
         self.sizes = tuple(sizes)
+        self.num_input_dims = 0
+
+    def set_num_input_dims(self, n: int) -> "View":
+        self.num_input_dims = n
+        return self
 
     def forward(self, input):
         numel = math.prod(s for s in self.sizes if s != -1)

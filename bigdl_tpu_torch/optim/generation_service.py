@@ -14,8 +14,10 @@ group:
   alone (greedy decoding is batch-, padding- and length-invariant per
   row).
 
-``stats()`` keeps plain counters; the metrics registry, flight recorder
-and latency percentiles wait for the observability slice.
+``stats()`` keeps plain counters; the metrics registry (``registry=``,
+``service_name=``, which raise ``NotImplementedError`` when given),
+flight recorder and latency percentiles wait for the observability
+slice (ROADMAP.md, Queue 1 item 11).
 """
 
 from __future__ import annotations
@@ -50,7 +52,15 @@ class GenerationService:
                  batch_timeout_ms: float = 5.0, bucket_tokens: int = 32,
                  prompt_bucket: int = 32, eos_id=None,
                  temperature: float = 0.0, top_k=None, top_p=None,
-                 max_len=None, seed: int = 0, submit_timeout_s=None):
+                 max_len=None, seed: int = 0, registry=None,
+                 service_name=None, submit_timeout_s=None):
+        for name, val in (("registry", registry),
+                          ("service_name", service_name)):
+            if val is not None:
+                raise NotImplementedError(
+                    f"GenerationService({name}=) feeds the metric registry, "
+                    "which is not ported yet: see ROADMAP.md, Queue 1 item "
+                    "11 (observability)")
         if bucket_tokens < 1:
             raise ValueError(f"bucket_tokens must be >= 1, got "
                              f"{bucket_tokens}")

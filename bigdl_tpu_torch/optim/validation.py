@@ -1,5 +1,7 @@
 """Validation methods with mergeable results (port of ``Top1Accuracy``,
-``Top5Accuracy`` and ``Loss`` in ``bigdl_tpu/optim/validation.py``).
+``Top5Accuracy``, ``Loss``, ``MAE``, ``BinaryAccuracy`` and ``AUC`` in
+``bigdl_tpu/optim/validation.py``; ``TreeNNAccuracy`` waits for the tree
+models, ROADMAP.md Queue 1 item 12).
 
 Each method maps (output, target) of one batch to a result that adds to
 the results of other batches. Class targets and predictions are 1-based.
@@ -114,3 +116,84 @@ class Loss(ValidationMethod):
 
     def name(self):
         return "Loss"
+
+
+class MAE(ValidationMethod):
+    """Mean absolute error: the batch's summed |output - target| over
+    one record's element count, counted as one batch of records."""
+
+    def __call__(self, output, target):
+        out, t = _numpy(output), _numpy(target)
+        n = out.shape[0] if out.ndim else 1
+        return LossResult(float(np.sum(np.abs(out - t))
+                                / max(out[0].size, 1)), n)
+
+
+class BinaryAccuracy(ValidationMethod):
+    """Accuracy of scores thresholded at ``threshold`` against {0, 1}
+    targets (binarized at 0.5)."""
+
+    def __init__(self, threshold: float = 0.5):
+        self.threshold = threshold
+
+    def __call__(self, output, target):
+        pred = _numpy(output).reshape(-1) > self.threshold
+        want = _numpy(target).reshape(-1) > 0.5
+        return AccuracyResult(int((pred == want).sum()), pred.size)
+
+    def name(self):
+        return "BinaryAccuracy"
+
+
+class AUCResult(ValidationResult):
+    """ROC AUC from fixed-bin score histograms of the positives and the
+    negatives, which add across batches (an exact pairwise AUC does
+    not)."""
+
+    def __init__(self, pos_hist, neg_hist):
+        self.pos_hist = np.asarray(pos_hist, np.int64)
+        self.neg_hist = np.asarray(neg_hist, np.int64)
+
+    def result(self):
+        p, n = self.pos_hist.sum(), self.neg_hist.sum()
+        if p == 0 or n == 0:
+            return (0.5, int(p + n))
+        pos_above = p - np.cumsum(self.pos_hist)
+        # a negative in bin i is beaten by the positives of higher bins;
+        # ties (the same bin) count half
+        wins = (self.neg_hist * (pos_above + 0.5 * self.pos_hist)).sum()
+        return (float(wins / (p * n)), int(p + n))
+
+    def __add__(self, other):
+        return AUCResult(self.pos_hist + other.pos_hist,
+                         self.neg_hist + other.neg_hist)
+
+    def __repr__(self):
+        auc, n = self.result()
+        return f"AUC(auc: {auc:.4f}, count: {n})"
+
+
+class AUC(ValidationMethod):
+    """Area under the ROC curve of scores in [0, 1] (clipped), from
+    ``n_bins`` histogram bins; targets above 0.5 are the positives.
+    Raises on a non-finite score."""
+
+    def __init__(self, n_bins: int = 1000):
+        self.n_bins = n_bins
+
+    def __call__(self, output, target):
+        scores = _numpy(output).astype(np.float64).reshape(-1)
+        if not np.isfinite(scores).all():
+            raise ValueError(
+                "AUC got non-finite scores (diverged model?); refusing to "
+                "bin NaN/inf")
+        scores = np.clip(scores, 0, 1)
+        labels = _numpy(target).reshape(-1) > 0.5
+        bins = np.minimum((scores * self.n_bins).astype(np.int64),
+                          self.n_bins - 1)
+        pos = np.bincount(bins[labels], minlength=self.n_bins)
+        neg = np.bincount(bins[~labels], minlength=self.n_bins)
+        return AUCResult(pos, neg)
+
+    def name(self):
+        return "AUC"

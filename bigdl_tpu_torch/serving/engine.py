@@ -97,12 +97,14 @@ min(1, p/q), the residual on rejection) from the same generator.
   (the loop crashes; every waiting handle fails with ``EngineStopped``)
   or a frozen slot (it sits out the decode while the others stream).
 
-Tensor-parallel serving (``mesh`` / ``tp_rules``) raises
-``NotImplementedError`` naming its ``ROADMAP.md`` item; the rest of the
-observability hooks (recorder, metric instruments, memory pools, budget
-tracker, recompile watchdog, time series, incidents, cost model,
-loop-phase accounting) are not ported yet, and ``registry=`` /
-``recorder=`` are accepted and unused.
+Tensor-parallel serving (``mesh`` / ``tp_rules`` / ``model_axis``) and
+the observability options (``postmortem_path``, ``timeseries_interval_s``
+/ ``timeseries_capacity``, ``incident_dir`` / ``anomaly_detectors`` /
+``incident_cooldown_s``) raise ``NotImplementedError`` naming their
+``ROADMAP.md`` item when given; the rest of the observability hooks
+(recorder, metric instruments, memory pools, budget tracker, recompile
+watchdog, cost model, loop-phase accounting) are not ported yet, and
+``registry=`` / ``recorder=`` are accepted and unused.
 """
 
 from __future__ import annotations
@@ -142,6 +144,13 @@ from bigdl_tpu_torch.serving.streams import (
 _LATER = {
     "mesh": (10, "tensor-parallel serving"),
     "tp_rules": (10, "tensor-parallel serving"),
+    "model_axis": (10, "tensor-parallel serving"),
+    "postmortem_path": (11, "the flight recorder"),
+    "timeseries_interval_s": (11, "the time series"),
+    "timeseries_capacity": (11, "the time series"),
+    "incident_dir": (11, "incidents and anomaly detectors"),
+    "anomaly_detectors": (11, "incidents and anomaly detectors"),
+    "incident_cooldown_s": (11, "incidents and anomaly detectors"),
 }
 
 #: the flow counters ``stats()`` reports (the JAX engine's
@@ -317,8 +326,19 @@ class ContinuousBatchingEngine:
                  shed_classes=("low",),
                  tenant_rate_limits=None, chaos=None,
                  page_size: Optional[int] = None,
-                 max_pages: Optional[int] = None, device=None):
-        for name, val in (("mesh", mesh), ("tp_rules", tp_rules)):
+                 max_pages: Optional[int] = None, device=None,
+                 model_axis=None, postmortem_path=None,
+                 timeseries_interval_s=None, timeseries_capacity=None,
+                 incident_dir=None, anomaly_detectors=None,
+                 incident_cooldown_s=None):
+        for name, val in (("mesh", mesh), ("tp_rules", tp_rules),
+                          ("model_axis", model_axis),
+                          ("postmortem_path", postmortem_path),
+                          ("timeseries_interval_s", timeseries_interval_s),
+                          ("timeseries_capacity", timeseries_capacity),
+                          ("incident_dir", incident_dir),
+                          ("anomaly_detectors", anomaly_detectors),
+                          ("incident_cooldown_s", incident_cooldown_s)):
             if val is not None:
                 raise _later(name)
         if preempt_slack_s is not None and preempt_slack_s < 0:

@@ -13,6 +13,10 @@ numpy arrays; :func:`params_to_numpy` gives the way back. Buffers (the
 ``"~buffers"`` tree of ``buffers_dict()``: BatchNorm's running
 statistics) cross the same way with :func:`load_jax_buffers` and
 :func:`buffers_to_numpy`, under the same key, shape and dtype rules.
+:func:`resnet_ref_params_from_jax` carries the raw ResNet-50 step's
+parameter list (``models/jax_resnet_ref.py`` to
+``models/torch_resnet_ref.py``), whose convolution weights do need a
+transpose (HWIO to OIHW).
 """
 
 from __future__ import annotations
@@ -101,3 +105,22 @@ def buffers_to_numpy(model_or_tree) -> Dict:
     return _to_numpy(model_or_tree.buffers_dict()
                      if isinstance(model_or_tree, torch.nn.Module)
                      else model_or_tree)
+
+
+def resnet_ref_params_from_jax(arrays, device="cuda") -> List[torch.Tensor]:
+    """The parameter list of ``bigdl_tpu/models/jax_resnet_ref.py``'s
+    ``init_params`` (numpy leaves, in its order) as the parameters of
+    ``bigdl_tpu_torch/models/torch_resnet_ref.py``, whose layout program
+    has the same indices: each HWIO convolution weight becomes OIHW,
+    channels-last, the rest is copied as it is, in f32 on ``device``."""
+    from bigdl_tpu_torch.device import resolve_device
+
+    dev = resolve_device(device)
+    out = []
+    for a in arrays:
+        t = torch.tensor(_as_array(a), dtype=torch.float32)
+        if t.dim() == 4:
+            t = t.permute(3, 2, 0, 1).to(dev).contiguous(
+                memory_format=torch.channels_last)
+        out.append(t.to(dev))
+    return out

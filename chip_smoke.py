@@ -215,6 +215,25 @@ port either (each phase counts the flash launches from 0 and asserts 0):
   batch 64, crop 224, prefetch depths 0 / 2 / 4, composed and fused
   augment), records/s beside zoo_train's Inception images/s.
 
+Then the perf CLI and the layer variants (slice 11):
+
+- perf_cli: ``bigdl_tpu_torch.models.perf.main(argv)`` with the bench
+  history pointed at a temporary file: the training flagship (``--model
+  transformer --dtype bfloat16 --master-f32 --iterations 5``; its flash
+  launches counted from 0 equal 8 layers x (3 warm-up + 5 timed
+  steps)), ``bench.py``'s ResNet-50 (batch 256, NHWC, bf16 over f32
+  masters, 10 iterations) with ``--profile`` (the Chrome trace must hold
+  CUDA kernel events) and without, the decode runs at the JAX defaults
+  (plain, ``--int8``, ``--speculative 2``, ``--speculative-int8``: rates
+  finite and positive, accept rates in [0, 1]), ``--input-pipeline
+  --records 128 --batch-size 32``, and the raw-torch ResNet-50 step
+  (``models/torch_resnet_ref.py``) at batch 256 beside the CLI's:
+  ``vs_ref = ours / (0.70 x ref)``, printed, not asserted;
+- variants_gate (f32, TF32 off): the ten conv and five pooling variants
+  and the new ``nn`` options on the card against the same modules on
+  the CPU: forward, input and parameter gradients within 1e-5 of the
+  largest |value|, the pooling indices equal.
+
 Earlier lines are one JSON object each; the last line is
 ``{"ok": true, "device": {...}}``. Exits non-zero without that line when
 CUDA is not available or the port cannot be imported.
@@ -3530,6 +3549,287 @@ def input_pipeline(torch, fa, smi, inception_ips: float) -> int:
     return fa.launches
 
 
+# ------------------------------------------------------------ slice 11
+#: the CLI runs of perf_cli: (name, argv); decode runs at the JAX
+#: defaults (the serving flagship's width: batch 8, prompt 128, 128 new
+#: tokens, vocab 32000, embed 512, 8 layers, 8 heads), bf16
+PERF_CLI_RUNS = [
+    ("train_transformer", ["--model", "transformer", "--dtype", "bfloat16",
+                           "--master-f32", "--iterations", "5"]),
+    ("decode", ["--decode", "--dtype", "bfloat16", "--batch-size", "8"]),
+    ("decode_int8", ["--decode", "--dtype", "bfloat16", "--batch-size", "8",
+                     "--int8"]),
+    ("decode_speculative_2", ["--decode", "--dtype", "bfloat16",
+                              "--batch-size", "8", "--speculative", "2"]),
+    ("decode_speculative_int8", ["--decode", "--dtype", "bfloat16",
+                                 "--batch-size", "8",
+                                 "--speculative-int8"]),
+    ("input_pipeline", ["--input-pipeline", "--records", "128",
+                        "--batch-size", "32"]),
+]
+#: bench.py's ResNet-50 configuration through the CLI
+RESNET_CLI = ["--model", "resnet50", "--batch-size", "256", "--dtype",
+              "bfloat16", "--format", "NHWC", "--master-f32",
+              "--iterations", "10"]
+#: run_perf's default warm-up steps (the CLI passes none)
+PERF_WARMUP = 3
+#: bench.py's vs_baseline: ours / (VS_REF_SHARE x the raw step's)
+VS_REF_SHARE = 0.70
+VARIANTS_RTOL = 1e-5
+
+
+def _cli_row(torch, perf, argv):
+    """Run ``perf.main(argv)`` on the card and return the JSON of its
+    last printed line and the seconds it took."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    t0 = time.monotonic()
+    with contextlib.redirect_stdout(buf):
+        perf.main(argv)
+    torch.cuda.synchronize()
+    return (json.loads(buf.getvalue().strip().splitlines()[-1]),
+            time.monotonic() - t0)
+
+
+def _trace_kernels(path) -> int:
+    """CUDA kernel events in a Chrome trace written by torch.profiler."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    return sum(1 for e in events if e.get("cat") == "kernel")
+
+
+def perf_cli(torch, fa, smi) -> int:
+    """perf_cli: ``python -m bigdl_tpu_torch.models.perf`` through
+    ``main(argv)``, each printed JSON row read back, the bench history
+    pointed at a temporary file: (a) the training flagship (its flash
+    launches counted from 0 and held to layers x (warm-up + timed
+    steps)); (b) ``bench.py``'s ResNet-50 with ``--profile`` (the trace
+    must hold CUDA kernel events) and the same run without it; (c) the
+    four decode runs (rates finite and positive, accept rates in [0,
+    1]); (d) the input pipeline; (e) the raw-torch ResNet-50 step at
+    batch 256 and ``vs_ref = ours / (0.70 x ref)``, printed, not
+    asserted. Returns the flash launches of (a); every other run
+    launches none, checked."""
+    import glob
+    import tempfile
+
+    from bigdl_tpu_torch.models import perf, torch_resnet_ref
+
+    rows = {}
+    saved = os.environ.get("BIGDL_BENCH_HISTORY")
+    with tempfile.TemporaryDirectory() as tmp:
+        os.environ["BIGDL_BENCH_HISTORY"] = os.path.join(tmp, "h.jsonl")
+        try:
+            launches = {}
+            for name, argv in PERF_CLI_RUNS:
+                fa.launches = 0
+                rows[name], secs = _cli_row(torch, perf, argv)
+                launches[name] = fa.launches
+                if isinstance(rows[name], dict):
+                    rows[name]["seconds"] = secs
+            trace_dir = os.path.join(tmp, "trace")
+            fa.launches = 0
+            rows["resnet50_profiled"], _ = _cli_row(
+                torch, perf, RESNET_CLI + ["--profile", trace_dir])
+            rows["resnet50"], _ = _cli_row(torch, perf, RESNET_CLI)
+            traces = glob.glob(os.path.join(trace_dir, "*.json"))
+            trace_kernels = _trace_kernels(traces[0]) if traces else 0
+            trace_mb = (os.path.getsize(traces[0]) / 2 ** 20 if traces
+                        else 0.0)
+            ref = torch_resnet_ref.run_ref_perf(batch_size=256,
+                                                log=lambda *_: None,
+                                                device="cuda")
+            launches["resnet50_and_ref"] = fa.launches
+            with open(os.environ["BIGDL_BENCH_HISTORY"]) as f:
+                history_rows = sum(1 for _ in f)
+        finally:
+            if saved is None:
+                os.environ.pop("BIGDL_BENCH_HISTORY", None)
+            else:
+                os.environ["BIGDL_BENCH_HISTORY"] = saved
+    train = rows["train_transformer"]
+    expect = TRAIN["layers"] * (PERF_WARMUP + 5)
+    ours = rows["resnet50"]["records_per_sec"]
+    emit({"phase": "perf_cli", "nvidia_smi": smi,
+          "train_transformer": train,
+          "flash_launches": launches["train_transformer"],
+          "flash_launches_reckoned": expect,
+          "reckoning": "layers x (run_perf's 3 warm-up + 5 timed steps), "
+                       "no remat",
+          "decode": {k: rows[k] for k in rows if k.startswith("decode")},
+          "input_pipeline": rows["input_pipeline"],
+          "resnet50": rows["resnet50"],
+          "resnet50_profiled": rows["resnet50_profiled"],
+          "trace_files": len(traces), "trace_kernel_events": trace_kernels,
+          "trace_mb": trace_mb, "ref_resnet50": ref,
+          "vs_ref": ours / (VS_REF_SHARE * ref["records_per_sec"]),
+          "vs_ref_profiled": rows["resnet50_profiled"]["records_per_sec"]
+          / (VS_REF_SHARE * ref["records_per_sec"]),
+          "vs_ref_formula": "ours / (0.70 x ref), bench.py's vs_baseline",
+          "history_rows": history_rows, "launches": launches})
+    assert launches["train_transformer"] == expect, launches
+    assert all(v == 0 for k, v in launches.items()
+               if k != "train_transformer"), launches
+    assert train["model"] == "transformer_lm" and all(
+        map(math.isfinite, train["losses"])), train
+    assert traces and trace_kernels > 0, (traces, trace_kernels)
+    for name, row in rows.items():
+        if name.startswith("decode"):
+            for key in ("decode_tokens_per_sec", "prefill_tokens_per_sec",
+                        "spec_tokens_per_sec"):
+                if key in row:
+                    assert math.isfinite(row[key]) and row[key] > 0, \
+                        (name, key, row[key])
+            if "spec_accept_rate" in row:
+                assert 0.0 <= row["spec_accept_rate"] <= 1.0, row
+            assert row["device"] == torch.cuda.get_device_name(0), row
+    # the decode and pipeline rows went to the temporary history
+    assert history_rows == 4 + len(rows["input_pipeline"]), history_rows
+    assert all(r["records"] == 128 for r in rows["input_pipeline"])
+    assert math.isfinite(ref["loss"]) and ref["records_per_sec"] > 0, ref
+    return launches["train_transformer"]
+
+
+def _variant_cases(tnn, torch):
+    """(name, CPU module factory, input shape) for every conv and pooling
+    variant and every new ``nn`` option of slice 11."""
+    cpu = dict(device="cpu")
+    rs = torch.Generator().manual_seed(3)
+    w_init = torch.randn(24, 40, generator=rs)
+    b_init = torch.randn(24, generator=rs)
+    cw_init = torch.randn(16, 8, 3, 3, generator=rs)
+    table = tnn.SpatialConvolutionMap.random(8, 12, 3, seed=5)
+    return [
+        ("SpatialDilatedConvolution", lambda: tnn.SpatialDilatedConvolution(
+            16, 32, 3, 3, 2, 2, 2, 2, 2, 2, **cpu), (4, 16, 33, 31)),
+        ("SpatialDilatedConvolution_same_nhwc",
+         lambda: tnn.SpatialDilatedConvolution(
+             16, 32, 3, 3, 2, 2, -1, -1, 2, 2, n_group=2, format="NHWC",
+             **cpu), (4, 33, 31, 16)),
+        ("SpatialShareConvolution", lambda: tnn.SpatialShareConvolution(
+            16, 32, 3, 3, 1, 1, 1, 1, **cpu), (4, 16, 28, 28)),
+        ("SpatialFullConvolution", lambda: tnn.SpatialFullConvolution(
+            16, 24, 4, 4, 2, 2, 1, 1, 1, 1, n_group=2, **cpu),
+         (4, 16, 15, 17)),
+        ("SpatialFullConvolution_adj_at_stride",
+         lambda: tnn.SpatialFullConvolution(16, 8, 3, 3, 1, 1, 1, 1, 1, 1,
+                                            **cpu), (2, 16, 13, 11)),
+        ("SpatialSeparableConvolution",
+         lambda: tnn.SpatialSeparableConvolution(16, 32, 2, 3, 3, 2, 2, 1,
+                                                 1, **cpu), (4, 16, 29, 27)),
+        ("LocallyConnected2D", lambda: tnn.LocallyConnected2D(
+            8, 15, 17, 12, 3, 3, 2, 2, 1, 1, **cpu), (4, 8, 17, 15)),
+        ("TemporalConvolution", lambda: tnn.TemporalConvolution(
+            64, 96, 5, 2, **cpu), (8, 101, 64)),
+        ("VolumetricConvolution", lambda: tnn.VolumetricConvolution(
+            8, 16, 3, 3, 3, 2, 1, 2, 1, 1, 1, **cpu), (2, 8, 9, 17, 15)),
+        ("VolumetricFullConvolution", lambda: tnn.VolumetricFullConvolution(
+            8, 6, 3, 3, 3, 2, 2, 2, 1, 1, 1, 1, 0, 1, n_group=2, **cpu),
+         (2, 8, 5, 7, 6)),
+        ("SpatialConvolutionMap", lambda: tnn.SpatialConvolutionMap(
+            table, 3, 3, 2, 2, 1, 1, **cpu), (4, 8, 25, 23)),
+        ("LocallyConnected1D", lambda: tnn.LocallyConnected1D(
+            33, 16, 24, 4, 2, **cpu), (8, 33, 16)),
+        ("TemporalMaxPooling", lambda: tnn.TemporalMaxPooling(4, 3),
+         (8, 101, 32)),
+        ("VolumetricMaxPooling", lambda: tnn.VolumetricMaxPooling(
+            3, 3, 3, 2, 2, 2, 1, 1, 1), (2, 8, 9, 17, 15)),
+        ("VolumetricMaxPooling_wide_pad", lambda: tnn.VolumetricMaxPooling(
+            3, 3, 3, 2, 2, 2, 2, 2, 2), (2, 8, 9, 11, 10)),
+        ("VolumetricAveragePooling", lambda: tnn.VolumetricAveragePooling(
+            5, 5, 5, 3, 3, 3, 2, 2, 2), (2, 8, 11, 17, 15)),
+        ("SpatialMaxPoolingWithIndices+SpatialUnpooling",
+         lambda: tnn.Sequential(
+             tnn.SpatialMaxPoolingWithIndices(4, 4, 2, 2, 1, 1).ceil(),
+             tnn.SpatialUnpooling(4, 4, 2, 2, 1, 1)), (4, 16, 31, 29)),
+        ("LayerNorm_no_affine", lambda: tnn.LayerNorm(512, affine=False,
+                                                      **cpu),
+         (8, 64, 512)),
+        ("MultiHeadAttention_no_bias", lambda: tnn.MultiHeadAttention(
+            512, 8, causal=True, num_kv_heads=2, with_bias=False, **cpu),
+         (4, 128, 512)),
+        ("Linear_init", lambda: tnn.Linear(40, 24, init_weight=w_init,
+                                           init_bias=b_init, **cpu),
+         (16, 40)),
+        ("SpatialConvolution_init", lambda: tnn.SpatialConvolution(
+            8, 16, 3, 3, 1, 1, 1, 1, init_weight=cw_init, init_bias=b_init[
+                :16], **cpu), (4, 8, 19, 17)),
+    ]
+
+
+def variants_gate(torch, fa, smi) -> int:
+    """variants_gate (f32, TF32 off): every conv and pooling variant of
+    slice 11 and every new ``nn`` option (``LayerNorm(affine=False)``,
+    ``MultiHeadAttention(with_bias=False)``, ``init_weight`` /
+    ``init_bias``, ``dot_product_attention(mask=)``) on the card against
+    the same module on the CPU with the same weights: the forward, the
+    input gradient and every parameter gradient for one random
+    cotangent, each within ``VARIANTS_RTOL`` of its largest |value|;
+    ``SpatialMaxPoolingWithIndices``'s indices equal. Returns the flash
+    launches (0)."""
+    import copy
+
+    from bigdl_tpu_torch import nn as tnn
+    from bigdl_tpu_torch.nn.module import tree_leaves
+
+    fa.launches = 0
+    g = torch.Generator().manual_seed(11)
+    results = []
+    worst = 0.0
+    for name, factory, shape in _variant_cases(tnn, torch):
+        cpu_m = factory()
+        cpu_m.evaluate()
+        with torch.no_grad():
+            for pname, p in tree_leaves(cpu_m.params_dict()):
+                if pname.endswith("bias"):
+                    p.copy_(torch.randn(p.shape, generator=g))
+        card_m = copy.deepcopy(cpu_m).cuda()
+        x = torch.randn(shape, generator=g)
+        errs = {}
+        outs = []
+        for m, dev in ((cpu_m, "cpu"), (card_m, "cuda")):
+            xx = x.to(dev).requires_grad_(True)
+            out = m(xx)
+            ps = [p for _, p in tree_leaves(m.params_dict())]
+            cot = torch.randn(out.shape, generator=torch.Generator()
+                              .manual_seed(12)).to(dev)
+            grads = torch.autograd.grad(out, [xx] + ps, cot)
+            outs.append([out] + list(grads))
+        names = ["forward", "input_grad"] + [
+            "grad_" + n for n, _ in tree_leaves(cpu_m.params_dict())]
+        for n, ref, got in zip(names, outs[0], outs[1]):
+            errs[n] = _rel_err(torch, ref.detach(), got.detach())
+        if name.startswith("SpatialMaxPoolingWithIndices"):
+            pool = tnn.SpatialMaxPoolingWithIndices(4, 4, 2, 2, 1, 1).ceil()
+            _, i_cpu = list(pool(x))
+            _, i_card = list(pool(x.cuda()))
+            errs["indices_equal"] = float(torch.equal(i_cpu, i_card.cpu()))
+            assert errs["indices_equal"] == 1.0, name
+        worst = max(worst, max(v for k, v in errs.items()
+                               if k != "indices_equal"))
+        results.append({"case": name, "shape": list(shape), **errs})
+    # dot_product_attention with a mask (and a row that keeps no key)
+    q, k, v = (torch.randn(4, 8, 128, 64, generator=g) for _ in range(3))
+    mask = torch.rand(4, 1, 128, 128, generator=g) > 0.3
+    mask[0, 0, 5] = False
+    ref = tnn.dot_product_attention(q, k, v, causal=True, mask=mask)
+    got = tnn.dot_product_attention(q.cuda(), k.cuda(), v.cuda(),
+                                    causal=True, mask=mask.cuda())
+    att = _rel_err(torch, ref, got)
+    results.append({"case": "dot_product_attention_mask", "forward": att})
+    worst = max(worst, att)
+    assert (got[0, :, 5] == 0).all()
+    emit({"phase": "variants_gate", "nvidia_smi": smi, "dtype": "float32",
+          "allow_tf32": {"matmul": torch.backends.cuda.matmul.allow_tf32,
+                         "cudnn": torch.backends.cudnn.allow_tf32},
+          "rtol": VARIANTS_RTOL, "worst": worst, "cases": results})
+    assert worst <= VARIANTS_RTOL, worst
+    assert fa.launches == 0, fa.launches
+    return fa.launches
+
+
 def main() -> int:
     import torch
 
@@ -3657,7 +3957,7 @@ def main() -> int:
 
     t0 = time.monotonic()
     out, seen = model.generate(prompts, n_new, on_token=on_token,
-                               return_logits=True)
+                               host_loop=True, return_logits=True)
     torch.cuda.synchronize()
     t_end = time.monotonic()
     assert out.shape == (8, 256 + n_new)
@@ -3766,6 +4066,10 @@ def main() -> int:
     zoo_launches += zoo_mains(torch, fa, smi)
     zoo_launches += input_pipeline(torch, fa, smi, zoo_ips["inception_v1"])
 
+    # --------------------- the perf CLI and the layer variants (slice 11)
+    perf_cli_launches = perf_cli(torch, fa, smi)
+    variants_launches = variants_gate(torch, fa, smi)
+
     # ----------------------------------------------------- 9. kernels line
     print(nvidia_smi(), flush=True)
     emit({"kernels": [{
@@ -3776,7 +4080,8 @@ def main() -> int:
         "launches": (serving_launches + engine_launches + train_launches
                      + quant_launches + beam_launches + predict_launches
                      + noncausal_launches + checkpoint_launches
-                     + zoo_launches),
+                     + zoo_launches + perf_cli_launches
+                     + variants_launches),
         "launches_serving": serving_launches,
         "launches_train": train_launches,
         "launches_engine": engine_launches,
@@ -3786,6 +4091,8 @@ def main() -> int:
         "launches_noncausal": noncausal_launches,
         "launches_checkpoint_train": checkpoint_launches,
         "launches_zoo": zoo_launches,
+        "launches_perf_cli": perf_cli_launches,
+        "launches_variants": variants_launches,
         "max_abs_err": flagship["max_abs_err"],
         "ms": flagship["kernel_ms"], "kernel_ms": flagship["kernel_ms"],
         "device_ms": flagship["device_ms"],

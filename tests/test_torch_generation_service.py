@@ -90,3 +90,22 @@ def test_eos_sampling_and_validation(lms):
         GenerationService(tm).generate(np.zeros(60, np.int32), 8)
     with pytest.raises(ValueError, match="ONE request"):
         GenerationService(tm).generate(np.zeros((2, 3), np.int32), 2)
+
+
+@pytest.mark.parametrize("option,value", [("registry", object()),
+                                          ("service_name", "generation")])
+def test_observability_options_raise_naming_their_roadmap_item(lms, option,
+                                                               value):
+    """The JAX service's metric hooks wait for the observability slice:
+    given any value (the JAX default name included) they raise, naming
+    the item; the JAX constructor takes every other option the port's
+    does."""
+    import inspect
+
+    _, tm = lms
+    with pytest.raises(NotImplementedError,
+                       match="ROADMAP.md, Queue 1 item 11"):
+        GenerationService(tm, **{option: value})
+    jax_opts = set(inspect.signature(JaxService.__init__).parameters)
+    ours = set(inspect.signature(GenerationService.__init__).parameters)
+    assert jax_opts == ours

@@ -104,8 +104,25 @@ PORT = {
         tnn.ConcatTable(tnn.Linear(4, 4, **CPU), tnn.Identity()),
         tnn.CAddTable()),
     "conv2d": lambda: tnn.SpatialConvolution(2, 4, 3, 3, 1, 1, 1, 1, **CPU),
+    "conv2d_share": lambda: tnn.SpatialShareConvolution(2, 3, 3, 3, **CPU),
+    "conv2d_dilated": lambda: tnn.SpatialDilatedConvolution(
+        2, 3, 3, 3, dilation_w=2, dilation_h=2, **CPU),
+    "conv2d_full": lambda: tnn.SpatialFullConvolution(2, 3, 3, 3, **CPU),
+    "conv2d_sep": lambda: tnn.SpatialSeparableConvolution(2, 4, 2, 3, 3,
+                                                          **CPU),
+    "conv1d_temporal": lambda: tnn.TemporalConvolution(5, 6, 3, **CPU),
+    "conv3d": lambda: tnn.VolumetricConvolution(2, 3, 2, 3, 3, **CPU),
+    "conv3d_full": lambda: tnn.VolumetricFullConvolution(2, 3, 2, 3, 3,
+                                                         **CPU),
+    "local1d": lambda: tnn.LocallyConnected1D(8, 5, 6, 3, **CPU),
+    "local2d": lambda: tnn.LocallyConnected2D(2, 6, 6, 3, 3, 3, **CPU),
     "maxpool": lambda: tnn.SpatialMaxPooling(2, 2, 2, 2),
     "avgpool": lambda: tnn.SpatialAveragePooling(3, 3, 2, 2),
+    "maxpool_idx_unpool": lambda: tnn.Sequential(
+        tnn.SpatialMaxPoolingWithIndices(2, 2), tnn.SpatialUnpooling(2, 2)),
+    "temporal_maxpool": lambda: tnn.TemporalMaxPooling(2),
+    "volumetric_maxpool": lambda: tnn.VolumetricMaxPooling(2, 2, 2),
+    "volumetric_avgpool": lambda: tnn.VolumetricAveragePooling(2, 2, 2),
     "sbn": lambda: tnn.SpatialBatchNormalization(3, **CPU),
     "vbn": lambda: tnn.VolumetricBatchNormalization(2, **CPU),
     "lrn_crossmap": lambda: tnn.SpatialCrossMapLRN(5, 1e-4, 0.75),
@@ -121,10 +138,10 @@ PORT = {
 ELSEWHERE = {
     "Module": "abstract base",
     "Container": "abstract base",
+    "SpatialConvolutionMap": "connection-table input, "
+                             "tests/test_torch_conv_pool_variants.py",
 }
 
-_ITEM9_CONV = "ROADMAP.md Queue 1 item 9: conv variants"
-_ITEM9_POOL = "ROADMAP.md Queue 1 item 9: pooling variants"
 _ITEM9_TABLE = "ROADMAP.md Queue 1 item 9: table/shape layers"
 _ITEM9_LINEAR = "ROADMAP.md Queue 1 item 9: linear.py's other layers"
 _ITEM9_CONTAINER = "ROADMAP.md Queue 1 item 9: container leftovers"
@@ -133,16 +150,6 @@ _ITEM12 = "ROADMAP.md Queue 1 item 12: the long tail"
 # every JAX nn Module class the port does not export yet, by the item
 # that ports it
 WAITING = {
-    **dict.fromkeys([
-        "SpatialDilatedConvolution", "SpatialFullConvolution",
-        "SpatialSeparableConvolution", "TemporalConvolution",
-        "VolumetricConvolution", "VolumetricFullConvolution",
-        "LocallyConnected1D", "LocallyConnected2D",
-        "SpatialShareConvolution", "SpatialConvolutionMap"], _ITEM9_CONV),
-    **dict.fromkeys([
-        "TemporalMaxPooling", "VolumetricMaxPooling",
-        "VolumetricAveragePooling", "SpatialMaxPoolingWithIndices",
-        "SpatialUnpooling"], _ITEM9_POOL),
     **dict.fromkeys([
         "Contiguous", "InferReshape", "Squeeze", "Unsqueeze", "Transpose",
         "Tile", "Replicate", "Select", "Narrow", "Reverse", "Padding",

@@ -310,21 +310,40 @@ def test_validation_and_sampled_mode(lm):
 @pytest.mark.parametrize("option,value,item,step", [
     ("mesh", object(), 10, "tensor-parallel serving"),
     ("tp_rules", object(), 10, "tensor-parallel serving"),
+    ("model_axis", "model", 10, "tensor-parallel serving"),
+    ("postmortem_path", "/dev/null", 11, "the flight recorder"),
+    ("timeseries_interval_s", 1.0, 11, "the time series"),
+    ("timeseries_capacity", 600, 11, "the time series"),
+    ("incident_dir", "incidents", 11, "incidents and anomaly detectors"),
+    ("anomaly_detectors", [], 11, "incidents and anomaly detectors"),
+    ("incident_cooldown_s", 30.0, 11, "incidents and anomaly detectors"),
 ])
 def test_later_options_raise_naming_their_roadmap_item(lm, option, value,
                                                        item, step):
+    """Each JAX engine option the port lacks raises, given any value (the
+    JAX defaults included), naming the item that brings it."""
     with pytest.raises(NotImplementedError,
                        match=f"ROADMAP.md, Queue 1 item {item}: .*{step}"):
         ContinuousBatchingEngine(lm, **{option: value})
 
 
 def test_later_holds_only_the_tensor_parallel_options():
-    """QoS (item 5) and chaos (item 6) left ``_LATER``: only the mesh
-    options of item 10 still raise."""
+    """QoS (item 5) and chaos (item 6) left ``_LATER``: the mesh options
+    of item 10 and the observability options of item 11 still raise,
+    and every other option of the JAX engine's constructor is accepted."""
+    import inspect
+
     from bigdl_tpu_torch.serving.engine import _LATER
 
-    assert set(_LATER) == {"mesh", "tp_rules"}
-    assert {item for item, _ in _LATER.values()} == {10}
+    assert set(_LATER) == {"mesh", "tp_rules", "model_axis",
+                           "postmortem_path", "timeseries_interval_s",
+                           "timeseries_capacity", "incident_dir",
+                           "anomaly_detectors", "incident_cooldown_s"}
+    assert {item for item, _ in _LATER.values()} == {10, 11}
+    jax_opts = set(inspect.signature(JaxEngine.__init__).parameters)
+    ours = set(inspect.signature(ContinuousBatchingEngine.__init__)
+               .parameters)
+    assert jax_opts <= ours, sorted(jax_opts - ours)
 
 
 def test_high_priority_raises_and_engine_keeps_serving(lm):
