@@ -10,11 +10,12 @@ each payload a self-describing binary Sample, the JAX package's bytes::
 :class:`RecordFileDataSet` splits the files round-robin over
 ``num_shards`` readers and walks its shard's records with the
 reference's infinite shuffled-index iterator (``seed + shard_id``). Its
-reads are byte ranges read by a pool of ``n_threads`` Python threads
-(file reads release the interpreter lock), up to ``lookahead`` in
-flight, returned in order: the JAX package's ``PrefetchReader``
-contract, whose C++ pool (``native/dataloader.cc``) waits for ROADMAP.md
-Queue 1 item 12. The JAX reader takes its shard from
+reads are byte ranges read through the port's ``PrefetchReader``, up to
+``lookahead`` in flight, returned in order, as the JAX reader does: on
+the C++ pool (``native/dataloader.cc``) by default, on a Python thread
+pool with ``native_reader=False`` or where there is no toolchain;
+``reader_pool`` records which one served the last walk ("native" or
+"python"). The JAX reader takes its shard from
 ``jax.process_index()`` / ``process_count()``; here ``shard_id`` /
 ``num_shards`` default to the rank and world size of the
 ``torch.distributed`` process group when one is up, else to (0, 1).
@@ -25,15 +26,14 @@ from __future__ import annotations
 import glob
 import os
 import struct
-from collections import deque
-from concurrent.futures import ThreadPoolExecutor
 from typing import Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 
 from bigdl_tpu_torch.dataset.dataset import AbstractDataSet
 from bigdl_tpu_torch.dataset.sample import Sample
-from bigdl_tpu_torch.utils.tfrecord import masked_crc32c, tfrecord_frame
+from bigdl_tpu_torch.native import (PrefetchReader, masked_crc32c,
+                                    tfrecord_frame)
 
 _DTYPES = {
     0: np.dtype("float32"), 1: np.dtype("float64"), 2: np.dtype("int32"),
@@ -125,12 +125,6 @@ def index_record_file(path: str) -> List[Tuple[int, int]]:
     return entries
 
 
-def _read_range(path: str, offset: int, length: int) -> bytes:
-    with open(path, "rb") as f:
-        f.seek(offset)
-        return f.read(length)
-
-
 def _process_group() -> Tuple[int, int]:
     """(rank, world size) of the default torch.distributed group, or
     (0, 1) when none is up."""
@@ -144,11 +138,14 @@ def _process_group() -> Tuple[int, int]:
 class RecordFileDataSet(AbstractDataSet):
     """Dataset over TFRecord shard files (a directory's ``*.tfrecord`` or
     a glob), streamed: the records need not fit in memory. ``size()`` is
-    the global record count, ``local_size()`` this shard's."""
+    the global record count, ``local_size()`` this shard's.
+    ``native_reader`` chooses the C++ reader (default) or the Python
+    pool."""
 
     def __init__(self, path_or_glob: str, shard_id: Optional[int] = None,
                  num_shards: Optional[int] = None, seed: int = 1,
-                 lookahead: int = 16, n_threads: int = 4):
+                 lookahead: int = 16, n_threads: int = 4,
+                 native_reader: bool = True):
         if os.path.isdir(path_or_glob):
             paths = sorted(glob.glob(os.path.join(path_or_glob, "*.tfrecord")))
         else:
@@ -171,6 +168,8 @@ class RecordFileDataSet(AbstractDataSet):
         self._rng = np.random.RandomState(seed + self.shard_id)
         self.lookahead = max(1, lookahead)
         self.n_threads = max(1, n_threads)
+        self.native_reader = native_reader
+        self.reader_pool: Optional[str] = None
 
     def size(self) -> int:
         return int(sum(self._all_counts))
@@ -182,17 +181,28 @@ class RecordFileDataSet(AbstractDataSet):
         self._rng.shuffle(self._index)
 
     def _read_iter(self, order: Iterator[int]) -> Iterator[Sample]:
-        """The records at ``order``, in order, read ``lookahead`` ahead
-        on the thread pool."""
-        with ThreadPoolExecutor(self.n_threads,
-                                thread_name_prefix="bigdl-records") as ex:
-            pending: deque = deque()
-            for idx in order:
-                pending.append(ex.submit(_read_range, *self._entries[idx]))
-                if len(pending) >= self.lookahead:
-                    yield decode_sample(pending.popleft().result())
-            while pending:
-                yield decode_sample(pending.popleft().result())
+        """The records at ``order``, in order, read ``lookahead`` ahead."""
+        reader = PrefetchReader(self.n_threads, capacity=self.lookahead * 2,
+                                use_native=self.native_reader)
+        self.reader_pool = "native" if reader.native else "python"
+        try:
+            pending = 0
+            order = iter(order)
+            done = False
+            while True:
+                while pending < self.lookahead and not done:
+                    idx = next(order, None)
+                    if idx is None:
+                        done = True
+                        break
+                    reader.submit(*self._entries[idx])
+                    pending += 1
+                if pending == 0:
+                    return
+                yield decode_sample(reader.next())
+                pending -= 1
+        finally:
+            reader.close()
 
     def data(self, train: bool = True) -> Iterator[Sample]:
         n = len(self._entries)

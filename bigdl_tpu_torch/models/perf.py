@@ -36,10 +36,10 @@ and, with a draft, speculative decoding, and returns the JAX row's keys.
 :func:`run_input_pipeline_perf` measures the feed side alone: records/s
 from TFRecord shards through the ImageNet augment chain (composed, or
 the one-pass ``FusedCropFlipNormalize``), ``SampleToMiniBatch`` and the
-staging copy onto the device, at several prefetch depths. The JAX
-harness's native-reader rows wait for the C++ reader (ROADMAP.md, Queue
-1 item 12): the function logs that they did not run and returns no row
-for them.
+staging copy onto the device, at several prefetch depths, with the
+records read by the C++ reader or the Python pool and the one-pass
+augment run by the C++ kernel or its numpy twin; each row says what
+actually ran.
 
 :func:`main` is the command line (``python -m
 bigdl_tpu_torch.models.perf``), with the JAX CLI's flags and a
@@ -529,18 +529,29 @@ def run_input_pipeline_perf(batch_size: int = 64, n_records: int = 512,
                             native_modes=(True, False), log=print,
                             device=DEFAULT_DEVICE) -> list:
     """Host input-pipeline throughput: records/s through
-    ``RecordFileDataSet`` -> the ImageNet augment chain (RandomCrop +
-    HFlip + ChannelNormalize; then the one-pass ``FusedCropFlipNormalize``
-    with the same semantics, flip_prob 1, serially and on up to 4
-    workers) -> ``SampleToMiniBatch`` -> the staging copy onto
-    ``device`` (pinned and non-blocking on the card, synchronized per
-    batch), without prefetch (depth 0) and through a prefetch thread of
-    each depth. No model step runs: compare records/s with the images/s
-    a train step consumes. ``n_records`` random ``image``-square uint8
-    images are written to temporary shards first. A ``native_modes``
-    entry True asks for the C++ reader and fused kernel, which wait for
-    ROADMAP.md Queue 1 item 12: it is logged as not run and gives no
-    row. Returns one dict per configuration run."""
+    ``RecordFileDataSet`` -> the ImageNet augment chain -> ``SampleToMiniBatch``
+    -> the staging copy onto ``device`` (pinned and non-blocking on the
+    card, synchronized per batch), without prefetch (depth 0) and through
+    a prefetch thread of each depth. No model step runs: compare
+    records/s with the images/s a train step consumes. ``n_records``
+    random ``image``-square uint8 images are written to temporary shards
+    first. The rows, in order:
+
+    - the composed chain (RandomCrop + HFlip + ChannelNormalize) at each
+      depth, for each ``native_modes`` entry: True reads through the C++
+      reader, False through the Python pool;
+    - the one-pass ``FusedCropFlipNormalize`` (flip_prob 1, the same
+      semantics) through the C++ kernel at each depth, then through its
+      numpy twin at each depth, read by the C++ reader when
+      ``native_modes`` holds True, else by the Python pool;
+    - the C++ kernel on ``min(4, cpus)`` workers at the deepest depth.
+
+    Each row's ``native_reader`` and ``fused_augment`` say what actually
+    ran (the reader's pool; every image through the C++ kernel), and
+    ``asked`` what the row asked for; where the native runtime is not
+    available the rows run on the Python paths and a log line gives the
+    reason. Returns the rows."""
+    from bigdl_tpu_torch import native
     from bigdl_tpu_torch.dataset.prefetch import prefetch, to_device
     from bigdl_tpu_torch.dataset.records import (RecordFileDataSet,
                                                  write_record_shards)
@@ -555,9 +566,10 @@ def run_input_pipeline_perf(batch_size: int = 64, n_records: int = 512,
     n_used = (n_records // batch_size) * batch_size
     results = []
     rng0 = np.random.RandomState(0)
-    if any(native_modes):
-        log("[pipeline] the native reader and fused kernel wait for "
-            "ROADMAP.md Queue 1 item 12: their rows did not run")
+    if not native.native_available():
+        log(f"[pipeline] the native runtime is not available "
+            f"({native.unavailable_reason()}): rows run on the Python "
+            f"paths")
     with tempfile.TemporaryDirectory() as d:
 
         def gen():
@@ -567,20 +579,22 @@ def run_input_pipeline_perf(batch_size: int = 64, n_records: int = 512,
 
         write_record_shards(gen(), d, num_shards=shards)
 
-        def sample_stream(aug):
-            src = RecordFileDataSet(d, num_shards=1, shard_id=0).data(
-                train=True)
-            feats = (ImageFeature(next(src).feature(), label=None,
-                                  preserve_dtype=True)
-                     for _ in range(n_used))
-            for f in aug(feats):
-                yield Sample(f.image(), np.float32(1.0))
-
         def stage(mb):
             return to_device(mb.get_input(), dev)
 
-        def run_config(aug, depth, fused, workers=1):
-            batches = SampleToMiniBatch(batch_size)(sample_stream(aug))
+        def run_config(aug, depth, native_reader, workers=1):
+            ds = RecordFileDataSet(d, num_shards=1, shard_id=0,
+                                   native_reader=native_reader)
+
+            def sample_stream():
+                src = ds.data(train=True)
+                feats = (ImageFeature(next(src).feature(), label=None,
+                                      preserve_dtype=True)
+                         for _ in range(n_used))
+                for f in aug(feats):
+                    yield Sample(f.image(), np.float32(1.0))
+
+            batches = SampleToMiniBatch(batch_size)(sample_stream())
             it = (prefetch(batches, buffer_size=depth, transfer=stage)
                   if depth > 0 else (stage(b) for b in batches))
             t0 = time.perf_counter()
@@ -590,31 +604,42 @@ def run_input_pipeline_perf(batch_size: int = 64, n_records: int = 512,
                     torch.cuda.synchronize(dev)
                 seen += x.shape[0]
             elapsed = time.perf_counter() - t0
-            row = {"mode": "input_pipeline", "native_reader": False,
-                   "fused_augment": fused,
-                   "augment": "numpy one pass" if fused else "composed",
+            fused = isinstance(aug, FusedCropFlipNormalize)
+            kernel = fused and aug.native_images == seen
+            row = {"mode": "input_pipeline",
+                   "native_reader": ds.reader_pool == "native",
+                   "fused_augment": kernel,
+                   "augment": ("native kernel" if kernel else
+                               "numpy one pass" if fused else "composed"),
+                   "asked": {"native_reader": native_reader,
+                             "native_augment": fused and aug.use_native},
                    "augment_workers": workers, "prefetch_depth": depth,
                    "batch_size": batch_size, "records": seen,
                    "image": image, "crop": crop, "device": str(dev),
                    "records_per_sec": seen / elapsed, "time_s": elapsed}
             results.append(row)
-            log(f"[pipeline] fused={fused} workers={workers} depth={depth}: "
+            log(f"[pipeline] reader={ds.reader_pool} "
+                f"augment={row['augment']} workers={workers} depth={depth}: "
                 f"{row['records_per_sec']:.0f} records/s")
 
-        for depth in depths:
-            run_config(RandomCrop(crop, crop) >> HFlip()
-                       >> ChannelNormalize(PIPELINE_MEANS, PIPELINE_STDS),
-                       depth, fused=False)
-        for depth in depths:
-            run_config(FusedCropFlipNormalize(crop, crop, PIPELINE_MEANS,
-                                              PIPELINE_STDS, flip_prob=1.0),
-                       depth, fused=True)
+        def fused(use_native, workers=1):
+            return FusedCropFlipNormalize(crop, crop, PIPELINE_MEANS,
+                                          PIPELINE_STDS, flip_prob=1.0,
+                                          workers=workers,
+                                          use_native=use_native)
+
+        for native_reader in native_modes:
+            for depth in depths:
+                run_config(RandomCrop(crop, crop) >> HFlip()
+                           >> ChannelNormalize(PIPELINE_MEANS, PIPELINE_STDS),
+                           depth, native_reader)
+        reader = any(native_modes)
+        for use_native in (True, False):
+            for depth in depths:
+                run_config(fused(use_native), depth, reader)
         workers = min(4, os.cpu_count() or 1)
         if workers > 1:
-            run_config(FusedCropFlipNormalize(crop, crop, PIPELINE_MEANS,
-                                              PIPELINE_STDS, flip_prob=1.0,
-                                              workers=workers),
-                       max(depths), fused=True, workers=workers)
+            run_config(fused(True, workers), max(depths), reader, workers)
     return results
 
 

@@ -13,7 +13,8 @@ from bigdl_tpu_torch.nn.attention import (
     rotary_embedding, rotary_embedding_rowwise,
 )
 from bigdl_tpu_torch.nn.container import (
-    Concat, ConcatTable, Container, Sequential,
+    Bottle, Concat, ConcatTable, Container, MapTable, ParallelTable,
+    Sequential,
 )
 from bigdl_tpu_torch.nn.conv import (
     LocallyConnected1D, LocallyConnected2D, SpatialConvolution,
@@ -27,7 +28,9 @@ from bigdl_tpu_torch.nn.dropout import (
     Dropout, GaussianDropout, GaussianNoise, GaussianSampler,
     SpatialDropout1D, SpatialDropout2D, SpatialDropout3D, bind_generator,
 )
-from bigdl_tpu_torch.nn.linear import Linear
+from bigdl_tpu_torch.nn.linear import (
+    Add, Bilinear, CAdd, CMul, Cosine, Euclidean, Linear, Mul, Scale,
+)
 from bigdl_tpu_torch.nn.module import Module
 from bigdl_tpu_torch.nn.normalization import (
     BatchNormalization, Normalize, NormalizeScale, SpatialBatchNormalization,
@@ -41,38 +44,59 @@ from bigdl_tpu_torch.nn.pooling import (
     VolumetricMaxPooling,
 )
 from bigdl_tpu_torch.nn.quantized import Quantizer
-from bigdl_tpu_torch.nn.shape_ops import Reshape, View
-from bigdl_tpu_torch.nn.table_ops import CAddTable
+from bigdl_tpu_torch.nn.recurrent import TimeDistributed
+from bigdl_tpu_torch.nn.shape_ops import (
+    Contiguous, Cropping2D, Cropping3D, Index, InferReshape, MaskedSelect,
+    Masking, Narrow, Pack, Padding, Replicate, Reshape, ResizeBilinear,
+    Reverse, Select, SpatialZeroPadding, Squeeze, Tile, Transpose,
+    Unsqueeze, UpSampling1D, UpSampling2D, UpSampling3D, View,
+)
+from bigdl_tpu_torch.nn.table_ops import (
+    MM, MV, BifurcateSplitTable, CAddTable, CAveTable, CDivTable, CMaxTable,
+    CMinTable, CMulTable, CosineDistance, CrossProduct, CSubTable,
+    DotProduct, FlattenTable, JoinTable, Max, Mean, Min, MixtureTable,
+    NarrowTable, PairwiseDistance, SelectTable, SplitTable, Sum,
+)
 
-__all__ = ["Abs", "AddConstant", "BatchNormalization", "BinaryThreshold",
-           "CAddTable", "Clamp", "Concat", "ConcatTable",
-           "Container", "Dropout", "ELU", "Echo", "Exp",
-           "GaussianDropout", "GaussianNoise", "GaussianSampler",
-           "GradientReversal", "HardShrink", "HardSigmoid",
-           "HardTanh", "Identity", "L1Penalty", "LayerNorm",
-           "LeakyReLU", "Linear", "LocallyConnected1D",
-           "LocallyConnected2D", "Log", "Log1p", "LogSigmoid",
-           "LogSoftMax", "Maxout", "Module", "MulConstant",
-           "MultiHeadAttention", "Negative",
-           "NegativeEntropyPenalty", "Normalize", "NormalizeScale",
-           "PReLU", "Power", "Quantizer", "RReLU", "ReLU", "ReLU6",
-           "Reshape", "SReLU", "Sequential", "Sigmoid", "SoftMax",
-           "SoftMin", "SoftPlus", "SoftShrink", "SoftSign",
-           "SpatialAveragePooling", "SpatialBatchNormalization",
-           "SpatialContrastiveNormalization", "SpatialConvolution",
-           "SpatialConvolutionMap", "SpatialCrossMapLRN",
-           "SpatialDilatedConvolution",
+# the reference's add()-based container base: ``Container`` has add()
+DynamicContainer = Container
+
+__all__ = ["Abs", "Add", "AddConstant", "BatchNormalization",
+           "BifurcateSplitTable", "Bilinear", "BinaryThreshold", "Bottle",
+           "CAdd", "CAddTable", "CAveTable", "CDivTable", "CMaxTable",
+           "CMinTable", "CMul", "CMulTable", "CSubTable", "Clamp", "Concat",
+           "ConcatTable", "Container", "Contiguous", "Cosine",
+           "CosineDistance", "Cropping2D", "Cropping3D", "CrossProduct",
+           "DotProduct", "Dropout", "DynamicContainer", "ELU", "Echo",
+           "Euclidean", "Exp", "FlattenTable", "GaussianDropout",
+           "GaussianNoise", "GaussianSampler", "GradientReversal",
+           "HardShrink", "HardSigmoid", "HardTanh", "Identity", "Index",
+           "InferReshape", "JoinTable", "L1Penalty", "LayerNorm",
+           "LeakyReLU", "Linear", "LocallyConnected1D", "LocallyConnected2D",
+           "Log", "Log1p", "LogSigmoid", "LogSoftMax", "MM", "MV",
+           "MapTable", "MaskedSelect", "Masking", "Max", "Maxout", "Mean",
+           "Min", "MixtureTable", "Module", "Mul", "MulConstant",
+           "MultiHeadAttention", "Narrow", "NarrowTable", "Negative",
+           "NegativeEntropyPenalty", "Normalize", "NormalizeScale", "PReLU",
+           "Pack", "Padding", "PairwiseDistance", "ParallelTable", "Power",
+           "Quantizer", "RReLU", "ReLU", "ReLU6", "Replicate", "Reshape",
+           "ResizeBilinear", "Reverse", "SReLU", "Scale", "Select",
+           "SelectTable", "Sequential", "Sigmoid", "SoftMax", "SoftMin",
+           "SoftPlus", "SoftShrink", "SoftSign", "SpatialAveragePooling",
+           "SpatialBatchNormalization", "SpatialContrastiveNormalization",
+           "SpatialConvolution", "SpatialConvolutionMap",
+           "SpatialCrossMapLRN", "SpatialDilatedConvolution",
            "SpatialDivisiveNormalization", "SpatialDropout1D",
-           "SpatialDropout2D", "SpatialDropout3D",
-           "SpatialFullConvolution", "SpatialMaxPooling",
-           "SpatialMaxPoolingWithIndices",
+           "SpatialDropout2D", "SpatialDropout3D", "SpatialFullConvolution",
+           "SpatialMaxPooling", "SpatialMaxPoolingWithIndices",
            "SpatialSeparableConvolution", "SpatialShareConvolution",
            "SpatialSubtractiveNormalization", "SpatialUnpooling",
-           "SpatialWithinChannelLRN", "Sqrt", "Square", "Tanh",
-           "TanhShrink", "TemporalConvolution",
-           "TemporalMaxPooling", "Threshold", "TransformerBlock",
-           "View", "VolumetricAveragePooling",
-           "VolumetricBatchNormalization", "VolumetricConvolution",
-           "VolumetricFullConvolution", "VolumetricMaxPooling",
-           "bind_generator", "dot_product_attention",
+           "SpatialWithinChannelLRN", "SpatialZeroPadding", "SplitTable",
+           "Sqrt", "Square", "Squeeze", "Sum", "Tanh", "TanhShrink",
+           "TemporalConvolution", "TemporalMaxPooling", "Threshold", "Tile",
+           "TimeDistributed", "TransformerBlock", "Transpose", "Unsqueeze",
+           "UpSampling1D", "UpSampling2D", "UpSampling3D", "View",
+           "VolumetricAveragePooling", "VolumetricBatchNormalization",
+           "VolumetricConvolution", "VolumetricFullConvolution",
+           "VolumetricMaxPooling", "bind_generator", "dot_product_attention",
            "rotary_embedding", "rotary_embedding_rowwise"] + _CRITERIONS

@@ -1,5 +1,6 @@
-"""Containers (port of ``Container``, ``Sequential``, ``Concat`` and
-``ConcatTable`` in ``bigdl_tpu/nn/container.py``).
+"""Containers (port of ``Container``, ``Sequential``, ``Concat``,
+``ConcatTable``, ``ParallelTable``, ``MapTable`` and ``Bottle`` in
+``bigdl_tpu/nn/container.py``).
 
 Children are registered as ``m0``, ``m1``, ... in the order they are
 added, the names the JAX package gives them, so ``params_dict()`` and
@@ -61,3 +62,41 @@ class ConcatTable(Container):
 
     def forward(self, input):
         return Table(*[m(input) for m in self._modules.values()])
+
+
+class ParallelTable(Container):
+    """The i-th child applied to the i-th entry of the input table."""
+
+    def forward(self, input):
+        ins = list(input) if isinstance(input, (Table, list, tuple)) else [input]
+        return Table(*[m(x) for m, x in zip(self._modules.values(), ins)])
+
+
+class MapTable(Container):
+    """The one child applied to every entry of the input table: its
+    parameters are shared, so their gradients add up over the entries."""
+
+    def __init__(self, module: Module):
+        super().__init__(module)
+
+    def forward(self, input):
+        m = self[0]
+        return Table(*[m(x) for x in input])
+
+
+class Bottle(Container):
+    """Fold the leading dims of the input into one batch dim, apply the
+    child to inputs of ``n_input_dim`` dims, unfold."""
+
+    def __init__(self, module: Module, n_input_dim: int = 2,
+                 n_output_dim: int = None):
+        super().__init__(module)
+        self.n_input_dim = n_input_dim
+        self.n_output_dim = (n_output_dim if n_output_dim is not None
+                             else n_input_dim)
+
+    def forward(self, input):
+        shape = tuple(input.shape)
+        cut = len(shape) - self.n_input_dim + 1
+        out = self[0](input.reshape((-1,) + shape[cut:]))
+        return out.reshape(shape[:cut] + tuple(out.shape[1:]))

@@ -2,9 +2,10 @@
 (a copy of ``bigdl_tpu/transform/vision.py``: numpy host code; every
 random transform draws from its own ``np.random.RandomState(seed)`` in
 the JAX order, so a chain gives the JAX package's bytes for the same
-seeds). ``FusedCropFlipNormalize`` runs the numpy path, which the JAX
-package holds bit-identical to its C++ kernel (``native/augment.cc``,
-ROADMAP.md Queue 1 item 12); ``workers`` keeps the JAX serial plans.
+seeds). ``FusedCropFlipNormalize`` runs the C++ kernel ``native/augment.cc``
+through the port's native runtime (``bigdl_tpu_torch/native``), with
+the JAX package's numpy path, bit-identical to it, where the kernel does
+not apply; ``workers`` keeps the JAX serial plans.
 
 Reference: transform/vision/image/ImageFrame.scala:36 (Local/Distributed
 frames + ``read``/``array`` factories), ImageFeature.scala (string-keyed
@@ -21,10 +22,12 @@ device arrays (≙ MTImageFeatureToBatch.scala)."""
 
 from __future__ import annotations
 
+import threading
 from typing import Iterator, List, Optional, Sequence
 
 import numpy as np
 
+from bigdl_tpu_torch import native
 from bigdl_tpu_torch.dataset import image as dimage
 from bigdl_tpu_torch.dataset.transformer import Transformer
 
@@ -428,23 +431,32 @@ class Crop(FeatureTransformer):
 
 class FusedCropFlipNormalize(FeatureTransformer):
     """RandomCrop + random HFlip + ChannelNormalize as one pass over the
-    pixels: uint8 (or float) HWC in, float32 HWC out, through the numpy
-    path of the JAX transformer (crop, flip, subtract the means, multiply
-    by the f32 reciprocal of the stds), which the JAX package holds
-    bit-identical to its C++ kernel. ``workers > 1`` applies on a thread
-    pool in stream order after drawing every plan serially, so the
-    output does not depend on ``workers``."""
+    pixels: uint8 HWC in, float32 HWC out, through the C++ kernel
+    (``native.fused_augment``: crop, flip, subtract the means, multiply
+    by the f32 reciprocal of the stds), and through the same arithmetic
+    in numpy where the kernel does not apply (no toolchain, a float or
+    non-contiguous image, a window out of bounds, ``use_native=False``):
+    bit-identical. ``native_images`` and ``numpy_images`` count the
+    images each path served. ``workers > 1`` applies on a thread pool in
+    stream order after drawing every plan serially, so the output does
+    not depend on ``workers``; the kernel releases the interpreter lock,
+    so the pool scales with host cores."""
 
     def __init__(self, crop_h: int, crop_w: int, means: Sequence[float],
                  stds: Sequence[float] = None, flip_prob: float = 0.5,
-                 seed: int = 1, workers: int = 1):
+                 seed: int = 1, workers: int = 1, use_native: bool = True):
         self.crop_h, self.crop_w = crop_h, crop_w
         self.means = np.asarray(means, np.float32)
         self.stds = np.asarray(stds if stds is not None
                                else [1.0] * len(means), np.float32)
+        # both paths multiply by the same f32 reciprocal
         self._inv_stds = (np.float32(1.0) / self.stds).astype(np.float32)
         self.flip_prob = flip_prob
         self.workers = workers
+        self.use_native = use_native
+        self.native_images = 0
+        self.numpy_images = 0
+        self._count_lock = threading.Lock()
         self._rng = np.random.RandomState(seed)
 
     def _plan(self, h: int, w: int):
@@ -460,10 +472,24 @@ class FusedCropFlipNormalize(FeatureTransformer):
 
     def _apply(self, f: ImageFeature, plan) -> ImageFeature:
         top, left, flip = plan
-        crop = f.image()[top:top + self.crop_h, left:left + self.crop_w]
-        if flip:
-            crop = crop[:, ::-1]
-        f.set_image((crop.astype(np.float32) - self.means) * self._inv_stds)
+        img = f.image()
+        out = None
+        if self.use_native:
+            out = native.fused_augment(img, top, left, self.crop_h,
+                                       self.crop_w, flip, self.means,
+                                       self._inv_stds)
+        served_native = out is not None
+        if out is None:
+            crop = img[top:top + self.crop_h, left:left + self.crop_w]
+            if flip:
+                crop = crop[:, ::-1]
+            out = (crop.astype(np.float32) - self.means) * self._inv_stds
+        with self._count_lock:
+            if served_native:
+                self.native_images += 1
+            else:
+                self.numpy_images += 1
+        f.set_image(out)
         return f
 
     def transform(self, f: ImageFeature) -> ImageFeature:

@@ -1,8 +1,9 @@
 """TensorBoard-compatible event file writers (port of
 ``bigdl_tpu/visualization/tensorboard.py``): TFRecord-framed event protos
 with CRC32C masking, written by a background thread. The framing is
-``utils/tfrecord.py``, byte for byte the JAX package's, so event files
-written by either package read back through the other's
+``utils/tfrecord.py`` (the port's native codec where its library is
+built, its Python path where not), byte for byte the JAX package's, so
+event files written by either package read back through the other's
 ``read_scalar``.
 """
 

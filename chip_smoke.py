@@ -161,8 +161,8 @@ a non-zero exit, at the first phase that does not hold:
    lines; ``launches_engine`` is the sum of the twelve engine phases'
    counts, each asserted 0; ``launches_quant`` is quant_scoring's;
    ``launches_beam``, ``launches_predict``, ``launches_noncausal`` and
-   ``launches_checkpoint_train`` are the PR 9 phases'), error, times and
-   bound.
+   ``launches_checkpoint_train`` are slice 9's phases'; ``launches_text``
+   is text_train's and text_lm's), error, times and bound.
 
 Before the kernels line, the vision path (ResNet-50 at full width and
 depth, LeNet-5, the LocalOptimizer), which launches no kernel of the
@@ -211,9 +211,15 @@ port either (each phase counts the flash launches from 0 and asserts 0):
   a folder of 128 .npy images of 256 x 256, inception.train at batch 32
   on its records, each train main one epoch with a checkpoint and then
   resumed (the resumed model equal bit for bit);
-- input_pipeline: ``run_input_pipeline_perf`` (512 records of 256 x 256,
-  batch 64, crop 224, prefetch depths 0 / 2 / 4, composed and fused
-  augment), records/s beside zoo_train's Inception images/s.
+- input_pipeline: the port's C++ runtime (``native/*.cc`` built by
+  ``g++`` into ``build/bigdl_tpu_torch/``; the phase fails where it does
+  not build), the fused transform calling its kernel for every image
+  with the numpy path's bytes, then ``run_input_pipeline_perf`` (512
+  records of 256 x 256, batch 64, crop 224, prefetch depths 0 / 2 / 4:
+  the composed augment read by the C++ reader and by the Python pool,
+  the fused augment through the C++ kernel and its numpy twin, the
+  kernel on 4 workers; each row must have run what it asked for),
+  records/s beside zoo_train's Inception images/s.
 
 Then the perf CLI and the layer variants (slice 11):
 
@@ -233,6 +239,22 @@ Then the perf CLI and the layer variants (slice 11):
   and the new ``nn`` options on the card against the same modules on
   the CPU: forward, input and parameter gradients within 1e-5 of the
   largest |value|, the pooling indices equal.
+
+Then the table and shape layers and the text path (slice 12):
+
+- table_gate (f32, TF32 off): the 58 table, shape, linear and container
+  layers at the JAX sweep's arguments and inputs, parameters drawn from
+  a seed, on the card against the CPU: the forward and every input and
+  parameter gradient within 1e-5 of the largest |value|;
+- text_train: the text-classification main
+  (``bigdl_tpu_torch.example.textclassification.train``) on the card at
+  the JAX test's sizes (validation accuracy above its 0.85 bar) and at
+  news20's width (20 classes, 100-dim vectors, 2000 synthetic
+  documents): ms a step, records/s, accuracy;
+- text_lm (bf16): a BPE tokenizer trained on the synthetic news20 text;
+  16 encoded documents of 128 tokens scored by the serving flagship's
+  forward (8 flash launches) and continued by ``generate``, whose rows
+  decode back to text beginning with their prompts'.
 
 Earlier lines are one JSON object each; the last line is
 ``{"ok": true, "device": {...}}``. Exits non-zero without that line when
@@ -3527,13 +3549,29 @@ def zoo_mains(torch, fa, smi) -> int:
 
 def input_pipeline(torch, fa, smi, inception_ips: float) -> int:
     """input_pipeline: ``run_input_pipeline_perf`` (records -> the
-    ImageNet augment chain, composed and fused -> minibatches -> the
-    pinned copy onto the card, at prefetch depths 0, 2, 4), each row's
-    records/s beside the images/s zoo_train's Inception step consumes.
-    Returns the flash launches (0)."""
+    ImageNet augment chain -> minibatches -> the pinned copy onto the
+    card, at prefetch depths 0, 2, 4: the composed chain read by the C++
+    reader and by the Python pool, the fused transform through the C++
+    kernel and through its numpy twin, the kernel on 4 workers), each
+    row's records/s beside the images/s zoo_train's Inception step
+    consumes. Fails when the native runtime did not build on this
+    machine, when a row that asked for the C++ reader or kernel did not
+    run it, or when the fused transform does not call the kernel for
+    every image with the numpy path's bytes. Returns the flash launches
+    (0)."""
+    from bigdl_tpu_torch import native
     from bigdl_tpu_torch.models.perf import run_input_pipeline_perf
 
     fa.launches = 0
+    t0 = time.monotonic()
+    built = native.native_available()
+    emit({"phase": "native_build", "available": built,
+          "reason": native.unavailable_reason(),
+          "library": os.path.relpath(native.library_path(), ROOT),
+          "compiler": native.compiler(), "flags": list(native.CXX_FLAGS),
+          "seconds": time.monotonic() - t0})
+    assert built, native.unavailable_reason()
+    augment = native_augment_check()
     notes = []
     t0 = time.monotonic()
     rows = run_input_pipeline_perf(**PIPELINE, log=notes.append,
@@ -3542,9 +3580,14 @@ def input_pipeline(torch, fa, smi, inception_ips: float) -> int:
         r["inception_images_per_s"] = inception_ips
         r["feed_over_demand"] = r["records_per_sec"] / inception_ips
     emit({"phase": "input_pipeline", "nvidia_smi": smi, "config": PIPELINE,
-          "host_cpus": os.cpu_count(), "rows": rows, "notes": notes,
-          "seconds": time.monotonic() - t0})
+          "host_cpus": os.cpu_count(), "native_augment_check": augment,
+          "rows": rows, "notes": notes, "seconds": time.monotonic() - t0})
     assert rows and all(r["records"] == PIPELINE["n_records"] for r in rows)
+    for r in rows:
+        assert r["native_reader"] == r["asked"]["native_reader"], r
+        assert r["fused_augment"] == r["asked"]["native_augment"], r
+    assert any(r["augment_workers"] > 1 for r in rows) or \
+        (os.cpu_count() or 1) < 2
     assert fa.launches == 0, fa.launches
     return fa.launches
 
@@ -3830,6 +3873,328 @@ def variants_gate(torch, fa, smi) -> int:
     return fa.launches
 
 
+# ------------------------------------------------------------ slice 12
+#: text_train's runs of the text-classification main: (name, argv); the
+#: JAX test's sizes, then the real corpus's width (news20.CLASS_NUM
+#: classes, get_glove_w2v's default 100-dim vectors) over the synthetic
+#: corpus
+TEXT_TRAIN_RUNS = [
+    ("jax_test_sizes", ["--samples", "96", "--class-num", "3",
+                        "--max-epoch", "8"]),
+    ("news20_width", ["--class-num", "20", "--embed-dim", "100",
+                      "--samples", "2000"]),
+]
+#: the JAX test's bar on validation accuracy (tests/test_datasets_aux.py)
+TEXT_ACC_MIN = 0.85
+#: text_lm: BPE over the synthetic news20 text, scored and continued by
+#: the serving flagship in bf16
+TEXT_LM = dict(docs=2000, bpe_vocab=2000, batch=16, seq=128, new=32)
+
+
+def _sweep_input(torch, *shape):
+    """tests/test_layer_sweep.py's ``_f``: randn from RandomState(sum of
+    the shape + its rank), f32."""
+    import numpy as np
+
+    rs = np.random.RandomState(sum(shape) + len(shape))
+    return torch.tensor(rs.randn(*shape).astype(np.float32))
+
+
+def _table_cases(tnn, torch, Table):
+    """(name, CPU module factory, input builder) for every layer of
+    slice 12 at the JAX sweep's arguments and inputs
+    (tests/test_layer_sweep.py FIXTURES)."""
+    import numpy as np
+
+    cpu = dict(device="cpu")
+
+    def f(*shape):
+        return lambda: _sweep_input(torch, *shape)
+
+    def pos(*shape):
+        return lambda: _sweep_input(torch, *shape).abs() + 0.1
+
+    def tab(*builders):
+        return lambda: Table(*[b() for b in builders])
+
+    ints = lambda: torch.tensor(np.random.RandomState(17).randint(  # noqa
+        1, 5, size=(3,)), dtype=torch.int32)
+    mask = lambda: torch.tensor(np.random.RandomState(3).rand(3, 4) > 0.5)  # noqa
+    gater = lambda: torch.softmax(_sweep_input(torch, 2, 3), -1)  # noqa
+    return [
+        ("Masking", lambda: tnn.Masking(0.0), f(2, 3, 4)),
+        ("Contiguous", lambda: tnn.Contiguous(), f(3, 4)),
+        ("InferReshape", lambda: tnn.InferReshape((-1, 2)), f(3, 4)),
+        ("Squeeze", lambda: tnn.Squeeze(2), f(3, 1, 4)),
+        ("Unsqueeze", lambda: tnn.Unsqueeze(2), f(3, 4)),
+        ("Transpose", lambda: tnn.Transpose(((2, 3),)), f(2, 3, 4)),
+        ("Tile", lambda: tnn.Tile(2, 3), f(2, 3)),
+        ("Replicate", lambda: tnn.Replicate(3, 2), f(2, 4)),
+        ("Select", lambda: tnn.Select(2, 1), f(3, 4)),
+        ("Narrow", lambda: tnn.Narrow(2, 1, 2), f(3, 6)),
+        ("Reverse", lambda: tnn.Reverse(2), f(2, 5, 3)),
+        ("Padding", lambda: tnn.Padding(2, 2, 2), f(3, 4)),
+        ("Index", lambda: tnn.Index(1), tab(f(5, 4), ints)),
+        ("MaskedSelect", lambda: tnn.MaskedSelect(), tab(f(3, 4), mask)),
+        ("Max", lambda: tnn.Max(2), f(3, 4)),
+        ("Min", lambda: tnn.Min(2), f(3, 4)),
+        ("Mean", lambda: tnn.Mean(2), f(3, 4)),
+        ("Sum", lambda: tnn.Sum(2), f(3, 4)),
+        ("CAveTable", lambda: tnn.CAveTable(), tab(f(2, 4), f(2, 4))),
+        ("CMaxTable", lambda: tnn.CMaxTable(), tab(f(2, 4), f(2, 4))),
+        ("CMinTable", lambda: tnn.CMinTable(), tab(f(2, 4), f(2, 4))),
+        ("CSubTable", lambda: tnn.CSubTable(), tab(f(2, 4), f(2, 4))),
+        ("CDivTable", lambda: tnn.CDivTable(), tab(f(2, 4), pos(2, 4))),
+        ("CMulTable", lambda: tnn.CMulTable(), tab(f(2, 4), f(2, 4))),
+        ("DotProduct", lambda: tnn.DotProduct(), tab(f(3, 4), f(3, 4))),
+        ("CosineDistance", lambda: tnn.CosineDistance(),
+         tab(f(3, 4), f(3, 4))),
+        ("PairwiseDistance", lambda: tnn.PairwiseDistance(),
+         tab(f(3, 4), f(3, 4))),
+        ("CrossProduct", lambda: tnn.CrossProduct(),
+         tab(f(2, 4), f(2, 4), f(2, 4))),
+        ("MM", lambda: tnn.MM(), tab(f(2, 3, 4), f(2, 4, 5))),
+        ("MV", lambda: tnn.MV(), tab(f(2, 3, 4), f(2, 4))),
+        ("JoinTable", lambda: tnn.JoinTable(2), tab(f(2, 3), f(2, 5))),
+        ("SplitTable", lambda: tnn.SplitTable(2), f(2, 3, 4)),
+        ("BifurcateSplitTable", lambda: tnn.BifurcateSplitTable(2), f(2, 6)),
+        ("NarrowTable", lambda: tnn.NarrowTable(1, 2),
+         tab(f(2, 3), f(2, 3), f(2, 3))),
+        ("SelectTable", lambda: tnn.SelectTable(2), tab(f(2, 3), f(2, 5))),
+        ("FlattenTable", lambda: tnn.FlattenTable(),
+         tab(tab(f(2, 3), f(2, 3)), f(2, 3))),
+        ("Pack", lambda: tnn.Pack(2), tab(f(2, 3), f(2, 3))),
+        ("MixtureTable", lambda: tnn.MixtureTable(),
+         tab(gater, tab(f(2, 4), f(2, 4), f(2, 4)))),
+        ("SpatialZeroPadding", lambda: tnn.SpatialZeroPadding(1),
+         f(1, 2, 4, 4)),
+        ("Cropping2D", lambda: tnn.Cropping2D((1, 1), (1, 1)), f(1, 2, 6, 6)),
+        ("Cropping3D", lambda: tnn.Cropping3D(), f(1, 2, 4, 6, 6)),
+        ("UpSampling1D", lambda: tnn.UpSampling1D(2), f(2, 4, 3)),
+        ("UpSampling2D", lambda: tnn.UpSampling2D((2, 2)), f(1, 2, 3, 3)),
+        ("UpSampling3D", lambda: tnn.UpSampling3D(), f(1, 2, 2, 3, 3)),
+        ("ResizeBilinear", lambda: tnn.ResizeBilinear(6, 6), f(1, 2, 4, 4)),
+        ("ResizeBilinear_shrink", lambda: tnn.ResizeBilinear(3, 5),
+         f(1, 2, 7, 9)),
+        ("Add", lambda: tnn.Add(4, **cpu), f(3, 4)),
+        ("CAdd", lambda: tnn.CAdd((1, 4), **cpu), f(3, 4)),
+        ("CMul", lambda: tnn.CMul((1, 4), **cpu), f(3, 4)),
+        ("Mul", lambda: tnn.Mul(**cpu), f(3, 4)),
+        ("Bilinear", lambda: tnn.Bilinear(3, 4, 5, **cpu),
+         tab(f(2, 3), f(2, 4))),
+        ("Cosine", lambda: tnn.Cosine(4, 3, **cpu), f(2, 4)),
+        ("Euclidean", lambda: tnn.Euclidean(4, 3, **cpu), f(2, 4)),
+        ("Scale", lambda: tnn.Scale((1, 4), **cpu), f(3, 4)),
+        ("ParallelTable", lambda: tnn.ParallelTable(
+            tnn.Linear(4, 3, **cpu), tnn.Linear(5, 3, **cpu)),
+         tab(f(2, 4), f(2, 5))),
+        ("MapTable", lambda: tnn.MapTable(tnn.Linear(4, 3, **cpu)),
+         tab(f(2, 4), f(2, 4))),
+        ("Bottle", lambda: tnn.Bottle(tnn.Linear(4, 3, **cpu)), f(2, 5, 4)),
+        ("TimeDistributed", lambda: tnn.TimeDistributed(
+            tnn.Linear(5, 3, **cpu)), f(2, 4, 5)),
+    ]
+
+
+def table_gate(torch, fa, smi) -> int:
+    """table_gate (f32, TF32 off): every table, shape, linear and
+    container layer of slice 12 on the card against the same module on
+    the CPU, on the JAX sweep's inputs with every parameter drawn from a
+    seed: the forward and, for one random cotangent per output tensor,
+    the autograd gradients of every float input and parameter, each
+    within ``VARIANTS_RTOL`` of its largest |value|. Returns the flash
+    launches (0)."""
+    import copy
+
+    from bigdl_tpu_torch import nn as tnn
+    from bigdl_tpu_torch.nn.module import (activity_tensors, tree_leaves,
+                                           with_tensors)
+    from bigdl_tpu_torch.utils.table import Table
+
+    fa.launches = 0
+    g = torch.Generator().manual_seed(21)
+    results, classes = [], set()
+    worst, worst_case = 0.0, None
+    t0 = time.monotonic()
+    for name, factory, build in _table_cases(tnn, torch, Table):
+        cpu_m = factory()
+        cpu_m.evaluate()
+        with torch.no_grad():
+            for _, p in tree_leaves(cpu_m.params_dict()):
+                p.copy_(torch.randn(p.shape, generator=g))
+        card_m = copy.deepcopy(cpu_m).cuda()
+        classes |= {type(m).__name__ for m in cpu_m.modules()}
+        x = build()
+        outs = []
+        for m, dev in ((cpu_m, "cpu"), (card_m, "cuda")):
+            leaves = [t.to(dev).requires_grad_(t.is_floating_point())
+                      for t in activity_tensors(x)]
+            xx = with_tensors(x, iter(leaves))
+            got = activity_tensors(m(xx))
+            wrt = ([t for t in leaves if t.requires_grad]
+                   + [p for _, p in tree_leaves(m.params_dict())])
+            cg = torch.Generator().manual_seed(22)
+            cots = [torch.randn(o.shape, generator=cg).to(dev) for o in got]
+            grads = torch.autograd.grad(got, wrt, cots, allow_unused=True)
+            outs.append([o.detach() for o in got] + [
+                torch.zeros_like(w) if d is None else d
+                for w, d in zip(wrt, grads)])
+        errs = [_rel_err(torch, ref, got) for ref, got in zip(*outs)]
+        case_worst = max(errs)
+        if case_worst > worst:
+            worst, worst_case = case_worst, name
+        results.append({"case": name, "tensors": len(errs),
+                        "worst": case_worst})
+    emit({"phase": "table_gate", "nvidia_smi": smi, "dtype": "float32",
+          "cases": len(results), "classes": sorted(classes),
+          "rtol": VARIANTS_RTOL, "worst": worst, "worst_case": worst_case,
+          "worst_excess": worst / VARIANTS_RTOL,
+          "seconds": time.monotonic() - t0, "results": results})
+    assert worst <= VARIANTS_RTOL, (worst_case, worst)
+    assert fa.launches == 0, fa.launches
+    return fa.launches
+
+
+def text_train(torch, fa, smi) -> int:
+    """text_train: the text-classification main
+    (``bigdl_tpu_torch.example.textclassification.train.main``) on the
+    card at the JAX test's sizes, where it must pass that test's bar,
+    and at the real corpus's width over the synthetic corpus: ms a step,
+    records/s and validation accuracy from the main's JSON summary.
+    Returns the flash launches (0)."""
+    import contextlib
+    import io
+
+    from bigdl_tpu_torch.example.textclassification import train
+
+    fa.launches = 0
+    runs = []
+    for name, argv in TEXT_TRAIN_RUNS:
+        out = io.StringIO()
+        t0 = time.monotonic()
+        with contextlib.redirect_stdout(out):
+            model, acc = train.main(argv + ["--device", "cuda"])
+        seconds = time.monotonic() - t0
+        summary = json.loads(out.getvalue().strip().splitlines()[-1])
+        assert next(model.parameters()).device.type == "cuda"
+        runs.append({"run": name, "argv": argv, "seconds": seconds,
+                     **summary})
+        assert summary["validation_accuracy"] == acc
+        assert acc > TEXT_ACC_MIN, (name, acc)
+        assert math.isfinite(summary["ms_per_step"]), summary
+    emit({"phase": "text_train", "nvidia_smi": smi, "acc_min": TEXT_ACC_MIN,
+          "runs": runs, "flash_launches": fa.launches})
+    assert fa.launches == 0, fa.launches
+    return fa.launches
+
+
+def text_lm(torch, fa, smi) -> int:
+    """text_lm: a ``BPETokenizer`` trained on the synthetic news20 text;
+    the encoded documents (each cut or right-padded with <pad> to
+    ``TEXT_LM["seq"]`` tokens) scored by the serving flagship's bf16
+    ``forward`` (vocab 32000, the BPE ids inside it: one flash launch a
+    layer), then ``generate`` continuing their first halves, whose rows
+    must decode back to text beginning with the prompt's. Returns the
+    flash launches of the phase."""
+    import numpy as np
+
+    from bigdl_tpu_torch.dataset import bpe, news20
+    from bigdl_tpu_torch.models.transformer import TransformerLM
+
+    cfg = TEXT_LM
+    t0 = time.monotonic()
+    texts = [t for t, _ in news20.synthetic_news20(
+        n=cfg["docs"], class_num=news20.CLASS_NUM)]
+    tok = bpe.BPETokenizer.train(texts, vocab_size=cfg["bpe_vocab"])
+    bpe_s = time.monotonic() - t0
+    assert tok.vocab_size <= FLAGSHIP["vocab_size"]
+    ids = np.full((cfg["batch"], cfg["seq"]), bpe.PAD, np.int64)
+    lengths = []
+    for i, doc in enumerate(texts[:cfg["batch"]]):
+        enc = tok.encode(doc, add_bos=True)[:cfg["seq"]]
+        ids[i, :len(enc)] = enc
+        lengths.append(len(enc))
+    model = TransformerLM(**FLAGSHIP, seed=0, device="cuda",
+                          dtype=torch.bfloat16)
+    model.evaluate()
+    x = torch.tensor(ids, device="cuda")
+    fa.launches = 0
+    with torch.inference_mode():
+        logits = model(x)
+        torch.cuda.synchronize()
+        assert fa.launches == model.num_layers, fa.launches
+        assert logits.shape == (cfg["batch"], cfg["seq"],
+                                FLAGSHIP["vocab_size"])
+        assert torch.isfinite(logits).all()
+        fwd_ms = time_ms(torch, lambda: model(x), warmup=1, iters=3)
+        # the mean next-token log-likelihood of the documents' own ids
+        logp = torch.log_softmax(logits[:, :-1].float(), -1).gather(
+            -1, x[:, 1:, None])[..., 0]
+        mask = x[:, 1:] != bpe.PAD
+        nll = float(-(logp * mask).sum() / mask.sum())
+    half = min(lengths) // 2
+    prompts = x[:, :half]
+    t1 = time.monotonic()
+    out = model.generate(prompts, cfg["new"])
+    torch.cuda.synchronize()
+    gen_s = time.monotonic() - t1
+    assert out.shape == (cfg["batch"], half + cfg["new"])
+    decoded = [tok.decode(row.tolist()) for row in out.cpu()]
+    heads = [tok.decode(row.tolist()) for row in prompts.cpu()]
+    assert all(isinstance(d, str) and d.startswith(h)
+               for d, h in zip(decoded, heads))
+    launches = fa.launches
+    emit({"phase": "text_lm", "nvidia_smi": smi, "config": cfg,
+          "bpe_vocab_size": tok.vocab_size, "bpe_merges": len(tok.merges),
+          "bpe_train_s": bpe_s, "doc_tokens": lengths,
+          "forward_ms": fwd_ms,
+          "tokens_per_s": cfg["batch"] * cfg["seq"] / fwd_ms * 1e3,
+          "nll_random_weights": nll, "generate_s": gen_s,
+          "generated_in_bpe_vocab": float(
+              (out[:, half:] < tok.vocab_size).float().mean()),
+          "sample": decoded[0][:200], "flash_launches": launches})
+    assert launches >= 4 * model.num_layers, launches
+    del model, logits
+    return launches
+
+
+def native_augment_check() -> dict:
+    """On the card's host: the fused transform calls the C++ kernel for
+    every image, and its float32 bytes equal the numpy path's."""
+    import numpy as np
+
+    from bigdl_tpu_torch import native
+    from bigdl_tpu_torch.models.perf import PIPELINE_MEANS, PIPELINE_STDS
+    from bigdl_tpu_torch.transform import vision
+
+    rs = np.random.RandomState(5)
+    imgs = [rs.randint(0, 255, (PIPELINE["image"], PIPELINE["image"], 3),
+                       np.uint8) for _ in range(8)]
+    calls, orig = [], native.fused_augment
+
+    def counting(*a, **k):
+        out = orig(*a, **k)
+        calls.append(out is not None)
+        return out
+
+    outs = {}
+    for use_native in (True, False):
+        t = vision.FusedCropFlipNormalize(
+            PIPELINE["crop"], PIPELINE["crop"], PIPELINE_MEANS,
+            PIPELINE_STDS, flip_prob=0.5, seed=3, use_native=use_native)
+        native.fused_augment = counting
+        try:
+            outs[use_native] = [t.transform(vision.ImageFeature(
+                img.copy(), label=None, preserve_dtype=True)).image()
+                .tobytes() for img in imgs]
+        finally:
+            native.fused_augment = orig
+    assert len(calls) == len(imgs) and all(calls), calls
+    assert outs[True] == outs[False]
+    return {"images": len(imgs), "kernel_calls": len(calls),
+            "bit_equal_to_numpy": True}
+
+
 def main() -> int:
     import torch
 
@@ -4070,6 +4435,10 @@ def main() -> int:
     perf_cli_launches = perf_cli(torch, fa, smi)
     variants_launches = variants_gate(torch, fa, smi)
 
+    # ----- the table and shape layers and the text path (slice 12)
+    table_launches = table_gate(torch, fa, smi)
+    text_launches = text_train(torch, fa, smi) + text_lm(torch, fa, smi)
+
     # ----------------------------------------------------- 9. kernels line
     print(nvidia_smi(), flush=True)
     emit({"kernels": [{
@@ -4081,7 +4450,8 @@ def main() -> int:
                      + quant_launches + beam_launches + predict_launches
                      + noncausal_launches + checkpoint_launches
                      + zoo_launches + perf_cli_launches
-                     + variants_launches),
+                     + variants_launches + table_launches
+                     + text_launches),
         "launches_serving": serving_launches,
         "launches_train": train_launches,
         "launches_engine": engine_launches,
@@ -4093,6 +4463,8 @@ def main() -> int:
         "launches_zoo": zoo_launches,
         "launches_perf_cli": perf_cli_launches,
         "launches_variants": variants_launches,
+        "launches_table": table_launches,
+        "launches_text": text_launches,
         "max_abs_err": flagship["max_abs_err"],
         "ms": flagship["kernel_ms"], "kernel_ms": flagship["kernel_ms"],
         "device_ms": flagship["device_ms"],

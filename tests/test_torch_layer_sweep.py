@@ -31,7 +31,7 @@ from bigdl_tpu.nn.module import Module as JaxModule
 from bigdl_tpu.nn.module import pure_apply
 from bigdl_tpu.utils.table import Table as JaxTable
 from bigdl_tpu_torch import nn as tnn
-from bigdl_tpu_torch.nn.module import tree_leaves
+from bigdl_tpu_torch.nn.module import activity_tensors, tree_leaves
 from bigdl_tpu_torch.utils.table import Table
 from bigdl_tpu_torch.utils.weights import load_jax_buffers, load_jax_params
 from tests.test_layer_sweep import FIXTURES
@@ -132,41 +132,83 @@ PORT = {
     "subtractive_norm": lambda: tnn.SpatialSubtractiveNormalization(2, **CPU),
     "mha": lambda: tnn.MultiHeadAttention(8, 2, **CPU),
     "transformer_block": lambda: tnn.TransformerBlock(8, 2, **CPU),
+    # the table and shape layers
+    "masking": lambda: tnn.Masking(0.0),
+    "contiguous": lambda: tnn.Contiguous(),
+    "inferreshape": lambda: tnn.InferReshape((-1, 2)),
+    "squeeze": lambda: tnn.Squeeze(2),
+    "unsqueeze": lambda: tnn.Unsqueeze(2),
+    "transpose": lambda: tnn.Transpose(((2, 3),)),
+    "tile": lambda: tnn.Tile(2, 3),
+    "replicate": lambda: tnn.Replicate(3, 2),
+    "select": lambda: tnn.Select(2, 1),
+    "narrow": lambda: tnn.Narrow(2, 1, 2),
+    "reverse": lambda: tnn.Reverse(2),
+    "padding": lambda: tnn.Padding(2, 2, 2),
+    "index": lambda: tnn.Index(1),
+    "maskedselect": lambda: tnn.MaskedSelect(),
+    "max": lambda: tnn.Max(2),
+    "min": lambda: tnn.Min(2),
+    "mean": lambda: tnn.Mean(2),
+    "sum": lambda: tnn.Sum(2),
+    "cavetable": lambda: tnn.CAveTable(),
+    "cmaxtable": lambda: tnn.CMaxTable(),
+    "cmintable": lambda: tnn.CMinTable(),
+    "csubtable": lambda: tnn.CSubTable(),
+    "cdivtable": lambda: tnn.CDivTable(),
+    "cmultable": lambda: tnn.CMulTable(),
+    "dotproduct": lambda: tnn.DotProduct(),
+    "cosinedistance": lambda: tnn.CosineDistance(),
+    "pairwisedistance": lambda: tnn.PairwiseDistance(),
+    "crossproduct": lambda: tnn.CrossProduct(),
+    "mm": lambda: tnn.MM(),
+    "mv": lambda: tnn.MV(),
+    "jointable": lambda: tnn.JoinTable(2),
+    "splittable": lambda: tnn.SplitTable(2),
+    "bifurcatesplit": lambda: tnn.BifurcateSplitTable(2),
+    "narrowtable": lambda: tnn.NarrowTable(1, 2),
+    "selecttable": lambda: tnn.SelectTable(2),
+    "flattentable": lambda: tnn.FlattenTable(),
+    "packtable": lambda: tnn.Pack(2),
+    "mixturetable": lambda: tnn.MixtureTable(),
+    "zeropad2d": lambda: tnn.SpatialZeroPadding(1),
+    "crop2d": lambda: tnn.Cropping2D((1, 1), (1, 1)),
+    "crop3d": lambda: tnn.Cropping3D(),
+    "upsample1d": lambda: tnn.UpSampling1D(2),
+    "upsample2d": lambda: tnn.UpSampling2D((2, 2)),
+    "upsample3d": lambda: tnn.UpSampling3D(),
+    "resize_bilinear": lambda: tnn.ResizeBilinear(6, 6),
+    # linear.py's other layers
+    "add": lambda: tnn.Add(4, **CPU),
+    "cadd": lambda: tnn.CAdd((1, 4), **CPU),
+    "cmul": lambda: tnn.CMul((1, 4), **CPU),
+    "mul": lambda: tnn.Mul(**CPU),
+    "bilinear": lambda: tnn.Bilinear(3, 4, 5, **CPU),
+    "cosine": lambda: tnn.Cosine(4, 3, **CPU),
+    "euclidean": lambda: tnn.Euclidean(4, 3, **CPU),
+    "scale": lambda: tnn.Scale((1, 4), **CPU),
+    # the container leftovers
+    "paralleltable": lambda: tnn.ParallelTable(tnn.Linear(4, 3, **CPU),
+                                               tnn.Linear(5, 3, **CPU)),
+    "maptable": lambda: tnn.MapTable(tnn.Linear(4, 3, **CPU)),
+    "bottle": lambda: tnn.Bottle(tnn.Linear(4, 3, **CPU)),
+    "timedistributed": lambda: tnn.TimeDistributed(tnn.Linear(5, 3, **CPU)),
 }
 
 # JAX layers the port exports that the sweep does not reach, and why
 ELSEWHERE = {
     "Module": "abstract base",
     "Container": "abstract base",
+    "DynamicContainer": "alias of Container (an abstract base)",
     "SpatialConvolutionMap": "connection-table input, "
                              "tests/test_torch_conv_pool_variants.py",
 }
 
-_ITEM9_TABLE = "ROADMAP.md Queue 1 item 9: table/shape layers"
-_ITEM9_LINEAR = "ROADMAP.md Queue 1 item 9: linear.py's other layers"
-_ITEM9_CONTAINER = "ROADMAP.md Queue 1 item 9: container leftovers"
 _ITEM12 = "ROADMAP.md Queue 1 item 12: the long tail"
 
 # every JAX nn Module class the port does not export yet, by the item
 # that ports it
 WAITING = {
-    **dict.fromkeys([
-        "Contiguous", "InferReshape", "Squeeze", "Unsqueeze", "Transpose",
-        "Tile", "Replicate", "Select", "Narrow", "Reverse", "Padding",
-        "Index", "MaskedSelect", "Max", "Min", "Mean", "Sum",
-        "CAveTable", "CMaxTable", "CMinTable", "CSubTable", "CDivTable",
-        "CMulTable", "DotProduct", "CosineDistance", "PairwiseDistance",
-        "CrossProduct", "MM", "MV", "JoinTable", "SplitTable",
-        "BifurcateSplitTable", "NarrowTable", "SelectTable", "FlattenTable",
-        "Pack", "MixtureTable", "SpatialZeroPadding", "Cropping2D",
-        "Cropping3D", "UpSampling1D", "UpSampling2D", "UpSampling3D",
-        "ResizeBilinear", "Masking"], _ITEM9_TABLE),
-    **dict.fromkeys([
-        "Add", "CAdd", "CMul", "Mul", "Bilinear", "Cosine", "Euclidean",
-        "Scale"], _ITEM9_LINEAR),
-    **dict.fromkeys([
-        "ParallelTable", "MapTable", "Bottle", "TimeDistributed",
-        "DynamicContainer"], _ITEM9_CONTAINER),
     **dict.fromkeys([
         # nn/{recurrent,tree_lstm,sparse,detection,tf_ops,graph,embedding}
         "Recurrent", "BiRecurrent", "RecurrentDecoder", "Cell", "RnnCell",
@@ -244,16 +286,22 @@ def test_layer_matches_jax(tag):
     j_out, vjp = jax.vjp(lambda p, xx: fn(p, buffers, xx,
                                           training=False)[0],
                          jm.params_dict(), x)
-    g = np.random.RandomState(7).randn(*j_out.shape).astype(np.float32)
-    j_gp, j_gx = vjp(jnp.asarray(g, j_out.dtype))
+    # one cotangent per output tensor (a Table output has several)
+    j_outs, j_tree = jax.tree.flatten(j_out)
+    rs = np.random.RandomState(7)
+    gs = [rs.randn(*o.shape).astype(np.float32) for o in j_outs]
+    j_gp, j_gx = vjp(jax.tree.unflatten(
+        j_tree, [jnp.asarray(g, o.dtype) for g, o in zip(gs, j_outs)]))
 
     xt, x_leaves = _port_inputs(x)
     params = [p for _, p in tree_leaves(tm.params_dict())]
-    t_out = tm(xt)
-    assert tuple(t_out.shape) == tuple(j_out.shape), tag
-    if t_out.requires_grad:
+    t_outs = activity_tensors(tm(xt))
+    assert [tuple(o.shape) for o in t_outs] == \
+        [tuple(o.shape) for o in j_outs], tag
+    if any(o.requires_grad for o in t_outs):
         grads = torch.autograd.grad(
-            t_out, x_leaves + params, torch.from_numpy(g).to(t_out.dtype),
+            t_outs, x_leaves + params,
+            [torch.from_numpy(g).to(o.dtype) for g, o in zip(gs, t_outs)],
             allow_unused=True)
     else:
         grads = [None] * (len(x_leaves) + len(params))
@@ -267,8 +315,9 @@ def test_layer_matches_jax(tag):
         # the sample depends on the draw; d out / d mean does not
         np.testing.assert_allclose(t_gx[0], j_gx[0], **TOL)
         return
-    np.testing.assert_allclose(t_out.detach().numpy(), np.asarray(j_out),
-                               **TOL, err_msg=f"{tag}: forward")
+    for ours, theirs in zip(t_outs, j_outs):
+        np.testing.assert_allclose(ours.detach().numpy(), np.asarray(theirs),
+                                   **TOL, err_msg=f"{tag}: forward")
     for i, (ours, theirs) in enumerate(zip(t_gx, j_gx)):
         np.testing.assert_allclose(ours, theirs, **TOL,
                                    err_msg=f"{tag}: input grad {i}")

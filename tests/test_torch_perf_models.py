@@ -94,16 +94,35 @@ def test_transformer_perf_master_f32_and_dense_options():
 
 
 def test_run_input_pipeline_perf_on_64_records():
+    from bigdl_tpu_torch import native
+
     logs = []
     rows = perf.run_input_pipeline_perf(batch_size=16, n_records=64,
                                         image=48, crop=40, depths=(0, 2),
                                         shards=4, log=logs.append,
                                         device="cpu")
-    assert any("item 12" in line and "did not run" in line for line in logs)
-    assert not any(r["native_reader"] for r in rows)
-    # composed and fused at each depth, then the fused chain on workers
-    kinds = [(r["fused_augment"], r["prefetch_depth"]) for r in rows]
-    assert kinds[:4] == [(False, 0), (False, 2), (True, 0), (True, 2)]
+    # composed with the C++ reader then the Python pool, the C++ kernel,
+    # its numpy twin, each at each depth, then the kernel on workers
+    asked = [(r["asked"]["native_reader"], r["asked"]["native_augment"],
+              r["augment"] != "composed", r["prefetch_depth"]) for r in rows]
+    assert asked[:8] == [(True, False, False, 0), (True, False, False, 2),
+                         (False, False, False, 0), (False, False, False, 2),
+                         (True, True, True, 0), (True, True, True, 2),
+                         (True, False, True, 0), (True, False, True, 2)]
+    assert all(r["asked"]["native_augment"] and r["augment_workers"] > 1
+               and r["prefetch_depth"] == 2 for r in rows[8:])
+    assert [r["augment"] for r in rows[6:8]] == ["numpy one pass"] * 2
+    assert not any(r["native_reader"] for r in rows[2:4])
+    if native.native_available():
+        # the native rows ran natively: the reader's pool and the kernel
+        assert all(r["native_reader"] for r in rows[:2] + rows[4:])
+        assert all(r["fused_augment"] and r["augment"] == "native kernel"
+                   for r in rows[4:6] + rows[8:])
+        assert not any(r["fused_augment"] for r in rows[:4] + rows[6:8])
+    else:
+        assert any("not available" in line for line in logs)
+        assert not any(r["native_reader"] or r["fused_augment"]
+                       for r in rows)
     jax_keys = {"mode", "native_reader", "fused_augment", "prefetch_depth",
                 "batch_size", "records", "image", "crop", "records_per_sec",
                 "time_s"}

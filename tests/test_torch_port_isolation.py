@@ -4,7 +4,8 @@ continuous-batching engine, int8 with a prefix host tier, QoS with
 preemption, shedding, a token bucket, the chaos injector, the usage
 ledger and the SLO watchdog, a ResNet-20 through the LocalOptimizer,
 beam search, the PredictionService, the eager Module API and a loop
-with an async checkpoint and a train summary included, and a scan of
+with an async checkpoint and a train summary, the native runtime, the
+text-classification main, BPE and the table layers included, and a scan of
 every module's imports), and its entry points run on the card
 unless asked for the CPU, never falling back to it by themselves."""
 
@@ -134,6 +135,17 @@ opt.set_train_summary(TrainSummary(d, "app"))
 opt.optimize()
 assert len(opt.train_summary.read_scalar("Loss")) == 4
 assert load_latest_checkpoint(d, device="cpu")[2] == 3
+from bigdl_tpu_torch import native
+from bigdl_tpu_torch.dataset import bpe, news20
+from bigdl_tpu_torch.example.textclassification import train as text_train
+assert native.native_available(), native.unavailable_reason()
+_, acc = text_train.main(["--samples", "32", "--class-num", "2",
+                          "--max-epoch", "1", "--device", "cpu"])
+tok = bpe.BPETokenizer.train([t for t, _ in news20.synthetic_news20(20)], 200)
+assert tok.decode(tok.encode("the orbit")) == "the orbit"
+table = nn.Sequential(nn.ConcatTable(nn.Identity(), nn.Identity()),
+                      nn.JoinTable(2), nn.Max(2))
+assert table(torch.randn(2, 4)).shape == (2,)
 bad = sorted(n for n in sys.modules
              if n.split(".")[0] in ("jax", "jaxlib", "bigdl_tpu"))
 assert not bad, bad
