@@ -18,7 +18,10 @@ as they are XLA ops in the JAX package, and the continuous-batching
 engine (``serving/``: dense or paged KV, batched prefill, the prefix
 cache and its host tier, speculative decoding, int8 KV and weights, QoS
 and chaos drills) with the usage ledger and SLO watchdog that QoS reads
-(``observability/``).
+(``observability/``), and distributed training over ``torch.distributed``
+(``parallel/``: the engine and its mesh of process groups, the ZeRO-1
+``DistriOptimizer``, ring and Ulysses attention, MoE and pipeline stages;
+``tools/launch.py`` starts the ranks).
 """
 
 from bigdl_tpu_torch.device import resolve_device

@@ -6,14 +6,15 @@ The reference's semantics are kept: the training iterator is infinite
 offset), ``shuffle()`` re-permutes the index array only, and a
 :class:`ShardedDataSet` holds one process's contiguous shard of the
 records with its own shuffle. The JAX package picks the shard by JAX
-process; here the caller names it, until the distributed slice, which
-trains on a ShardedDataSet, ties it to the process group.
+process; here, by default, by rank of the ``torch.distributed`` process
+group (shard 0 of 1 without one), the ranks the ``DistriOptimizer``
+trains over.
 """
 
 from __future__ import annotations
 
 import itertools
-from typing import Iterator, List, Sequence
+from typing import Iterator, List, Optional, Sequence
 
 import numpy as np
 
@@ -76,13 +77,19 @@ class LocalDataSet(AbstractDataSet):
 
 class ShardedDataSet(AbstractDataSet):
     """Shard ``shard_id`` of ``num_shards`` (contiguous, the remainder
-    spread over the first shards), shuffled by its own RNG (seed +
-    shard_id). ``size()`` is the global record count."""
+    spread over the first shards; default: this rank of the world),
+    shuffled by its own RNG (seed + shard_id). ``size()`` is the global
+    record count."""
 
-    def __init__(self, records: Sequence, shard_id: int = 0,
-                 num_shards: int = 1, seed: int = 1):
-        self.num_shards = num_shards
-        self.shard_id = shard_id
+    def __init__(self, records: Sequence, shard_id: Optional[int] = None,
+                 num_shards: Optional[int] = None, seed: int = 1):
+        import torch.distributed as dist
+
+        up = dist.is_initialized()
+        self.num_shards = (num_shards if num_shards is not None
+                           else dist.get_world_size() if up else 1)
+        self.shard_id = (shard_id if shard_id is not None
+                         else dist.get_rank() if up else 0)
         all_records = list(records)
         self._total_size = len(all_records)
         base, rem = divmod(self._total_size, self.num_shards)
@@ -137,7 +144,8 @@ class DataSet:
         return LocalDataSet(samples, seed=seed)
 
     @staticmethod
-    def sharded(samples: Sequence, shard_id: int = 0, num_shards: int = 1,
+    def sharded(samples: Sequence, shard_id: Optional[int] = None,
+                num_shards: Optional[int] = None,
                 seed: int = 1) -> ShardedDataSet:
         return ShardedDataSet(samples, shard_id=shard_id,
                               num_shards=num_shards, seed=seed)

@@ -105,22 +105,21 @@ def device_prefetch(batch_iterator: Iterator, sharding=None,
     """Batches (``MiniBatch``es, arrays, or lists / tuples / dicts of
     arrays) staged onto ``device`` by :func:`to_device` on a prefetch
     thread, ``buffer_size`` ahead. ``sharding`` (the JAX placement of the
-    batch dimension over a mesh) waits for the distributed slice
-    (ROADMAP.md, Queue 1 item 10) and raises when given."""
+    batch dimension over a mesh) names the process group, or the axis of
+    the default mesh, that the global batch is split over: each rank
+    stages only its own contiguous shard of every array's leading
+    dimension, which the group's size must divide."""
     from bigdl_tpu_torch.dataset.minibatch import MiniBatch
 
-    if sharding is not None:
-        raise NotImplementedError(
-            "device_prefetch(sharding=) places a batch over a mesh, which "
-            "is not ported yet: see ROADMAP.md, Queue 1 item 10")
     dev = resolve_device(device)
+    shard = _sharder(sharding) if sharding is not None else (lambda x: x)
 
     def put(x):
         if isinstance(x, dict):
             return {k: put(v) for k, v in x.items()}
         if isinstance(x, (list, tuple)):
             return type(x)(put(v) for v in x)
-        return to_device(x, dev)
+        return to_device(shard(x), dev)
 
     def transfer(b):
         if isinstance(b, MiniBatch):
@@ -130,3 +129,22 @@ def device_prefetch(batch_iterator: Iterator, sharding=None,
 
     return prefetch(batch_iterator, buffer_size=buffer_size,
                     transfer=transfer)
+
+
+def _sharder(sharding):
+    """The function that cuts this rank's rows out of a batch array for
+    ``device_prefetch(sharding=)``: ``sharding`` is a process group, or
+    an axis name (or tuple of names) of ``Engine.default_mesh()``."""
+    from bigdl_tpu_torch.parallel import collectives as C
+
+    n, r = C.group_size(sharding), C.group_rank(sharding)
+
+    def cut(x):
+        rows = len(x)
+        if rows % n:
+            raise ValueError(f"batch of {rows} rows does not split over "
+                             f"the {n} ranks of the sharding")
+        per = rows // n
+        return x[r * per:(r + 1) * per]
+
+    return cut

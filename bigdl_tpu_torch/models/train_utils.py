@@ -4,9 +4,10 @@
 The JAX package's flags, plus ``--device`` (default ``cuda``: the port's
 device rule; ``--device cpu`` runs a main on the CPU). A model is built
 on that device, a ``--model`` snapshot or ``--resume`` checkpoint loaded
-onto it. ``--distributed`` (the JAX package's data-parallel
-``DistriOptimizer`` over a mesh) belongs to the distributed slice and
-raises ``NotImplementedError``. Summaries are the port's
+onto it. ``--distributed`` trains with the sharded ``DistriOptimizer``
+over a ``data`` mesh of every rank (``python -m
+bigdl_tpu_torch.tools.launch --procs N`` starts the ranks; alone, the
+main is a world of one). Summaries are the port's
 ``visualization`` writers, flushed when :func:`optimize` returns.
 """
 
@@ -90,17 +91,22 @@ def resume(args, fresh_model, fresh_method) -> Tuple[Module, OptimMethod]:
 
 def build_optimizer(args, model, dataset, criterion):
     """The local training loop, ending at ``--max-iteration`` or
-    ``--max-epoch``."""
+    ``--max-epoch``; ``--distributed`` gives the sharded
+    ``DistriOptimizer`` over a ``data`` mesh of every rank of the process
+    group (a world of one without a launcher)."""
     from bigdl_tpu_torch.optim.optimizer import LocalOptimizer
     from bigdl_tpu_torch.optim.trigger import Trigger
 
-    if args.distributed:
-        raise NotImplementedError(
-            "--distributed trains with the DistriOptimizer over a process "
-            "group, the distributed slice, not ported yet: see ROADMAP.md, "
-            "Queue 1 item 10")
     end = (Trigger.max_iteration(args.max_iteration)
            if args.max_iteration else Trigger.max_epoch(args.max_epoch))
+    if args.distributed:
+        from bigdl_tpu_torch.parallel import DistriOptimizer, Engine
+
+        return DistriOptimizer(model=model, dataset=dataset,
+                               criterion=criterion,
+                               batch_size=args.batch_size, end_when=end,
+                               mesh=Engine.create_mesh(),
+                               parameter_sync="sharded")
     return LocalOptimizer(model=model, dataset=dataset, criterion=criterion,
                           batch_size=args.batch_size, end_when=end)
 

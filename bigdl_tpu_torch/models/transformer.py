@@ -5,8 +5,15 @@ tied output head (logits = x @ tok_embed.T) or, with
 ``tie_embeddings=False``, a bias-free ``head`` Linear; causal unless
 ``causal=False``, which masks nothing in the full-sequence ``forward``
 (the flash kernel then runs with ``causal=False``) and, as in the JAX
-package, leaves the KV-cache entry points causal (MoE blocks and
-sequence parallelism are not ported yet). Training runs through the full-sequence ``forward``
+package, leaves the KV-cache entry points causal. ``sequence_parallel``
+names the mesh axis whose ranks each hold one block of the sequence:
+the learned-position lookup starts at rank x T and every attention goes
+through ring attention (the KV-cache paths ignore it, as in JAX).
+``n_experts > 0`` gives every block a top-1 mixture of experts (over
+``expert_parallel`` when given); the forward leaves the summed
+load-balancing loss in ``l_aux`` (add a small multiple to the
+objective) and the routing stats, averaged over the blocks, in
+``last_moe_stats``. Training runs through the full-sequence ``forward``
 with ``dropout`` and ``remat`` (each block under
 ``torch.utils.checkpoint``, its dropout masks replayed in the
 recompute), differentiable through the flash kernel; ``param_count`` /
@@ -40,7 +47,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import checkpoint, set_checkpoint_early_stop
 
 from bigdl_tpu_torch.device import DEFAULT_DEVICE, resolve_device
 from bigdl_tpu_torch.nn import init as bt_init
@@ -148,33 +155,41 @@ def _top_k(x, k: int):
     return vals[..., :k], idx[..., :k]
 
 
-def _checkpointed(blk, x):
-    """``blk(x)`` under ``torch.utils.checkpoint``: the block's
-    activations are recomputed in the backward. PyTorch restores its
-    default generators for the recompute; a dropout layer drawing from
-    an explicit generator gets that generator's state at the forward set
-    back for the recompute, then restored, so the masks replay
-    identically and the stream goes on as if no recompute had run."""
+def _checkpointed(blk, x, fn=None, collective: bool = False):
+    """``fn(x)`` (default: ``blk(x)``) under ``torch.utils.checkpoint``:
+    the block's activations are recomputed in the backward. PyTorch
+    restores its default generators for the recompute; a dropout layer
+    drawing from an explicit generator gets that generator's state at the
+    forward set back for the recompute, then restored, so the masks
+    replay identically and the stream goes on as if no recompute had run.
+    A block that exchanges messages with other ranks (``collective``:
+    ring attention, expert-parallel MoE) is recomputed whole, never
+    stopped early, so every rank runs the same exchanges."""
+    fn = fn or blk
     gens = {id(m.generator): m.generator for m in blk.modules()
             if isinstance(m, Dropout) and m.generator is not None}
     if not gens:
-        return checkpoint(blk, x, use_reentrant=False)
-    at_forward = [(g, g.get_state()) for g in gens.values()]
-    calls = []
+        run = fn
+    else:
+        at_forward = [(g, g.get_state()) for g in gens.values()]
+        calls = []
 
-    def run(inp):
-        if not calls:               # the forward itself
-            calls.append(1)
-            return blk(inp)
-        now = [g.get_state() for g, _ in at_forward]
-        for g, state in at_forward:
-            g.set_state(state)
-        try:
-            return blk(inp)
-        finally:
-            for (g, _), state in zip(at_forward, now):
+        def run(inp):
+            if not calls:               # the forward itself
+                calls.append(1)
+                return fn(inp)
+            now = [g.get_state() for g, _ in at_forward]
+            for g, state in at_forward:
                 g.set_state(state)
+            try:
+                return fn(inp)
+            finally:
+                for (g, _), state in zip(at_forward, now):
+                    g.set_state(state)
 
+    if collective:
+        with set_checkpoint_early_stop(False):
+            return checkpoint(run, x, use_reentrant=False)
     return checkpoint(run, x, use_reentrant=False)
 
 
@@ -187,14 +202,23 @@ class TransformerLM(Module):
     every intermediate, at about 1.3x the FLOPs; the flash kernel then
     launches twice per layer and step)."""
 
+    #: the summed MoE load-balancing loss of the last forward (0.0 for a
+    #: dense model)
+    l_aux = 0.0
+    #: the routing stats (drop_rate, expert_fraction) of the last forward,
+    #: averaged over the MoE blocks
+    last_moe_stats = None
+
     def __init__(self, vocab_size: int, embed_dim: int = 256,
                  num_heads: int = 8, num_layers: int = 4,
                  max_len: int = 1024, mlp_ratio: int = 4,
                  dropout: float = 0.0, use_flash: bool = False,
                  remat: bool = False,
                  num_kv_heads: Optional[int] = None,
-                 use_rope: bool = False, tie_embeddings: bool = True, *,
-                 causal: bool = True, seed: int = 1,
+                 use_rope: bool = False, tie_embeddings: bool = True,
+                 sequence_parallel: Optional[str] = None,
+                 n_experts: int = 0, expert_parallel: Optional[str] = None,
+                 *, causal: bool = True, seed: int = 1,
                  device=DEFAULT_DEVICE, dtype=torch.float32):
         super().__init__()
         dev = resolve_device(device)
@@ -207,6 +231,9 @@ class TransformerLM(Module):
         self.remat = remat
         self.causal = causal
         self.tie_embeddings = tie_embeddings
+        self.sequence_parallel = sequence_parallel
+        self.n_experts = n_experts
+        self.expert_parallel = expert_parallel
         normal = bt_init.RandomNormal(0.0, 0.02)
         self.new_param("tok_embed", normal((vocab_size, embed_dim), rng),
                        dev, dtype)
@@ -217,7 +244,9 @@ class TransformerLM(Module):
             setattr(self, f"block{i}", TransformerBlock(
                 embed_dim, num_heads, mlp_ratio=mlp_ratio, use_flash=use_flash,
                 num_kv_heads=num_kv_heads, rotary=use_rope, dropout=dropout,
-                causal=causal, rng=rng, device=dev, dtype=dtype))
+                sequence_parallel=sequence_parallel, n_experts=n_experts,
+                expert_parallel=expert_parallel, causal=causal, rng=rng,
+                device=dev, dtype=dtype))
         self.ln_f = LayerNorm(embed_dim, device=dev, dtype=dtype)
         if not tie_embeddings:
             self.head = Linear(embed_dim, vocab_size, with_bias=False,
@@ -247,10 +276,36 @@ class TransformerLM(Module):
         t = ids.shape[1]
         x = F.embedding(ids, self.tok_embed)
         if not self.use_rope:  # RoPE rotates inside each attention layer
-            x = x + self.pos_embed[:t][None]
+            pos0 = 0
+            if self.sequence_parallel is not None:
+                from bigdl_tpu_torch.parallel.collectives import group_rank
+
+                # this rank's block of the sequence; the start clamps so
+                # the slice fits the table, as lax.dynamic_slice does
+                pos0 = min(group_rank(self.sequence_parallel) * t,
+                           max(0, self.max_len - t))
+            x = x + self.pos_embed[pos0:pos0 + t][None]
         remat = self.remat and torch.is_grad_enabled()
+        moe = self.n_experts > 0
+        collective = (self.sequence_parallel is not None
+                      or self.expert_parallel is not None)
+        if not moe:
+            for blk in self.blocks():
+                x = (_checkpointed(blk, x, collective=collective) if remat
+                     else blk(x))
+            return self._head(self.ln_f(x))
+        # MoE: the aux loss and the stats leave each (checkpointed) block
+        # as outputs, never through module state set in the recompute
+        aux_total, stats = 0.0, []
         for blk in self.blocks():
-            x = _checkpointed(blk, x) if remat else blk(x)
+            x, aux, st = (_checkpointed(blk, x, blk.forward_with_aux_stats,
+                                        collective) if remat
+                          else blk.forward_with_aux_stats(x))
+            aux_total = aux_total + aux
+            stats.append(st)
+        self.l_aux = aux_total
+        self.last_moe_stats = {k: sum(st[k] for st in stats) / len(stats)
+                               for k in stats[0]}
         return self._head(self.ln_f(x))
 
     # ------------------------------------------------ analytic cost model

@@ -37,8 +37,15 @@ Paged KV (``*_paged``): a layer's KV lives in a page pool of
 table names each row's pages; every paged step scatters its new K/V
 through the table in place and attends the gathered row view under the
 same position mask as the dense ragged paths; the int8 pool's scales
-share their codes' page and offset. Sequence parallelism (ring
-attention) and MoE are not ported yet.
+share their codes' page and offset.
+
+``sequence_parallel`` names an axis of ``Engine.default_mesh()`` (or a
+process group) over which each rank holds one block of the sequence:
+the full-sequence ``forward`` rotates its RoPE positions from rank x T
+and attends through ``parallel/ring_attention.py`` (the flash ring with
+``use_flash``); the KV-cache paths ignore it, as in JAX. A block with
+``n_experts > 0`` replaces its MLP by ``parallel/moe.py``'s ``MoEMLP``
+(over ``expert_parallel``, an axis, when given).
 """
 
 from __future__ import annotations
@@ -269,7 +276,8 @@ class MultiHeadAttention(Module):
                  causal: bool = False, use_flash: bool = False,
                  num_kv_heads: Optional[int] = None,
                  rotary: bool = False, rotary_base: float = 10000.0,
-                 dropout: float = 0.0, with_bias: bool = True, *,
+                 dropout: float = 0.0, with_bias: bool = True,
+                 sequence_parallel: Optional[str] = None, *,
                  rng: Optional[RandomGenerator] = None,
                  device=DEFAULT_DEVICE, dtype=torch.float32):
         super().__init__()
@@ -293,6 +301,7 @@ class MultiHeadAttention(Module):
         self.causal = causal
         self.use_flash = use_flash
         self.dropout_p = dropout
+        self.sequence_parallel = sequence_parallel
         kv_dim = self.num_kv_heads * self.head_dim
         self.qkv = Linear(embed_dim, embed_dim + 2 * kv_dim,
                           with_bias=with_bias, rng=rng, device=device,
@@ -517,10 +526,23 @@ class MultiHeadAttention(Module):
         b, t, _ = input.shape
         qkv = self.qkv(input.reshape(b * t, self.embed_dim)).reshape(b, t, -1)
         q, k, v = self._split_kv_step(qkv)
+        sp = self.sequence_parallel
         if self.rotary:
-            positions = torch.arange(t, device=input.device)
+            from bigdl_tpu_torch.parallel.collectives import group_rank
+
+            # a sequence-parallel rank holds positions [rank t, rank t + t)
+            pos0 = group_rank(sp) * t if sp is not None else 0
+            positions = pos0 + torch.arange(t, device=input.device)
             q, k = self._rope(q, positions), self._rope(k, positions)
-        if self.use_flash:
+        if sp is not None:
+            from bigdl_tpu_torch.parallel.ring_attention import \
+                ring_attention
+
+            # GQA kv heads go in un-expanded: the flash ring rotates them
+            # so, the dense ring expands them itself
+            o = ring_attention(q, k, v, sp, causal=self.causal,
+                               use_flash=self.use_flash)
+        elif self.use_flash:
             from bigdl_tpu_torch.ops.flash_attention import flash_attention
 
             o = flash_attention(q, k, v, causal=self.causal)
@@ -536,15 +558,23 @@ class MultiHeadAttention(Module):
 
 class TransformerBlock(Module):
     """Pre-norm block: x + MHA(LN(x)); x + MLP(LN(x)), with a tanh-GELU
-    MLP of ``mlp_ratio`` x embed; with ``dropout > 0`` the attention
-    output and the MLP output are dropped in ``forward``. ``causal``
-    masks the full-sequence ``forward`` only: the KV-cache paths are
-    causal whatever it says, as in the JAX package."""
+    MLP of ``mlp_ratio`` x embed, or with ``n_experts > 0`` a top-1
+    mixture of such experts (``parallel/moe.py``'s ``MoEMLP`` as
+    ``mlp``, over the ``expert_parallel`` axis when given); with
+    ``dropout > 0`` the attention output and the MLP output are dropped
+    in ``forward``. ``causal`` masks the full-sequence ``forward`` only:
+    the KV-cache paths are causal whatever it says, as in the JAX
+    package. ``forward_with_aux_stats`` returns the MoE's load-balancing
+    loss and routing stats beside the output (0.0 and None for a dense
+    block); ``forward`` stashes them on ``mlp.l_aux`` /
+    ``mlp.last_stats``."""
 
     def __init__(self, embed_dim: int, num_heads: int, mlp_ratio: int = 4,
                  use_flash: bool = False,
                  num_kv_heads: Optional[int] = None, rotary: bool = False,
-                 dropout: float = 0.0, *, causal: bool = True,
+                 dropout: float = 0.0, sequence_parallel: Optional[str] = None,
+                 n_experts: int = 0, expert_parallel: Optional[str] = None, *,
+                 causal: bool = True,
                  rng: Optional[RandomGenerator] = None,
                  device=DEFAULT_DEVICE, dtype=torch.float32):
         super().__init__()
@@ -554,28 +584,56 @@ class TransformerBlock(Module):
         self.attn = MultiHeadAttention(embed_dim, num_heads, causal=causal,
                                        num_kv_heads=num_kv_heads,
                                        rotary=rotary, use_flash=use_flash,
-                                       dropout=dropout, rng=rng, **kw)
+                                       dropout=dropout,
+                                       sequence_parallel=sequence_parallel,
+                                       rng=rng, **kw)
         self.ln2 = LayerNorm(embed_dim, **kw)
-        self.fc1 = Linear(embed_dim, mlp_ratio * embed_dim, rng=rng, **kw)
-        self.fc2 = Linear(mlp_ratio * embed_dim, embed_dim, rng=rng, **kw)
+        self.n_experts = n_experts
+        if n_experts > 0:
+            from bigdl_tpu_torch.parallel.moe import MoEMLP
+
+            self.mlp = MoEMLP(embed_dim, mlp_ratio * embed_dim, n_experts,
+                              expert_parallel=expert_parallel, rng=rng, **kw)
+        else:
+            self.fc1 = Linear(embed_dim, mlp_ratio * embed_dim, rng=rng,
+                              **kw)
+            self.fc2 = Linear(mlp_ratio * embed_dim, embed_dim, rng=rng,
+                              **kw)
         self.dropout_p = dropout
         if dropout > 0:
             self.drop = Dropout(dropout)
 
-    def _mlp(self, x):
+    def _ffn(self, x):
+        """(MLP(LN(x)), aux loss, routing stats)."""
+        if self.n_experts > 0:
+            return self.mlp.forward_with_stats(self.ln2(x))
         b, t, c = x.shape
         h = self.fc1(self.ln2(x).reshape(b * t, c))
-        return self.fc2(F.gelu(h, approximate="tanh")).reshape(b, t, c)
+        return (self.fc2(F.gelu(h, approximate="tanh")).reshape(b, t, c),
+                0.0, None)
 
     def _mlp_residual(self, x):
-        return x + self._mlp(x)
+        return x + self._ffn(x)[0]
 
-    def forward(self, input):
+    def forward_with_aux_stats(self, input):
+        """(output, MoE aux loss, MoE routing stats) of the full-sequence
+        pass, with nothing stashed on the module."""
         x = input + self.attn(self.ln1(input))
-        h = self._mlp(x)
+        h, aux, stats = self._ffn(x)
         if self.dropout_p > 0:
             h = self.drop(h)
-        return x + h
+        return x + h, aux, stats
+
+    def forward_with_aux(self, input):
+        """(output, MoE aux loss)."""
+        out, aux, _ = self.forward_with_aux_stats(input)
+        return out, aux
+
+    def forward(self, input):
+        out, aux, stats = self.forward_with_aux_stats(input)
+        if self.n_experts > 0:
+            self.mlp.l_aux, self.mlp.last_stats = aux, stats
+        return out
 
     def forward_step(self, x_t, cache, pos):
         h, cache = self.attn.forward_step(self.ln1(x_t), cache, pos)

@@ -19,8 +19,13 @@ the JAX package's numerics rather than ``F.batch_norm``'s:
 
 In training mode the forward assigns new running statistics to its
 buffers (never in place), so the train step reads them back from the
-model. The JAX package's sync-BN (``global_stats_axis``) belongs to the
-distributed slice: a BN given one raises ``NotImplementedError``.
+model. Sync-BN: ``global_stats_axis`` names an axis of
+``Engine.default_mesh()`` (or tuple of axes), and the batch statistics
+are those of the global batch over its ranks, as JAX's ``pmean`` gives
+them: the mean and E[x - mean]^2 + mean^2 are averaged over the group
+(``parallel/collectives.py::pmean``, differentiable, so the backward
+sees the global statistics), the variance is the average second moment
+less the squared global mean, and the unbiased count is the global n.
 
 The LRNs, as in the JAX package, sum the squares over a window padded
 with ``(size - 1) // 2`` zeros before and ``size - 1 - (size - 1) // 2``
@@ -56,12 +61,8 @@ class BatchNormalization(Module):
                  global_stats_axis: str = None, format: str = "NCHW", *,
                  device=DEFAULT_DEVICE, dtype=torch.float32):
         super().__init__()
-        if global_stats_axis is not None:
-            raise NotImplementedError(
-                "sync-BN (global_stats_axis) reduces the statistics over a "
-                "process group, the distributed slice, not ported yet: see "
-                "ROADMAP.md, Queue 1 item 10")
         dev = resolve_device(device)
+        self.global_stats_axis = global_stats_axis
         self.n_output = n_output
         self.eps = eps
         self.momentum = momentum
@@ -87,6 +88,16 @@ class BatchNormalization(Module):
         if self.training:
             var, mean = torch.var_mean(x.float(), dim=axes, correction=0)
             n = x.numel() / x.shape[ch]
+            if self.global_stats_axis is not None:
+                from bigdl_tpu_torch.parallel import collectives as C
+
+                # the global variance needs the spread of the per-rank
+                # means too: E[x^2] - E[x]^2 over the whole batch
+                axis = self.global_stats_axis
+                mean_g = C.pmean(mean, axis)
+                var = C.pmean(var + mean ** 2, axis) - mean_g ** 2
+                mean = mean_g
+                n = n * C.group_size(axis)
             with torch.no_grad():
                 unbiased = var * n / max(1.0, n - 1)
                 m = self.momentum

@@ -57,10 +57,11 @@ of the optim method, made before the next step can change a tensor in
 place (pinned copies queued on the stream and an event the writer waits
 on); the method carries the loop's optimizer slots (``_train_slots``),
 which the JAX local loop drops, so ``load_latest_checkpoint`` and a new
-``optimize()`` resume the run exactly. Not ported yet: the
-observability instruments (ROADMAP.md, Queue 1 item 11); the
-distributed loop (a ``ShardedDataSet``) and orbax slot checkpoints
-belong to the distributed slice (item 10).
+``optimize()`` resume the run exactly. A ``ShardedDataSet`` trains
+through the ``DistriOptimizer`` (``parallel/distri_optimizer.py``). Not
+ported yet: the observability instruments (ROADMAP.md, Queue 1 item
+11); orbax slot checkpoints, whose sharded counterpart comes with
+tensor-parallel serving (item 10).
 """
 
 from __future__ import annotations
@@ -386,20 +387,21 @@ class Optimizer:
     """Builder: ``Optimizer(model, dataset, criterion, batch_size,
     end_when)`` (``end_when`` default: one epoch) returns a
     :class:`LocalOptimizer` for an in-memory dataset or a list of
-    records, configured by the ``set_*`` methods and run by
-    ``optimize()``, which trains on the device of the model's
+    records and a ``DistriOptimizer`` (``parallel/distri_optimizer.py``)
+    for a ``ShardedDataSet``, configured by the ``set_*`` methods and run
+    by ``optimize()``, which trains on the device of the model's
     parameters."""
 
     def __new__(cls, model: Module = None, dataset=None, criterion=None,
                 batch_size: Optional[int] = None,
-                end_when: Optional[Trigger] = None, training_set=None):
+                end_when: Optional[Trigger] = None, training_set=None, **kw):
         if cls is Optimizer:
             dataset = dataset if dataset is not None else training_set
             if isinstance(dataset_base(dataset), ShardedDataSet):
-                raise NotImplementedError(
-                    "training on a ShardedDataSet is the distributed "
-                    "slice (DistriOptimizer), not ported yet: see "
-                    "ROADMAP.md, Queue 1 item 10")
+                from bigdl_tpu_torch.parallel.distri_optimizer import \
+                    DistriOptimizer
+
+                return object.__new__(DistriOptimizer)
             return object.__new__(LocalOptimizer)
         return object.__new__(cls)
 
@@ -462,9 +464,9 @@ class Optimizer:
         error)."""
         if slots_backend == "orbax":
             raise NotImplementedError(
-                "slots_backend='orbax' writes sharded slots of the "
-                "distributed loop, not ported yet: see ROADMAP.md, Queue 1 "
-                "item 10")
+                "slots_backend='orbax' writes the optimizer slots shard by "
+                "shard in a sharded format whose counterpart comes with "
+                "tensor-parallel serving: see ROADMAP.md, Queue 1 item 10")
         if slots_backend != "pickle":
             raise ValueError(f"unknown slots_backend {slots_backend!r}")
         self.checkpoint_path = path

@@ -1,0 +1,23 @@
+"""Distributed training over ``torch.distributed`` (port of
+``bigdl_tpu/parallel``): the engine and its named-axis mesh of ranks, the
+flat-parameter collectives, the ZeRO-1 ``DistriOptimizer``, ring and
+Ulysses attention, the GPipe pipeline and expert-parallel MoE.
+Tensor-parallel serving (``tp.py``'s exports) is ROADMAP.md, Queue 1
+item 10, not ported yet."""
+
+from bigdl_tpu_torch.parallel.engine import Engine, EngineType, Mesh
+from bigdl_tpu_torch.parallel.all_reduce import (
+    AllReduceParameter, flatten_params, unflatten_params, pad_to_multiple,
+    compress, decompress,
+)
+from bigdl_tpu_torch.parallel.distri_optimizer import DistriOptimizer
+from bigdl_tpu_torch.parallel.ring_attention import (ring_attention,
+                                                     ulysses_attention)
+from bigdl_tpu_torch.parallel.pipeline import pipeline_spmd, stack_stage_params
+from bigdl_tpu_torch.parallel.moe import MoEMLP, moe_spmd
+
+__all__ = ["Engine", "EngineType", "Mesh", "AllReduceParameter",
+           "flatten_params", "unflatten_params", "pad_to_multiple",
+           "compress", "decompress", "DistriOptimizer", "ring_attention",
+           "ulysses_attention", "pipeline_spmd", "stack_stage_params",
+           "MoEMLP", "moe_spmd"]

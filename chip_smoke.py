@@ -162,7 +162,9 @@ a non-zero exit, at the first phase that does not hold:
    counts, each asserted 0; ``launches_quant`` is quant_scoring's;
    ``launches_beam``, ``launches_predict``, ``launches_noncausal`` and
    ``launches_checkpoint_train`` are slice 9's phases'; ``launches_text``
-   is text_train's and text_lm's), error, times and bound.
+   is text_train's and text_lm's; ``launches_distri``,
+   ``launches_ring`` and ``launches_longcontext`` are slice 13's, the
+   spawned ranks' own counts summed), error, times and bound.
 
 Before the kernels line, the vision path (ResNet-50 at full width and
 depth, LeNet-5, the LocalOptimizer), which launches no kernel of the
@@ -255,6 +257,42 @@ Then the table and shape layers and the text path (slice 12):
   16 encoded documents of 128 tokens scored by the serving flagship's
   forward (8 flash launches) and continued by ``generate``, whose rows
   decode back to text beginning with their prompts'.
+
+Then data- and sequence-parallel training (slice 13):
+
+- distri_train: over a world-of-one NCCL group made with a FileStore,
+  the training flagship (32 x 1024, bf16 over f32 masters, SGD with
+  momentum) through ``Optimizer`` on a ``ShardedDataSet`` (the factory
+  gives the ``DistriOptimizer``), 4 iterations in each mode ("sharded"
+  on the f32 wire and on the bf16 wire, "allreduce") against the
+  ``LocalOptimizer`` on the same weights and batch: parameters within
+  ``DISTRI_F32_RTOL`` of the largest update (f32 wire) or, element by
+  element, a bf16 rounding of the weight and of its update (bf16 wire),
+  the unchanged weights shown to fail each allowance, ms a step against
+  the local loop, peak memory, the NCCL
+  calls, 8 flash launches an iteration; ring_one: the flash ring over
+  that world of one (one causal launch, equal to the kernel's output);
+  distri_main: ``lenet.train --distributed`` over it;
+- ring_gate: four ranks on the one card through the launcher
+  (``chip_smoke.py --ring-rank`` under ``tools.launch --procs 4
+  --backend gloo``: NCCL refuses two ranks on one device; CUDA tensors
+  staged through the host), each one 512-position block of the serving
+  flagship's attention (B 4, H 8, H_kv 2, T 2048, d 64): the flash ring,
+  the dense ring and Ulysses in bf16 and the flash ring in f32 (the
+  long-context main's dtype), causal and not, forward and backward, held
+  to one kernel call over all 2048 positions and to the plain version by
+  phase 3's and phase 7's rules; flash launches by rank as reckoned
+  (causal r + 1, total 10; non-causal 4 each, total 16; in each dtype);
+- longcontext_train: ``python -m bigdl_tpu_torch.tools.launch --procs 4
+  --backend gloo -m bigdl_tpu_torch.example.longcontext.train
+  --seq-parallel 4`` at the serving flagship's widths (4 x 2048 tokens,
+  f32, remat): its loss and gradient norm within ``LONGCONTEXT_RTOL`` of
+  the same main in one process at every step and of a plain-attention
+  step 1 computed here, and a ring blind to its past blocks (that step 1
+  on rows cut into the 4 blocks) shown to fail that tolerance; then with
+  ``--experts 4`` (losses finite and falling, the routing stats
+  printed): s a step, tokens/s, peak memory by rank, the transport;
+  flash launches 2 x 8 layers x 10 a step.
 
 Earlier lines are one JSON object each; the last line is
 ``{"ok": true, "device": {...}}``. Exits non-zero without that line when
@@ -475,6 +513,43 @@ ZOO_MAINS = dict(cifar_images=512, mnist_images=1024, batch=64,
                  folder_per_class=64, folder_side=256, inception_batch=32)
 # input_pipeline: run_input_pipeline_perf's JAX defaults
 PIPELINE = dict(batch_size=64, n_records=512, image=256, crop=224)
+
+# slice 13. distri_train: the training flagship through the
+# DistriOptimizer at a world of one (NCCL), each mode against the
+# LocalOptimizer on the same weights and batch, bf16 compute over f32
+# masters. The f32 wire does the local step's arithmetic (a reduce-scatter
+# and an all-gather over one rank copy), so its parameters may differ only
+# by the run-to-run order of the card's gradient sums: DISTRI_F32_RTOL of
+# the largest update. The bf16 wire rounds each gradient to bf16 (to
+# nearest: 2^-8 of it at most, so 2^-8 of the update while the gradients
+# keep their signs) and the updated f32 masters to bf16 on the all-gather
+# (2^-8 of the weight): element by element, 2^-8 |w| + 2^-7 |dw| of the
+# local run's weight w and update dw. Each mode also shows that the
+# unchanged weights would fail its allowance
+DISTRI_TRAIN = dict(iterations=4, lr=1e-3, momentum=0.9)
+DISTRI_MODES = [("sharded_f32_wire", "sharded", None),
+                ("sharded_bf16_wire", "sharded", "bfloat16"),
+                ("allreduce", "allreduce", None)]
+DISTRI_F32_RTOL = 1e-3
+# distri_main: lenet.train --distributed at the world of one
+DISTRI_MAIN = dict(images=1024, batch=128, iterations=8)
+# ring_gate: the serving flagship's attention over 4 ranks on the card,
+# in bf16 and in f32 (the long-context main's dtype)
+RING = dict(b=4, h=8, h_kv=2, t=2048, d=64, ranks=4)
+RING_TIMEOUT_S = 600
+# longcontext_train: the long-context main at the serving flagship's
+# widths, 4 sequence-parallel ranks against one process; f32, so the two
+# runs differ only by the order of their sums (the ring's lse merge, the
+# all-reduce over the ranks). Held at every step: the loss and the L2 norm
+# of the averaged gradient, each within LONGCONTEXT_RTOL of the one-process
+# run's, and at step 1 of a plain-attention run in this process. The
+# tolerance sits between that reading and a broken ring's: the same step
+# with every block blind to the blocks before it (the ring without its
+# past-block launches), which the script computes and must see rejected
+LONGCONTEXT = dict(ranks=4, steps=5, vocab=32000, embed=512, heads=8,
+                   kv_heads=2, layers=8, batch=4, seq_len=2048,
+                   timeout_s=900)
+LONGCONTEXT_RTOL = 1e-5
 
 
 def emit(obj) -> None:
@@ -4158,6 +4233,539 @@ def text_lm(torch, fa, smi) -> int:
     return launches
 
 
+# ------------------------------------------------------------- slice 13
+def _lm_flagship(torch):
+    from bigdl_tpu_torch.models.transformer import TransformerLM
+
+    return TransformerLM(TRAIN["vocab"], TRAIN["embed_dim"], TRAIN["heads"],
+                         TRAIN["layers"], TRAIN["seq_len"], use_flash=True,
+                         seed=0, device="cuda", dtype=torch.float32)
+
+
+def _median_ms(rows, batch):
+    """The median step ms of a loop's logged (loss, records/s) rows, the
+    first (warm-up) iteration left out."""
+    ms = [batch / r[1] * 1e3 for r in rows]
+    return statistics.median(ms[1:] or ms)
+
+
+def distri_train(torch, fa, smi) -> int:
+    """distri_train: the training flagship (32 x 1024, bf16 compute over
+    f32 masters, SGD with momentum) through ``Optimizer`` on a
+    ``ShardedDataSet`` (the factory gives the DistriOptimizer) over the
+    world-of-one NCCL group, in each mode, against the ``LocalOptimizer``
+    on the same weights and batch. Returns the flash launches (8 an
+    iteration)."""
+    import numpy as np
+
+    from bigdl_tpu_torch.dataset import MiniBatch, ShardedDataSet
+    from bigdl_tpu_torch.models.perf import LMLoss
+    from bigdl_tpu_torch.optim import SGD, Optimizer, Trigger
+    from bigdl_tpu_torch.parallel import DistriOptimizer
+    from bigdl_tpu_torch.parallel import collectives as C
+
+    cfg = DISTRI_TRAIN
+    rs = np.random.RandomState(0)
+    ids = rs.randint(0, TRAIN["vocab"], (TRAIN_BATCH, TRAIN["seq_len"]))
+    p0 = [p.detach().clone() for p in _lm_flagship(torch).parameters()]
+
+    def run(dataset, **kw):
+        model = _lm_flagship(torch)
+        opt = Optimizer(model=model, dataset=dataset,
+                        criterion=LMLoss(TRAIN["vocab"]),
+                        batch_size=TRAIN_BATCH,
+                        end_when=Trigger.max_iteration(cfg["iterations"]),
+                        **kw)
+        opt.set_optim_method(SGD(learning_rate=cfg["lr"],
+                                 momentum=cfg["momentum"], dampening=0.0))
+        opt.set_compute_dtype(torch.bfloat16)
+        fa.launches = 0
+        C.calls.clear()
+        torch.cuda.reset_peak_memory_stats()
+        rows = logged("bigdl_tpu_torch.optim", opt.optimize)
+        torch.cuda.synchronize()
+        return opt, model, {
+            "step_ms": _median_ms(rows, TRAIN_BATCH),
+            "losses": [r[0] for r in rows], "flash_launches": fa.launches,
+            "backend_calls": dict(C.calls),
+            "peak_memory_bytes": torch.cuda.max_memory_allocated()}
+
+    _, local, local_row = run([MiniBatch(ids, ids)])
+    want = [p.detach() for p in local.parameters()]
+    step = [a - b for a, b in zip(want, p0)]
+    update = max(d.abs().max().item() for d in step)
+
+    def over(params, wire):
+        """The largest |w - w_local| over its allowance (passes <= 1)."""
+        worst = 0.0
+        for w, wl, d in zip(params, want, step):
+            err = (w.detach() - wl).abs()
+            allow = (2 ** -8 * wl.abs() + 2 ** -7 * d.abs() if wire
+                     else DISTRI_F32_RTOL * update)
+            worst = max(worst, torch.where(err == 0, 0.0, err / allow)
+                        .max().item())
+        return worst
+
+    rows, launches = {}, 0
+    for name, sync, wire in DISTRI_MODES:
+        opt, model, row = run(
+            ShardedDataSet([MiniBatch(ids, ids)]), parameter_sync=sync,
+            compress_dtype=getattr(torch, wire) if wire else None)
+        assert isinstance(opt, DistriOptimizer), type(opt)
+        row.update({
+            "max_abs_err_vs_local": max(
+                (a.detach() - b).abs().max().item()
+                for a, b in zip(model.parameters(), want)),
+            "allowance": ("2^-8 |w_local| + 2^-7 |dw_local|" if wire else
+                          DISTRI_F32_RTOL * update),
+            "err_over_allowance": over(model.parameters(), wire),
+            "unchanged_over_allowance": over(p0, wire),
+            "step_ms_over_local": row["step_ms"] - local_row["step_ms"]})
+        rows[name] = row
+        launches += row["flash_launches"]
+    emit({"phase": "distri_train", "nvidia_smi": smi,
+          "config": {**TRAIN, "batch": TRAIN_BATCH, "world": 1,
+                     "backend": "nccl", "compute_dtype": "bfloat16",
+                     "masters": "float32", "iterations": cfg["iterations"],
+                     "optimizer": f"SGD({cfg['lr']}, momentum "
+                                  f"{cfg['momentum']})"},
+          "local": local_row, "modes": rows, "max_update": update,
+          "f32_rtol_of_update": DISTRI_F32_RTOL})
+    per_run = TRAIN["layers"] * cfg["iterations"]
+    assert local_row["flash_launches"] == per_run, local_row
+    for name, row in rows.items():
+        assert row["flash_launches"] == per_run, (name, row)
+        assert row["err_over_allowance"] <= 1.0, (name, row)
+        assert row["unchanged_over_allowance"] > 1.0, (name, row)
+        assert row["backend_calls"], (name, "no NCCL call")
+    return launches
+
+
+def ring_one(torch, fa, smi) -> int:
+    """The flash ring over the world-of-one NCCL group: one causal launch
+    over the whole 2048 positions, equal to the kernel's own output."""
+    from bigdl_tpu_torch.parallel import ring_attention
+    from bigdl_tpu_torch.parallel import collectives as C
+
+    cfg = RING
+    g = torch.Generator(device="cuda").manual_seed(5)
+    q = torch.randn(cfg["b"], cfg["h"], cfg["t"], cfg["d"], generator=g,
+                    device="cuda", dtype=torch.bfloat16)
+    k, v = (torch.randn(cfg["b"], cfg["h_kv"], cfg["t"], cfg["d"],
+                        generator=g, device="cuda", dtype=torch.bfloat16)
+            for _ in range(2))
+    fa.launches = 0
+    out = ring_attention(q, k, v, None, causal=True, use_flash=True)
+    torch.cuda.synchronize()
+    launches = fa.launches
+    same = torch.equal(out, fa.flash_attention(q, k, v, causal=True))
+    emit({"phase": "ring_one", "nvidia_smi": smi, "world": 1,
+          "transport": C.transport(None, q), "flash_launches": launches,
+          "equal_to_one_kernel_call": same})
+    assert launches == 1 and same
+    return launches
+
+
+def distri_main(torch, fa, smi) -> int:
+    """distri_main: ``lenet/train.py --distributed`` at the world of one
+    on the card: the sharded DistriOptimizer over the NCCL group."""
+    import tempfile
+
+    import numpy as np
+
+    from bigdl_tpu_torch.dataset import mnist
+    from bigdl_tpu_torch.models import train_utils
+    from bigdl_tpu_torch.models.lenet import train as lenet_train
+    from bigdl_tpu_torch.parallel import DistriOptimizer
+    from bigdl_tpu_torch.parallel import collectives as C
+
+    built = []
+    real = train_utils.build_optimizer
+
+    def spy(*a, **k):
+        built.append(real(*a, **k))
+        return built[-1]
+
+    fa.launches = 0
+    C.calls.clear()
+    rs = np.random.RandomState(3)
+    with tempfile.TemporaryDirectory() as tmp:
+        imgs, labels = _synth_digits(np, DISTRI_MAIN["images"], rs)
+        for split in ("train", "t10k"):
+            mnist.write_images(os.path.join(tmp, f"{split}-images-idx3-ubyte"),
+                               imgs)
+            mnist.write_labels(os.path.join(tmp, f"{split}-labels-idx1-ubyte"),
+                               labels)
+        train_utils.build_optimizer = spy
+        try:
+            model, rows, secs = _run_main(torch, lenet_train.main, [
+                "-f", tmp, "-b", str(DISTRI_MAIN["batch"]),
+                "--max-iteration", str(DISTRI_MAIN["iterations"]),
+                "--distributed"])
+        finally:
+            train_utils.build_optimizer = real
+    opt = built[0]
+    losses = [r[0] for r in rows]
+    emit({"phase": "distri_main", "nvidia_smi": smi, "main": "lenet.train",
+          "argv": ["--distributed", "-b", DISTRI_MAIN["batch"],
+                   "--max-iteration", DISTRI_MAIN["iterations"]],
+          "optimizer": type(opt).__name__,
+          "parameter_sync": opt.parameter_sync, "world": opt.n_data,
+          "backend_calls": dict(C.calls), "seconds": secs,
+          "losses": losses, "flash_launches": fa.launches})
+    assert isinstance(opt, DistriOptimizer) and opt.n_data == 1
+    assert len(losses) == DISTRI_MAIN["iterations"], losses
+    assert all(math.isfinite(x) for x in losses)
+    assert C.calls["reduce_scatter"] == DISTRI_MAIN["iterations"]
+    assert fa.launches == 0
+    return fa.launches
+
+
+def world_of_one(torch, fa, smi):
+    """distri_train, ring_one and distri_main over a world-of-one NCCL
+    group made with a FileStore, left when they end. Returns (the
+    DistriOptimizer runs' launches, ring_one's, distri_main's)."""
+    import tempfile
+
+    from bigdl_tpu_torch.parallel import Engine
+
+    with tempfile.TemporaryDirectory() as tmp:
+        Engine.init(f"file://{tmp}/store", 1, 0, device="cuda")
+        try:
+            assert Engine.backend() == "nccl", Engine.backend()
+            return (distri_train(torch, fa, smi), ring_one(torch, fa, smi),
+                    distri_main(torch, fa, smi))
+        finally:
+            Engine.reset()
+
+
+def ring_rank() -> int:
+    """One rank of ring_gate, run by the launcher on the card
+    (``chip_smoke.py --ring-rank``): its checks, then its record as one
+    JSON line, the ranks printing in turn."""
+    import torch
+
+    sys.path.insert(0, ROOT)
+    from bigdl_tpu_torch.ops import build
+    from bigdl_tpu_torch.ops import flash_attention as fa
+    from bigdl_tpu_torch.parallel import ring_attention, ulysses_attention
+    from bigdl_tpu_torch.parallel import collectives as C
+
+    rank, world = C.group_rank(None), C.group_size(None)
+    rec = _ring_checks(torch, fa, build, C, ring_attention,
+                       ulysses_attention, rank, world)
+    for turn in range(world):
+        C.barrier(None)
+        if turn == rank:
+            sys.stdout.write(json.dumps(rec) + "\n")
+            sys.stdout.flush()
+    return 0
+
+
+def _ring_checks(torch, fa, build, C, ring_attention, ulysses_attention,
+                 rank, world) -> dict:
+    cfg = RING
+    bf16 = torch.bfloat16
+    g = torch.Generator(device="cuda").manual_seed(11)
+    full = {"q": torch.randn(cfg["b"], cfg["h"], cfg["t"], cfg["d"],
+                             generator=g, device="cuda", dtype=bf16)}
+    for n in ("k", "v"):
+        full[n] = torch.randn(cfg["b"], cfg["h_kv"], cfg["t"], cfg["d"],
+                              generator=g, device="cuda", dtype=bf16)
+    d_out = torch.randn(cfg["b"], cfg["h"], cfg["t"], cfg["d"], generator=g,
+                        device="cuda", dtype=torch.float32)
+    blk = cfg["t"] // world
+    rows = slice(rank * blk, (rank + 1) * blk)
+    rec = {"rank": rank, "library": os.path.basename(build.load()._name),
+           "transport": None}
+
+    def block(x):
+        return x[:, :, rows].detach().clone().requires_grad_(True)
+
+    def reference(causal, q, k, v):
+        """(out, dq, dk, dv) of one kernel call over the whole sequence
+        and of the plain version, each cut to this rank's block."""
+        res = {}
+        for label in ("kernel", "plain"):
+            qf, kf, vf = (x.detach().clone().requires_grad_(True)
+                          for x in (q, k, v))
+            if label == "kernel":
+                o = fa.flash_attention(qf, kf, vf, causal=causal)
+            else:
+                kx = kf.repeat_interleave(q.shape[1] // k.shape[1], 1)
+                vx = vf.repeat_interleave(q.shape[1] // k.shape[1], 1)
+                o = fa.flash_attention_reference(
+                    qf.float(), kx.float(), vx.float(), causal)[0]
+            (o.float() * d_out).sum().backward()
+            res[label] = [t[:, :, rows] for t in
+                          (o.detach(), qf.grad, kf.grad, vf.grad)]
+        return res
+
+    def held(got, ref, dtype="bfloat16"):
+        errs = {"out": tol_excess(torch, got[0], ref[0], RTOL[dtype])}
+        for gname, a, b in zip(("dq", "dk", "dv"), got[1:], ref[1:]):
+            errs[gname] = grad_excess(torch, a, b, BWD_RTOL[dtype])
+        return errs
+
+    def run(causal, flash, q, k, v, kind="ring"):
+        qb, kb, vb = block(q), block(k), block(v)
+        C.barrier(None)
+        fa.launches = 0
+        t0 = time.monotonic()
+        if kind == "ring":
+            o = ring_attention(qb, kb, vb, None, causal=causal,
+                               use_flash=flash)
+        else:
+            o = ulysses_attention(qb, kb, vb, None, causal=causal)
+        torch.cuda.synchronize()
+        t_fwd = time.monotonic() - t0
+        launches = fa.launches
+        (o.float() * d_out[:, :, rows]).sum().backward()
+        torch.cuda.synchronize()
+        t_all = time.monotonic() - t0
+        rec["transport"] = C.transport(None, qb)
+        return ([o.detach(), qb.grad, kb.grad, vb.grad], launches,
+                t_fwd * 1e3, t_all * 1e3)
+
+    q, k, v = full["q"], full["k"], full["v"]
+    for causal in (True, False):
+        ref = reference(causal, q, k, v)
+        tag = "causal" if causal else "noncausal"
+        for flash in (True, False):
+            got, launches, fwd_ms, all_ms = run(causal, flash, q, k, v)
+            name = f"{'flash' if flash else 'dense'}_{tag}"
+            rec[name] = {"launches": launches, "fwd_ms": fwd_ms,
+                         "fwd_bwd_ms": all_ms,
+                         "vs_kernel": held(got, ref["kernel"]),
+                         "vs_plain": held(got, ref["plain"])}
+        # the same flash calls alone (no exchange, no merge), and one
+        # exchange of the stacked K/V block, for the ring's overhead
+        kv = torch.stack([k[:, :, rows], v[:, :, rows]])
+        C.barrier(None)
+        t0 = time.monotonic()
+        srcs = [s for s in range(world) if not causal or s <= rank]
+        for s in srcs:
+            src_rows = slice(s * blk, (s + 1) * blk)
+            fa.flash_attention_with_lse(q[:, :, rows], k[:, :, src_rows],
+                                        v[:, :, src_rows],
+                                        causal=causal and s == rank)
+        torch.cuda.synchronize()
+        rec[f"flash_{tag}"]["calls_alone_ms"] = (time.monotonic() - t0) * 1e3
+        C.barrier(None)
+        t0 = time.monotonic()
+        C.ppermute(kv, None, 1)
+        torch.cuda.synchronize()
+        rec[f"flash_{tag}"]["one_exchange_ms"] = (time.monotonic() - t0) * 1e3
+        # Ulysses: H 8 over the ranks (K/V expanded to 8 heads)
+        rep = cfg["h"] // cfg["h_kv"]
+        kx, vx = k.repeat_interleave(rep, 1), v.repeat_interleave(rep, 1)
+        uref = reference(causal, q, kx, vx)
+        got, launches, fwd_ms, all_ms = run(causal, False, q, kx, vx,
+                                            kind="ulysses")
+        rec[f"ulysses_{tag}"] = {"launches": launches, "fwd_ms": fwd_ms,
+                                 "fwd_bwd_ms": all_ms,
+                                 "vs_kernel": held(got, uref["kernel"]),
+                                 "vs_plain": held(got, uref["plain"])}
+    # the flash ring in f32, as the long-context main runs it
+    q, k, v = (torch.randn(x.shape, generator=g, device="cuda")
+               for x in (q, k, v))
+    for causal in (True, False):
+        ref = reference(causal, q, k, v)
+        got, launches, fwd_ms, all_ms = run(causal, True, q, k, v)
+        rec[f"flash_f32_{'causal' if causal else 'noncausal'}"] = {
+            "launches": launches, "fwd_ms": fwd_ms, "fwd_bwd_ms": all_ms,
+            "vs_kernel": held(got, ref["kernel"], "float32"),
+            "vs_plain": held(got, ref["plain"], "float32")}
+    return rec
+
+
+def ring_gate(torch, fa, smi) -> int:
+    """ring_gate: four ranks on the one card through the launcher over
+    gloo (NCCL refuses two ranks on one device), each holding one
+    512-position block of the serving flagship's attention (B 4, H 8,
+    H_kv 2, T 2048, d 64): the flash ring, the dense ring and Ulysses in
+    bf16, and the flash ring in f32, causal and not, forward and
+    backward, held to one kernel call over all 2048 positions and to the
+    plain version; the flash launches by rank as reckoned (causal rank r:
+    r + 1; non-causal: 4). Returns the ring's launches."""
+    import tempfile
+
+    cfg = RING
+    with tempfile.TemporaryDirectory() as tmp:
+        ranks, secs = _launch(tmp, cfg["ranks"],
+                              [os.path.join(ROOT, "chip_smoke.py"),
+                               "--ring-rank"], RING_TIMEOUT_S)
+    assert [r["rank"] for r in ranks] == list(range(cfg["ranks"])), ranks
+    launches = {f"{ring}_{tag}": [r[f"{ring}_{tag}"]["launches"]
+                                  for r in ranks]
+                for ring in ("flash", "flash_f32")
+                for tag in ("causal", "noncausal")}
+    worst = {}
+    for rec in ranks:
+        for key, row in rec.items():
+            if isinstance(row, dict) and "vs_kernel" in row:
+                for ref in ("vs_kernel", "vs_plain"):
+                    for t, e in row[ref].items():
+                        k = f"{key}.{ref}.{t}"
+                        worst[k] = max(worst.get(k, 0.0), e)
+    emit({"phase": "ring_gate", "nvidia_smi": smi,
+          "shape": {k: cfg[k] for k in ("b", "h", "h_kv", "t", "d")},
+          "ranks": cfg["ranks"], "block": cfg["t"] // cfg["ranks"],
+          "dtypes": ["bfloat16", "float32 (flash_f32_*)"],
+          "backend": "gloo", "transport": ranks[0]["transport"],
+          "libraries": sorted({r["library"] for r in ranks}),
+          "launches_by_rank": launches,
+          "rtol": {"out": RTOL, "grads": BWD_RTOL},
+          "worst_excess": worst, "seconds": secs, "ranks_detail": ranks})
+    for name, counts in launches.items():
+        want = ([r + 1 for r in range(cfg["ranks"])]
+                if name.endswith("_causal") else [cfg["ranks"]] * cfg["ranks"])
+        assert counts == want, (name, counts)
+    assert all(r["dense_causal"]["launches"] == 0 for r in ranks)
+    assert all(e < 1.0 for e in worst.values()), worst
+    assert len({r["library"] for r in ranks}) == 1
+    return sum(sum(c) for c in launches.values())
+
+
+def _launch(tmp, procs, target, timeout):
+    """``target`` (a script and its arguments, or ``-m``, a module and
+    its arguments) through the launcher over ``procs`` ranks sharing the
+    card over gloo, or alone (``procs`` 0): each rank's JSON line, by
+    rank, and the seconds."""
+    cmd = [sys.executable, *target]
+    if procs:
+        cmd[1:1] = ["-m", "bigdl_tpu_torch.tools.launch", "--procs",
+                    str(procs), "--backend", "gloo", "--store-file",
+                    os.path.join(tmp, f"store-{len(os.listdir(tmp))}")]
+    t0 = time.monotonic()
+    proc = subprocess.run(cmd, capture_output=True, text=True, cwd=ROOT,
+                          timeout=timeout)
+    secs = time.monotonic() - t0
+    if proc.returncode != 0:
+        raise RuntimeError(f"{' '.join(cmd)} exited {proc.returncode}:\n"
+                           f"{proc.stderr[-4000:]}")
+    rows = [json.loads(ln) for ln in proc.stdout.splitlines()
+            if ln.startswith("{")]
+    return sorted(rows, key=lambda r: r["rank"]), secs
+
+
+def _longcontext_flags():
+    c = LONGCONTEXT
+    return ["--flash", "--rope", "--kv-heads", str(c["kv_heads"]),
+            "--embed", str(c["embed"]), "--heads", str(c["heads"]),
+            "--layers", str(c["layers"]), "--vocab", str(c["vocab"]),
+            "--seq-len", str(c["seq_len"]), "--batch", str(c["batch"]),
+            "--steps", str(c["steps"])]
+
+
+def _longcontext_step1(torch, blocks: int):
+    """Step 1 of the long-context main (its model, seed-1 weights and
+    ``RandomState(0)`` stream) in this process with the plain attention:
+    (loss, L2 norm of the gradient). ``blocks`` > 1 cuts every row into
+    that many rows of its own, so that no position sees the blocks before
+    its own: what a ring without its past-block launches computes (RoPE
+    scores depend only on relative positions)."""
+    import numpy as np
+
+    from bigdl_tpu_torch.models.transformer import TransformerLM
+
+    c = LONGCONTEXT
+    model = TransformerLM(
+        c["vocab"], embed_dim=c["embed"], num_heads=c["heads"],
+        num_layers=c["layers"], max_len=c["seq_len"], causal=True,
+        remat=True, use_flash=False, use_rope=True,
+        num_kv_heads=c["kv_heads"], seed=1, device="cuda")
+    ids = np.random.RandomState(0).randint(0, c["vocab"],
+                                           (c["batch"], c["seq_len"]))
+    tgt = np.roll(ids, -1, axis=1)
+    shape = (c["batch"] * blocks, c["seq_len"] // blocks)
+    ids_t, tgt_t = (torch.as_tensor(x.reshape(shape), device="cuda")
+                    for x in (ids, tgt))
+    logp = torch.log_softmax(model(ids_t).float(), -1)
+    nll = -logp.gather(-1, tgt_t[..., None]).mean()
+    grads = torch.autograd.grad(nll, list(model.parameters()))
+    norm = torch.cat([g.reshape(-1) for g in grads]).norm()
+    return float(nll), float(norm)
+
+
+def longcontext_train(torch, fa, smi) -> int:
+    """longcontext_train: the long-context main at the serving flagship's
+    widths (embed 512, 8 heads, 2 kv heads, 8 layers, RoPE, flash, vocab
+    32000, 4 x 2048 tokens, remat, f32) through the launcher over 4
+    sequence-parallel ranks sharing the card (gloo), its loss and
+    gradient norm held at every step to the same main alone at
+    ``--seq-parallel 0`` and at step 1 to a plain-attention run here,
+    with a broken ring's reading shown rejected; then ``--experts 4``
+    (each rank routes its own tokens: not held to one process). Returns
+    the flash launches of the launched runs (2 x 8 layers x 10 a step)."""
+    import tempfile
+
+    sp, steps = LONGCONTEXT["ranks"], LONGCONTEXT["steps"]
+    main = ["-m", "bigdl_tpu_torch.example.longcontext.train",
+            *_longcontext_flags()]
+    timeout = LONGCONTEXT["timeout_s"]
+    with tempfile.TemporaryDirectory() as tmp:
+        ring, ring_s = _launch(tmp, sp, [*main, "--seq-parallel", str(sp)],
+                               timeout)
+        alone, alone_s = _launch(tmp, 0, [*main, "--seq-parallel", "0"],
+                                 timeout)
+        moe, moe_s = _launch(tmp, sp, [*main, "--seq-parallel", str(sp),
+                                       "--experts", "4"], timeout)
+
+    def rel(got, want):
+        return max(abs(a - b) / abs(b) for a, b in zip(got, want))
+
+    plain = _longcontext_step1(torch, 1)
+    cut = _longcontext_step1(torch, sp)
+    torch.cuda.empty_cache()
+    step1 = (ring[0]["losses"][0], ring[0]["grad_norms"][0])
+    readings = {
+        "ring_vs_one_process": {
+            "loss": rel(ring[0]["losses"], alone[0]["losses"]),
+            "grad_norm": rel(ring[0]["grad_norms"], alone[0]["grad_norms"])},
+        "ring_step1_vs_plain": {"loss": rel(step1[:1], plain[:1]),
+                                "grad_norm": rel(step1[1:], plain[1:])},
+        "broken_ring_step1_vs_plain": {"loss": rel(cut[:1], plain[:1]),
+                                       "grad_norm": rel(cut[1:], plain[1:])}}
+
+    def row(rs, secs):
+        step_s = statistics.median(
+            statistics.median(r["step_s"][1:]) for r in rs)
+        return {"seconds": secs, "step_s": step_s,
+                "tokens_per_s": LONGCONTEXT["batch"] * LONGCONTEXT["seq_len"]
+                / step_s,
+                "losses": rs[0]["losses"], "grad_norms": rs[0]["grad_norms"],
+                "peak_memory_bytes_by_rank": [r["peak_memory_bytes"]
+                                              for r in rs],
+                "flash_launches_by_rank": [r["flash_launches"] for r in rs],
+                "transport": rs[0]["transport"]}
+
+    launches = sum(r["flash_launches"] for r in ring + moe)
+    emit({"phase": "longcontext_train", "nvidia_smi": smi,
+          "command": "python -m bigdl_tpu_torch.tools.launch --procs "
+                     f"{sp} --backend gloo " + " ".join(main)
+                     + f" --seq-parallel {sp}",
+          "seq_parallel": row(ring, ring_s), "one_process": row(alone,
+                                                                alone_s),
+          "plain_step1": {"loss": plain[0], "grad_norm": plain[1]},
+          "broken_ring_step1": {"loss": cut[0], "grad_norm": cut[1]},
+          "experts_4": {**row(moe, moe_s), "moe": moe[0]["moe"]},
+          "max_rel_diff": readings, "rtol": LONGCONTEXT_RTOL})
+    per_layer_step = 2 * LONGCONTEXT["layers"]      # remat: fwd + recompute
+    assert [r["flash_launches"] for r in ring] == [
+        per_layer_step * (r + 1) * steps for r in range(sp)], ring
+    assert alone[0]["flash_launches"] == per_layer_step * steps, alone
+    for name in ("ring_vs_one_process", "ring_step1_vs_plain"):
+        assert max(readings[name].values()) <= LONGCONTEXT_RTOL, readings
+    assert max(readings["broken_ring_step1_vs_plain"].values()) \
+        > LONGCONTEXT_RTOL, ("the tolerance passes a ring that dropped its "
+                             "past blocks", readings)
+    losses = moe[0]["losses"]
+    assert all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]
+    assert all(r["transport"] == "gloo-host" for r in ring + moe)
+    return launches + alone[0]["flash_launches"]
+
+
 def native_augment_check() -> dict:
     """On the card's host: the fused transform calls the C++ kernel for
     every image, and its float32 bytes equal the numpy path's."""
@@ -4251,6 +4859,9 @@ def main() -> int:
     # odd d: element stores in place of TMA copies, single-element outputs
     check_flash(torch, fa, (2, 4, 1, 100, 100, 77), True, bf16, False)
     check_flash(torch, fa, (2, 8, 2, 1024, 1024, 64), True, f32, True)
+    # the long-context ring's f32 blocks: the diagonal and a past block
+    check_flash(torch, fa, (4, 8, 2, 512, 512, 64), True, f32, False)
+    check_flash(torch, fa, (4, 8, 2, 512, 512, 64), False, f32, False)
     # the flagship width over sequence lengths
     sweep = []
     for t in (512, 1024, 2048, 4096, 8192):
@@ -4439,6 +5050,13 @@ def main() -> int:
     table_launches = table_gate(torch, fa, smi)
     text_launches = text_train(torch, fa, smi) + text_lm(torch, fa, smi)
 
+    # -------- data- and sequence-parallel training (slice 13)
+    distri_launches, ring_one_launches, main_launches = world_of_one(
+        torch, fa, smi)
+    distri_launches += main_launches
+    ring_launches = ring_one_launches + ring_gate(torch, fa, smi)
+    longcontext_launches = longcontext_train(torch, fa, smi)
+
     # ----------------------------------------------------- 9. kernels line
     print(nvidia_smi(), flush=True)
     emit({"kernels": [{
@@ -4451,7 +5069,8 @@ def main() -> int:
                      + noncausal_launches + checkpoint_launches
                      + zoo_launches + perf_cli_launches
                      + variants_launches + table_launches
-                     + text_launches),
+                     + text_launches + distri_launches + ring_launches
+                     + longcontext_launches),
         "launches_serving": serving_launches,
         "launches_train": train_launches,
         "launches_engine": engine_launches,
@@ -4465,6 +5084,9 @@ def main() -> int:
         "launches_variants": variants_launches,
         "launches_table": table_launches,
         "launches_text": text_launches,
+        "launches_distri": distri_launches,
+        "launches_ring": ring_launches,
+        "launches_longcontext": longcontext_launches,
         "max_abs_err": flagship["max_abs_err"],
         "ms": flagship["kernel_ms"], "kernel_ms": flagship["kernel_ms"],
         "device_ms": flagship["device_ms"],
@@ -4479,4 +5101,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(ring_rank() if sys.argv[1:] == ["--ring-rank"] else main())

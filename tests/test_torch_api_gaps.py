@@ -259,7 +259,7 @@ def test_func_transformer_and_normalizer_match_jax():
         np.testing.assert_array_equal(t.labels[0], np.asarray(j.labels[0]))
 
 
-def test_device_prefetch_stages_batches_on_the_device():
+def test_device_prefetch_stages_batches_on_the_device(tmp_path):
     rs = np.random.RandomState(6)
     batches = [MiniBatch(rs.rand(4, 3).astype(np.float32),
                          rs.rand(4, 1).astype(np.float32)),
@@ -273,8 +273,20 @@ def test_device_prefetch_stages_batches_on_the_device():
     assert torch.is_tensor(out[1]["x"]) and torch.is_tensor(out[1]["y"][1])
     np.testing.assert_array_equal(out[1]["y"][1].numpy(),
                                   batches[1]["y"][1])
-    with pytest.raises(NotImplementedError, match="item 10"):
-        device_prefetch(iter(batches), sharding=object(), device="cpu")
+    # sharding= places each rank's contiguous shard of the batch (the JAX
+    # placement over a mesh's data axis): a 2-rank world over gloo
+    import torch_jobs_parallel as jobs
+    from torch_world import World
+
+    batch = np.arange(24, dtype=np.float32).reshape(6, 4)
+    world = World(2, tmp_path)
+    try:
+        got = world.run(jobs.prefetch_shard, batch)
+    finally:
+        world.close()
+    for r, (mb_rows, rows) in enumerate(got):
+        np.testing.assert_array_equal(mb_rows, batch[3 * r:3 * r + 3])
+        np.testing.assert_array_equal(rows, batch[3 * r:3 * r + 3])
 
 
 # ------------------------------------------------ TransformerLM flags

@@ -436,10 +436,56 @@ def test_bind_generator_reaches_every_random_layer():
     assert slopes.unique().numel() > 1
 
 
-def test_sync_bn_axis_waits_for_the_distributed_slice():
-    with pytest.raises(NotImplementedError, match="item 10"):
-        tnn.SpatialBatchNormalization(4, global_stats_axis="data",
-                                      device="cpu")
+def test_sync_bn_axis_waits_for_the_distributed_slice(tmp_path):
+    """Sync-BN (``global_stats_axis``), ported with the distributed slice:
+    a SpatialBatchNormalization over a 2-rank gloo world normalizes each
+    rank's images by the statistics of both ranks' batch, and its output,
+    input gradient and running statistics equal the JAX layer's under
+    ``shard_map`` over 2 devices."""
+    from jax.sharding import Mesh, PartitionSpec as P
+
+    import torch_jobs_parallel as jobs
+    from torch_world import World
+
+    rs = np.random.RandomState(8)
+    x = (rs.randn(4, 3, 5, 5) * 2 + 1).astype(np.float32)
+    w_out = rs.randn(4, 3, 5, 5).astype(np.float32)
+    weight = rs.rand(3).astype(np.float32) + 0.5
+    bias = rs.randn(3).astype(np.float32)
+    jbn = jnn.SpatialBatchNormalization(3, global_stats_axis="data")
+    apply_fn = pure_apply(jbn)
+    params = {"~params": {"weight": jnp.asarray(weight),
+                          "bias": jnp.asarray(bias)}}
+    mesh = Mesh(np.array(jax.devices()[:2]), ("data",))
+
+    def loss(xx):
+        def body(xx, ww):
+            out, nb = apply_fn(params, jbn.buffers_dict(), xx, rng=None,
+                               training=True)
+            return jnp.sum(out * ww)[None], out, nb
+        s, out, nb = jax.shard_map(
+            body, mesh=mesh, in_specs=(P("data"), P("data")),
+            out_specs=(P("data"), P("data"), P()), check_vma=False)(
+                xx, jnp.asarray(w_out))
+        return jnp.sum(s), (out, nb)
+
+    (_, (out, nb)), dx = jax.value_and_grad(loss, has_aux=True)(
+        jnp.asarray(x))
+    world = World(2, tmp_path)
+    try:
+        got = world.run(jobs.sync_bn_forward_and_grad, x, w_out, weight,
+                        bias)
+    finally:
+        world.close()
+    tol = dict(rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(np.concatenate([g["out"] for g in got]),
+                               np.asarray(out), **tol)
+    np.testing.assert_allclose(np.concatenate([g["dx"] for g in got]),
+                               np.asarray(dx), **tol)
+    for g in got:
+        np.testing.assert_allclose(
+            g["running_var"], np.asarray(nb["~buffers"]["running_var"]),
+            **tol)
 
 
 def test_penalty_layers_record_the_jax_loss():

@@ -225,11 +225,19 @@ def test_module_loaders_check_the_tree():
 
 
 def test_optimizer_refuses_a_sharded_dataset():
+    """The local loop does not take a ShardedDataSet: since the
+    distributed slice the factory gives the DistriOptimizer for one, as
+    the JAX factory does, and a LocalOptimizer for the in-memory set."""
+    from bigdl_tpu_torch.parallel import DistriOptimizer
+
     samples = [Sample(np.zeros(3, np.float32), 1.0) for _ in range(4)]
-    with pytest.raises(NotImplementedError, match="distributed slice"):
-        topt.Optimizer(model=tnn.Linear(3, 2, device="cpu"),
-                       dataset=DataSet.sharded(samples, 0, 2),
-                       criterion=tnn.ClassNLLCriterion(), batch_size=2)
+    opt = topt.Optimizer(model=tnn.Linear(3, 2, device="cpu"),
+                         dataset=DataSet.sharded(samples, 0, 2),
+                         criterion=tnn.ClassNLLCriterion(), batch_size=2)
+    assert isinstance(opt, DistriOptimizer)
+    assert not isinstance(topt.Optimizer(
+        model=tnn.Linear(3, 2, device="cpu"), dataset=samples,
+        criterion=tnn.ClassNLLCriterion(), batch_size=2), DistriOptimizer)
 
 
 def test_evaluator_matches_jax():

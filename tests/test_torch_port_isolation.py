@@ -5,7 +5,9 @@ preemption, shedding, a token bucket, the chaos injector, the usage
 ledger and the SLO watchdog, a ResNet-20 through the LocalOptimizer,
 beam search, the PredictionService, the eager Module API and a loop
 with an async checkpoint and a train summary, the native runtime, the
-text-classification main, BPE and the table layers included, and a scan of
+text-classification main, BPE and the table layers included, the
+long-context main with MoE and the flash kernel's plain version, the
+DistriOptimizer and ring attention at a world of one, and a scan of
 every module's imports), and its entry points run on the card
 unless asked for the CPU, never falling back to it by themselves."""
 
@@ -146,6 +148,26 @@ assert tok.decode(tok.encode("the orbit")) == "the orbit"
 table = nn.Sequential(nn.ConcatTable(nn.Identity(), nn.Identity()),
                       nn.JoinTable(2), nn.Max(2))
 assert table(torch.randn(2, 4)).shape == (2,)
+from bigdl_tpu_torch.dataset import ShardedDataSet
+from bigdl_tpu_torch.example.longcontext import train as lc_train
+from bigdl_tpu_torch.parallel import (DistriOptimizer, MoEMLP, pipeline_spmd,
+                                      ring_attention, ulysses_attention)
+from bigdl_tpu_torch.tools import launch
+lc = lc_train.main(["--seq-len", "16", "--batch", "2", "--layers", "1",
+                    "--embed", "16", "--heads", "2", "--vocab", "32",
+                    "--steps", "2", "--experts", "2", "--flash",
+                    "--device", "cpu"])
+assert len(lc) == 2, lc
+dopt = Optimizer(model=nn.Sequential(nn.Linear(4, 3, device="cpu"),
+                                     nn.LogSoftMax()),
+                 dataset=ShardedDataSet([Sample(np.ones(4, np.float32), 1.0)
+                                         for _ in range(8)]),
+                 criterion=nn.ClassNLLCriterion(), batch_size=4,
+                 end_when=Trigger.max_iteration(2))
+assert isinstance(dopt, DistriOptimizer)
+dopt.set_optim_method(SGD(learning_rate=0.1)).optimize()
+q = torch.randn(1, 2, 8, 4)
+assert ring_attention(q, q, q, causal=True, use_flash=True).shape == q.shape
 bad = sorted(n for n in sys.modules
              if n.split(".")[0] in ("jax", "jaxlib", "bigdl_tpu"))
 assert not bad, bad
@@ -186,8 +208,14 @@ def test_no_jax_or_jax_package_import_in_the_port():
         f.stem for f in files if f.parent.name == "visualization"}
     assert {"optimizer", "predictor", "prediction_service"} <= {
         f.stem for f in files if f.parent.name == "optim"}
-    assert {"file", "tfrecord"} <= {
+    assert {"file", "tfrecord", "config"} <= {
         f.stem for f in files if f.parent.name == "utils"}
+    assert {"__init__", "engine", "all_reduce", "collectives",
+            "distri_optimizer", "ring_attention", "moe", "pipeline"} <= {
+        f.stem for f in files if f.parent.name == "parallel"}
+    assert {"launch"} <= {f.stem for f in files if f.parent.name == "tools"}
+    assert {"train"} <= {f.stem for f in files
+                         if f.parent.name == "longcontext"}
     found = [(str(f.relative_to(REPO)), name) for f in files
              for name in _imports(f)
              if name.split(".")[0] in ("jax", "jaxlib", "bigdl_tpu")]
@@ -204,7 +232,9 @@ def test_entry_points_default_to_the_card_and_never_fall_back():
     from bigdl_tpu_torch.nn import (BatchNormalization, LayerNorm, Linear,
                                     MultiHeadAttention, SpatialConvolution)
     from bigdl_tpu_torch.nn.module import Module
+    from bigdl_tpu_torch.example.longcontext import train as lc_train
     from bigdl_tpu_torch.optim import load_latest_checkpoint
+    from bigdl_tpu_torch.parallel import Engine, MoEMLP
     from bigdl_tpu_torch.serving import ContinuousBatchingEngine
     from bigdl_tpu_torch.utils.random import RandomGenerator
 
@@ -221,6 +251,8 @@ def test_entry_points_default_to_the_card_and_never_fall_back():
                  lambda: ResNet(10, {"depth": 20}),
                  lambda: build_model("lenet5"),
                  lambda: run_perf("lenet5", 2, 1, 1),
+                 lambda: Engine.init(), lambda: MoEMLP(8, 16, 2),
+                 lambda: lc_train.main(["--steps", "1"]),
                  lambda: ContinuousBatchingEngine(
                      TransformerLM(64, 32, 4, 2, 64, device="cpu"),
                      device="cuda"),

@@ -106,8 +106,29 @@ def test_lenet_train_main_summaries_and_explicit_snapshots(mnist_dir,
         "--model", os.path.join(ckpt, "model.4"),
         "--state", os.path.join(ckpt, "optimMethod.4")])
     assert model is not None
-    with pytest.raises(NotImplementedError, match="item 10"):
-        lenet_train.main(CPU + ["-f", mnist_dir, "--distributed"])
+    # --distributed: the sharded DistriOptimizer over every rank, here a
+    # world of one
+    from bigdl_tpu_torch.parallel import DistriOptimizer
+    from bigdl_tpu_torch.models import train_utils
+
+    built = []
+    real = train_utils.build_optimizer
+
+    def spy(*a, **k):
+        built.append(real(*a, **k))
+        return built[-1]
+
+    train_utils.build_optimizer = spy
+    try:
+        dist_model = lenet_train.main(CPU + ["-f", mnist_dir, "-b", "64",
+                                             "--max-iteration", "2",
+                                             "--distributed"])
+    finally:
+        train_utils.build_optimizer = real
+    assert isinstance(built[0], DistriOptimizer)
+    assert built[0].parameter_sync == "sharded" and built[0].n_data == 1
+    assert built[0].optim_method.state["neval"] == 3
+    assert dist_model is not None
 
 
 @pytest.fixture
