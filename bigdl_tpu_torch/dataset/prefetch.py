@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import queue
 import threading
+import time
 from typing import Callable, Iterator, Optional
 
 import numpy as np
@@ -37,7 +38,8 @@ def prefetch(iterator: Iterator, buffer_size: int = 2,
     ``buffer_size`` items; ``transfer`` runs on that thread. An exception
     in the producer is raised again at the consumer. Closing the returned
     generator (or dropping it) stops the thread and drops what it
-    buffered."""
+    buffered, and joins the thread: a producer left running at
+    interpreter exit can be torn down in the middle of a library call."""
     q: "queue.Queue" = queue.Queue(maxsize=max(1, buffer_size))
     err = []
     stop = threading.Event()
@@ -78,11 +80,17 @@ def prefetch(iterator: Iterator, buffer_size: int = 2,
                 yield item
         finally:
             stop.set()
-            try:
-                while True:
-                    q.get_nowait()
-            except queue.Empty:
-                pass
+            # the producer gives up at its next put (within 0.1 s) or when
+            # its current item is done; draining unblocks a waiting put. A
+            # source blocked for good is left behind after 30 s
+            deadline = time.monotonic() + 30.0
+            while t.is_alive() and time.monotonic() < deadline:
+                try:
+                    while True:
+                        q.get_nowait()
+                except queue.Empty:
+                    pass
+                t.join(timeout=0.1)
 
     return consume()
 

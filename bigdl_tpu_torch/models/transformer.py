@@ -34,6 +34,13 @@ buckets (``bucket_tokens``) keep only their token semantics here. With
 ``eos_id``, finished rows keep emitting eos and the loop stops once
 every row has finished.
 
+A tensor-parallel shard (``parallel/tp.py::shard_model``) runs every
+entry point on its share of the heads, the MLP and the vocabulary;
+``kv_cache_sharding(mesh)`` names its caches' layout, which
+``init_cache`` / ``init_page_pool`` (``sharding=``), ``generate`` /
+``generate_ragged`` (``kv_cache_sharding=``) and ``verify_chunk``
+(``cache_sharding=``) check.
+
 Sampling draws from an explicit ``torch.Generator`` on the model's
 device (``None``: PyTorch's default generator). It never reproduces the
 JAX package's draws: only greedy decoding is comparable token for token.
@@ -208,6 +215,9 @@ class TransformerLM(Module):
     #: the routing stats (drop_rate, expert_fraction) of the last forward,
     #: averaged over the MoE blocks
     last_moe_stats = None
+    #: a tensor-parallel shard's mesh state (``parallel/tp.py::
+    #: TensorParallel``), None for a whole model
+    _tp = None
 
     def __init__(self, vocab_size: int, embed_dim: int = 256,
                  num_heads: int = 8, num_layers: int = 4,
@@ -265,16 +275,36 @@ class TransformerLM(Module):
             return ids.to(device=self.device, dtype=torch.long)
         return torch.as_tensor(np.asarray(ids, np.int64), device=self.device)
 
+    def _table(self, name: str):
+        """The token or position table; on a shard split over a data axis
+        too, its data-axis blocks gathered (a collective: only the compute
+        paths call it, on every rank alike)."""
+        if self._tp is not None:
+            return self._tp.table(self, name)
+        return getattr(self, name)
+
+    def _embed(self, ids):
+        """Token embeddings; on a tensor-parallel shard a masked lookup in
+        the local vocabulary slice and an all-reduce."""
+        if self._tp is not None:
+            return self._tp.embed(ids, self._tp.table(self, "tok_embed"))
+        return F.embedding(ids, self.tok_embed)
+
     def _head(self, x):
         if self.tie_embeddings:
-            return F.linear(x, self.tok_embed)     # x @ tok_embed.T
-        return self.head(x.reshape(-1, x.shape[-1])).reshape(
-            *x.shape[:-1], -1)
+            out = F.linear(x, self._table("tok_embed"))  # x @ tok_embed.T
+        else:
+            out = self.head(x.reshape(-1, x.shape[-1])).reshape(
+                *x.shape[:-1], -1)
+        if self._tp is not None and self._tp.head_sharded:
+            # this rank's vocabulary slice, gathered into vocab order
+            out = self._tp.gather_vocab(out)
+        return out
 
     def forward(self, input):
         ids = self._ids(input)
         t = ids.shape[1]
-        x = F.embedding(ids, self.tok_embed)
+        x = self._embed(ids)
         if not self.use_rope:  # RoPE rotates inside each attention layer
             pos0 = 0
             if self.sequence_parallel is not None:
@@ -284,7 +314,7 @@ class TransformerLM(Module):
                 # the slice fits the table, as lax.dynamic_slice does
                 pos0 = min(group_rank(self.sequence_parallel) * t,
                            max(0, self.max_len - t))
-            x = x + self.pos_embed[pos0:pos0 + t][None]
+            x = x + self._table("pos_embed")[pos0:pos0 + t][None]
         remat = self.remat and torch.is_grad_enabled()
         moe = self.n_experts > 0
         collective = (self.sequence_parallel is not None
@@ -334,8 +364,47 @@ class TransformerLM(Module):
 
     @property
     def num_kv_heads(self) -> int:
-        """KV head count of the attention stack (every block's)."""
-        return self.block0.attn.num_kv_heads
+        """KV head count of the attention stack (every block's; on a
+        tensor-parallel shard the whole model's, not the local H_kv/n)."""
+        n = self._tp.shards if self._tp is not None else 1
+        return self.block0.attn.num_kv_heads * n
+
+    def kv_cache_sharding(self, mesh, model_axis: str = "model"):
+        """The ``NamedSharding`` of this model's ``init_cache`` buffers on
+        a tensor-parallel ``mesh``: the (B, H_kv, T, D) caches shard their
+        heads along ``model_axis``, the layout the column-parallel qkv
+        writes with no collective. Raises ``ValueError`` when the KV head
+        count does not divide the axis."""
+        from bigdl_tpu_torch.parallel.tp import kv_pool_sharding
+
+        return kv_pool_sharding(mesh, self.num_kv_heads,
+                                model_axis=model_axis)
+
+    def _check_sharding(self, sharding) -> None:
+        """A cache ``sharding`` must be the layout this model computes:
+        replicated for a whole model, the heads spec of its own mesh and
+        axis for a tensor-parallel shard (whose caches then hold its local
+        heads)."""
+        from bigdl_tpu_torch.parallel.tp import kv_pool_spec
+
+        if sharding is None:
+            return
+        spec = tuple(sharding.spec)
+        if self._tp is not None and sharding.mesh is self._tp.mesh and \
+                spec == tuple(kv_pool_spec(self._tp.model_axis)):
+            return
+        if self._tp is None and sharding.is_fully_replicated:
+            return
+        if any(e is not None for e in spec[:1] + spec[2:]):
+            raise NotImplementedError(
+                f"KV caches sharded by {sharding.spec} (batch, sequence or "
+                "head-dim blocks) are not ported (ROADMAP.md, Queue 1 item "
+                "12); the port shards caches by heads only")
+        raise ValueError(
+            f"cache sharding {sharding.spec} does not match the model's "
+            "layout: shard the model over that mesh and axis first "
+            "(parallel/tp.py::shard_model), whose caches hold its local "
+            "heads")
 
     def analytic_bytes(self, tokens: int, context: int,
                        dtype_bytes: int = 4) -> float:
@@ -353,12 +422,16 @@ class TransformerLM(Module):
 
     # ------------------------------------------------- KV-cache decoding
     def init_cache(self, batch: int, max_len: int, dtype=None,
-                   kv_dtype: Optional[str] = None):
+                   kv_dtype: Optional[str] = None, sharding=None):
         """Per-block (k, v) caches, each (B, H_kv, max_len, D), in
         ``dtype`` (default: the token table's, so bf16 serving keeps a
         bf16 cache, also in the int8 clone); ``kv_dtype="int8"`` gives
         each block the quantized ``(k_q, v_q, k_scale, v_scale)`` form,
-        which every prefill, decode and verify entry point takes."""
+        which every prefill, decode and verify entry point takes.
+        ``sharding`` (``kv_cache_sharding(mesh)``) is checked against the
+        model's layout: a tensor-parallel shard allocates its local
+        heads."""
+        self._check_sharding(sharding)
         dtype = dtype or self.tok_embed.dtype
         return [blk.attn.init_cache(batch, max_len, dtype, kv_dtype)
                 for blk in self.blocks()]
@@ -374,13 +447,18 @@ class TransformerLM(Module):
         (B,) tensor). Caller contract: ``pos0 + chunk <= cache length``."""
         return self._prefill_impl(ids, caches, pos0, chunked=True)
 
-    def verify_chunk(self, ids, caches, pos0):
+    def verify_chunk(self, ids, caches, pos0, cache_sharding=None,
+                     repl_sharding=None):
         """Chunked forward at offset ``pos0`` returning the logits at
         EVERY chunk position, (B, T, V): the speculative verifier, one
         pass scoring all draft proposals. ``pos0`` is an int (the
         lockstep ``speculative_generate``) or a (B,) tensor (the engine's
         ragged verify, each row at its own depth). Writes the chunk's KV
-        as ``prefill_chunk`` does, with its caller contract per row."""
+        as ``prefill_chunk`` does, with its caller contract per row.
+        ``cache_sharding`` / ``repl_sharding`` pin the JAX program's
+        output layouts; here the caches are written in place in their own
+        layout, so the first is only checked and the second unused."""
+        self._check_sharding(cache_sharding)
         return self._prefill_impl(ids, caches, pos0, chunked=True,
                                   all_logits=True)
 
@@ -405,14 +483,14 @@ class TransformerLM(Module):
     def _embed_chunk(self, ids, pos0):
         """Token embeddings of a (B, T) chunk at offset ``pos0`` (an int or
         a (B,) tensor), plus the learned positions without RoPE."""
-        x = F.embedding(ids, self.tok_embed)
+        x = self._embed(ids)
         if not self.use_rope:
             ar = torch.arange(ids.shape[1], device=self.device)
             if torch.is_tensor(pos0) and pos0.dim() == 1:
-                x = x + self.pos_embed[self._table_pos(pos0[:, None]
-                                                       + ar[None])]
+                x = x + self._table("pos_embed")[self._table_pos(
+                    pos0[:, None] + ar[None])]
             else:
-                x = x + self.pos_embed[int(pos0) + ar][None]
+                x = x + self._table("pos_embed")[int(pos0) + ar][None]
         return x
 
     def _chunk_logits(self, x, all_logits: bool, gather_last):
@@ -443,11 +521,13 @@ class TransformerLM(Module):
 
     # ------------------------------------------------- paged KV decoding
     def init_page_pool(self, max_pages: int, page_size: int, dtype=None,
-                       kv_dtype: Optional[str] = None):
+                       kv_dtype: Optional[str] = None, sharding=None):
         """Per-block page-pool tensors for paged serving: the
         ``init_cache`` forms with the leading dim indexing pool pages. One
         block table indexes every layer (page ``p`` names slice ``p`` of
-        each block's tensors), so a request's pages are one id list."""
+        each block's tensors), so a request's pages are one id list. ``sharding`` as in
+        ``init_cache``."""
+        self._check_sharding(sharding)
         dtype = dtype or self.tok_embed.dtype
         return [blk.attn.init_page_pool(max_pages, page_size, dtype,
                                         kv_dtype)
@@ -492,12 +572,12 @@ class TransformerLM(Module):
         """One token per row in, next-token logits (B, V) out. ``pos`` is
         an int, or a (B,) tensor of per-row positions (ragged batch)."""
         ids_t = self._ids(ids_t)
-        x = F.embedding(ids_t, self.tok_embed)[:, None, :]      # (B, 1, C)
+        x = self._embed(ids_t)[:, None, :]                     # (B, 1, C)
         if not self.use_rope:
             if torch.is_tensor(pos) and pos.dim() == 1:
-                x = x + self.pos_embed[self._table_pos(pos)][:, None]
+                x = x + self._table("pos_embed")[self._table_pos(pos)][:, None]
             else:
-                x = x + self.pos_embed[int(pos)][None, None]
+                x = x + self._table("pos_embed")[int(pos)][None, None]
         for i, blk in enumerate(self.blocks()):
             x, caches[i] = blk.forward_step(x, caches[i], pos)
         return self._head(self.ln_f(x))[:, 0], caches
@@ -532,7 +612,7 @@ class TransformerLM(Module):
         return out, (torch.stack(seen, 1) if return_logits else None)
 
     def _decode_setup(self, prompt_ids, max_new_tokens, max_len,
-                      prefill_chunk=None):
+                      prefill_chunk=None, kv_cache_sharding=None):
         """Validate the prompt, allocate the caches in the parameters'
         dtype and run the prefill (in ``prefill_chunk``-long chunks after
         a leading remainder, when given). Returns (prompt, logits,
@@ -552,7 +632,7 @@ class TransformerLM(Module):
                              f"context length {self.max_len}")
         if max_new_tokens == 0:
             return prompt, None, None
-        caches = self.init_cache(b, max_len)
+        caches = self.init_cache(b, max_len, sharding=kv_cache_sharding)
         if prefill_chunk and t0 > prefill_chunk:
             rem = t0 % prefill_chunk
             pos = 0
@@ -593,7 +673,7 @@ class TransformerLM(Module):
                  max_len=None, prefill_chunk=None, host_loop: bool = False,
                  bucket_tokens=None, eos_id=None,
                  top_k=None, top_p=None, on_token=None,
-                 return_logits: bool = False):
+                 return_logits: bool = False, kv_cache_sharding=None):
         """Autoregressive generation with a KV cache: a batched prefill
         over the prompt, then one ``decode_step`` per new token. Greedy
         for ``temperature == 0``, else sampled from the tempered softmax
@@ -609,7 +689,11 @@ class TransformerLM(Module):
         ``host_loop=True``. Without the host loop, ``bucket_tokens``
         rounds the decoded count up to a multiple of it (as far as the
         cache has room) and the result is cut back to
-        ``max_new_tokens``: the first tokens are the same either way."""
+        ``max_new_tokens``: the first tokens are the same either way.
+        ``kv_cache_sharding`` (``kv_cache_sharding(mesh)`` of a
+        tensor-parallel shard) lays the caches out by heads; every rank
+        of the model axis calls ``generate`` with the same arguments and
+        gets the same tokens."""
         sampled = temperature > 0.0
         _validate_sampling(sampled, top_k, top_p)
         if on_token is not None and not host_loop:
@@ -617,7 +701,8 @@ class TransformerLM(Module):
                              "only the host loop materializes; pass "
                              "host_loop=True")
         prompt, logits, caches = self._decode_setup(
-            prompt_ids, max_new_tokens, max_len, prefill_chunk)
+            prompt_ids, max_new_tokens, max_len, prefill_chunk,
+            kv_cache_sharding)
         if max_new_tokens == 0:
             return (prompt, None) if return_logits else prompt
         n = max_new_tokens
@@ -728,14 +813,17 @@ class TransformerLM(Module):
     # --------------------------------------------- speculative decoding
     @torch.no_grad()
     def _propose(self, tok, pos0, caches, gamma: int, sampled: bool = False,
-                 temperature: float = 1.0, generator=None, tables=None):
+                 temperature: float = 1.0, generator=None, tables=None,
+                 choose: Optional[Callable] = None):
         """The draft proposer: ``gamma`` decode steps of this model from
         ``tok`` (B,) at ``pos0`` (an int, or a (B,) tensor of per-row
         positions), each choosing its next input (argmax, or a draw from
         the tempered softmax when ``sampled``) and writing its input's KV
         as it goes; through the page pool when ``tables`` is given. The
         JAX package's one-dispatch ``lax.scan`` (``_propose_fn`` and its
-        paged twin) as a Python loop. Returns ((gamma, B) proposals,
+        paged twin) as a Python loop. ``choose(logits)`` replaces the
+        choice (a tensor-parallel engine's leader draws and broadcasts).
+        Returns ((gamma, B) proposals,
         (gamma, B, V) step logits: the sampled verifier's q
         distributions, unused when greedy) and the caches."""
         toks, qlogits = [], []
@@ -746,8 +834,11 @@ class TransformerLM(Module):
             else:
                 logits, caches = self.decode_step_paged(tok, pos, caches,
                                                         tables)
-            tok = (_draw(logits, temperature, generator) if sampled
-                   else logits.argmax(-1))
+            if choose is not None:
+                tok = choose(logits)
+            else:
+                tok = (_draw(logits, temperature, generator) if sampled
+                       else logits.argmax(-1))
             toks.append(tok)
             qlogits.append(logits)
             pos = pos + 1
@@ -848,7 +939,8 @@ class TransformerLM(Module):
                         max_new_tokens: int, temperature: float = 0.0,
                         generator: Optional[torch.Generator] = None,
                         eos_id=None, top_k=None, top_p=None,
-                        bucket_tokens=None, max_len=None):
+                        bucket_tokens=None, max_len=None,
+                        kv_cache_sharding=None):
         """Mixed prompt lengths in one batch: ``prompt_ids`` (B, Tmax)
         right-padded, ``prompt_lengths`` (B,). Returns (B, max_new_tokens)
         generated tokens; row i continues its own length-``t0_i`` prompt
@@ -881,7 +973,8 @@ class TransformerLM(Module):
                 f"padded width ({tmax}) exceeds the context length "
                 f"{window}")
         caches = self.init_cache(b, window if max_len
-                                 else min(window, tmax + n))
+                                 else min(window, tmax + n),
+                                 sharding=kv_cache_sharding)
         logits, caches = self._prefill_impl(prompt, caches, 0, chunked=False,
                                             gather_last=lengths - 1)
         n_c = n

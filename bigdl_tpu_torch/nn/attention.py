@@ -46,6 +46,14 @@ and attends through ``parallel/ring_attention.py`` (the flash ring with
 ``use_flash``); the KV-cache paths ignore it, as in JAX. A block with
 ``n_experts > 0`` replaces its MLP by ``parallel/moe.py``'s ``MoEMLP``
 (over ``expert_parallel``, an axis, when given).
+
+Under tensor parallelism (``parallel/tp.py::shard_model``) a layer holds
+H/n query heads and H_kv/n KV heads: ``num_heads`` / ``num_kv_heads``
+are the local counts and ``q_dim`` (H/n x D) the width of the attention
+output that every path reshapes to, while the input stays
+``embed_dim`` wide; ``out_proj`` and the MLP's ``fc2`` are then
+row-parallel Linears that sum their partial products over the model
+axis.
 """
 
 from __future__ import annotations
@@ -294,6 +302,9 @@ class MultiHeadAttention(Module):
         self.embed_dim = embed_dim
         self.num_heads = num_heads
         self.head_dim = embed_dim // num_heads
+        #: the width of the attention output (H x D): embed_dim, or the
+        #: local H/n x D of a tensor-parallel shard (``parallel/tp.py``)
+        self.q_dim = embed_dim
         self.num_kv_heads = num_kv_heads or num_heads
         if num_heads % self.num_kv_heads:
             raise ValueError(f"num_heads {num_heads} not a multiple of "
@@ -316,7 +327,7 @@ class MultiHeadAttention(Module):
         return x.reshape(b, t, n_heads, self.head_dim).transpose(1, 2)
 
     def _split_kv_step(self, qkv):
-        c, kv_dim = self.embed_dim, self.num_kv_heads * self.head_dim
+        c, kv_dim = self.q_dim, self.num_kv_heads * self.head_dim
         q = self._split_heads(qkv[..., :c], self.num_heads)
         k = self._split_heads(qkv[..., c:c + kv_dim], self.num_kv_heads)
         v = self._split_heads(qkv[..., c + kv_dim:], self.num_kv_heads)
@@ -368,7 +379,7 @@ class MultiHeadAttention(Module):
         s = s.masked_fill(~live, -math.inf)
         p = torch.softmax(s, -1).to(v_cache.dtype)
         o = torch.matmul(p, v_cache[:, :, None])    # (B, G, R, T, D)
-        return o.permute(0, 3, 1, 2, 4).reshape(b, t, self.embed_dim)
+        return o.permute(0, 3, 1, 2, 4).reshape(b, t, self.q_dim)
 
     @torch.no_grad()
     def forward_step(self, x_t, cache, pos):
@@ -400,7 +411,7 @@ class MultiHeadAttention(Module):
             live = (ar <= pos)[None]                            # (1, L)
         k_read, v_read = _write_kv(cache, k_t, v_t, write)
         o = self._grouped_attention(q, k_read, v_read, live).to(x_t.dtype)
-        return self.out_proj(o.reshape(b, self.embed_dim)).reshape(b, 1, -1), \
+        return self.out_proj(o.reshape(b, self.q_dim)).reshape(b, 1, -1), \
             cache
 
     @torch.no_grad()
@@ -434,7 +445,7 @@ class MultiHeadAttention(Module):
             v = v_read[:, :, :pos0 + t].to(q.dtype)
         kx, vx = self._expand_kv(k, v)
         o = dot_product_attention(q, kx, vx, causal=True)
-        o = o.transpose(1, 2).reshape(b * t, self.embed_dim)
+        o = o.transpose(1, 2).reshape(b * t, self.q_dim)
         return self.out_proj(o).reshape(b, t, -1), cache
 
     @torch.no_grad()
@@ -468,7 +479,7 @@ class MultiHeadAttention(Module):
         ar = torch.arange(k_read.shape[2], device=x.device)
         live = ar <= positions[..., None]               # (B, T, L) / (T, L)
         o = self._grouped_attention(q, k_read, v_read, live)
-        o = self.out_proj(o.reshape(b * t, self.embed_dim).to(x.dtype))
+        o = self.out_proj(o.reshape(b * t, self.q_dim).to(x.dtype))
         return o.reshape(b, t, -1), cache
 
     def init_page_pool(self, max_pages: int, page_size: int,
@@ -496,7 +507,7 @@ class MultiHeadAttention(Module):
         ar = torch.arange(k_read.shape[2], device=x_t.device)
         live = (ar[None] <= pos[:, None])[:, None]              # (B, 1, L)
         o = self._grouped_attention(q, k_read, v_read, live).to(x_t.dtype)
-        return self.out_proj(o.reshape(b, self.embed_dim)).reshape(b, 1, -1), \
+        return self.out_proj(o.reshape(b, self.q_dim)).reshape(b, 1, -1), \
             pool
 
     @torch.no_grad()
@@ -519,7 +530,7 @@ class MultiHeadAttention(Module):
         ar = torch.arange(k_read.shape[2], device=x.device)
         live = ar <= positions[..., None]                       # (B, T, L)
         o = self._grouped_attention(q, k_read, v_read, live)
-        o = self.out_proj(o.reshape(b * t, self.embed_dim).to(x.dtype))
+        o = self.out_proj(o.reshape(b * t, self.q_dim).to(x.dtype))
         return o.reshape(b, t, -1), pool
 
     def forward(self, input):
@@ -549,7 +560,7 @@ class MultiHeadAttention(Module):
         else:
             k, v = self._expand_kv(k, v)
             o = dot_product_attention(q, k, v, causal=self.causal)
-        o = o.transpose(1, 2).reshape(b * t, self.embed_dim)
+        o = o.transpose(1, 2).reshape(b * t, self.q_dim)
         o = self.out_proj(o).reshape(b, t, -1)
         if self.dropout_p > 0:
             o = self.drop(o)

@@ -64,10 +64,13 @@ def quantize_weight(w, axis: Tuple[int, ...]):
     return w_q.to(torch.int8), scale
 
 
-def quantize_activation(x):
+def quantize_activation(x, amax=None):
     """Dynamic symmetric per-tensor int8: ``(x_q int8, scale f32)``, one
-    scale over the whole of ``x``."""
-    amax = x.abs().amax()
+    scale over the whole of ``x``; ``amax`` (a 0-dim tensor in ``x``'s
+    dtype) gives the max |x| when ``x`` is one shard of the tensor the
+    scale spans (a row-parallel layer's all-reduced max)."""
+    if amax is None:
+        amax = x.abs().amax()
     scale = torch.where(amax > 0, exact_div(amax, 127.0), 1.0).float()
     x_q = torch.clamp(torch.round(x.float() / scale), -127, 127)
     return x_q.to(torch.int8), scale

@@ -60,8 +60,8 @@ which the JAX local loop drops, so ``load_latest_checkpoint`` and a new
 ``optimize()`` resume the run exactly. A ``ShardedDataSet`` trains
 through the ``DistriOptimizer`` (``parallel/distri_optimizer.py``). Not
 ported yet: the observability instruments (ROADMAP.md, Queue 1 item
-11); orbax slot checkpoints, whose sharded counterpart comes with
-tensor-parallel serving (item 10).
+11). ``set_checkpoint(slots_backend="orbax")`` is accepted and changes
+nothing here (the sharded slot format is the ``DistriOptimizer``'s).
 """
 
 from __future__ import annotations
@@ -461,13 +461,13 @@ class Optimizer:
         whenever ``trigger`` fires. ``async_write`` snapshots in the loop
         and writes on a thread (one write in flight: the next checkpoint,
         and ``optimize()`` before it returns, join it and raise its
-        error)."""
-        if slots_backend == "orbax":
-            raise NotImplementedError(
-                "slots_backend='orbax' writes the optimizer slots shard by "
-                "shard in a sharded format whose counterpart comes with "
-                "tensor-parallel serving: see ROADMAP.md, Queue 1 item 10")
-        if slots_backend != "pickle":
+        error). ``slots_backend="orbax"`` (the JAX option's name) is the
+        ``DistriOptimizer``'s: there each rank writes its shard of the
+        slots as ``optimSlots.{tag}.orbax`` in the sharded format of
+        ``utils/sharded_ckpt.py``. This local loop accepts it and, as the
+        JAX local loop does, writes its slots as usual (inside
+        ``optimMethod.{tag}``)."""
+        if slots_backend not in ("pickle", "orbax"):
             raise ValueError(f"unknown slots_backend {slots_backend!r}")
         self.checkpoint_path = path
         self.checkpoint_trigger = trigger

@@ -47,10 +47,14 @@ failure, at most ``bigdl.failure.retryTimes`` times within
 Checkpoints: rank 0 writes ``model.{tag}`` and ``optimMethod.{tag}``
 and the optimizer slots, gathered from every rank, as
 ``optimSlots.{tag}``; a restore gives each rank its slice again.
+With ``set_checkpoint(slots_backend="orbax")`` the slots are written
+instead shard by shard, each rank its own slice, as
+``optimSlots.{tag}.orbax`` in the format of ``utils/sharded_ckpt.py``
+(the counterpart of the JAX package's orbax checkpoint), and a retry
+restores them straight into each rank's slice, with no gather.
 Summaries are written by rank 0. Not ported: gradient accumulation
-(raises, as in JAX), the observability instruments (ROADMAP.md, Queue 1
-item 11) and ``slots_backend="orbax"``, whose counterpart belongs to
-tensor-parallel serving (ROADMAP.md, Queue 1 item 10).
+(raises, as in JAX) and the observability instruments (ROADMAP.md,
+Queue 1 item 11).
 """
 
 from __future__ import annotations
@@ -77,8 +81,10 @@ from bigdl_tpu_torch.parallel.all_reduce import (AllReduceParameter,
                                                  pad_to_multiple, slice_of,
                                                  unflatten_leaves)
 from bigdl_tpu_torch.parallel.engine import Engine
+from bigdl_tpu_torch.parallel.tp import P, NamedSharding
 from bigdl_tpu_torch.utils import config as bt_config
 from bigdl_tpu_torch.utils import file as bt_file
+from bigdl_tpu_torch.utils import sharded_ckpt
 
 logger = logging.getLogger("bigdl_tpu_torch.optim")
 
@@ -272,8 +278,30 @@ class DistriOptimizer(LocalOptimizer):
         return _map_tree(lambda s: C.all_gather(s.reshape(-1), self.group)
                          if s.dim() else s, slots)
 
+    def _slot_shardings(self, slots):
+        """The layout of the live slots: the sharded mode's 1-D slices over
+        the data axis (counters replicated), None for replicated slots."""
+        if self.parameter_sync != "sharded":
+            return None
+        data = NamedSharding(self.mesh, P("data"))
+        return _map_tree(lambda s: data if s.dim() else None, slots)
+
+    def _orbax_path(self, tag) -> str:
+        return os.path.join(os.path.abspath(self.checkpoint_path),
+                            f"optimSlots.{tag}.orbax")
+
     def _run_checkpoint(self, state, slots):
         if self.checkpoint_path is None:
+            return
+        if getattr(self, "checkpoint_slots_backend", "pickle") == "orbax":
+            # every rank writes its own slice: no gather; the model and
+            # the method go through rank 0 as before
+            if C.group_rank(None) == 0:
+                super()._run_checkpoint(state, None)
+            tag = f"{state['neval'] - 1}"
+            sharded_ckpt.save_train_state(
+                self._orbax_path(tag), state["neval"] - 1, {}, {}, slots,
+                shardings=(None, None, self._slot_shardings(slots)))
             return
         full = self._gather_slots(slots)
         if C.group_rank(None) == 0:
@@ -286,8 +314,19 @@ class DistriOptimizer(LocalOptimizer):
         C.barrier(None)
 
     def _load_slots_snapshot(self, tag):
+        opath = self._orbax_path(tag)
+        if sharded_ckpt.exists(opath):
+            # restored later straight into the live slices
+            return ("__orbax__", opath)
         path = os.path.join(self.checkpoint_path, f"optimSlots.{tag}")
         return bt_file.load(path) if bt_file.exists(path) else None
+
+    def _restore_orbax_slots(self, opath, like):
+        """The sharded slots restored into the layout of ``like`` (the
+        fresh ``init_slots`` tree of this rank)."""
+        return sharded_ckpt.restore_train_state(
+            opath, like=({}, {}, like),
+            shardings=(None, None, self._slot_shardings(like)))[3]
 
     # -------------------------------------------------------------- loop
     def optimize(self):
@@ -359,7 +398,9 @@ class DistriOptimizer(LocalOptimizer):
             full, _ = pad_to_multiple(full, n)
             flat = slice_of(full, group)
             slots = method.init_slots(flat)
-            if restored is not None:
+            if isinstance(restored, tuple) and restored[:1] == ("__orbax__",):
+                slots = self._restore_orbax_slots(restored[1], slots)
+            elif restored is not None:
                 slots = _map_tree(
                     lambda s: slice_of(s.to(self._device), group)
                     if s.dim() else s.to(self._device), restored)
@@ -369,8 +410,12 @@ class DistriOptimizer(LocalOptimizer):
                                 self.grad_clip, self.sub_optim_methods,
                                 compute_dtype=self.compute_dtype,
                                 group=group)
-            slots = (_on_device(restored, self._device)
-                     if restored is not None else ts.init_slots(params))
+            if isinstance(restored, tuple) and restored[:1] == ("__orbax__",):
+                slots = self._restore_orbax_slots(restored[1],
+                                                  ts.init_slots(params))
+            else:
+                slots = (_on_device(restored, self._device)
+                         if restored is not None else ts.init_slots(params))
             flat = arp = spec = None
         data_iter = prefetch(self._batch_stream(), buffer_size=PREFETCH_DEPTH,
                              transfer=self._prepare_batch)

@@ -275,11 +275,19 @@ class Engine:
     # ------------------------------------------------------------ mesh
     @classmethod
     def create_mesh(cls, axes: Optional[Sequence[Tuple[str, int]]] = None,
-                    ranks: Optional[Sequence[int]] = None) -> Mesh:
+                    ranks: Optional[Sequence[int]] = None,
+                    devices: Optional[Sequence[int]] = None) -> Mesh:
         """A :class:`Mesh` over ``ranks`` (default: the world); default
-        axes: every rank on one ``data`` axis. Raises ``ValueError`` when
-        the axes do not cover the ranks. Collective: every rank calls it
-        with the same arguments."""
+        axes: every rank on one ``data`` axis. ``devices`` is the JAX
+        name for the same list (a rank is one device): a subset of the
+        world, e.g. a 2-way model mesh over ranks ``[0, 1]`` of four.
+        Raises ``ValueError`` when the axes do not cover the ranks.
+        Collective: every rank of the world calls it with the same
+        arguments, also a rank outside the subset."""
+        if devices is not None:
+            if ranks is not None:
+                raise ValueError("pass ranks= or devices=, not both")
+            ranks = [int(d) for d in devices]
         n = world_size() if ranks is None else len(ranks)
         return Mesh(axes if axes is not None else [("data", n)], ranks)
 

@@ -31,13 +31,14 @@ int8 KV and weights, the prefix host tier, QoS and chaos drills).
 - ``run_poisson_comparison`` / ``run_shared_prefix_comparison`` /
   ``run_speculative_comparison`` / ``run_paged_comparison`` /
   ``run_quantized_comparison`` / ``run_working_set_sweep`` /
-  ``run_qos_storm`` and ``quantized_quality_report`` (``benchmark``):
-  the engine against
+  ``run_qos_storm`` / ``run_tp_comparison`` and
+  ``quantized_quality_report`` (``benchmark``): the engine against
   ``GenerationService`` under Poisson arrivals, the prefix cache on
   against off, a draft against none, paged against dense KV at equal
   bytes, int8 against full precision, the host tier against device-only
   past the pool's rows, a mixed-priority storm against its high class
-  alone, and the int8 path's logit drift.
+  alone, sharded over a model-axis mesh against unsharded, and the int8
+  path's logit drift.
 
 Quick start::
 
@@ -55,7 +56,7 @@ from bigdl_tpu_torch.serving.benchmark import (
     quantized_quality_report, repeated_text_workload, run_paged_comparison,
     run_poisson_comparison, run_qos_storm, run_quantized_comparison,
     run_shared_prefix_comparison, run_speculative_comparison,
-    run_working_set_sweep, shared_prefix_workload,
+    run_tp_comparison, run_working_set_sweep, shared_prefix_workload,
 )
 from bigdl_tpu_torch.serving.chaos import ChaosFault, ChaosInjector
 from bigdl_tpu_torch.serving.engine import ContinuousBatchingEngine
@@ -87,5 +88,5 @@ __all__ = [
     "mixed_length_workload", "run_paged_comparison",
     "quantized_quality_report", "run_quantized_comparison",
     "run_working_set_sweep", "qos_storm_workload", "run_qos_storm",
-    "ChaosInjector", "ChaosFault",
+    "run_tp_comparison", "ChaosInjector", "ChaosFault",
 ]

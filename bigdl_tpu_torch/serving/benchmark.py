@@ -33,6 +33,10 @@ engine with the whole QoS stack on (a tripwire TTFT objective, zero
 preemption slack, a starved tenant bucket), then the high class alone:
 the high-class TTFT ratios, the shed / preempted / rate-limited counts,
 outcome conservation and the usage ledger's per-tenant device-seconds.
+:func:`run_tp_comparison` replays a Poisson workload through the engine
+sharded over a model-axis mesh (every rank of the mesh calls it) and
+unsharded on the leader: both legs' percentiles, the mesh block, the
+collectives' transport and token parity.
 The workload generators draw from ``numpy.random.RandomState(seed)`` in
 the JAX package's order, so a seed gives the same arrays in both
 packages. The incident blocks of the JAX rows, the compile gauges and
@@ -303,6 +307,11 @@ def _engine_replay(model, workload, warm_prompt, warm_tokens,
                 spans.append((handle.admitted_at, handle.finished_at))
         return row.shape[0] - req["prompt"].shape[0]
 
+    if not engine.is_leader:
+        # a follower rank of a mesh leg: run the leader's programs until
+        # its stop header; the leader measures and reports
+        engine.start()
+        return None
     log(f"[serving-bench] {label} replay ({engine.service_name})...")
     with engine:
         if warm_prompt is not None:
@@ -803,6 +812,102 @@ def run_quantized_comparison(model, n_requests: int = 24,
                          "prefill_rows": prefill_rows,
                          "gamma": gamma},
             "requests": wl}
+
+
+def run_tp_comparison(model, tp: int = 2, n_requests: int = 16,
+                      rate_hz: float = 30.0, max_slots: int = 4,
+                      prefill_chunk: int = 8, prefill_rows: int = 2,
+                      eos_id: Optional[int] = None, seed: int = 0,
+                      registry=None, log=None, mesh=None,
+                      model_axis: str = "model") -> Optional[dict]:
+    """Replay ONE Poisson workload through the engine twice: SHARDED over
+    a ``tp``-way model-axis mesh (``parallel/tp.py``'s shards, KV pools
+    split on heads, every program led by the mesh's first rank) and on
+    the leader alone, unsharded, everything else identical. Every rank
+    of the mesh calls it with the same arguments (``mesh`` default: a
+    ``tp``-way mesh over ranks ``[0, tp)`` of the world, made on every
+    rank); the followers serve the sharded leg's programs and return
+    None, the leader returns TTFT / inter-token / latency percentiles of
+    both legs, the sharded leg's ``mesh`` block, the collectives'
+    transport (``gloo-host``: ranks sharing a card, each message staged
+    through host memory; ``nccl``) and messages, and whether the two
+    legs gave token-identical rows (a mesh changes where the math runs,
+    not the tokens), with each differing row's first difference
+    (``mismatches``: the row-parallel sums add in another order than
+    the whole GEMM, which in bf16 can tip a near tie)."""
+    from bigdl_tpu_torch.parallel import Engine
+    from bigdl_tpu_torch.parallel import collectives as C
+
+    log = log or (lambda *a, **k: None)
+    if mesh is None:
+        world = C.group_size(None)
+        if world < tp:
+            raise ValueError(
+                f"tp={tp} needs {tp} ranks but the world has {world}; "
+                f"start them with python -m bigdl_tpu_torch.tools.launch "
+                f"--procs {tp} (add --backend gloo for ranks that share "
+                "one card)")
+        mesh = Engine.create_mesh([(model_axis, tp)],
+                                  devices=list(range(tp)))
+    if C.group_rank(None) not in mesh.ranks:
+        return None
+    vocab = model.vocab_size
+    wl = poisson_workload(n_requests, rate_hz, vocab,
+                          decode_lens=(4, min(24, model.max_len // 2)),
+                          seed=seed)
+    warm_prompt = np.asarray(
+        np.random.RandomState(seed + 1).randint(0, vocab, (12,)),
+        np.int32)
+
+    def run_path(name: str, **engine_kw):
+        return _engine_replay(
+            model, wl, warm_prompt, 4, ("mesh",), log, "tensor-parallel",
+            max_slots=max_slots, prefill_chunk=prefill_chunk,
+            prefill_rows=prefill_rows, eos_id=eos_id,
+            registry=registry, service_name=name, **engine_kw)
+
+    calls0 = dict(C.calls)
+    sharded = run_path("bench_tp_sharded", mesh=mesh,
+                       model_axis=model_axis)
+    if sharded is None:
+        return None
+    messages = {k: v - calls0.get(k, 0) for k, v in C.calls.items()
+                if v - calls0.get(k, 0)}
+    unsharded = run_path("bench_tp_unsharded")
+    # where the legs part: the first differing position of each row that
+    # differs (the row-parallel sums run in another order than the whole
+    # GEMM's, so a near tie can fall the other way)
+    mismatches = []
+    for i, req in enumerate(wl):
+        a, b = sharded["rows"][id(req)], unsharded["rows"][id(req)]
+        if not np.array_equal(a, b):
+            j = int(np.flatnonzero(a != b)[0])
+            mismatches.append({"request": i, "position": j,
+                               "prefix": b[:j].tolist(),
+                               "sharded_token": int(a[j]),
+                               "unsharded_token": int(b[j])})
+    parity = not mismatches
+    for r in (sharded, unsharded):
+        del r["rows"]
+
+    def ratio(block, key):
+        a, b = unsharded[block][key], sharded[block][key]
+        return round(a / b, 4) if a and b else None
+
+    return {"sharded": sharded, "unsharded": unsharded,
+            "ttft_p50_ratio": ratio("ttft", "p50"),
+            "inter_token_p50_ratio": ratio("inter_token", "p50"),
+            "inter_token_p99_ratio": ratio("inter_token", "p99"),
+            "token_parity": bool(parity),
+            "mismatches": mismatches,
+            "collectives": {
+                "transport": C.transport(mesh.group(model_axis),
+                                         model.tok_embed),
+                "leader_messages": messages},
+            "workload": {"kind": "tensor_parallel", "tp": int(tp),
+                         "requests": n_requests, "rate_hz": rate_hz,
+                         "seed": seed, "max_slots": max_slots,
+                         "prefill_rows": prefill_rows}}
 
 
 def run_working_set_sweep(model, working_sets=(2, 8),

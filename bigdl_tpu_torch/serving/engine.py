@@ -97,8 +97,25 @@ min(1, p/q), the residual on rejection) from the same generator.
   (the loop crashes; every waiting handle fails with ``EngineStopped``)
   or a frozen slot (it sits out the decode while the others stream).
 
-Tensor-parallel serving (``mesh`` / ``tp_rules`` / ``model_axis``) and
-the observability options (``postmortem_path``, ``timeseries_interval_s``
+- tensor-parallel serving (``mesh`` / ``tp_rules`` / ``model_axis``): the
+  engine is built on EVERY rank of a model-axis mesh with the same
+  arguments and serves ``parallel/tp.py``'s shard of the model (and of
+  the draft, or of the int8 clone, quantized first), every KV pool split
+  on its heads (``kv_pool_sharding``). The mesh's first rank leads: it
+  owns the queue, scheduler, streams, ledger and generator and alone
+  accepts ``submit``; each device program (``_run``: step, chunk,
+  d_chunk, d_sync, propose, spec_verify, copy_row, copy_page, host_copy,
+  land) first broadcasts a header (its name and its integer and
+  host-array arguments) over the axis, and the followers, whose
+  ``start()`` runs the follower loop, run it on their shards in that
+  order until the stop header. Sampling and acceptance run on the
+  leader's gathered logits and generator (a sampled draft proposal is
+  broadcast inside its program); the host tier gathers a demoted row's
+  heads onto the leader and scatters a promoted row back. Prefix and
+  page pools count ``devices`` = model shards, the usage ledger the
+  mesh's ranks.
+
+The observability options (``postmortem_path``, ``timeseries_interval_s``
 / ``timeseries_capacity``, ``incident_dir`` / ``anomaly_detectors`` /
 ``incident_cooldown_s``) raise ``NotImplementedError`` naming their
 ``ROADMAP.md`` item when given; the rest of the observability hooks
@@ -117,12 +134,18 @@ from typing import List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from bigdl_tpu_torch.device import resolve_device
 from bigdl_tpu_torch.models.transformer import (
     _draw, _filter_logits, _spec_accept, _validate_sampling,
 )
 from bigdl_tpu_torch.nn.quantized import Quantizer
+from bigdl_tpu_torch.parallel import collectives as C
+from bigdl_tpu_torch.parallel.tp import (
+    P, NamedSharding, fetch_to_host, put_from_host, shard_model,
+    transformer_tp_rules,
+)
 from bigdl_tpu_torch.observability import (
     Histogram, SloObjective, SloWatchdog, UsageLedger,
 )
@@ -142,9 +165,6 @@ from bigdl_tpu_torch.serving.streams import (
 #: options of the JAX engine that a later step of this port brings: the
 #: ROADMAP.md Queue 1 item that brings each, and the step's name
 _LATER = {
-    "mesh": (10, "tensor-parallel serving"),
-    "tp_rules": (10, "tensor-parallel serving"),
-    "model_axis": (10, "tensor-parallel serving"),
     "postmortem_path": (11, "the flight recorder"),
     "timeseries_interval_s": (11, "the time series"),
     "timeseries_capacity": (11, "the time series"),
@@ -164,8 +184,8 @@ def _later(what: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} belongs to a later step of the engine's port "
         f"(ROADMAP.md, Queue 1 item {item}: {step}); this engine serves "
-        "one device: dense or paged KV, float or int8, with or without a "
-        "draft and a prefix host tier")
+        "one device or a model-axis mesh: dense or paged KV, float or "
+        "int8, with or without a draft and a prefix host tier")
 
 
 def _percentile_summary(values) -> dict:
@@ -182,6 +202,80 @@ def _percentile_summary(values) -> dict:
 
     return {"count": len(xs), "mean": sum(xs) / len(xs),
             "p50": q(0.50), "p90": q(0.90), "p99": q(0.99)}
+
+
+def _tree_nbytes(tree) -> int:
+    """Bytes of every tensor of a nested dict / list / tuple."""
+    if isinstance(tree, dict):
+        return sum(_tree_nbytes(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(_tree_nbytes(v) for v in tree)
+    return int(tree.nbytes) if torch.is_tensor(tree) else 0
+
+
+class _TPLink:
+    """The mesh of a tensor-parallel engine. The mesh's first rank LEADS:
+    it owns the queue, the scheduler, the streams, the ledger and the
+    generator, and before every device program it broadcasts a header
+    (the program's name and its integer and host-array arguments) over
+    the whole mesh. The other ranks FOLLOW: they run the same programs on
+    their shards in the leader's order, so every collective inside a
+    program runs on every rank, until the leader's stop header. Ranks
+    along a data axis (a 2-D mesh) hold the same model shard and repeat
+    the model axis's work."""
+
+    def __init__(self, mesh, model_axis: str):
+        self.mesh = mesh
+        #: the model axis's group (the programs' collectives) and its size
+        self.group = mesh.group(model_axis)
+        self.n = int(mesh.size(model_axis))
+        #: every rank of the mesh (the headers)
+        self.all = mesh.group(mesh.axis_names)
+        self.ranks = len(mesh.ranks)
+        self.leader = mesh.index(mesh.axis_names) == 0
+        self.leader_rank = mesh.ranks[0]
+        #: a cache row's (or page's) layout: heads, its first dim, split
+        #: over the model axis
+        self.row_sharding = NamedSharding(mesh, P(model_axis))
+        #: headers sent (leader) or run (follower)
+        self.headers = 0
+        self.stopped = False
+
+    def send(self, header) -> None:
+        self.headers += 1
+        if self.ranks > 1:
+            dist.broadcast_object_list([header], src=self.leader_rank,
+                                       group=self.all)
+
+    def recv(self):
+        box = [None]
+        dist.broadcast_object_list(box, src=self.leader_rank,
+                                   group=self.all)
+        self.headers += 1
+        return box[0]
+
+    def broadcast(self, t: torch.Tensor) -> torch.Tensor:
+        """The leader's ``t`` on every rank of the mesh."""
+        return C.broadcast(t, 0, self.all) if self.ranks > 1 else t
+
+    def put_row(self, src, like, device):
+        """The leader's full host row ``src`` as this rank's heads: a
+        scatter over the model axis, or on a 2-D mesh a broadcast over
+        the whole mesh that each rank cuts (the other model groups have
+        no copy of the row)."""
+        if self.ranks == self.n:
+            return put_from_host(src, self.row_sharding, src=0, like=like,
+                                 device=device)
+        full = []
+        for i, layer in enumerate(like):
+            row = []
+            for j, loc in enumerate(layer):
+                shape = (self.n * loc.shape[0],) + tuple(loc.shape[1:])
+                t = (torch.as_tensor(src[i][j]) if self.leader
+                     else torch.empty(shape, dtype=loc.dtype))
+                row.append(C.broadcast(t, 0, self.all))
+            full.append(tuple(row))
+        return put_from_host(full, self.row_sharding, device=device)
 
 
 class _Admission:
@@ -299,7 +393,16 @@ class ContinuousBatchingEngine:
     (the model itself is left as it was). ``prefix_host_bytes`` (or
     ``prefix_host_rows``) sizes the prefix cache's host tier in
     full-length rows: evicted entries demote to pinned host memory and
-    promote back on a hit (0 or None: eviction drops)."""
+    promote back on a hit (0 or None: eviction drops).
+
+    ``mesh`` (a ``parallel.Engine.create_mesh`` mesh with a
+    ``model_axis`` axis, default ``"model"``) serves ``parallel/tp.py``'s
+    shard of the model by ``tp_rules`` (default
+    ``transformer_tp_rules(model_axis)``): build the engine on every rank
+    of the mesh with the same arguments; the mesh's first rank
+    (``is_leader``) takes ``submit``, the others run its device programs
+    from ``start()`` until it stops. KV heads that do not divide the
+    axis raise ``ValueError``, for the draft too."""
 
     def __init__(self, model, max_slots: int = 4,
                  max_len: Optional[int] = None, prefill_chunk: int = 16,
@@ -327,13 +430,11 @@ class ContinuousBatchingEngine:
                  tenant_rate_limits=None, chaos=None,
                  page_size: Optional[int] = None,
                  max_pages: Optional[int] = None, device=None,
-                 model_axis=None, postmortem_path=None,
+                 model_axis: str = "model", postmortem_path=None,
                  timeseries_interval_s=None, timeseries_capacity=None,
                  incident_dir=None, anomaly_detectors=None,
                  incident_cooldown_s=None):
-        for name, val in (("mesh", mesh), ("tp_rules", tp_rules),
-                          ("model_axis", model_axis),
-                          ("postmortem_path", postmortem_path),
+        for name, val in (("postmortem_path", postmortem_path),
                           ("timeseries_interval_s", timeseries_interval_s),
                           ("timeseries_capacity", timeseries_capacity),
                           ("incident_dir", incident_dir),
@@ -379,6 +480,31 @@ class ContinuousBatchingEngine:
             # int8 codes and per-channel scales (buffers)
             model = Quantizer.quantize(model)
         model.evaluate()
+        # ---- tensor-parallel mesh: every rank of the mesh builds this
+        # engine with the same arguments and serves its shards; the
+        # mesh's first rank leads (see _TPLink)
+        self.mesh = mesh
+        self.model_axis = model_axis
+        self._tp_rules = tp_rules
+        self._tp: Optional[_TPLink] = None
+        self._logical_param_bytes = _tree_nbytes(model.params_dict())
+        if mesh is not None:
+            model.kv_cache_sharding(mesh, model_axis)
+            if draft is not None:
+                try:
+                    draft.kv_cache_sharding(mesh, model_axis)
+                except ValueError as e:
+                    raise ValueError(
+                        f"draft model cannot shard over this mesh: "
+                        f"{e}") from None
+            rules = (tp_rules if tp_rules is not None
+                     else transformer_tp_rules(model_axis))
+            model = shard_model(model, mesh, rules, model_axis)
+            if draft is not None:
+                draft.evaluate()
+                draft = shard_model(draft, mesh, rules, model_axis)
+            self._tp = _TPLink(mesh, model_axis)
+        shards = self._tp.n if self._tp is not None else 1
         self.model = model
         self.max_slots = max_slots
         self.eos_id = eos_id
@@ -495,6 +621,9 @@ class ContinuousBatchingEngine:
                 self._kv_pool = model.init_page_pool(max_pages, page_size,
                                                      dtype, kv)
                 self._pages = PagePool(self._kv_pool, page_size)
+                # a page's bytes over the whole mesh (each rank holds
+                # 1/shards of them): the figure the budgets and stats use
+                self._pages.page_bytes *= shards
                 self._tables = [None] * max_slots
                 # a dense slot of this geometry: the exchange rate of
                 # the prefix budget and the reuse credits
@@ -507,7 +636,7 @@ class ContinuousBatchingEngine:
                 # summed over every leaf: under int8 the codes AND the
                 # scales, the true physical cost of a row
                 row_bytes = sum(int(t.nbytes) for layer in self._caches
-                                for t in layer) // max_slots
+                                for t in layer) * shards // max_slots
             if draft is not None and self.paged:
                 # the draft's own page pool: it never shares pages (the
                 # prefix index retains target KV only), so at most
@@ -517,6 +646,7 @@ class ContinuousBatchingEngine:
                     1 + max_slots * self._table_len, page_size,
                     draft.tok_embed.dtype, kv)
                 self._d_pages = PagePool(self._d_kv_pool, page_size)
+                self._d_pages.page_bytes *= shards
                 self._d_tables = [None] * max_slots
             elif draft is not None:
                 # the draft's slot pool and staging mirror the target's
@@ -530,7 +660,7 @@ class ContinuousBatchingEngine:
             #: the same row at full precision: the capacity multiplier
             #: int8 KV buys is fp_row_bytes / row_bytes
             attn = model.blocks()[0].attn
-            self._fp_row_bytes = (2 * model.num_layers * attn.num_kv_heads
+            self._fp_row_bytes = (2 * model.num_layers * model.num_kv_heads
                                   * phys_len * attn.head_dim
                                   * dtype.itemsize)
             #: device KV bytes one cached token position costs
@@ -558,13 +688,16 @@ class ContinuousBatchingEngine:
                 self._prefix = PagedPrefixIndex(
                     self._pages, max_entries=pool_rows,
                     min_tokens=min_tokens, token_bytes=self._token_bytes,
-                    host_pages=host_rows * self._table_len)
+                    devices=shards, host_pages=host_rows * self._table_len)
             elif pool_rows > 0:
                 self._pool = model.init_cache(pool_rows, phys_len, dtype,
                                               kv)
+                # pool rows shard over the model axis: each rank's share
+                # is logical / shards
                 self._prefix = PrefixCache(
                     pool_rows, row_bytes, min_tokens=min_tokens,
-                    token_bytes=self._token_bytes, host_rows=host_rows)
+                    token_bytes=self._token_bytes, devices=shards,
+                    host_rows=host_rows)
             else:
                 self._prefix = None
         #: dense host-to-device promotions in flight, by entry identity:
@@ -600,7 +733,10 @@ class ContinuousBatchingEngine:
             max_tenants=usage_tenants, recent=usage_recent,
             slot_row_bytes=0 if self.paged else row_bytes,
             staging_row_bytes=0 if self.paged else row_bytes,
-            token_bytes=self._token_bytes)
+            token_bytes=self._token_bytes,
+            # one dispatch occupies every rank of the mesh: its wall is
+            # billed x devices on both sides of the ledger
+            devices=len(mesh.ranks) if mesh is not None else 1)
         #: the programs that have run once: a program's first call pays
         #: for library handles and allocator growth, so its wall is not
         #: billed (the JAX engine's warm set, whose cold call compiles)
@@ -649,13 +785,35 @@ class ContinuousBatchingEngine:
         self._lifecycle = threading.Lock()
         self._crashed: Optional[BaseException] = None
         self._draining = False
+        #: per-pool byte attribution (``stats()["mesh"]``), fixed at
+        #: construction: the pools' shapes never change
+        self._pool_bytes = self._snapshot_pool_bytes()
 
     # ----------------------------------------------- the device programs
     # (the JAX engine's jitted step / chunk / copies / sample0 and, with a
     # draft, d_chunk / d_sync / propose / spec_verify, as eager calls on
-    # the persistent tensors)
+    # the persistent tensors). Every program runs through ``_run``: under
+    # a mesh the leader first broadcasts its header (the program's name
+    # and its integer and host-array arguments) over the model axis, and
+    # each follower runs the same program on its shards, in the leader's
+    # order. Host-side decisions (sampling, acceptance, scheduling) stay
+    # on the leader and reach the followers as the next header's inputs
     def _h2d(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(a).to(self.device, non_blocking=True)
+
+    def _run(self, name: str, local: Optional[dict] = None, **kw):
+        """Run device program ``name`` with ``kw`` (ints, strings, numpy
+        arrays); ``local`` holds the leader's arguments that never travel
+        in the header (a host tree that ``_p_land`` scatters)."""
+        if self._tp is not None:
+            self._tp.send((name, kw))
+        return getattr(self, "_p_" + name)(**kw, **(local or {}))
+
+    def _tree(self, name: str):
+        """A persistent cache list by its header name (``"caches"``,
+        ``"staging"``, ``"pool"``, ``"kv_pool"`` and the draft's
+        ``"d_..."`` twins)."""
+        return getattr(self, "_" + name)
 
     def _pick(self, logits: torch.Tensor) -> torch.Tensor:
         """The next token of every row (the JAX engine's ``sample0``, and
@@ -667,84 +825,112 @@ class ContinuousBatchingEngine:
             return torch.multinomial(probs, 1, generator=self._gen)[:, 0]
         return logits.argmax(-1)
 
-    def _step(self, tok: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
+    def _p_step(self, tok: np.ndarray, pos: np.ndarray,
+                tables: Optional[np.ndarray] = None) -> torch.Tensor:
         """One fused ragged decode over ALL slots: (S,) tokens at (S,)
         per-row positions, written into the slot pool (or through the
-        slot tables into the page pool) in place."""
+        slot tables into the page pool) in place; the (S, V) logits."""
+        tok, pos = self._h2d(tok), self._h2d(pos)
         if self.paged:
             logits, _ = self.model.decode_step_paged(
-                tok, pos, self._kv_pool, self._slot_tables())
+                tok, pos, self._kv_pool, self._h2d(tables))
         else:
             logits, _ = self.model.decode_step(tok, pos, self._caches)
-        return self._pick(logits)
+        return logits
 
-    def _chunk(self, ids: torch.Tensor, pos0: torch.Tensor,
-               last: torch.Tensor) -> torch.Tensor:
+    def _p_chunk(self, ids: np.ndarray, pos0: np.ndarray, last: np.ndarray,
+                 tables: Optional[np.ndarray] = None) -> torch.Tensor:
         """One ragged prefill round over the whole staging cache (or over
         the admissions' tables): row r writes its chunk at its own offset
         ``pos0[r]``; ``last`` picks each row's true last prompt position
         (the final chunk is right-padded)."""
+        ids, pos0, last = self._h2d(ids), self._h2d(pos0), self._h2d(last)
         if self.paged:
             logits, _ = self.model.prefill_chunk_at_paged(
-                ids, self._kv_pool, self._adm_tables(), pos0, last)
+                ids, self._kv_pool, self._h2d(tables), pos0, last)
         else:
             logits, _ = self.model.prefill_chunk_at(ids, self._staging,
                                                     pos0, last)
         return logits
 
-    def _d_chunk(self, ids: torch.Tensor, pos0: torch.Tensor) -> None:
+    def _p_d_chunk(self, ids: np.ndarray, pos0: np.ndarray,
+                   tables: Optional[np.ndarray] = None) -> None:
         """The draft's mirror of the ragged prefill round, into its own
         staging (or through its admission tables); its logits are
         dropped: the first token comes from the target's."""
+        ids, pos0 = self._h2d(ids), self._h2d(pos0)
         last = torch.zeros_like(pos0)
         if self.paged:
             self.draft.prefill_chunk_at_paged(
-                ids, self._d_kv_pool, self._adm_tables(draft=True), pos0,
-                last)
+                ids, self._d_kv_pool, self._h2d(tables), pos0, last)
         else:
             self.draft.prefill_chunk_at(ids, self._d_staging, pos0, last)
 
-    def _d_sync(self, tok: torch.Tensor, pos: torch.Tensor) -> None:
+    def _p_d_sync(self, tok: np.ndarray, pos: np.ndarray,
+                  tables: Optional[np.ndarray] = None) -> None:
         """One ragged draft step re-writing each row's last accepted
         token's KV at its own position: for a row that accepted all gamma
         proposals it fills the one position the proposals never wrote;
         every other row rewrites identical values in place."""
+        tok, pos = self._h2d(tok), self._h2d(pos)
         if self.paged:
             self.draft.decode_step_paged(tok, pos, self._d_kv_pool,
-                                         self._slot_tables(draft=True))
+                                         self._h2d(tables))
         else:
             self.draft.decode_step(tok, pos, self._d_caches)
 
-    def _propose(self, tok: torch.Tensor, pos: torch.Tensor):
+    def _p_propose(self, tok: np.ndarray, pos: np.ndarray,
+                   tables: Optional[np.ndarray] = None):
         """gamma draft decode steps over ALL slots: (gamma, S) proposals
-        and their (gamma, S, V) logits."""
+        and their (gamma, S, V) logits, kept for the verify program. A
+        sampled proposal is drawn on the leader from its generator and
+        broadcast (under a mesh); a greedy one is every rank's argmax of
+        the same gathered logits."""
         g = self._spec.gamma
         sampled = self.temperature > 0.0
         temp = self.temperature if sampled else 1.0
+        choose = None
+        if sampled and self._tp is not None:
+            def choose(logits):
+                t = (_draw(logits, temp, self._gen) if self._tp.leader
+                     else logits.argmax(-1))
+                return self._tp.broadcast(t)
+        tok, pos = self._h2d(tok), self._h2d(pos)
         if self.paged:
             toks, qlogits, _ = self.draft._propose(
                 tok, pos, self._d_kv_pool, g, sampled, temp, self._gen,
-                tables=self._slot_tables(draft=True))
+                tables=self._h2d(tables), choose=choose)
         else:
             toks, qlogits, _ = self.draft._propose(
-                tok, pos, self._d_caches, g, sampled, temp, self._gen)
+                tok, pos, self._d_caches, g, sampled, temp, self._gen,
+                choose=choose)
+        self._proposed = (toks, qlogits)
         return toks, qlogits
 
-    def _spec_verify(self, tok: torch.Tensor, props: torch.Tensor,
-                     qlogits: torch.Tensor, pos: torch.Tensor):
-        """ONE ragged target forward scoring every row's proposals: chunk
-        column 0 is the row's pending token (its KV is written first),
-        columns 1..g its proposals; logits column j predicts the token at
-        position pos + j + 1. Acceptance is decided per row on the device,
-        so the host reads only the (S, g + 1) emit matrix and the (S,)
-        accepted counts."""
-        g = self._spec.gamma
+    def _p_spec_verify(self, tok: np.ndarray, pos: np.ndarray,
+                       tables: Optional[np.ndarray] = None) -> torch.Tensor:
+        """ONE ragged target forward scoring every row's proposals (the
+        last ``_p_propose``'s): chunk column 0 is the row's pending token
+        (its KV is written first), columns 1..g its proposals; logits
+        column j predicts the token at position pos + j + 1."""
+        props = self._proposed[0]
+        tok, pos = self._h2d(tok), self._h2d(pos)
         chunk = torch.cat([tok[:, None], props.T], 1)
         if self.paged:
             logits, _ = self.model.verify_chunk_paged(
-                chunk, self._kv_pool, self._slot_tables(), pos)
+                chunk, self._kv_pool, self._h2d(tables), pos)
         else:
             logits, _ = self.model.verify_chunk(chunk, self._caches, pos)
+        return logits
+
+    def _accept(self, tok: np.ndarray, logits: torch.Tensor):
+        """The leader's acceptance of the last proposals against the
+        verify logits, per row on the device, so the host reads only the
+        (S, g + 1) emit matrix and the (S,) accepted counts."""
+        g = self._spec.gamma
+        props, qlogits = self._proposed
+        tok = self._h2d(tok)
+        chunk = torch.cat([tok[:, None], props.T], 1)
         if self.temperature > 0.0:
             accept, resid, bonus = _spec_accept(
                 logits, qlogits.transpose(0, 1), chunk[:, 1:],
@@ -767,45 +953,55 @@ class ContinuousBatchingEngine:
             emit = v_tok
         return emit, n_acc
 
-    @staticmethod
-    def _copy_row(dst, src, dst_row: int, src_row: int) -> None:
+    def _p_copy_row(self, dst: str, src: str, dst_row: int,
+                    src_row: int) -> None:
         """Row ``src_row`` of cache list ``src`` into row ``dst_row`` of
-        ``dst``, every layer's tensors (k and v, and the int8 form's
-        scales), in place: staging → slot on insert, pool → staging on a
-        hit, slot → pool on donation, page → page on a fork."""
-        for dst_layer, src_layer in zip(dst, src):
-            for d, s in zip(dst_layer, src_layer):
-                d[dst_row].copy_(s[src_row])
+        ``dst`` (header names), every layer's tensors (k and v, and the
+        int8 form's scales), in place: staging → slot on insert, pool →
+        staging on a hit, slot → pool on donation, page → page on a
+        fork."""
+        for dst_layer, src_layer in zip(self._tree(dst), self._tree(src)):
+            for d, s_ in zip(dst_layer, src_layer):
+                d[dst_row].copy_(s_[src_row])
+
+    def _p_copy_page(self, dst: int, src: int) -> None:
+        self._p_copy_row("kv_pool", "kv_pool", dst, src)
 
     def _copy_page(self, dst: int, src: int) -> None:
         """``BlockTable.ensure_writable``'s copy callback: page ``src``
         into page ``dst`` of the target pool, every layer's k and v, in
         place. The engine's own paths never fork a table (each admission
         reserves its full span), so this serves API users' forks, from
-        any thread (inference mode is thread-local)."""
+        any thread (inference mode is thread-local); under a mesh only
+        from the loop's thread, which orders every program."""
         with torch.inference_mode():
-            self._copy_row(self._kv_pool, self._kv_pool, dst, src)
+            self._run("copy_page", dst=dst, src=src)
 
-    def _adm_tables(self, draft: bool = False) -> torch.Tensor:
+    def _adm_tables(self, draft: bool = False) -> Optional[np.ndarray]:
         """The prefill call's (prefill_rows, table_len) block tables:
         each admission lane's reserved table, idle lanes all-scratch
-        (their padding writes land on page 0, never attended)."""
+        (their padding writes land on page 0, never attended); None in
+        dense mode."""
+        if not self.paged:
+            return None
         t = np.zeros((self._policy.prefill_rows, self._table_len), np.int64)
         for a in self._adms:
             tbl = a.d_table if draft else a.table
             if tbl is not None:
                 t[a.row] = tbl.as_array(self._table_len)
-        return self._h2d(t)
+        return t
 
-    def _slot_tables(self, draft: bool = False) -> torch.Tensor:
+    def _slot_tables(self, draft: bool = False) -> Optional[np.ndarray]:
         """The decode call's (max_slots, table_len) block tables (idle
-        slots all-scratch, as above)."""
+        slots all-scratch, as above); None in dense mode."""
+        if not self.paged:
+            return None
         t = np.zeros((self.max_slots, self._table_len), np.int64)
         for sid, tbl in enumerate(self._d_tables if draft
                                   else self._tables):
             if tbl is not None:
                 t[sid] = tbl.as_array(self._table_len)
-        return self._h2d(t)
+        return t
 
     def _free_slot_table(self, sid: int) -> None:
         """Drop slot ``sid``'s page references (target and draft):
@@ -822,13 +1018,29 @@ class ContinuousBatchingEngine:
             self._d_tables[sid] = None
 
     # ------------------------------------------------------- lifecycle
+    @property
+    def is_leader(self) -> bool:
+        """True on a single-device engine and on a mesh's first rank: the
+        rank that accepts ``submit`` and owns every host-side state."""
+        return self._tp is None or self._tp.leader
+
     def start(self) -> "ContinuousBatchingEngine":
-        """Start the loop thread (idempotent; ``submit`` auto-starts)."""
+        """Start the loop thread (idempotent; ``submit`` auto-starts). On a
+        follower rank of a mesh, run the follower loop instead, in the
+        calling thread: it returns at the leader's stop header. A mesh
+        engine starts once (its followers leave at the stop header)."""
+        if not self.is_leader:
+            self._follow()
+            return self
         with self._lifecycle:
             if self._crashed is not None:
                 raise EngineStopped(
                     "engine loop crashed; construct a new engine"
                 ) from self._crashed
+            if self._tp is not None and self._tp.stopped:
+                raise EngineStopped(
+                    "a tensor-parallel engine starts once: its followers "
+                    "left at the stop header; construct a new engine")
             if self._thread is None or not self._thread.is_alive():
                 self._stop_evt.clear()
                 self._thread = threading.Thread(
@@ -861,6 +1073,9 @@ class ContinuousBatchingEngine:
                 # alone; it exits when the call returns, and a second
                 # stop() then fails the leftovers
                 return
+        else:
+            # a mesh leader whose loop never ran still frees its followers
+            self._release_followers()
         err = EngineStopped("engine stopped before the request finished")
         for h in self._queue.drain():
             self._finish_handle(h, err, "stopped")
@@ -913,6 +1128,11 @@ class ContinuousBatchingEngine:
         ``RequestRateLimited``, both with ``retry_after_s``; the handle
         is then finished with that outcome. ``trace_id`` is stored on
         the handle and its usage record."""
+        if not self.is_leader:
+            raise RuntimeError(
+                "submit on a follower rank: under a mesh only the leader "
+                "(the mesh's first rank) accepts requests; the followers "
+                "run its programs from start()")
         if self._crashed is not None:
             raise EngineStopped("engine loop crashed") from self._crashed
         if self._draining:
@@ -1157,7 +1377,68 @@ class ContinuousBatchingEngine:
         out["qos"] = self._qos_summary()
         if self.paged:
             out["paging"] = self._paging_summary()
+        out["mesh"] = self._mesh_summary()
         out["alerts"] = self.alerts()
+        return out
+
+    def _pool_trees(self) -> dict:
+        """Short name → cache list for every persistent KV pool (the
+        JAX engine's ``serving/<name>/<pool>`` suffixes)."""
+        if self.paged:
+            out = {"kv_page_pool": self._kv_pool}
+            if self.draft is not None:
+                out["draft_page_pool"] = self._d_kv_pool
+            return out
+        out = {"kv_slots": self._caches, "prefill_staging": self._staging}
+        if self._pool is not None:
+            out["prefix_pool"] = self._pool
+        if self.draft is not None:
+            out["draft_kv_slots"] = self._d_caches
+            out["draft_staging"] = self._d_staging
+        return out
+
+    def _snapshot_pool_bytes(self) -> dict:
+        """Per-pool bytes: ``logical_bytes`` (the whole model's array),
+        ``physical_bytes`` (summed over the mesh's devices: a replicated
+        leaf counts once a device), ``bytes_per_device`` (one rank's
+        share) and ``sharded``. The KV pools split their heads evenly
+        (physical == logical); the params replicate the LayerNorms, the
+        row-parallel biases and the position table."""
+        n = len(self.mesh.ranks) if self.mesh is not None else 1
+        shards = self._tp.n if self._tp is not None else 1
+        pools = {}
+
+        def put(name, local, logical):
+            physical = local * n
+            pools[name] = {"logical_bytes": int(logical),
+                           "physical_bytes": int(physical),
+                           "bytes_per_device": int(local),
+                           "sharded": bool(n > 1 and physical
+                                           < logical * n)}
+
+        for name, tree in self._pool_trees().items():
+            local = _tree_nbytes(tree)
+            put(name, local, local * shards)
+        put("params", _tree_nbytes(self.model.params_dict()),
+            self._logical_param_bytes)
+        return pools
+
+    def _mesh_summary(self) -> dict:
+        """The ``stats()["mesh"]`` block (the JAX engine's
+        ``_mesh_summary``): ``enabled``, ``devices``, ``pools`` and, under
+        a mesh, ``axes``, ``model_axis``, ``model_shards`` and the
+        header transport."""
+        n = len(self.mesh.ranks) if self.mesh is not None else 1
+        out = {"enabled": self.mesh is not None, "devices": n,
+               "pools": {k: dict(v) for k, v in self._pool_bytes.items()}}
+        if self.mesh is not None:
+            out["axes"] = {str(a): int(sz)
+                           for a, sz in self.mesh.shape.items()}
+            out["model_axis"] = self.model_axis
+            out["model_shards"] = self._tp.n
+            out["transport"] = C.transport(
+                self._tp.group, self.model.tok_embed)
+            out["headers"] = self._tp.headers
         return out
 
     def _qos_summary(self) -> dict:
@@ -1302,6 +1583,38 @@ class ContinuousBatchingEngine:
                     self._count("iterations")
         except BaseException as e:
             self._crash(e)
+        finally:
+            self._release_followers()
+
+    def _release_followers(self) -> None:
+        """The leader's stop header (once): the followers leave their
+        loop. Sent from the loop's thread when the loop ends, stopped or
+        crashed (a dispatch fault is raised before its header), or by
+        ``stop()`` when no loop ever ran."""
+        tp = self._tp
+        if tp is None or not tp.leader or tp.stopped:
+            return
+        tp.stopped = True
+        crashed = self._crashed
+        tp.send(("stop", {"crashed": repr(crashed) if crashed is not None
+                          else None}))
+
+    def _follow(self) -> None:
+        """A follower's loop: run each header's program on this rank's
+        shards until the stop header."""
+        tp = self._tp
+        if tp.stopped:
+            return
+        with torch.inference_mode():
+            while True:
+                name, kw = tp.recv()
+                if name == "stop":
+                    tp.stopped = True
+                    if kw.get("crashed"):
+                        self._crashed = EngineStopped(
+                            f"the leader's loop crashed: {kw['crashed']}")
+                    return
+                getattr(self, "_p_" + name)(**kw)
 
     def _crash(self, e: BaseException) -> None:
         with self._lifecycle:
@@ -1561,7 +1874,8 @@ class ContinuousBatchingEngine:
                 entry = e
                 self._prefix.record_hit(entry, base, host=from_host)
                 self._prefix.acquire(entry)
-                self._copy_row(self._staging, self._pool, row, entry.row)
+                self._run("copy_row", dst="staging", src="pool",
+                          dst_row=row, src_row=entry.row)
             else:
                 self._prefix.record_miss()
         self._stage(h, slot, row, prompt, base, entry)
@@ -1705,8 +2019,8 @@ class ContinuousBatchingEngine:
         if self._chaos is not None:
             self._chaos.on_dispatch()
         t_disp = time.monotonic()
-        logits = self._chunk(self._h2d(ids), self._h2d(pos0),
-                             self._h2d(last))
+        logits = self._run("chunk", ids=ids, pos0=pos0, last=last,
+                           tables=self._adm_tables())
         self._warm.add("chunk")
         if spec:
             d_ids = np.zeros((rows, c), np.int64)
@@ -1715,7 +2029,8 @@ class ContinuousBatchingEngine:
                 dk = a.d_next_chunk
                 d_ids[a.row] = a.d_ids[dk * c:(dk + 1) * c]
                 d_pos0[a.row] = dk * c
-            self._d_chunk(self._h2d(d_ids), self._h2d(d_pos0))
+            self._run("d_chunk", ids=d_ids, pos0=d_pos0,
+                      tables=self._adm_tables(draft=True))
             self._warm.add("d_chunk")
         toks = None
         if finals:
@@ -1767,10 +2082,11 @@ class ContinuousBatchingEngine:
             if self.draft is not None:
                 self._d_tables[a.slot], a.d_table = a.d_table, None
         else:
-            self._copy_row(self._caches, self._staging, a.slot, a.row)
+            self._run("copy_row", dst="caches", src="staging",
+                      dst_row=a.slot, src_row=a.row)
             if self.draft is not None:
-                self._copy_row(self._d_caches, self._d_staging, a.slot,
-                               a.row)
+                self._run("copy_row", dst="d_caches", src="d_staging",
+                          dst_row=a.slot, src_row=a.row)
         if a.entry is not None:
             self._prefix.release(a.entry)
             a.entry = None
@@ -1833,7 +2149,8 @@ class ContinuousBatchingEngine:
             # the claimed row may still hold a demoted victim's KV: its
             # copy to host is enqueued before this copy overwrites it
             self._resolve_pending_demotion()
-            self._copy_row(self._pool, self._caches, row, sid)
+            self._run("copy_row", dst="pool", src="caches", dst_row=row,
+                      src_row=sid)
 
     # ------------------------------------------------------ preemption
     def _maybe_preempt(self, now: float) -> bool:
@@ -1938,18 +2255,30 @@ class ContinuousBatchingEngine:
         h.copy_(t, non_blocking=True)
         return h
 
-    def _host_copy(self, tree, row: int) -> list:
-        """Row (or page) ``row`` of every tensor of a cache list, copied
-        to host tensors: int8 codes and f32 scales as they are."""
-        return [tuple(self._to_host(t[row]) for t in layer)
-                for layer in tree]
+    def _p_host_copy(self, tree: str, row: int) -> Optional[list]:
+        """Row (or page) ``row`` of every tensor of a cache list (by
+        header name), copied to host tensors: int8 codes and f32 scales
+        as they are. Under a mesh each rank's heads are gathered onto the
+        leader into ONE contiguous host row (``tp.fetch_to_host``), which
+        the followers do not get (None)."""
+        rows = [tuple(t[row] for t in layer) for layer in self._tree(tree)]
+        if self._tp is not None:
+            return fetch_to_host(rows, self._tp.row_sharding, dst=0,
+                                 as_numpy=False)
+        return [tuple(self._to_host(t) for t in layer) for layer in rows]
 
-    def _land(self, tree, row: int, src) -> None:
+    def _p_land(self, tree: str, row: int, src=None) -> None:
         """Copy a per-layer list of row tensors ``src`` (host or device)
-        into row (or page) ``row`` of ``tree``."""
-        for layer, src_layer in zip(tree, src):
-            for d, s in zip(layer, src_layer):
-                d[row].copy_(s, non_blocking=True)
+        into row (or page) ``row`` of a cache list (by header name). Under
+        a mesh ``src`` is the leader's full host row and each rank
+        receives only its heads (``tp.put_from_host``)."""
+        dst = self._tree(tree)
+        if self._tp is not None:
+            like = [tuple(t[row] for t in layer) for layer in dst]
+            src = self._tp.put_row(src, like, self.device)
+        for layer, src_layer in zip(dst, src):
+            for d, s_ in zip(layer, src_layer):
+                d[row].copy_(s_, non_blocking=True)
 
     def _resolve_pending_demotion(self) -> None:
         """Complete the demotion a row claim left open: copy the victim's
@@ -1961,7 +2290,7 @@ class ContinuousBatchingEngine:
             return
         victim, vrow = pend
         try:
-            buf = self._host_copy(self._pool, vrow)
+            buf = self._run("host_copy", tree="pool", row=vrow)
         except RuntimeError:
             buf = None
         self._prefix.complete_demotion(victim, buf)
@@ -1970,7 +2299,11 @@ class ContinuousBatchingEngine:
         """Start (or touch) the host-to-device copy of a host-tier entry
         a queued candidate's lookup landed on. The copy is enqueued at
         once and overlaps the request's queue wait; the record pins the
-        entry, so its host buffer stays while the copy runs."""
+        entry, so its host buffer stays while the copy runs. Under a mesh
+        nothing starts here: the admission lands the host row itself,
+        each rank receiving its heads in the loop's program order."""
+        if self._tp is not None:
+            return
         key = id(entry)
         now = time.monotonic()
         rec = self._promotions.get(key)
@@ -2032,7 +2365,7 @@ class ContinuousBatchingEngine:
             # the claimed row may hold a freshly demoted victim's KV:
             # enqueue its copy to host before this copy overwrites it
             self._resolve_pending_demotion()
-            self._land(self._pool, row, src)
+            self._run("land", tree="pool", row=row, local={"src": src})
             self._prefix.promote(entry, row)
             return True
         finally:
@@ -2056,7 +2389,8 @@ class ContinuousBatchingEngine:
         if pages is None:
             return False
         for dst, host_page in zip(pages, buf):
-            self._land(self._kv_pool, dst, host_page)
+            self._run("land", tree="kv_pool", row=dst,
+                      local={"src": host_page})
         self._prefix.promote_pages(entry, pages)
         return True
 
@@ -2066,7 +2400,8 @@ class ContinuousBatchingEngine:
         copied to host (one host tree a page), or None when a host
         allocation fails, to drop the victim instead."""
         try:
-            return [self._host_copy(self._kv_pool, p) for p in pages]
+            return [self._run("host_copy", tree="kv_pool", row=p)
+                    for p in pages]
         except RuntimeError:
             return None
 
@@ -2096,7 +2431,9 @@ class ContinuousBatchingEngine:
         if self._chaos is not None:
             self._chaos.on_dispatch()
         t_disp = time.monotonic()
-        nxt = self._step(self._h2d(tok), self._h2d(pos)).tolist()
+        logits = self._run("step", tok=tok, pos=pos,
+                           tables=self._slot_tables())
+        nxt = self._pick(logits).tolist()
         self._warm.add("step")
         now = time.monotonic()
         self._count("decode_steps")
@@ -2123,9 +2460,11 @@ class ContinuousBatchingEngine:
         if self._chaos is not None:
             self._chaos.on_dispatch()
         t_disp = time.monotonic()
-        tok_d, pos_d = self._h2d(tok), self._h2d(pos)
-        props, qlogits = self._propose(tok_d, pos_d)
-        emit, n_acc = self._spec_verify(tok_d, props, qlogits, pos_d)
+        self._run("propose", tok=tok, pos=pos,
+                  tables=self._slot_tables(draft=True))
+        logits = self._run("spec_verify", tok=tok, pos=pos,
+                           tables=self._slot_tables())
+        emit, n_acc = self._accept(tok, logits)
         host = torch.cat([emit, n_acc[:, None]], 1).cpu().numpy()
         wall = time.monotonic() - t_disp
         self._warm.add("spec")
@@ -2143,7 +2482,8 @@ class ContinuousBatchingEngine:
                 if n_r:
                     sync_tok[sid] = emit_np[sid, n_r - 1]
                     sync_pos[sid] = pos[sid] + n_r
-            self._d_sync(self._h2d(sync_tok), self._h2d(sync_pos))
+            self._run("d_sync", tok=sync_tok, pos=sync_pos,
+                      tables=self._slot_tables(draft=True))
         now = time.monotonic()
         bursts = {}
         for sid in active:

@@ -18,7 +18,9 @@ Three ways in:
   Each rank joins the group (``Engine.init``) and then runs the user's
   script, or ``-m`` module, as ``python script.py args`` would. A rank
   that fails takes the others down, and the launcher exits with the
-  first failing rank's code.
+  first failing rank's code (128 + N for a rank that signal N killed,
+  named on stderr). A rank whose main returned leaves the process group
+  (a barrier, then ``Engine.reset()``) before its interpreter exits.
 * **Explicit cluster** (``--coordinator host:port --num-procs N
   --proc-id R``): this process is rank R of N.
 * **Neither**: under an outer launcher that set ``RANK`` and
@@ -39,6 +41,7 @@ from __future__ import annotations
 import argparse
 import os
 import runpy
+import signal
 import socket
 import subprocess
 import sys
@@ -78,9 +81,38 @@ def _run_user_main(script: str, script_args, as_module: bool) -> None:
         runpy.run_path(script, run_name="__main__")
 
 
-# A rank of the local grid: join the group from the environment, then run
-# the target. A failing rank exits at once with its code (os._exit), so it
-# never waits in a collective for peers that wait for it.
+def _leave() -> None:
+    """Leave the process group after the user's main returned: a barrier
+    first (no rank tears its group down while a peer still sends to it),
+    then ``Engine.reset()``, which destroys the group. Left to interpreter
+    shutdown instead, the backend's threads are destroyed unjoined, and
+    C++ ``std::terminate`` aborts a rank whose work has finished."""
+    import torch.distributed as dist
+
+    from bigdl_tpu_torch.parallel import Engine
+
+    if dist.is_initialized():
+        dist.barrier()
+    Engine.reset()
+
+
+def _exit_code(code: int) -> int:
+    """A rank's return code as the launcher's exit code: a rank killed by
+    signal N (``Popen.returncode == -N``) gives 128 + N, as a shell
+    reports it (``sys.exit(-N)`` would give 256 - N)."""
+    return 128 - code if code < 0 else code
+
+
+def _signal_name(num: int) -> str:
+    try:
+        return signal.Signals(num).name
+    except ValueError:
+        return f"signal {num}"
+
+
+# A rank of the local grid: join the group from the environment, run the
+# target, then leave the group. A failing rank exits at once with its code
+# (os._exit), so it never waits in a collective for peers that wait for it.
 _BOOTSTRAP = f"""
 import os, sys, traceback
 from bigdl_tpu_torch.tools import launch
@@ -100,6 +132,7 @@ except BaseException:
     traceback.print_exc()
     sys.stderr.flush(); sys.stdout.flush()
     os._exit(1)
+launch._leave()
 """
 
 
@@ -134,7 +167,11 @@ def _spawn_local_grid(args) -> int:
                 continue
             live.remove(p)
             if code and not rc:
-                rc = code
+                rc = _exit_code(code)
+                if code < 0:
+                    print(f"launch: rank {procs.index(p)} was killed by "
+                          f"{_signal_name(-code)} (exit {rc})",
+                          file=sys.stderr, flush=True)
                 for q in live:
                     q.kill()
         if live:
@@ -194,6 +231,7 @@ def main(argv=None) -> int:
         print("launch: single-process run (no --procs, --coordinator or "
               "RANK / WORLD_SIZE)", file=sys.stderr)
     _run_user_main(args.script, args.script_args, args.module)
+    _leave()
     return 0
 
 

@@ -294,6 +294,34 @@ Then data- and sequence-parallel training (slice 13):
   printed): s a step, tokens/s, peak memory by rank, the transport;
   flash launches 2 x 8 layers x 10 a step.
 
+Then tensor-parallel serving (slice 14):
+
+- tp_one: in the world of one over NCCL, the flagship sharded over a
+  one-rank model mesh (``parallel/tp.py::shard_model``): its scoring
+  forward equal to the whole model's (8 flash launches) and the engine
+  on that mesh, rows equal to the unsharded engine's;
+- tp_gate: two ranks on the one card through the launcher
+  (``chip_smoke.py --tp-rank`` under ``tools.launch --procs 2 --backend
+  gloo``), the serving flagship split on its heads (4 query heads and 1
+  KV head a rank): the f32 sharded scoring forward (2 x 1024) through the
+  flash kernel within ``TP_RTOL`` of the unsharded forward and within
+  phase 3's f32 tolerance of the shard's plain attention, 8 launches a
+  rank a forward; the bf16 forward (4 x 2048) at tp 2 timed against
+  the whole model's; the engine at tp 2 (f32) dense, paged, int8 KV,
+  int8 weights, speculative (the int8 clone as draft), with a host tier
+  and through one preemption: rows equal to the lone ``generate``'s up
+  to near ties and, under int8, to the unsharded engine's exactly; its
+  ``stats()["mesh"]`` and ledger conservation;
+- tp_serving: ``run_tp_comparison`` at tp 2 on a Poisson workload, in
+  bf16 and in f32: TTFT and inter-token p50/p99 sharded and unsharded,
+  the transport, messages an iteration, ``token_parity`` (asserted in
+  f32; in bf16 each row that parts must part at a near tie of the
+  unsharded model, ``BF16_NEAR_TIE``);
+- sharded_ckpt: a two-rank ``DistriOptimizer`` with
+  ``slots_backend="orbax"`` (each rank writes its slice of the slots)
+  killed after a checkpoint and retried, its parameters equal to the
+  uninterrupted run's bit for bit.
+
 Earlier lines are one JSON object each; the last line is
 ``{"ok": true, "device": {...}}``. Exits non-zero without that line when
 CUDA is not available or the port cannot be imported.
@@ -550,6 +578,26 @@ LONGCONTEXT = dict(ranks=4, steps=5, vocab=32000, embed=512, heads=8,
                    kv_heads=2, layers=8, batch=4, seq_len=2048,
                    timeout_s=900)
 LONGCONTEXT_RTOL = 1e-5
+
+# tensor-parallel serving (slice 14): two ranks sharing the card over
+# gloo, the serving flagship split on its heads (4 query heads and 1 KV
+# head a rank), f32 for the checks and bf16 for the Poisson comparison
+TP = dict(ranks=2, gate_batch=2, gate_seq=1024, score_batch=4,
+          score_seq=2048, slots=4, chunk=64, page=16, gamma=4)
+TP_REQS = [(96, 12), (160, 8), (200, 12), (64, 16)]  # (prompt, new)
+TP_SERVING = dict(n_requests=16, rate_hz=20.0, max_slots=8,
+                  prefill_chunk=64, prefill_rows=2, seed=0)
+TP_CKPT = dict(iterations=10, every=3, fault_at=8)
+TP_TIMEOUT_S = 900
+# the sharded scoring forward against the unsharded one (f32: only the
+# row-parallel sums' order differs)
+TP_RTOL = 1e-5
+# bf16 rows may part where the unsharded model's two candidate tokens
+# sit within this of each other (4 bf16 ulps of a logit in [1, 2)): a
+# row-parallel sum rounds to bf16 differently from the whole GEMM in
+# about 1e-3 of its elements (scripts/torch_tp_rounding.py), which can
+# tip such a tie; f32 rows must be equal
+BF16_NEAR_TIE = 2 ** -5
 
 
 def emit(obj) -> None:
@@ -4422,9 +4470,10 @@ def distri_main(torch, fa, smi) -> int:
 
 
 def world_of_one(torch, fa, smi):
-    """distri_train, ring_one and distri_main over a world-of-one NCCL
-    group made with a FileStore, left when they end. Returns (the
-    DistriOptimizer runs' launches, ring_one's, distri_main's)."""
+    """distri_train, ring_one, distri_main and tp_one over a world-of-one
+    NCCL group made with a FileStore, left when they end. Returns (the
+    DistriOptimizer runs' launches, ring_one's, distri_main's,
+    tp_one's)."""
     import tempfile
 
     from bigdl_tpu_torch.parallel import Engine
@@ -4434,7 +4483,7 @@ def world_of_one(torch, fa, smi):
         try:
             assert Engine.backend() == "nccl", Engine.backend()
             return (distri_train(torch, fa, smi), ring_one(torch, fa, smi),
-                    distri_main(torch, fa, smi))
+                    distri_main(torch, fa, smi), tp_one(torch, fa, smi))
         finally:
             Engine.reset()
 
@@ -4647,6 +4696,490 @@ def _launch(tmp, procs, target, timeout):
     rows = [json.loads(ln) for ln in proc.stdout.splitlines()
             if ln.startswith("{")]
     return sorted(rows, key=lambda r: r["rank"]), secs
+
+
+def _tp_reqs():
+    """TP_REQS's prompts, the same on every rank (a numpy seed)."""
+    import numpy as np
+
+    rs = np.random.RandomState(7)
+    return [(rs.randint(0, FLAGSHIP["vocab_size"], t0).astype(np.int32), n)
+            for t0, n in TP_REQS]
+
+
+def _tp_tier_reqs():
+    """Three 128-token templates twice round-robin, each with its own
+    short tail: with one device row every revisit demotes and promotes."""
+    import numpy as np
+
+    rs = np.random.RandomState(8)
+    tpls = [rs.randint(0, FLAGSHIP["vocab_size"], 128) for _ in range(3)]
+    return [(np.concatenate([tpls[i % 3], rs.randint(
+        0, FLAGSHIP["vocab_size"], 8 + i % 2)]).astype(np.int32), 8)
+        for i in range(6)]
+
+
+def _serve_all(eng, reqs, concurrent: bool):
+    """The rows of ``reqs`` through ``eng``: from one thread each, or in
+    turn (int8 weights: the activation scale spans the batch)."""
+    if not concurrent:
+        return [eng.submit(p, n).result(timeout=300) for p, n in reqs]
+    rows = [None] * len(reqs)
+
+    def one(i):
+        rows[i] = eng.submit(*reqs[i]).result(timeout=300)
+
+    ts = [threading.Thread(target=one, args=(i,), daemon=True)
+          for i in range(len(reqs))]
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join()
+    return rows
+
+
+def _tp_engine_rows(torch, C, mesh, leader, model32) -> dict:
+    """The engine at tp 2 (f32) in each configuration on both ranks; on
+    the leader, each configuration's rows against the unsharded engine's
+    and the lone ``generate``'s (equal, or a near tie there), its
+    messages and seconds, and the dense run's mesh block and ledger
+    conservation. A follower runs the leader's programs."""
+    from bigdl_tpu_torch.nn.quantized import Quantizer
+    from bigdl_tpu_torch.serving import ContinuousBatchingEngine
+
+    reqs = _tp_reqs()
+    base = dict(max_slots=TP["slots"], prefill_chunk=TP["chunk"])
+    configs = [
+        ("dense", {}, reqs, True),
+        ("paged", {"page_size": TP["page"]}, reqs, True),
+        ("int8_kv", {"kv_dtype": "int8"}, reqs, False),
+        ("int8_weights", {"kv_dtype": "int8", "weights_dtype": "int8"},
+         reqs, False),
+        ("speculative", {"spec_gamma": TP["gamma"]}, reqs, True),
+        ("host_tier", {"prefix_cache_rows": 1, "prefix_host_rows": 8},
+         _tp_tier_reqs(), False),
+    ]
+    out = {}
+    for name, kw, creqs, concurrent in configs:
+        kw = dict(base, **kw)
+        if name == "speculative":
+            draft = Quantizer.quantize(model32)
+            draft.evaluate()
+            kw["draft"] = draft
+        eng = ContinuousBatchingEngine(model32, mesh=mesh,
+                                       service_name=f"tp_{name}", **kw)
+        if not leader:
+            eng.start()             # runs the leader's programs
+            continue
+        calls0, t0 = dict(C.calls), time.monotonic()
+        with eng:
+            rows = _serve_all(eng, creqs, concurrent)
+            st = eng.stats()
+        secs = time.monotonic() - t0
+        msgs = {k: v - calls0.get(k, 0) for k, v in C.calls.items()
+                if v - calls0.get(k, 0)}
+        with ContinuousBatchingEngine(model32, **kw) as un:
+            want = _serve_all(un, creqs, concurrent)
+        rec = {"seconds": secs, "messages": msgs,
+               "iterations": st["iterations"],
+               "decode_steps": st["decode_steps"],
+               "rows_equal_unsharded": sum(
+                   bool((a == b).all()) for a, b in zip(rows, want)),
+               "rows": len(rows)}
+        if "int8" in name:
+            # int8 rows are held to the unsharded int8 engine exactly
+            assert rec["rows_equal_unsharded"] == len(rows), (name, rec)
+        else:
+            rec["near_ties"] = [t for t in (
+                lone_mismatch(model32, p, n, r)
+                for (p, n), r in zip(creqs, rows)) if t is not None]
+        if name == "dense":
+            out["mesh"] = st["mesh"]
+            out["ledger_conservation"] = ledger_conservation(eng)
+            out["usage_devices"] = st["usage"]["devices"]
+        if name == "speculative":
+            rec["speculation"] = st["speculation"]
+        if name == "host_tier":
+            pc = st["prefix_cache"]
+            rec["demotions"], rec["promotions"] = (pc["demotions"],
+                                                   pc["promotions"])
+            assert pc["demotions"] >= 1 and pc["promotions"] >= 1, pc
+        out[name] = rec
+    # one preemption: a low decode in the only slot, then a high request
+    eng = ContinuousBatchingEngine(model32, mesh=mesh, max_slots=1,
+                                   prefill_chunk=TP["chunk"],
+                                   preempt_slack_s=0.002,
+                                   service_name="tp_preempt")
+    if not leader:
+        eng.start()
+        return out
+    victim, urgent = reqs[0][0], reqs[3][0][:48]
+    with eng:
+        h_low = eng.submit(victim, 48, priority="low")
+        next(h_low.tokens())
+        h_high = eng.submit(urgent, 8, priority="high")
+        high, low = h_high.result(timeout=300), h_low.result(timeout=300)
+    out["preemption"] = {
+        "preempted": h_low.preempted,
+        "near_ties": [t for t in (lone_mismatch(model32, urgent, 8, high),
+                                  lone_mismatch(model32, victim, 48, low))
+                      if t is not None]}
+    assert h_low.preempted >= 1, out["preemption"]
+    return out
+
+
+def _tp_gate(torch, fa, C, mesh, leader) -> dict:
+    """tp_gate on one rank: the sharded scoring forward (f32) through the
+    flash kernel on the rank's heads against the unsharded forward and
+    against the shard's plain attention; the bf16 flagship forward at tp
+    2, timed; then the engine's configurations (``_tp_engine_rows``).
+    ``launches`` counts the sharded paths' flash launches only."""
+    from bigdl_tpu_torch.models.transformer import TransformerLM
+    from bigdl_tpu_torch.parallel.tp import shard_model
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    vocab = FLAGSHIP["vocab_size"]
+    g = torch.Generator(device="cuda").manual_seed(1)
+    rec, launches = {}, 0
+    model32 = TransformerLM(**FLAGSHIP, seed=0, device="cuda", dtype=f32)
+    model32.evaluate()
+    local = shard_model(model32, mesh)
+    ids = torch.randint(0, vocab, (TP["gate_batch"], TP["gate_seq"]),
+                        device="cuda", generator=g)
+    with torch.inference_mode():
+        fa.launches = 0
+        got = local(ids)
+        torch.cuda.synchronize()
+        launches += fa.launches
+        per_fwd = fa.launches
+        want = model32(ids)
+        for blk in local.blocks():
+            blk.attn.use_flash = False
+        plain = local(ids)
+        for blk in local.blocks():
+            blk.attn.use_flash = True
+    attn = local.blocks()[0].attn
+    rec["scoring_f32"] = {
+        "batch": TP["gate_batch"], "seq": TP["gate_seq"],
+        "local_heads": attn.num_heads, "local_kv_heads": attn.num_kv_heads,
+        "launches_per_forward": per_fwd,
+        "rel_vs_unsharded": rel_diff(got, want),
+        "rel_vs_plain": rel_diff(got, plain), "rtol": TP_RTOL}
+    assert per_fwd == FLAGSHIP["num_layers"], per_fwd
+    assert rec["scoring_f32"]["rel_vs_unsharded"] <= TP_RTOL, rec
+    assert rec["scoring_f32"]["rel_vs_plain"] <= RTOL["float32"], rec
+    del got, want, plain, local
+    model16 = TransformerLM(**FLAGSHIP, seed=0, device="cuda", dtype=bf16)
+    model16.evaluate()
+    local16 = shard_model(model16, mesh)
+    ids16 = torch.randint(0, vocab, (TP["score_batch"], TP["score_seq"]),
+                          device="cuda", generator=g)
+    with torch.inference_mode():
+        before, calls0 = fa.launches, dict(C.calls)
+        logits = local16(ids16)
+        torch.cuda.synchronize()
+        n = 1
+        t0 = time.monotonic()
+        for _ in range(n):
+            local16(ids16)
+        torch.cuda.synchronize()
+        sharded_ms = (time.monotonic() - t0) / n * 1e3
+        sharded_launches = fa.launches - before
+        launches += sharded_launches
+        msgs = {k: (v - calls0.get(k, 0)) // (n + 1)
+                for k, v in C.calls.items() if v - calls0.get(k, 0)}
+        want16 = model16(ids16)
+        whole_ms = time_ms(torch, lambda: model16(ids16), warmup=1, iters=3)
+    rec["scoring_bf16"] = {
+        "batch": TP["score_batch"], "seq": TP["score_seq"],
+        "sharded_forward_ms": sharded_ms, "unsharded_forward_ms": whole_ms,
+        "messages_per_forward": msgs,
+        "launches": sharded_launches,
+        "rel_vs_unsharded": rel_diff(logits, want16), "rtol": LOGIT_RTOL}
+    assert rec["scoring_bf16"]["rel_vs_unsharded"] <= LOGIT_RTOL, rec
+    del logits, want16, local16, model16
+    rec["engine"] = _tp_engine_rows(torch, C, mesh, leader, model32)
+    rec["launches"] = launches
+    return rec
+
+
+def _tp_serving(torch, C, mesh):
+    """tp_serving on one rank: ``run_tp_comparison`` at tp 2 on a Poisson
+    workload in bf16 and in f32 (the leader's results by dtype; None on
+    the follower). In bf16 each row that parts from the unsharded leg's
+    gets the unsharded model's teacher-forced margin between the two
+    tokens at the first difference."""
+    from bigdl_tpu_torch.models.transformer import TransformerLM
+    from bigdl_tpu_torch.serving import run_tp_comparison
+
+    out = {}
+    for name, dtype in (("bfloat16", torch.bfloat16),
+                        ("float32", torch.float32)):
+        model = TransformerLM(**FLAGSHIP, seed=0, device="cuda",
+                              dtype=dtype)
+        model.evaluate()
+        t0 = time.monotonic()
+        res = run_tp_comparison(model, tp=TP["ranks"], mesh=mesh,
+                                **TP_SERVING)
+        if res is None:
+            continue
+        for leg in ("sharded", "unsharded"):
+            res[leg]["iterations"] = res[leg].pop("stats")["iterations"]
+            res[leg].pop("tenants", None)
+        res["seconds"] = time.monotonic() - t0
+        for blk in model.blocks():      # the margins' forward: no launch
+            blk.attn.use_flash = False
+        for m in res["mismatches"]:
+            with torch.inference_mode():
+                logits = model(torch.tensor([m.pop("prefix")],
+                                            device="cuda"))[0, -1].float()
+            m["unsharded_margin"] = (logits[m["unsharded_token"]]
+                                     - logits[m["sharded_token"]]).item()
+            m["top_logit"] = logits.max().item()
+        out[name] = res
+        del model
+    return out or None
+
+
+def _tp_ckpt_run(torch, path, fault_at=None) -> dict:
+    """The two-rank DistriOptimizer of sharded_ckpt on the card: one
+    record a rank (every epoch the same batch), an MLP, SGD with
+    momentum, f32 on the wire, sharded slot checkpoints
+    (``slots_backend="orbax"``) every ``TP_CKPT["every"]`` iterations;
+    ``fault_at`` kills the loop once there, and it retries from its
+    newest checkpoint."""
+    import numpy as np
+
+    from bigdl_tpu_torch import nn
+    from bigdl_tpu_torch.dataset import Sample, ShardedDataSet
+    from bigdl_tpu_torch.optim import SGD, Trigger
+    from bigdl_tpu_torch.parallel import DistriOptimizer
+    from bigdl_tpu_torch.utils import config as bt_config
+
+    rs = np.random.RandomState(0)
+    samples = [Sample(rs.randn(512).astype(np.float32), np.float32(1 + i))
+               for i in range(2)]
+    model = nn.Sequential(nn.Linear(512, 2048, device="cuda"), nn.Tanh(),
+                          nn.Linear(2048, 8, device="cuda"),
+                          nn.LogSoftMax())
+    with torch.no_grad():
+        for p in model.parameters():
+            p.copy_(torch.as_tensor(rs.randn(*p.shape).astype(np.float32)
+                                    * 0.05))
+    opt = DistriOptimizer(model=model, dataset=ShardedDataSet(samples),
+                          criterion=nn.ClassNLLCriterion(), batch_size=2,
+                          end_when=Trigger.max_iteration(
+                              TP_CKPT["iterations"]),
+                          compress_dtype=None)
+    opt.set_optim_method(SGD(learning_rate=0.1, momentum=0.9,
+                             dampening=0.0))
+    opt.set_checkpoint(path, Trigger.several_iteration(TP_CKPT["every"]),
+                       slots_backend="orbax")
+    fired = []
+    if fault_at is not None:
+        def hook(state):
+            if state["neval"] >= fault_at and not fired:
+                fired.append(state["neval"])
+                raise RuntimeError("injected failure")
+
+        opt._fault_hook = hook
+    bt_config.set_property("bigdl.failure.retryTimes", 3)
+    try:
+        t0 = time.monotonic()
+        model = opt.optimize()
+        secs = time.monotonic() - t0
+    finally:
+        bt_config.clear_property("bigdl.failure.retryTimes")
+    return {"params": [p.detach().clone() for p in model.parameters()],
+            "fired": fired, "seconds": secs,
+            "neval": opt.optim_method.state["neval"],
+            "files": sorted(os.listdir(path))}
+
+
+def _tp_ckpt(torch, rank) -> dict:
+    """sharded_ckpt on one rank: the uninterrupted run and the run killed
+    after a checkpoint and retried, their parameters equal bit for bit;
+    the slot blocks this rank wrote."""
+    import tempfile
+
+    from bigdl_tpu_torch.parallel import collectives as C
+
+    base = os.path.join(tempfile.gettempdir(), "chip_smoke_tp_ckpt")
+    if rank == 0:
+        import shutil
+
+        shutil.rmtree(base, ignore_errors=True)
+        os.makedirs(base)
+    C.barrier(None)
+    whole = _tp_ckpt_run(torch, os.path.join(base, "whole"))
+    broken = _tp_ckpt_run(torch, os.path.join(base, "broken"),
+                          TP_CKPT["fault_at"])
+    equal = all(torch.equal(a, b)
+                for a, b in zip(whole["params"], broken["params"]))
+    orbax = [f for f in broken["files"] if f.endswith(".orbax")]
+    blocks = sorted(f for f in os.listdir(os.path.join(
+        base, "broken", orbax[-1])) if f.endswith(".distcp")) if orbax \
+        else []
+    rec = {"equal_bit_for_bit": equal, "fired": broken["fired"],
+           "neval": [whole["neval"], broken["neval"]],
+           "seconds": [whole["seconds"], broken["seconds"]],
+           "orbax_files": orbax, "block_files": blocks,
+           "pickled_slots": [f for f in broken["files"]
+                             if f.startswith("optimSlots.")
+                             and ".orbax" not in f]}
+    assert equal and broken["fired"] == [TP_CKPT["fault_at"]], rec
+    assert orbax and not rec["pickled_slots"], rec
+    assert len(blocks) == TP["ranks"], rec
+    return rec
+
+
+def tp_rank() -> int:
+    """One rank of the tensor-parallel phases, run by the launcher on the
+    card (``chip_smoke.py --tp-rank``): tp_gate, tp_serving and
+    sharded_ckpt on a 2-way model mesh, then the rank's record as one
+    JSON line, the ranks printing in turn."""
+    import torch
+
+    sys.path.insert(0, ROOT)
+    from bigdl_tpu_torch.ops import build
+    from bigdl_tpu_torch.ops import flash_attention as fa
+    from bigdl_tpu_torch.parallel import Engine
+    from bigdl_tpu_torch.parallel import collectives as C
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    lib = build.build()
+    rank, world = C.group_rank(None), C.group_size(None)
+    mesh = Engine.create_mesh([("model", world)])
+    leader = mesh.index("model") == 0
+    rec = {"rank": rank, "library": os.path.basename(str(lib)),
+           "transport": C.transport(mesh.group("model"),
+                                    torch.empty(1, device="cuda"))}
+    t0 = time.monotonic()
+    rec["gate"] = _tp_gate(torch, fa, C, mesh, leader)
+    rec["gate_seconds"] = time.monotonic() - t0
+    t0 = time.monotonic()
+    fa.launches = 0
+    rec["serving"] = _tp_serving(torch, C, mesh)
+    rec["serving_launches"] = fa.launches
+    rec["serving_seconds"] = time.monotonic() - t0
+    rec["ckpt"] = _tp_ckpt(torch, rank)
+    rec["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    for turn in range(world):
+        C.barrier(None)
+        if turn == rank:
+            sys.stdout.write(json.dumps(rec) + "\n")
+            sys.stdout.flush()
+    return 0
+
+
+def tp_phases(torch, fa, smi) -> int:
+    """tp_gate, tp_serving and sharded_ckpt: two ranks on the one card
+    through the launcher over gloo (``chip_smoke.py --tp-rank``); their
+    records as four lines (tp_serving once a dtype). Returns the flash
+    launches of both ranks' sharded paths."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ranks, secs = _launch(tmp, TP["ranks"],
+                              [os.path.join(ROOT, "chip_smoke.py"),
+                               "--tp-rank"], TP_TIMEOUT_S)
+    assert [r["rank"] for r in ranks] == list(range(TP["ranks"])), ranks
+    lead = ranks[0]
+    gate = lead["gate"]
+    emit({"phase": "tp_gate", "nvidia_smi": smi, "ranks": TP["ranks"],
+          "backend": "gloo", "transport": lead["transport"],
+          "libraries": sorted({r["library"] for r in ranks}),
+          "launches_by_rank": [r["gate"]["launches"] for r in ranks],
+          "scoring_f32": gate["scoring_f32"],
+          "scoring_bf16": gate["scoring_bf16"],
+          "scoring_bf16_by_rank": [r["gate"]["scoring_bf16"]
+                                   for r in ranks],
+          "engine": gate["engine"], "seconds": lead["gate_seconds"],
+          "launch_seconds": secs,
+          "peak_gb_by_rank": [r["peak_gb"] for r in ranks]})
+    for dtype in ("bfloat16", "float32"):
+        _tp_serving_line(smi, dtype, lead["serving"][dtype], ranks)
+    emit({"phase": "sharded_ckpt", "nvidia_smi": smi,
+          "by_rank": [r["ckpt"] for r in ranks]})
+    assert lead["serving"]["float32"]["token_parity"] is True
+    for m in lead["serving"]["bfloat16"]["mismatches"]:
+        assert abs(m["unsharded_margin"]) <= BF16_NEAR_TIE, m
+    assert len({r["library"] for r in ranks}) == 1
+    return sum(r["gate"]["launches"] + r["serving_launches"] for r in ranks)
+
+
+def _tp_serving_line(smi, dtype, srv, ranks) -> None:
+    emit({"phase": "tp_serving", "nvidia_smi": smi, "dtype": dtype,
+          "token_parity": srv["token_parity"],
+          "mismatches": srv["mismatches"],
+          "near_tie": BF16_NEAR_TIE if dtype == "bfloat16" else None,
+          "transport": srv["collectives"]["transport"],
+          "leader_messages": srv["collectives"]["leader_messages"],
+          "messages_per_iteration": {
+              k: v / max(1, srv["sharded"]["iterations"])
+              for k, v in srv["collectives"]["leader_messages"].items()},
+          "ttft": {"sharded": srv["sharded"]["ttft"],
+                   "unsharded": srv["unsharded"]["ttft"]},
+          "inter_token": {"sharded": srv["sharded"]["inter_token"],
+                          "unsharded": srv["unsharded"]["inter_token"]},
+          "ttft_p50_ratio": srv["ttft_p50_ratio"],
+          "inter_token_p50_ratio": srv["inter_token_p50_ratio"],
+          "inter_token_p99_ratio": srv["inter_token_p99_ratio"],
+          "headers_per_iteration": srv["sharded"]["mesh"]["headers"]
+          / max(1, srv["sharded"]["iterations"]),
+          "mesh": srv["sharded"]["mesh"], "workload": srv["workload"],
+          "flash_launches_by_rank": [r["serving_launches"] for r in ranks],
+          "seconds": srv["seconds"]})
+
+
+def tp_one(torch, fa, smi) -> int:
+    """tp_one, in the world of one over NCCL: the flagship sharded over a
+    one-rank model mesh (every collective a one-rank NCCL call), its
+    scoring forward through the flash kernel equal to the whole model's,
+    and the engine on that mesh, rows equal to the unsharded engine's.
+    Returns the sharded forward's launches."""
+    from bigdl_tpu_torch.models.transformer import TransformerLM
+    from bigdl_tpu_torch.parallel import Engine
+    from bigdl_tpu_torch.parallel import collectives as C
+    from bigdl_tpu_torch.parallel.tp import shard_model
+    from bigdl_tpu_torch.serving import ContinuousBatchingEngine
+
+    mesh = Engine.create_mesh([("model", 1)])
+    model32 = TransformerLM(**FLAGSHIP, seed=0, device="cuda",
+                            dtype=torch.float32)
+    model32.evaluate()
+    local = shard_model(model32, mesh)
+    g = torch.Generator(device="cuda").manual_seed(1)
+    ids = torch.randint(0, FLAGSHIP["vocab_size"], (2, 1024),
+                        device="cuda", generator=g)
+    calls0 = dict(C.calls)
+    with torch.inference_mode():
+        before = fa.launches
+        got = local(ids)
+        torch.cuda.synchronize()
+        launches = fa.launches - before
+        want = model32(ids)
+    rel = rel_diff(got, want)
+    reqs = _tp_reqs()[:2]
+    kw = dict(max_slots=TP["slots"], prefill_chunk=TP["chunk"])
+    with ContinuousBatchingEngine(model32, mesh=mesh, **kw) as eng:
+        rows = _serve_all(eng, reqs, True)
+        st = eng.stats()
+    with ContinuousBatchingEngine(model32, **kw) as un:
+        want_rows = _serve_all(un, reqs, True)
+    equal = sum(bool((a == b).all()) for a, b in zip(rows, want_rows))
+    emit({"phase": "tp_one", "nvidia_smi": smi, "backend": Engine.backend(),
+          "transport": st["mesh"]["transport"], "launches": launches,
+          "rel_vs_unsharded": rel, "rows_equal_unsharded": equal,
+          "backend_calls": {k: v - calls0.get(k, 0)
+                            for k, v in C.calls.items()
+                            if v - calls0.get(k, 0)}})
+    assert launches == FLAGSHIP["num_layers"], launches
+    assert rel <= TP_RTOL, rel
+    assert equal == len(reqs), equal
+    assert st["mesh"]["transport"] == "nccl", st["mesh"]
+    return launches
 
 
 def _longcontext_flags():
@@ -4862,6 +5395,9 @@ def main() -> int:
     # the long-context ring's f32 blocks: the diagonal and a past block
     check_flash(torch, fa, (4, 8, 2, 512, 512, 64), True, f32, False)
     check_flash(torch, fa, (4, 8, 2, 512, 512, 64), False, f32, False)
+    # a tp-2 rank's heads of the flagship (tp_gate's scoring forward)
+    tp_local = check_flash(torch, fa, (4, 4, 1, 2048, 2048, 64), True,
+                           bf16, True)
     # the flagship width over sequence lengths
     sweep = []
     for t in (512, 1024, 2048, 4096, 8192):
@@ -5051,11 +5587,14 @@ def main() -> int:
     text_launches = text_train(torch, fa, smi) + text_lm(torch, fa, smi)
 
     # -------- data- and sequence-parallel training (slice 13)
-    distri_launches, ring_one_launches, main_launches = world_of_one(
-        torch, fa, smi)
+    (distri_launches, ring_one_launches, main_launches,
+     tp_one_launches) = world_of_one(torch, fa, smi)
     distri_launches += main_launches
     ring_launches = ring_one_launches + ring_gate(torch, fa, smi)
     longcontext_launches = longcontext_train(torch, fa, smi)
+
+    # ------------------------ tensor-parallel serving (slice 14)
+    tp_launches = tp_one_launches + tp_phases(torch, fa, smi)
 
     # ----------------------------------------------------- 9. kernels line
     print(nvidia_smi(), flush=True)
@@ -5070,7 +5609,7 @@ def main() -> int:
                      + zoo_launches + perf_cli_launches
                      + variants_launches + table_launches
                      + text_launches + distri_launches + ring_launches
-                     + longcontext_launches),
+                     + longcontext_launches + tp_launches),
         "launches_serving": serving_launches,
         "launches_train": train_launches,
         "launches_engine": engine_launches,
@@ -5087,6 +5626,10 @@ def main() -> int:
         "launches_distri": distri_launches,
         "launches_ring": ring_launches,
         "launches_longcontext": longcontext_launches,
+        "launches_tp": tp_launches,
+        "tp_local_heads": {k: tp_local[k] for k in (
+            "shape", "max_abs_err", "kernel_ms", "device_ms", "plain_ms",
+            "bound_ms", "bound_by", "library_ms", "library_device_ms")},
         "max_abs_err": flagship["max_abs_err"],
         "ms": flagship["kernel_ms"], "kernel_ms": flagship["kernel_ms"],
         "device_ms": flagship["device_ms"],
@@ -5101,4 +5644,5 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(ring_rank() if sys.argv[1:] == ["--ring-rank"] else main())
+    sys.exit(ring_rank() if sys.argv[1:] == ["--ring-rank"]
+             else tp_rank() if sys.argv[1:] == ["--tp-rank"] else main())

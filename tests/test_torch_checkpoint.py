@@ -176,12 +176,23 @@ def test_failed_write_leaves_no_torn_newest_checkpoint(tmp_path,
     assert tag == 1 and method.state["neval"] == 2
 
 
-def test_orbax_slots_and_unknown_backends_are_refused():
+def test_orbax_slots_and_unknown_backends_are_refused(tmp_path):
+    """The local loop accepts ``slots_backend="orbax"`` (JAX's option,
+    "DistriOptimizer only") and writes its slots as usual, inside the
+    method file; an unknown backend is refused."""
     opt = Optimizer(model=_model(), dataset=_batch(),
-                    criterion=nn.ClassNLLCriterion(), batch_size=16)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        opt.set_checkpoint("/unused", Trigger.every_epoch(),
-                           slots_backend="orbax")
+                    criterion=nn.ClassNLLCriterion(), batch_size=16,
+                    end_when=Trigger.max_iteration(2))
+    opt.set_optim_method(RMSprop(learning_rate=0.01))
+    assert opt.set_checkpoint(str(tmp_path), Trigger.several_iteration(1),
+                              slots_backend="orbax") is opt
+    assert opt.checkpoint_slots_backend == "orbax"
+    opt.optimize()
+    names = set(os.listdir(tmp_path))
+    assert {"model.1", "optimMethod.1"} <= names
+    assert not any(n.startswith("optimSlots") for n in names)
+    _, method, _ = load_latest_checkpoint(str(tmp_path), device="cpu")
+    assert method._train_slots is not None
     with pytest.raises(ValueError, match="slots_backend"):
         opt.set_checkpoint("/unused", Trigger.every_epoch(),
                            slots_backend="zarr")

@@ -102,6 +102,21 @@ def test_launcher_failure_kills_stranded_ranks(tmp_path):
     assert proc.returncode == 3, (proc.returncode, proc.stderr[-500:])
 
 
+def test_launcher_reports_a_rank_killed_by_a_signal(tmp_path):
+    """A rank that SIGABRT kills ends the launch with 128 + 6 (as a shell
+    reports it, not ``sys.exit(-6)``'s 250), and the launcher names the
+    rank and the signal; the stranded rank is killed."""
+    script = tmp_path / "abort_rank.py"
+    script.write_text(
+        "import os, signal, time, torch.distributed as dist\n"
+        "if dist.get_rank() == 1:\n"
+        "    os.kill(os.getpid(), signal.SIGABRT)\n"
+        "time.sleep(600)   # rank 0 stranded\n")
+    proc = _launch(tmp_path, "--procs", "2", str(script), timeout=120)
+    assert proc.returncode == 134, (proc.returncode, proc.stderr[-500:])
+    assert "rank 1 was killed by SIGABRT" in proc.stderr, proc.stderr[-500:]
+
+
 def test_launcher_refuses_virtual_devices(tmp_path):
     proc = _launch(tmp_path, "--procs", "2", "--cpu-devices", "4", "x.py",
                    timeout=60)

@@ -404,8 +404,11 @@ def test_engine_mesh_and_world_of_one():
     assert isinstance(opt, DistriOptimizer)
     with pytest.raises(NotImplementedError, match="accumulation"):
         opt.set_gradient_accumulation(2)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        opt.set_checkpoint("/nonexistent", None, slots_backend="orbax")
+    # the sharded slot format (utils/sharded_ckpt.py) is this
+    # optimizer's orbax backend
+    assert opt.set_checkpoint("/nonexistent", None,
+                              slots_backend="orbax") is opt
+    assert opt.checkpoint_slots_backend == "orbax"
     with pytest.raises(ValueError, match="NCCL"):
         Engine.init(device="cpu", backend="nccl")
     if not torch.cuda.is_available():

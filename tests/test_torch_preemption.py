@@ -1,7 +1,7 @@
 """Preemption with KV donation in the port's ContinuousBatchingEngine
 (bigdl_tpu_torch/serving/engine.py) against the JAX package's (the cases
-of tests/test_serving_preemption.py; the tensor-parallel case waits for
-ROADMAP.md Queue 1 item 10), on the same weights.
+of tests/test_serving_preemption.py; the tensor-parallel case is in
+tests/test_torch_tp_serving.py), on the same weights.
 
 The contract: a high-class request waiting past ``preempt_slack_s`` with
 no free slot evicts the lowest-class, longest-remaining victim; the

@@ -308,8 +308,8 @@ def test_validation_and_sampled_mode(lm):
 
 
 @pytest.mark.parametrize("option,value,item,step", [
-    ("mesh", object(), 10, "tensor-parallel serving"),
-    ("tp_rules", object(), 10, "tensor-parallel serving"),
+    ("mesh", "a one-rank model mesh", 10, "tensor-parallel serving"),
+    ("tp_rules", "transformer_tp_rules()", 10, "tensor-parallel serving"),
     ("model_axis", "model", 10, "tensor-parallel serving"),
     ("postmortem_path", "/dev/null", 11, "the flight recorder"),
     ("timeseries_interval_s", 1.0, 11, "the time series"),
@@ -321,25 +321,44 @@ def test_validation_and_sampled_mode(lm):
 def test_later_options_raise_naming_their_roadmap_item(lm, option, value,
                                                        item, step):
     """Each JAX engine option the port lacks raises, given any value (the
-    JAX defaults included), naming the item that brings it."""
+    JAX defaults included), naming the item that brings it. Item 10's
+    options are ported: the engine takes them and serves (a mesh of one
+    rank runs every program on the whole model, no message sent; rules
+    without a mesh are unused, as in JAX), rows equal to a lone
+    ``generate``."""
+    if item == 10:
+        from bigdl_tpu_torch.parallel import Engine
+        from bigdl_tpu_torch.parallel.tp import transformer_tp_rules
+
+        value = {"mesh": lambda: Engine.create_mesh([("model", 1)],
+                                                    devices=[0]),
+                 "tp_rules": transformer_tp_rules,
+                 "model_axis": lambda: "model"}[option]()
+        p = np.asarray([3, 1, 4, 1, 5])
+        with ContinuousBatchingEngine(lm, max_slots=2, prefill_chunk=4,
+                                      **{option: value}) as eng:
+            row = eng.submit(p, 5).result(timeout=60)
+            mesh = eng.stats()["mesh"]
+        np.testing.assert_array_equal(row, _direct(lm, p, 5))
+        assert mesh["enabled"] is (option == "mesh")
+        return
     with pytest.raises(NotImplementedError,
                        match=f"ROADMAP.md, Queue 1 item {item}: .*{step}"):
         ContinuousBatchingEngine(lm, **{option: value})
 
 
 def test_later_holds_only_the_tensor_parallel_options():
-    """QoS (item 5) and chaos (item 6) left ``_LATER``: the mesh options
-    of item 10 and the observability options of item 11 still raise,
+    """QoS (item 5), chaos (item 6) and the mesh options (item 10) left
+    ``_LATER``: only the observability options of item 11 still raise,
     and every other option of the JAX engine's constructor is accepted."""
     import inspect
 
     from bigdl_tpu_torch.serving.engine import _LATER
 
-    assert set(_LATER) == {"mesh", "tp_rules", "model_axis",
-                           "postmortem_path", "timeseries_interval_s",
+    assert set(_LATER) == {"postmortem_path", "timeseries_interval_s",
                            "timeseries_capacity", "incident_dir",
                            "anomaly_detectors", "incident_cooldown_s"}
-    assert {item for item, _ in _LATER.values()} == {10, 11}
+    assert {item for item, _ in _LATER.values()} == {11}
     jax_opts = set(inspect.signature(JaxEngine.__init__).parameters)
     ours = set(inspect.signature(ContinuousBatchingEngine.__init__)
                .parameters)

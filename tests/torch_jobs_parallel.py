@@ -249,7 +249,7 @@ def log_interval_reads():
     return opt.host_reads, accuracy(model, x, y)
 
 
-def retry_from_checkpoint(path):
+def retry_from_checkpoint(path, slots_backend="pickle"):
     import os
 
     from bigdl_tpu_torch.optim import SGD, Trigger
@@ -258,7 +258,8 @@ def retry_from_checkpoint(path):
     opt, x, y = _linear_opt(30)
     opt.set_optim_method(SGD(learning_rate=0.5, momentum=0.9,
                              dampening=0.0))
-    opt.set_checkpoint(path, Trigger.several_iteration(5))
+    opt.set_checkpoint(path, Trigger.several_iteration(5),
+                       slots_backend=slots_backend)
     fired = []
 
     def hook(state):
