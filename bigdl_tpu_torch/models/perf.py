@@ -203,17 +203,21 @@ def traced(profile_dir: Optional[str], dev: torch.device, label: str):
     CUDA activity) written to ``profile_dir`` as a Chrome trace JSON,
     ``<label>.<pid>.<ns>.pt.trace.json``; nothing without a directory.
     The profiler's own cost is inside whatever the block times, as the
-    JAX harness's ``jax.profiler.trace`` is."""
+    JAX harness's ``jax.profiler.trace`` is. It holds the observability
+    profiler's lock (``ProfilerBusy`` while a ``/debug/profile`` capture
+    runs), so two sessions never overlap."""
     if not profile_dir:
         yield
         return
     from torch.profiler import ProfilerActivity, profile
 
+    from bigdl_tpu_torch.observability.profiler import exclusive
+
     acts = [ProfilerActivity.CPU]
     if dev.type == "cuda":
         acts.append(ProfilerActivity.CUDA)
     os.makedirs(profile_dir, exist_ok=True)
-    with profile(activities=acts) as prof:
+    with exclusive(), profile(activities=acts) as prof:
         yield
     prof.export_chrome_trace(os.path.join(
         profile_dir, f"{label}.{os.getpid()}.{time.time_ns()}.pt.trace.json"))

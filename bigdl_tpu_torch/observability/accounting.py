@@ -1,7 +1,5 @@
 """Per-request usage accounting and engine goodput attribution (port of
-``bigdl_tpu/observability/accounting.py``: ``KINDS``, ``UsageRecord`` and
-``UsageLedger``, metering without Prometheus instruments or a flight
-recorder, which the port does not have yet).
+``bigdl_tpu/observability/accounting.py``).
 
 Health observability (flight recorder, HBM attribution, watchdogs)
 answers "is the engine OK"; this module answers the question a
@@ -12,7 +10,8 @@ heritage (Dai et al., 2018, arxiv 1804.05839; BigDL 2.0, arxiv
 capability — this is the inference-side equivalent, and the input
 signal SLO-aware scheduling and multi-replica routing bill against.
 
-Two host-side pieces, no device work:
+Two host-side pieces, zero device programs (the dispatch-signature
+gauge must stay flat with accounting on):
 
 - ``UsageRecord`` — one request's metered consumption: queue seconds,
   prompt tokens actually prefilled vs served from the prefix cache
@@ -38,14 +37,15 @@ dispatch busy time (every dispatch's wall clock is split across the
 rows it advanced with weights summing to 1 — nothing is double-billed,
 nothing vanishes).
 
-Device-seconds are HOST-measured dispatch walls, chosen so accounting
-adds NO synchronization point to the hot path. Two deliberate
-consequences: (1) COLD dispatches (the first call of each of the
-engine's programs, which pays for library handles and allocator
-growth on the card) are excluded from both attribution and the busy
-tally — billing that set-up to whichever tenant arrived first would
-poison its device-seconds forever, and conservation holds because both
-sides skip; (2) on an asynchronously-dispatching backend
+Device-seconds are HOST-measured dispatch walls (the same clock the
+iteration span uses), chosen so accounting adds NO synchronization
+point to the hot path. Two deliberate consequences: (1) COLD
+dispatches (the first call of each of the engine's programs, which
+pays for library handles and allocator growth on the card) are
+excluded from both attribution and the busy tally — billing that
+set-up to whichever tenant arrived first would poison its
+device-seconds forever, and conservation holds because both sides
+skip; (2) on an asynchronously-dispatching backend
 a prefill round that finishes no prompt measures only its enqueue
 cost — the device compute it launched surfaces inside the next
 BLOCKING dispatch's wall (usually the same iteration's decode step),
@@ -54,11 +54,10 @@ approximate per dispatch. The alternative (block on every chunk)
 would trade the engine's measured inter-token latency for accounting
 precision; this ledger refuses that trade.
 
-Surfaces: ``RequestHandle.usage()``, ``engine.stats()["usage"]`` and
-``engine.debug_usage()``. The JAX ledger also records a
-``request/usage_final`` flight-recorder event per finished request and
-feeds per-tenant Prometheus counters; the port keeps the same figures
-without those two sinks.
+Surfaces: ``RequestHandle.usage()``, ``engine.stats()["usage"]``,
+``engine.debug_usage()`` behind ``GET /debug/usage``, a
+``request/usage_final`` flight-recorder event per finished request,
+and ``bdt_serving_tenant_*`` Prometheus counters.
 """
 
 from __future__ import annotations
@@ -178,17 +177,21 @@ class UsageLedger:
     ``charge_dispatch`` once per device dispatch with the rows it
     advanced, and ``finalize`` exactly once per request (any thread —
     the engine's ``_finish_handle`` arbitration guarantees a single
-    finalizer) — which closes open residencies and folds the record
-    into its tenant's aggregate.
+    finalizer) — which closes open residencies, folds the record into
+    its tenant's aggregate, increments the
+    ``bdt_serving_tenant_*`` counters, and records the
+    ``request/usage_final`` flight-recorder event.
 
     TENANT CARDINALITY: the first ``max_tenants`` distinct tenant
-    names each get their own aggregate; every later new name resolves
-    to ``overflow_tenant`` — the tenant table stays bounded no matter
-    what clients send.
+    names each get their own aggregate (and label series); every
+    later new name resolves to ``overflow_tenant`` — per-tenant
+    Prometheus series stay bounded no matter what clients send.
 
-    ``registry``, ``recorder`` and ``instruments`` are accepted for the
-    JAX ledger's signature and unused: the port has no metric registry
-    or flight recorder yet, and the ledger meters without them.
+    ``instruments`` is the engine's bound instrument namespace
+    (``serving_engine_instruments``); the ledger feeds its goodput
+    members when present (padding-waste histograms, device-second
+    counters, utilization and tokens-per-device-second gauges) and
+    works without them (unit tests meter bare).
     """
 
     def __init__(self, service: str = "engine", registry=None,
@@ -204,6 +207,11 @@ class UsageLedger:
                 f"max_tenants must be >= 1, got {max_tenants}")
         if devices < 1:
             raise ValueError(f"devices must be >= 1, got {devices}")
+        from bigdl_tpu_torch.observability.events import default_recorder
+        from bigdl_tpu_torch.observability.instruments import (
+            tenant_usage_instruments,
+        )
+
         self.service = service
         self.max_tenants = max_tenants
         self.default_tenant = default_tenant
@@ -220,6 +228,10 @@ class UsageLedger:
         #: tokens-per-device-second honestly divides by the hardware
         #: the sharded dispatch actually occupied
         self.devices = int(devices)
+        self._rec = recorder if recorder is not None \
+            else default_recorder()
+        self._ins = instruments
+        self._tins = tenant_usage_instruments(registry)
         self._lock = threading.Lock()
         #: tenant names that own their own aggregate (capped)
         self._known: set = set()
@@ -341,7 +353,7 @@ class UsageLedger:
         """Meter one device dispatch: attribute its FULL host wall
         pro-rata across the rows it advanced (``shares`` weights sum
         to 1 — conservation), and fold the padded-idle fraction into
-        the goodput accumulators. Loop thread only."""
+        the goodput accumulators + instruments. Loop thread only."""
         # graftlint: ok[lock-discipline] — key-membership only; _busy's keys are fixed at __init__
         if kind not in self._busy:
             raise ValueError(f"unknown dispatch kind {kind!r}; "
@@ -363,13 +375,32 @@ class UsageLedger:
             self._weighted_capacity += capacity_rows * wall_s
             self._waste_sum += waste
             self._dispatches += 1
+            busy_total = sum(self._busy.values())
+            tokens = self._tokens_delivered
+            util = (self._weighted_rows / self._weighted_capacity
+                    if self._weighted_capacity else 0.0)
+        ins = self._ins
+        if ins is not None:
+            ctr = getattr(ins, f"device_{kind}_seconds_total", None)
+            if ctr is not None:
+                ctr.inc(wall_s)
+            hist = getattr(ins, f"padding_waste_{kind}", None)
+            if hist is not None:
+                hist.observe(waste)
+            gauge = getattr(ins, "utilization", None)
+            if gauge is not None:
+                gauge.set(util)
+            gauge = getattr(ins, "tokens_per_device_second", None)
+            if gauge is not None and busy_total > 0:
+                gauge.set(tokens / busy_total)
 
     # --------------------------------------------------------- terminal
     def finalize(self, rec: UsageRecord, outcome: str,
                  now: float) -> None:
         """Terminal accounting for one request (exactly once — later
         calls are no-ops): close open residencies, aggregate under the
-        tenant, and ring the record."""
+        tenant, bump the tenant counters, ring the record, and record
+        ``request/usage_final``."""
         with self._lock:
             if rec.outcome is not None:
                 return
@@ -404,6 +435,24 @@ class UsageLedger:
             agg["device_s"] += rec.device_s
             agg["kv_byte_seconds"] += rec.kv_byte_seconds
             self._recent.append(rec.to_dict())
+        t = self._tins
+        lbl = (self.service, rec.tenant)
+        t.requests_total.labels(*lbl).inc()
+        t.prefill_tokens_total.labels(*lbl).inc(rec.prefill_tokens)
+        t.decode_tokens_total.labels(*lbl).inc(rec.decode_tokens)
+        t.prefix_reused_tokens_total.labels(*lbl).inc(
+            rec.prefix_reused_tokens)
+        t.queue_seconds_total.labels(*lbl).inc(rec.queue_wait_s or 0.0)
+        t.device_seconds_total.labels(*lbl).inc(rec.device_s)
+        t.kv_byte_seconds_total.labels(*lbl).inc(rec.kv_byte_seconds)
+        self._rec.record("request/usage_final", rec.request_id,
+                         service=self.service, tenant=rec.tenant,
+                         outcome=outcome,
+                         prefill_tokens=rec.prefill_tokens,
+                         prefix_reused_tokens=rec.prefix_reused_tokens,
+                         decode_tokens=rec.decode_tokens,
+                         device_s=round(rec.device_s, 6),
+                         kv_byte_seconds=round(rec.kv_byte_seconds, 3))
 
     # -------------------------------------------------------- snapshots
     def device_time(self) -> dict:
@@ -482,7 +531,7 @@ class UsageLedger:
         return recent[:max(0, int(n))]
 
     def summary(self, top_n: int = 0) -> dict:
-        """The ``stats()["usage"]`` / ``debug_usage()`` payload:
+        """The ``stats()["usage"]`` / ``/debug/usage`` payload:
         per-tenant table, engine totals, goodput block, and (when
         ``top_n``) the top-N requests by attributed device-seconds."""
         out = {

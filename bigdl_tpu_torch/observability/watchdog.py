@@ -1,29 +1,155 @@
-"""SLO burn-rate alerts over latency histograms (port of the
-``SloObjective`` / ``SloWatchdog`` half of
-``bigdl_tpu/observability/watchdog.py``; its ``RecompileWatchdog`` counts
-JAX compiles and has no counterpart here yet).
+"""Watchdogs: recompile-storm detection and SLO burn-rate alerts (port of
+``bigdl_tpu/observability/watchdog.py``).
 
-``SloWatchdog`` evaluates burn rates over latency histograms against
-``SloObjective``s: for an objective "``target`` of requests under
-``threshold_s``", the burn rate over the trailing ``window_s`` is
-``bad_fraction / (1 - target)`` — 1.0 means spending error budget
-exactly as fast as allowed, ``burn_threshold`` (default 2.0) trips the
-alert. The evaluation is the JAX watchdog's, line for line; the port
-sets no gauge and records no flight-recorder event (it has neither
-yet), so ``state()`` and ``alerts()`` are the surfaces.
+Two failure modes kill a serving deployment silently today: a
+RECOMPILE STORM (a shape leak makes every request dispatch a program
+signature never seen before — under JAX a fresh compile each, here a
+fresh set of kernel selections, allocator growth and, once CUDA graphs
+come, a fresh capture; throughput collapses while every individual
+metric still "works"), and a slow SLO bleed (the TTFT/inter-token histograms drift
+past their objectives long before anyone reads them). Both watchdogs
+turn the telemetry the stack already records into ACTIONABLE alert
+state:
 
-It is PULL-style: ``sample()`` is cheap (one histogram snapshot per
-objective) and the caller picks the cadence — the continuous-batching
-engine samples once per loop iteration. ``alerts()`` returns the active
-alerts as plain dicts — what ``ContinuousBatchingEngine.stats()["alerts"]``
-surfaces — and ``state()`` feeds the engine's load-shedding decision.
+- ``RecompileWatchdog`` samples a cumulative compile-count probe (the
+  engine's ``_compile_total``, the distinct dispatch signatures —
+  program name, argument shapes and dtypes — its programs launched;
+  the train loops' step signatures). A
+  bounded number of warmup compiles is expected; growth that KEEPS
+  happening after warmup raises a ``watchdog/recompile_storm``
+  flight-recorder event and sets the
+  ``bdt_watchdog_alert_active{alert="recompile_storm"}`` gauge.
+- ``SloWatchdog`` evaluates burn rates over latency histograms against
+  ``SloObjective``s: for an objective "``target`` of requests under
+  ``threshold_s``", the burn rate over the trailing ``window_s`` is
+  ``bad_fraction / (1 - target)`` — 1.0 means spending error budget
+  exactly as fast as allowed, ``burn_threshold`` (default 2.0) trips
+  the alert. Alerts raise ``watchdog/slo_burn`` events, the per-
+  objective ``bdt_watchdog_slo_burn_rate`` gauge, and the shared
+  alert-active gauge.
+
+Both are PULL-style: ``sample()`` is cheap (reads a counter / one
+histogram snapshot) and the caller picks the cadence — the continuous-
+batching engine samples once per loop iteration; a standalone runner
+can call it from any timer. ``alerts()`` returns the active alerts as
+plain dicts — what ``ContinuousBatchingEngine.stats()["alerts"]`` and
+the degraded-``/healthz`` body surface.
 """
 
 from __future__ import annotations
 
 import collections
 import time
-from typing import Deque, List, Optional, Tuple
+from typing import Callable, Deque, List, Optional, Tuple
+
+
+class RecompileWatchdog:
+    """Detect post-warmup growth of a cumulative compile counter.
+
+    ``probe`` is a zero-argument callable returning the CURRENT
+    cumulative compiled-executable count. The first ``warmup_growths``
+    samples that show growth are free (cold-start compiles are
+    expected); after that, each growth sample is remembered for
+    ``window`` samples — ``storm_growths`` of them within the window
+    means compiles keep happening under steady shapes, which is the
+    storm. The alert clears after ``clear_after`` consecutive
+    growth-free samples."""
+
+    ALERT = "recompile_storm"
+
+    def __init__(self, probe: Callable[[], Optional[int]],
+                 service: str = "engine", warmup_growths: int = 8,
+                 window: int = 64, storm_growths: int = 3,
+                 clear_after: int = 128, registry=None, recorder=None):
+        from bigdl_tpu_torch.observability.events import default_recorder
+        from bigdl_tpu_torch.observability.instruments import (
+            watchdog_instruments,
+        )
+
+        if storm_growths < 1:
+            raise ValueError(
+                f"storm_growths must be >= 1, got {storm_growths}")
+        self.probe = probe
+        self.service = service
+        self.warmup_growths = warmup_growths
+        self.window = window
+        self.storm_growths = storm_growths
+        self.clear_after = clear_after
+        self._ins = watchdog_instruments(registry)
+        self._rec = recorder if recorder is not None \
+            else default_recorder()
+        self._gauge = self._ins.alert_active.labels(self.ALERT, service)
+        self._last: Optional[int] = None
+        self._samples = 0
+        self._growths_total = 0
+        self._marks: Deque[int] = collections.deque()  # sample indices
+        #: sample index of the most recent growth of ANY kind — the
+        #: clear countdown runs against this, not against the
+        #: window-pruned marks (clear_after may exceed window)
+        self._last_growth_idx: Optional[int] = None
+        self._active = False
+        self._since: Optional[float] = None
+        self._detail: dict = {}
+
+    @property
+    def active(self) -> bool:
+        return self._active
+
+    def sample(self, now: Optional[float] = None) -> bool:
+        """Read the probe once; returns whether the storm alert is
+        active afterwards. Never raises on a failing probe (a broken
+        probe must not take the serving loop down)."""
+        now = time.monotonic() if now is None else now
+        try:
+            v = self.probe()
+        except Exception:
+            v = None
+        if v is None:
+            return self._active
+        v = int(v)
+        self._samples += 1
+        if self._last is not None and v > self._last:
+            self._growths_total += 1
+            self._last_growth_idx = self._samples
+            self._ins.recompile_growth.labels(self.service).inc()
+            if self._growths_total > self.warmup_growths:
+                self._marks.append(self._samples)
+        self._last = v
+        while self._marks and self._marks[0] <= self._samples - self.window:
+            self._marks.popleft()
+        if not self._active and len(self._marks) >= self.storm_growths:
+            self._active = True
+            # wall clock: "since" is exported to operators (healthz
+            # bodies, alert dicts) — a monotonic reading would be
+            # process-relative noise there
+            self._since = time.time()
+            self._detail = {"compiles": v,
+                            "growths_in_window": len(self._marks),
+                            "window_samples": self.window}
+            self._gauge.set(1)
+            self._ins.alerts_fired.labels(self.ALERT, self.service).inc()
+            self._rec.record("watchdog/recompile_storm",
+                             service=self.service, **self._detail)
+        elif self._active and (
+                self._last_growth_idx is None
+                or self._samples - self._last_growth_idx
+                >= self.clear_after):
+            self._active = False
+            # the storm is over: stale marks must not re-trigger it on
+            # the very next sample
+            self._marks.clear()
+            self._gauge.set(0)
+            self._rec.record("watchdog/recompile_cleared",
+                             service=self.service, compiles=v)
+        return self._active
+
+    def alert(self) -> Optional[dict]:
+        """The active alert as a plain dict, or None."""
+        if not self._active:
+            return None
+        return {"alert": self.ALERT, "service": self.service,
+                "severity": "critical", "since": self._since,
+                **self._detail}
 
 
 class SloObjective:
@@ -68,7 +194,7 @@ class SloObjective:
 
 class _ObjectiveState:
     __slots__ = ("obj", "child", "good_idx", "snaps", "active", "since",
-                 "burn", "detail")
+                 "burn", "detail", "burn_gauge", "alert_gauge")
 
     def __init__(self, obj: SloObjective, child):
         import bisect
@@ -85,6 +211,10 @@ class _ObjectiveState:
         buckets = child._metric.buckets
         idx = bisect.bisect_right(buckets, obj.threshold_s) - 1
         self.good_idx = idx if idx >= 0 else None
+        # gauge children bound once here — sample() runs on the decode
+        # loop's hot path and must not pay a registry lookup per call
+        self.burn_gauge = None
+        self.alert_gauge = None
         #: trailing (ts, good_cum, total_cum) snapshots
         self.snaps: Deque[Tuple[float, int, int]] = collections.deque()
         self.active = False
@@ -97,20 +227,29 @@ class SloWatchdog:
     """Burn-rate evaluation of ``SloObjective``s over live latency
     histograms. ``watch(objective, histogram_child)`` binds each
     objective; ``sample()`` snapshots every bound histogram, computes
-    the trailing-window burn rate, and raises/clears alerts.
-    ``registry`` and ``recorder`` are accepted for the JAX watchdog's
-    signature and unused."""
+    the trailing-window burn rate, and raises/clears alerts."""
 
     def __init__(self, service: str = "engine", registry=None,
                  recorder=None):
+        from bigdl_tpu_torch.observability.events import default_recorder
+        from bigdl_tpu_torch.observability.instruments import (
+            watchdog_instruments,
+        )
+
         self.service = service
+        self._ins = watchdog_instruments(registry)
+        self._rec = recorder if recorder is not None \
+            else default_recorder()
         self._states: List[_ObjectiveState] = []
 
     def watch(self, objective: SloObjective, histogram_child
               ) -> "SloWatchdog":
-        """Bind ``objective`` to a histogram with the
-        ``observability.histogram.Histogram`` interface."""
-        self._states.append(_ObjectiveState(objective, histogram_child))
+        st = _ObjectiveState(objective, histogram_child)
+        st.burn_gauge = self._ins.slo_burn_rate.labels(
+            objective.name, self.service)
+        st.alert_gauge = self._ins.alert_active.labels(
+            f"slo:{objective.name}", self.service)
+        self._states.append(st)
         return self
 
     @property
@@ -152,6 +291,8 @@ class SloWatchdog:
             bad_frac = (d_total - d_good) / d_total
             burn = bad_frac / max(1.0 - st.obj.target, 1e-9)
             st.burn = burn
+            st.burn_gauge.set(burn)
+            gauge = st.alert_gauge
             if not st.active and burn >= st.obj.burn_threshold:
                 st.active = True
                 st.since = time.time()  # wall clock: exported field
@@ -163,8 +304,18 @@ class SloWatchdog:
                     "target": st.obj.target,
                     "window_s": st.obj.window_s,
                 }
+                gauge.set(1)
+                self._ins.alerts_fired.labels(
+                    f"slo:{st.obj.name}", self.service).inc()
+                self._rec.record("watchdog/slo_burn",
+                                 service=self.service, **st.detail)
             elif st.active and burn < st.obj.burn_threshold:
                 st.active = False
+                gauge.set(0)
+                self._rec.record("watchdog/slo_cleared",
+                                 service=self.service,
+                                 objective=st.obj.name,
+                                 burn_rate=round(burn, 3))
         return self.active
 
     def alerts(self) -> List[dict]:

@@ -58,10 +58,17 @@ place (pinned copies queued on the stream and an event the writer waits
 on); the method carries the loop's optimizer slots (``_train_slots``),
 which the JAX local loop drops, so ``load_latest_checkpoint`` and a new
 ``optimize()`` resume the run exactly. A ``ShardedDataSet`` trains
-through the ``DistriOptimizer`` (``parallel/distri_optimizer.py``). Not
-ported yet: the observability instruments (ROADMAP.md, Queue 1 item
-11). ``set_checkpoint(slots_backend="orbax")`` is accepted and changes
-nothing here (the sharded slot format is the ``DistriOptimizer``'s).
+through the ``DistriOptimizer`` (``parallel/distri_optimizer.py``).
+Observability as in the JAX loop: ``train/step``, ``train/validation``
+and ``train/checkpoint`` spans, the ``bdt_train_*`` instruments (step
+time, records, throughput, loss, learning rate, the pre-clip grad norm,
+epoch, checkpoint time, and the distinct step signatures as the
+``jit_compiles`` gauge), and the params and optimizer slots as memory
+pools. With the default registry disabled the loop takes the plain step
+(no grad norm). The loss and the grad norm come back in the step's one
+host read. ``set_checkpoint(slots_backend="orbax")`` is accepted and
+changes nothing here (the sharded slot format is the
+``DistriOptimizer``'s).
 """
 
 from __future__ import annotations
@@ -81,6 +88,7 @@ from bigdl_tpu_torch.dataset.dataset import (AbstractDataSet, ShardedDataSet,
 from bigdl_tpu_torch.dataset.prefetch import prefetch
 from bigdl_tpu_torch.device import resolve_device
 from bigdl_tpu_torch.nn.dropout import bind_generator
+from bigdl_tpu_torch import observability as obs
 from bigdl_tpu_torch.nn.module import (PARAMS_KEY, Module, tree_leaves,
                                        tree_unflatten)
 from bigdl_tpu_torch.optim.evaluator import (Evaluator, batch_to_device,
@@ -88,6 +96,7 @@ from bigdl_tpu_torch.optim.evaluator import (Evaluator, batch_to_device,
 from bigdl_tpu_torch.optim.metrics import Metrics
 from bigdl_tpu_torch.optim.optim_method import SGD, OptimMethod
 from bigdl_tpu_torch.optim.trigger import Trigger
+from bigdl_tpu_torch.observability import memory as obs_memory
 from bigdl_tpu_torch.optim.validation import ValidationMethod
 from bigdl_tpu_torch.utils import file as bt_file
 
@@ -376,6 +385,29 @@ def load_latest_checkpoint(path: str, device="cuda"):
     return model, method, tag
 
 
+def step_signature(*trees) -> tuple:
+    """The shapes and dtypes of a train step's inputs (tensors, possibly
+    in Tables, dicts, lists or tuples): what a JAX compile of the step is
+    keyed on, so the distinct signatures are the loops'
+    ``bdt_train_jit_compiles``, flat once every batch shape was seen."""
+    out = []
+
+    def walk(t):
+        if torch.is_tensor(t):
+            out.append((tuple(t.shape), str(t.dtype)))
+        elif hasattr(t, "items"):
+            for k, v in t.items():
+                out.append(repr(k))
+                walk(v)
+        elif isinstance(t, (list, tuple)):
+            for v in t:
+                walk(v)
+
+    for t in trees:
+        walk(t)
+    return tuple(out)
+
+
 def make_train_step(model: Module, criterion, optim_method: OptimMethod,
                     grad_clip: Optional[dict] = None, sub_methods=None,
                     compute_dtype=None, grad_accum: int = 1) -> TrainStep:
@@ -565,8 +597,13 @@ class LocalOptimizer(Optimizer):
         data_iter = prefetch(self._batch_stream(), buffer_size=PREFETCH_DEPTH,
                              transfer=self._prepare_batch)
         try:
-            params, buffers = self._optimize_loop(state, params, buffers, ts,
-                                                  slots, data_iter)
+            # /debug/memory attribution of the run's two big persistent
+            # tensor sets; unregistered on every exit
+            with obs_memory.static_pools({
+                    "train/params": obs_memory.tree_bytes(params),
+                    "train/optimizer_slots": obs_memory.tree_bytes(slots)}):
+                params, buffers = self._optimize_loop(state, params, buffers,
+                                                      ts, slots, data_iter)
         finally:
             data_iter.close()
             # never abandon a write in flight, even on an error
@@ -578,19 +615,41 @@ class LocalOptimizer(Optimizer):
     def _optimize_loop(self, state, params, buffers, ts, slots, data_iter):
         num_samples = self.dataset.size()
         wall_start = time.time()
+        # a disabled registry takes the plain step (no grad norm)
+        obs_on = obs.enabled()
+        ins = obs.train_instruments() if obs_on else None
+        sigs = set()
         while not self.end_when(state):
             x, y, n = next(data_iter)
             lrs = ts.current_lrs()
             lr = float(lrs[0])
             t0 = time.perf_counter()
-            loss, params, buffers, slots = ts.step(params, buffers, slots, x,
-                                                   y, lrs, None)
-            loss = float(loss)
+            with obs.trace.span("train/step"):
+                if obs_on:
+                    loss, gnorm, params, buffers, slots = ts.step_with_stats(
+                        params, buffers, slots, x, y, lrs, None)
+                    # one host read for both
+                    loss, gnorm = torch.stack(
+                        [loss.detach().float(), gnorm.float()]).tolist()
+                else:
+                    loss, params, buffers, slots = ts.step(
+                        params, buffers, slots, x, y, lrs, None)
+                    loss = float(loss)
             dt = time.perf_counter() - t0
             state["recordsProcessedThisEpoch"] += n
             state["Loss"] = loss
             state["LearningRate"] = lr
             self.metrics.add("computing time", dt * 1e9)
+            if obs_on:
+                sigs.add(step_signature(x, y))
+                ins.step_seconds.observe(dt)
+                ins.records_total.inc(n)
+                ins.throughput.set(n / max(dt, 1e-9))
+                ins.loss.set(loss)
+                ins.learning_rate.set(lr)
+                ins.grad_norm.set(gnorm)
+                ins.epoch.set(state["epoch"])
+                ins.jit_compiles.set(len(sigs))
             logger.info(
                 "[Epoch %d %d/%d][Iteration %d][Wall Clock %.3fs] "
                 "Trained %d records in %.4f seconds. Throughput is %.1f "
@@ -610,10 +669,15 @@ class LocalOptimizer(Optimizer):
             if self._should_fire_aux(state):
                 self.model.load_params_dict(params)
                 self.model.load_buffers_dict(buffers)
-                if self._val_now:
-                    self._run_validation(state)
-                if self._ckpt_now:
-                    self._run_checkpoint(state, slots)
+                with obs.trace.span("train/validation"):
+                    if self._val_now:
+                        self._run_validation(state)
+                # only a real checkpoint samples the latency histogram
+                ck_hist = (ins.checkpoint_seconds if obs_on and self._ckpt_now
+                           else None)
+                with obs.trace.span("train/checkpoint", histogram=ck_hist):
+                    if self._ckpt_now:
+                        self._run_checkpoint(state, slots)
         return params, buffers
 
     def _write_train_summary(self, state, params, loss, lr, throughput):

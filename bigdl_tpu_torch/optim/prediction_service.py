@@ -19,9 +19,12 @@ any stage returns the error tensor (a unicode scalar naming the stage)
 and never raises. Outputs come back as host numpy arrays (bf16 as f32:
 numpy has no bf16). ``stats()`` gives the JAX keys (``served``,
 ``dispatches``, ``mean_batch_occupancy``) from the service's own
-counters; ``registry`` and ``service_name`` are accepted and unused:
-the metric registry, its instruments and the flight recorder wait for
-ROADMAP.md, Queue 1 item 11.
+counters. Telemetry lands in ``registry`` (the process default unless
+given) under ``bdt_serve_*{service=service_name}``: requests, dispatches,
+errors, batch occupancy, queue wait, in-flight requests, and the
+dispatch time, which a ``serve/dispatch`` span measures; a micro-batched
+request's ``batch/enqueue`` / ``batch/dispatch`` / ``batch/error`` events
+go to the flight recorder.
 """
 
 from __future__ import annotations
@@ -36,6 +39,11 @@ from typing import Optional
 import numpy as np
 import torch
 
+from bigdl_tpu_torch.observability.events import (
+    default_recorder, next_request_id,
+)
+from bigdl_tpu_torch.observability.instruments import serving_instruments
+from bigdl_tpu_torch.observability.tracing import trace
 from bigdl_tpu_torch.optim.evaluator import model_device
 from bigdl_tpu_torch.utils.table import Table
 
@@ -105,28 +113,42 @@ class _MicroBatcher:
     batch and hands each request its row of the output. ``on_batch`` is
     called with the real batch size on the drain thread just before
     ``run_batch``. ``submit_timeout_s`` bounds a submitter's wait (None
-    waits forever)."""
+    waits forever). ``telemetry`` (a ``serving_instruments`` namespace)
+    receives each request's queue wait, the batch occupancy, the dispatch
+    count and time (a ``serve/dispatch`` span) and the errors; a request
+    submitted with a ``request_id`` is tagged in ``recorder``
+    (``batch/enqueue``, ``batch/dispatch``, ``batch/error``)."""
 
     def __init__(self, run_batch, max_batch: int, timeout_ms: float,
-                 on_batch=None, submit_timeout_s=None):
+                 on_batch=None, submit_timeout_s=None, telemetry=None,
+                 recorder=None, name: str = "batch"):
         self._run = run_batch
         self.max_batch = max_batch
         self.timeout = timeout_ms / 1000.0
         self.submit_timeout_s = submit_timeout_s
         self._lock = threading.Condition()
-        self._pending = {}   # signature -> list of (array, event, slot)
+        # signature -> list of (array, event, slot, t_enq, request_id)
+        self._pending = {}
         self._on_batch = on_batch
+        self._telemetry = telemetry
+        self._rec = recorder if recorder is not None else default_recorder()
+        self.name = name
 
-    def submit(self, x):
+    def submit(self, x, request_id=None, detail=None):
         """Queue one sample; blocks until its batch lands and returns this
-        sample's row of the output."""
+        sample's row of the output. ``detail`` (a dict) receives
+        ``t_launch``, the monotonic instant the batch was dispatched."""
         x = np.asarray(x)
         sig = (x.shape, x.dtype.str)
         ev = threading.Event()
-        slot = {}
+        slot = detail if detail is not None else {}
+        if request_id is not None:
+            # before the request is poppable: batch/dispatch must never
+            # precede batch/enqueue in its timeline
+            self._rec.record("batch/enqueue", request_id, service=self.name)
         with self._lock:
             group = self._pending.setdefault(sig, [])
-            group.append((x, ev, slot))
+            group.append((x, ev, slot, time.monotonic(), request_id))
             if len(group) == 1:
                 # group leader: wait out the window, then run this group
                 threading.Thread(target=self._drain, args=(sig,),
@@ -156,15 +178,37 @@ class _MicroBatcher:
                                  daemon=True).start()
             else:
                 self._pending.pop(sig, None)
+        tel = self._telemetry
+        if tel is not None:
+            now = time.monotonic()
+            for b in batch:
+                tel.queue_wait_seconds.observe(now - b[3])
+            tel.batch_occupancy.observe(len(batch))
+            tel.dispatches_total.inc()
         if self._on_batch is not None:
             self._on_batch(len(batch))
         try:
-            outs = self._run(np.stack([b[0] for b in batch]))
-            for i, (_, ev, slot) in enumerate(batch):
+            t0 = time.monotonic()
+            for _, _, slot, _, rid in batch:
+                slot["t_launch"] = t0
+                if rid is not None:
+                    self._rec.record("batch/dispatch", rid,
+                                     service=self.name,
+                                     batch_size=len(batch))
+            with trace.span("serve/dispatch",
+                            histogram=tel.dispatch_seconds
+                            if tel is not None else None):
+                outs = self._run(np.stack([b[0] for b in batch]))
+            for i, (_, ev, slot, _, _) in enumerate(batch):
                 slot["out"] = _row(outs, i)
                 ev.set()
         except Exception as e:
-            for _, ev, slot in batch:
+            if tel is not None:
+                tel.errors_total.inc(len(batch))
+            for _, ev, slot, _, rid in batch:
+                if rid is not None:
+                    self._rec.record("batch/error", rid, service=self.name,
+                                     error=type(e).__name__)
                 slot["error"] = e
                 ev.set()
 
@@ -190,13 +234,16 @@ class PredictionService:
         self.num_threads = num_threads
         self.sample_ndim = sample_ndim
         self.service_name = service_name
+        self._ins = serving_instruments(service_name, registry)
         self._lock = threading.Lock()
         self._served = 0
         self._dispatches = 0
         self._batcher = (_MicroBatcher(self._run, max_batch,
                                        batch_timeout_ms,
                                        on_batch=self._count,
-                                       submit_timeout_s=submit_timeout_s)
+                                       submit_timeout_s=submit_timeout_s,
+                                       telemetry=self._ins,
+                                       name=service_name)
                          if max_batch and max_batch > 1 else None)
 
     def _count(self, n: int) -> None:
@@ -224,7 +271,10 @@ class PredictionService:
         the codec. Errors return the error tensor."""
         if isinstance(request, (bytes, bytearray)):
             return self._predict_bytes(bytes(request))
-        with self._sem:
+        ins = self._ins
+        ins.requests_total.inc()
+        with ins.inflight.track(), self._sem:
+            batchable = False
             try:
                 batchable = (self._batcher is not None
                              and not isinstance(request, Table)
@@ -232,11 +282,20 @@ class PredictionService:
                                   or np.asarray(request).ndim
                                   == self.sample_ndim))
                 if batchable:
-                    out = self._batcher.submit(request)
+                    # a failure inside the batch is counted by the
+                    # micro-batcher's telemetry
+                    out = self._batcher.submit(
+                        request, request_id=next_request_id("pred"))
                 else:
                     self._count(1)
-                    out = self._run(request)
+                    ins.dispatches_total.inc()
+                    ins.batch_occupancy.observe(1)
+                    with trace.span("serve/dispatch",
+                                    histogram=ins.dispatch_seconds):
+                        out = self._run(request)
             except Exception as e:
+                if not batchable:
+                    ins.errors_total.inc()
                 return _error_tensor("running forward", e)
             try:
                 if isinstance(out, Table):
@@ -246,6 +305,7 @@ class PredictionService:
                     return host
                 return _host(out)
             except Exception as e:
+                ins.errors_total.inc()
                 return _error_tensor("Clone Result", e)
 
     def stats(self) -> dict:
@@ -261,9 +321,14 @@ class PredictionService:
         try:
             activity = deserialize_activity(request)
         except Exception as e:
+            # the inner predict never runs: count the request here, or a
+            # flood of malformed payloads scrapes as an idle service
+            self._ins.requests_total.inc()
+            self._ins.errors_total.inc()
             return serialize_activity(_error_tensor("DeSerialize Input", e))
         out = self.predict(activity)
         try:
             return serialize_activity(out)
         except Exception as e:
+            self._ins.errors_total.inc()
             return serialize_activity(_error_tensor("Serialize Output", e))

@@ -53,8 +53,11 @@ instead shard by shard, each rank its own slice, as
 (the counterpart of the JAX package's orbax checkpoint), and a retry
 restores them straight into each rank's slice, with no gather.
 Summaries are written by rank 0. Not ported: gradient accumulation
-(raises, as in JAX) and the observability instruments (ROADMAP.md,
-Queue 1 item 11).
+(raises, as in JAX). Observability as in the JAX loop: ``train/step``,
+``train/validation`` and ``train/checkpoint`` spans, the ``bdt_train_*``
+instruments at each log point (the loop's one host read), the per-rank
+``bdt_parallel_sync_window_seconds`` / ``bdt_parallel_step_seconds``,
+and the params and optimizer slots as memory pools.
 """
 
 from __future__ import annotations
@@ -66,15 +69,18 @@ from typing import Optional
 
 import torch
 
+from bigdl_tpu_torch import observability as obs
 from bigdl_tpu_torch.dataset.dataset import dataset_base
 from bigdl_tpu_torch.dataset.minibatch import MiniBatch
 from bigdl_tpu_torch.dataset.prefetch import prefetch
 from bigdl_tpu_torch.dataset.transformer import SampleToMiniBatch
 from bigdl_tpu_torch.nn.module import tree_leaves, tree_unflatten
+from bigdl_tpu_torch.observability import memory as obs_memory
 from bigdl_tpu_torch.optim.evaluator import model_device
 from bigdl_tpu_torch.optim.optimizer import (PREFETCH_DEPTH, LocalOptimizer,
                                              TrainStep, load_latest_checkpoint,
-                                             make_train_step, _on_device)
+                                             make_train_step, _on_device,
+                                             step_signature)
 from bigdl_tpu_torch.parallel import collectives as C
 from bigdl_tpu_torch.parallel.all_reduce import (AllReduceParameter,
                                                  flatten_params,
@@ -420,9 +426,14 @@ class DistriOptimizer(LocalOptimizer):
         data_iter = prefetch(self._batch_stream(), buffer_size=PREFETCH_DEPTH,
                              transfer=self._prepare_batch)
         try:
-            params, buffers = self._loop(state, ts, arp, spec, params,
-                                         buffers, flat, slots, gen,
-                                         data_iter)
+            # /debug/memory attribution: this rank's params and its
+            # optimizer slots (its slice under the sharded sync)
+            with obs_memory.static_pools({
+                    "train/params": obs_memory.tree_bytes(params),
+                    "train/optimizer_slots": obs_memory.tree_bytes(slots)}):
+                params, buffers = self._loop(state, ts, arp, spec, params,
+                                             buffers, flat, slots, gen,
+                                             data_iter)
         finally:
             data_iter.close()
             self.join_pending_checkpoint()
@@ -444,17 +455,26 @@ class DistriOptimizer(LocalOptimizer):
         rank0 = C.group_rank(None) == 0
         wall_start = window_start = time.time()
         window_records = 0
+        window_iters = 0
+        obs_on = obs.enabled()
+        ins = obs.train_instruments() if obs_on else None
+        pins = obs.parallel_instruments() if obs_on else None
+        host = str(C.group_rank(None))
+        sigs = set()
         while not self.end_when(state):
             x, y, n_local = next(data_iter)
             lrs = ts.current_lrs()
             lr = float(lrs[0])
-            if arp is not None:
-                loss, params, buffers, flat, slots = self._sharded_step(
-                    ts, arp, spec, params, buffers, flat, slots, x, y,
-                    lrs[0], gen)
-            else:
-                loss, params, buffers, slots = ts.step(
-                    params, buffers, slots, x, y, lrs, gen)
+            with obs.trace.span("train/step"):
+                if arp is not None:
+                    loss, params, buffers, flat, slots = self._sharded_step(
+                        ts, arp, spec, params, buffers, flat, slots, x, y,
+                        lrs[0], gen)
+                else:
+                    loss, params, buffers, slots = ts.step(
+                        params, buffers, slots, x, y, lrs, gen)
+            if obs_on:
+                sigs.add(step_signature(x, y))
             self._live_slots = slots
             if self._fault_hook is not None:
                 self._fault_hook(state)
@@ -462,6 +482,7 @@ class DistriOptimizer(LocalOptimizer):
             state["recordsProcessedThisEpoch"] += records
             state["LearningRate"] = lr
             window_records += records
+            window_iters += 1
             state["neval"] += 1
             aux_now = self._should_fire_aux(state)
             if (state["neval"] - 1) % self.log_interval == 0 or aux_now:
@@ -470,6 +491,18 @@ class DistriOptimizer(LocalOptimizer):
                 dt = time.time() - window_start
                 state["Loss"] = loss_v
                 self.metrics.add("computing time", dt * 1e9)
+                if obs_on:
+                    ins.records_total.inc(window_records)
+                    ins.throughput.set(window_records / max(dt, 1e-9))
+                    ins.loss.set(loss_v)
+                    ins.learning_rate.set(lr)
+                    ins.epoch.set(state["epoch"])
+                    ins.jit_compiles.set(len(sigs))
+                    # the whole window and its per-iteration average (the
+                    # step-time proxy while launches overlap host work)
+                    pins.sync_window_seconds.labels(host).observe(dt)
+                    pins.step_seconds.labels(host).observe(
+                        dt / max(window_iters, 1))
                 logger.info(
                     "[Epoch %d %d/%d][Iteration %d][Wall Clock %.3fs] "
                     "Trained %d records in %.4f seconds. Throughput is %.1f "
@@ -486,6 +519,7 @@ class DistriOptimizer(LocalOptimizer):
                     summ.add_scalar("Throughput",
                                     window_records / max(dt, 1e-9), it)
                 window_records = 0
+                window_iters = 0
                 window_start = time.time()
             if state["recordsProcessedThisEpoch"] >= num_samples:
                 state["epoch"] += 1
@@ -496,9 +530,16 @@ class DistriOptimizer(LocalOptimizer):
             ts.update_states(**kv)
             if aux_now:
                 self._write_back(params, buffers)
-                if self._val_now:
-                    self._run_validation(state)
-                if self._ckpt_now:
-                    self._run_checkpoint(state, slots)
+                with obs.trace.span("train/validation"):
+                    if self._val_now:
+                        self._run_validation(state)
+                ck_hist = (ins.checkpoint_seconds if obs_on and self._ckpt_now
+                           else None)
+                with obs.trace.span("train/checkpoint", histogram=ck_hist):
+                    if self._ckpt_now:
+                        self._run_checkpoint(state, slots)
+        if obs_on and window_records:
+            # the partial window after the last log point
+            ins.records_total.inc(window_records)
         self._write_back(params, buffers)
         return params, buffers

@@ -26,9 +26,10 @@ one rank: a mesh of size 1 whose groups are ``None``, over which every
 collective of ``parallel/collectives.py`` is the identity, as a JAX
 collective over a one-device axis is.
 
-Not ported: the JAX ``Engine.init`` sets the observability gauges of
-the topology, which belong to ROADMAP.md, Queue 1 item 11; nothing is
-set here.
+``Engine.init`` sets the topology gauges, as the JAX one does:
+``bdt_engine_processes`` (the ranks), ``bdt_engine_local_devices`` (the
+devices this host's ranks use, one a rank) and
+``bdt_engine_total_devices`` (one device a rank: the world size).
 """
 
 from __future__ import annotations
@@ -42,6 +43,7 @@ import torch
 import torch.distributed as dist
 
 from bigdl_tpu_torch.device import DEFAULT_DEVICE, resolve_device
+from bigdl_tpu_torch.observability.instruments import engine_instruments
 
 logger = logging.getLogger("bigdl_tpu_torch.engine")
 
@@ -227,6 +229,12 @@ class Engine:
         cls._initialized = True
         logger.info("Engine.init: rank %d of %d, %s on %s", rank, world,
                     backend if dist.is_initialized() else "no group", dev)
+        # one-shot topology gauges, forced past the disable switch: a
+        # later enable() must not read frozen zeros
+        ins = engine_instruments()
+        ins.processes.set(world, force=True)
+        ins.local_devices.set(local_world, force=True)
+        ins.total_devices.set(world, force=True)
 
     @classmethod
     def device(cls) -> torch.device:

@@ -39,9 +39,10 @@ unsharded on the leader: both legs' percentiles, the mesh block, the
 collectives' transport and token parity.
 The workload generators draw from ``numpy.random.RandomState(seed)`` in
 the JAX package's order, so a seed gives the same arrays in both
-packages. The incident blocks of the JAX rows, the compile gauges and
-the cost model's figures wait for the observability slice (ROADMAP.md,
-Queue 1 item 11).
+packages. Every engine leg carries the cost model's and the loop
+phases' blocks (``cost``, ``loop``); the Poisson comparison's engine
+leg the incident block, and the working-set sweep's legs the
+dispatch-signature check (``jit_flat``), as the JAX rows do.
 """
 
 from __future__ import annotations
@@ -276,16 +277,19 @@ def _replay(workload, submit_fn, collect_fn) -> dict:
 
 
 def _engine_replay(model, workload, warm_prompt, warm_tokens,
-                   stats_keys, log, label, **engine_kw) -> dict:
+                   stats_keys, log, label, after_warm=None,
+                   **engine_kw) -> dict:
     """One engine leg of a comparison: build the engine, serve one warm
     request outside the measurement (none when ``warm_prompt`` is
     None), open-loop replay the workload, and return latency / TTFT /
     inter-token percentiles, delivered tokens/s, the per-request rows
     (keyed by ``id(req)``), the whole ``stats()`` under ``stats`` and
     the entries named by ``stats_keys`` at the top level, the usage
-    ledger's goodput and per-tenant blocks, the active alerts, and the
-    peak number of requests admitted at once
-    (``peak_admitted_concurrency``)."""
+    ledger's goodput and per-tenant blocks, the cost model's and the
+    loop phases' blocks, the active alerts, and the peak number of
+    requests admitted at once (``peak_admitted_concurrency``).
+    ``after_warm(engine)`` runs between the warm request and the replay
+    (a baseline probe that must exclude warmup)."""
     from bigdl_tpu_torch.serving.engine import ContinuousBatchingEngine
 
     engine = ContinuousBatchingEngine(model, **engine_kw)
@@ -316,6 +320,8 @@ def _engine_replay(model, workload, warm_prompt, warm_tokens,
     with engine:
         if warm_prompt is not None:
             engine.submit(warm_prompt, warm_tokens).result(timeout=300)
+        if after_warm is not None:
+            after_warm(engine)
         res = _replay(
             workload,
             lambda req: engine.submit(req["prompt"], req["n"],
@@ -329,6 +335,8 @@ def _engine_replay(model, workload, warm_prompt, warm_tokens,
     for key in stats_keys:
         res[key] = stats[key]
     res.update(_usage_blocks(stats))
+    res["cost"] = stats["cost"]
+    res["loop"] = stats["loop"]
     res["alerts"] = stats["alerts"]
     res["rows"] = rows
     return res
@@ -438,11 +446,17 @@ def run_poisson_comparison(model, n_requests: int = 16,
         prefill_rows=prefill_rows, eos_id=eos_id, registry=registry,
         service_name="bench_engine")
     eng["rows"] = [eng["rows"][id(req)] for req in wl]
+    # calm-storm incident gate: a healthy Poisson replay records no
+    # incident
+    inc = eng["stats"]["incidents"]
+    incidents = {"count": inc["count"], "by_kind": inc["by_kind"],
+                 "calm": True}
 
     svc = GenerationService(model, max_batch=max_batch,
                             batch_timeout_ms=batch_timeout_ms,
                             bucket_tokens=8, prompt_bucket=8,
-                            eos_id=eos_id)
+                            eos_id=eos_id, registry=registry,
+                            service_name="bench_generation")
     log("[serving-bench] GenerationService replay...")
     svc_rows: dict = {}
 
@@ -459,6 +473,7 @@ def run_poisson_comparison(model, n_requests: int = 16,
                  if eng["latency"]["p99"] else None)
     return {"engine": eng, "generation_service": gen,
             "p99_speedup": p99_ratio,
+            "incidents": incidents,
             "workload": {"requests": n_requests, "rate_hz": rate_hz,
                          "seed": seed, "max_slots": max_slots,
                          "max_batch": max_batch,
@@ -724,11 +739,9 @@ def run_quantized_comparison(model, n_requests: int = 24,
     acceptance rates and their signed delta (float KV minus int8 KV),
     and token parity WITHIN each numerics regime: speculation must not
     change tokens over float KV or over int8 KV (across regimes int8
-    rounds differently; the quality report bounds that drift). The
-    memory-bandwidth pair of the JAX row (``membw_util``) comes from its
-    cost model, which waits for ROADMAP.md Queue 1 item 11: it is
-    ``None`` here. Each leg's rows are kept under ``rows``, by request
-    index."""
+    rounds differently; the quality report bounds that drift), and the
+    memory-bandwidth pair (``membw_util``) from each leg's cost model.
+    Each leg's rows are kept under ``rows``, by request index."""
     log = log or (lambda *a, **k: None)
     vocab = model.vocab_size
     window = (model.max_len // prefill_chunk) * prefill_chunk
@@ -785,6 +798,9 @@ def run_quantized_comparison(model, n_requests: int = 24,
         b = (new or quant)["inter_token"][key]
         return round(a / b, 4) if a and b else None
 
+    def membw(leg):
+        return leg["cost"]["overall"]["membw_util"]
+
     qz = quant["quantization"]
     return {"quantized": quant, "fp_baseline": fp, "kv_only": kv8,
             "spec_fp": spec_fp, "spec_int8": spec_q,
@@ -794,8 +810,7 @@ def run_quantized_comparison(model, n_requests: int = 24,
                 ratio("p50", base=spec_fp, new=spec_q),
             "spec_inter_token_p99_speedup":
                 ratio("p99", base=spec_fp, new=spec_q),
-            "membw_util": {"fp": None, "quantized": None,
-                           "waits_for": "ROADMAP.md Queue 1 item 11"},
+            "membw_util": {"fp": membw(fp), "quantized": membw(quant)},
             "capacity": {
                 "kv_row_bytes": qz["kv_row_bytes"],
                 "fp_row_bytes": qz["fp_row_bytes"],
@@ -928,10 +943,11 @@ def run_working_set_sweep(model, working_sets=(2, 8),
     device-only leg collapses once the working set passes
     ``device_rows``; the tiered leg keeps its hits, because evictions
     demote to host memory and revisits promote back. Every point checks
-    token parity of both cached legs against the cache-off leg, and each
+    token parity of both cached legs against the cache-off leg, each
     leg's usage-ledger conservation (``ledger_conserved``: the tenants'
-    device-seconds against the busy total). The JAX row's compile-gauge
-    check (``jit_flat``) has no counterpart here."""
+    device-seconds against the busy total), and that its dispatch
+    signatures stayed flat from the warm request on (``jit_flat``:
+    demote and promote traffic launches no new signature)."""
     log = log or (lambda *a, **k: None)
     vocab = model.vocab_size
     window = (model.max_len // prefill_chunk) * prefill_chunk
@@ -956,6 +972,11 @@ def run_working_set_sweep(model, working_sets=(2, 8),
             decode_lens=(min(4, decode_hi), decode_hi),
             seed=seed + int(ws), template_order="cycle")
         legs = {}
+        baseline = {}
+
+        def probe(eng, _b=baseline):
+            _b["jit"] = eng.stats()["jit_compiles"]
+
         # the host tier absorbs the DONATION working set: every request
         # donates its own template + tail entry, so the hot set is the
         # request count, not the template count
@@ -964,12 +985,16 @@ def run_working_set_sweep(model, working_sets=(2, 8),
                             "prefix_host_rows": n_req}),
                 ("device_only", {"prefix_cache_rows": device_rows}),
                 ("disabled", {"prefix_cache_bytes": 0})):
-            legs[name] = _engine_replay(
-                model, wl, warm_prompt, 2, ("prefix_cache",), log,
-                f"ws{ws}_{name}", max_slots=max_slots,
+            baseline.clear()
+            r = _engine_replay(
+                model, wl, warm_prompt, 2, ("prefix_cache", "jit_compiles"),
+                log, f"ws{ws}_{name}", after_warm=probe,
+                max_slots=max_slots,
                 prefill_chunk=prefill_chunk, prefill_rows=prefill_rows,
                 eos_id=eos_id, registry=registry,
                 service_name=f"ws{ws}_{name}", **kw)
+            r["jit_flat"] = bool(r["jit_compiles"] == baseline["jit"])
+            legs[name] = r
         parity = all(_parity(legs[a], legs["disabled"], wl)
                      for a in ("tiered", "device_only"))
 
@@ -980,6 +1005,7 @@ def run_working_set_sweep(model, working_sets=(2, 8),
             out = {"ttft": r["ttft"], "latency": r["latency"],
                    "inter_token": r["inter_token"],
                    "tokens_per_sec": r["tokens_per_sec"],
+                   "jit_flat": r["jit_flat"],
                    "ledger_conserved": bool(
                        abs(tenant_s - total_s)
                        <= 1e-6 * max(total_s, 1e-9))}
@@ -1029,6 +1055,7 @@ def run_working_set_sweep(model, working_sets=(2, 8),
             "tiered_ttft_p50_s": head["tiered"]["ttft"]["p50"],
             "device_only_ttft_p50_s": head["device_only"]["ttft"]["p50"],
             "token_parity": head["token_parity"],
+            "jit_flat": bool(head["tiered"]["jit_flat"]),
             "ledger_conserved": bool(head["tiered"]["ledger_conserved"]),
         },
         "workload": {"kind": "working_set_sweep",

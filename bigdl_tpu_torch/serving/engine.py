@@ -1,7 +1,7 @@
 """Continuous-batching decode engine over a slot-pooled or paged KV cache
 (port of ``bigdl_tpu/serving/engine.py``: dense slots, paged KV,
 speculative decoding, int8 KV and weights, the prefix host tier, QoS,
-chaos drills, usage metering and SLO burn detection).
+chaos drills, usage metering and the observability hooks).
 
 The batch-at-a-time ``GenerationService`` runs each batch to completion:
 one long request holds every co-batched short one. This engine keeps a
@@ -115,22 +115,34 @@ min(1, p/q), the residual on rejection) from the same generator.
   page pools count ``devices`` = model shards, the usage ledger the
   mesh's ranks.
 
-The observability options (``postmortem_path``, ``timeseries_interval_s``
-/ ``timeseries_capacity``, ``incident_dir`` / ``anomaly_detectors`` /
-``incident_cooldown_s``) raise ``NotImplementedError`` naming their
-``ROADMAP.md`` item when given; the rest of the observability hooks
-(recorder, metric instruments, memory pools, budget tracker, recompile
-watchdog, cost model, loop-phase accounting) are not ported yet, and
-``registry=`` / ``recorder=`` are accepted and unused.
+- observability (``observability/``), as the JAX engine wires it: the
+  ``bdt_serving_*`` instruments of ``registry`` (the process default
+  unless given), every lifecycle transition in the flight recorder
+  ``recorder``, the KV pools, staging, prefix pool and params as named
+  memory pools, a ``RecompileWatchdog`` over the distinct dispatch
+  signatures ``_run`` launched (program name, argument shapes and
+  dtypes: what a JAX compile is keyed on), an ``SloBudgetTracker``, the
+  analytic dispatch cost model and the loop-phase accounting, a
+  ``TimeSeriesSampler`` thread (``timeseries_interval_s`` /
+  ``timeseries_capacity``) feeding the anomaly ``DetectorBank``, and an
+  ``IncidentManager`` (``incident_dir``, ``incident_cooldown_s``). A loop
+  crash writes a postmortem (``postmortem_path``, else
+  ``$BIGDL_POSTMORTEM_PATH``, else ``bigdl_postmortem.json``) and a crash
+  incident from host state only, and ``healthz`` raises from then on.
+  Every figure is a host value the iteration already has: telemetry adds
+  no device sync and no host read of a device tensor. Under a mesh all
+  of it is the leader's; a follower's instruments, recorder and sampler
+  are private and idle, so its registry holds no serving series.
 """
 
 from __future__ import annotations
 
 import collections
+import os
 import sys
 import threading
 import time
-from typing import List, Optional
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
@@ -146,8 +158,31 @@ from bigdl_tpu_torch.parallel.tp import (
     P, NamedSharding, fetch_to_host, put_from_host, shard_model,
     transformer_tp_rules,
 )
-from bigdl_tpu_torch.observability import (
-    Histogram, SloObjective, SloWatchdog, UsageLedger,
+from bigdl_tpu_torch.observability import memory as obs_memory
+from bigdl_tpu_torch.observability.accounting import UsageLedger
+from bigdl_tpu_torch.observability.anomaly import (
+    DetectorBank, default_detector_bank,
+)
+from bigdl_tpu_torch.observability.capacity import estimate_capacity
+from bigdl_tpu_torch.observability.costmodel import (
+    DispatchCostModel, LoopPhaseAccumulator, device_peaks,
+)
+from bigdl_tpu_torch.observability.events import (
+    FlightRecorder, default_recorder, percentile_summary,
+)
+from bigdl_tpu_torch.observability.incidents import IncidentManager
+from bigdl_tpu_torch.observability.instruments import (
+    incident_instruments, qos_instruments, serving_engine_instruments,
+)
+from bigdl_tpu_torch.observability.metrics import MetricRegistry
+from bigdl_tpu_torch.observability.postmortem import write_postmortem
+from bigdl_tpu_torch.observability.slo_budget import SloBudgetTracker
+from bigdl_tpu_torch.observability.timeseries import (
+    TimeSeriesSampler, render_dashboard,
+)
+from bigdl_tpu_torch.observability.tracing import trace
+from bigdl_tpu_torch.observability.watchdog import (
+    RecompileWatchdog, SloObjective, SloWatchdog,
 )
 from bigdl_tpu_torch.serving.paging import (
     BlockTable, PagedPrefixIndex, PagePool,
@@ -162,55 +197,17 @@ from bigdl_tpu_torch.serving.streams import (
     RequestHandle, RequestRateLimited, RequestShed, RequestTimedOut,
 )
 
-#: options of the JAX engine that a later step of this port brings: the
-#: ROADMAP.md Queue 1 item that brings each, and the step's name
-_LATER = {
-    "postmortem_path": (11, "the flight recorder"),
-    "timeseries_interval_s": (11, "the time series"),
-    "timeseries_capacity": (11, "the time series"),
-    "incident_dir": (11, "incidents and anomaly detectors"),
-    "anomaly_detectors": (11, "incidents and anomaly detectors"),
-    "incident_cooldown_s": (11, "incidents and anomaly detectors"),
-}
-
 #: the flow counters ``stats()`` reports (the JAX engine's
 #: ``_stats_base``), then this port's loop tallies
 _FLOW = ("admitted", "finished", "evicted", "timed_out", "cancelled")
 _TALLIES = ("iterations", "prefill_rounds", "decode_steps")
 
 
-def _later(what: str) -> NotImplementedError:
-    item, step = _LATER[what]
-    return NotImplementedError(
-        f"{what} belongs to a later step of the engine's port "
-        f"(ROADMAP.md, Queue 1 item {item}: {step}); this engine serves "
-        "one device or a model-axis mesh: dense or paged KV, float or "
-        "int8, with or without a draft and a prefix host tier")
-
-
-def _percentile_summary(values) -> dict:
-    """Nearest-rank ``{count, mean, p50, p90, p99}`` of a small sample
-    (None entries skipped), as the JAX engine's ``stats()`` reports each
-    timeline phase."""
-    xs = sorted(v for v in values if v is not None)
-    if not xs:
-        return {"count": 0, "mean": None, "p50": None, "p90": None,
-                "p99": None}
-
-    def q(p: float) -> float:
-        return xs[min(len(xs) - 1, int(round(p * (len(xs) - 1))))]
-
-    return {"count": len(xs), "mean": sum(xs) / len(xs),
-            "p50": q(0.50), "p90": q(0.90), "p99": q(0.99)}
-
-
-def _tree_nbytes(tree) -> int:
-    """Bytes of every tensor of a nested dict / list / tuple."""
-    if isinstance(tree, dict):
-        return sum(_tree_nbytes(v) for v in tree.values())
-    if isinstance(tree, (list, tuple)):
-        return sum(_tree_nbytes(v) for v in tree)
-    return int(tree.nbytes) if torch.is_tensor(tree) else 0
+def _is_cuda_error(e: BaseException) -> bool:
+    """A CUDA runtime error: sticky on the card (every later call on the
+    context fails too), so the loop re-raises it after its postmortem."""
+    return (isinstance(e, getattr(torch, "AcceleratorError", ()))
+            or (isinstance(e, RuntimeError) and "CUDA error" in str(e)))
 
 
 class _TPLink:
@@ -430,18 +427,13 @@ class ContinuousBatchingEngine:
                  tenant_rate_limits=None, chaos=None,
                  page_size: Optional[int] = None,
                  max_pages: Optional[int] = None, device=None,
-                 model_axis: str = "model", postmortem_path=None,
-                 timeseries_interval_s=None, timeseries_capacity=None,
-                 incident_dir=None, anomaly_detectors=None,
-                 incident_cooldown_s=None):
-        for name, val in (("postmortem_path", postmortem_path),
-                          ("timeseries_interval_s", timeseries_interval_s),
-                          ("timeseries_capacity", timeseries_capacity),
-                          ("incident_dir", incident_dir),
-                          ("anomaly_detectors", anomaly_detectors),
-                          ("incident_cooldown_s", incident_cooldown_s)):
-            if val is not None:
-                raise _later(name)
+                 model_axis: str = "model",
+                 postmortem_path: Optional[str] = None,
+                 timeseries_interval_s: float = 1.0,
+                 timeseries_capacity: int = 600,
+                 incident_dir: Optional[str] = None,
+                 anomaly_detectors=None,
+                 incident_cooldown_s: float = 30.0):
         if preempt_slack_s is not None and preempt_slack_s < 0:
             raise ValueError(f"preempt_slack_s must be >= 0 or None, "
                              f"got {preempt_slack_s}")
@@ -487,7 +479,7 @@ class ContinuousBatchingEngine:
         self.model_axis = model_axis
         self._tp_rules = tp_rules
         self._tp: Optional[_TPLink] = None
-        self._logical_param_bytes = _tree_nbytes(model.params_dict())
+        self._logical_param_bytes = obs_memory.tree_bytes(model.params_dict())
         if mesh is not None:
             model.kv_cache_sharding(mesh, model_axis)
             if draft is not None:
@@ -720,17 +712,29 @@ class ContinuousBatchingEngine:
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(seed)
 
-        # the latency histograms the JAX engine feeds its ttft /
-        # inter-token / queue-wait instruments with: the SLO watchdog's
-        # inputs (unregistered: the port exports no metric yet)
-        self._hists = {"ttft": Histogram(), "inter_token": Histogram(),
-                       "queue_wait": Histogram()}
+        # ---- observability. Everything here is the leader's: a follower
+        # of a mesh gets a private registry and a disabled recorder, so
+        # its process's default registry holds no serving series, and it
+        # never starts the sampler (its start() runs the follower loop)
+        leader = self.is_leader
+        if not leader:
+            registry = MetricRegistry(enabled=False)
+            recorder = FlightRecorder(capacity=1, enabled=False)
+        #: flight recorder fed by every lifecycle transition (captured at
+        #: construction, like the instruments)
+        self._rec = recorder if recorder is not None else default_recorder()
+        self._registry = registry
+        #: crash black-box destination; resolved at crash time
+        self.postmortem_path = postmortem_path
+        self._ins = serving_engine_instruments(service_name, registry)
+        self._qos_ins = qos_instruments(registry)
         #: per-request / per-tenant usage meter. Paged mode bills KV
         #: byte-seconds per actually-held page (``_accrue_paged_kv``),
         #: so the dense row-residency terms are zero there
         self._usage = UsageLedger(
-            service=service_name, registry=registry, recorder=recorder,
-            max_tenants=usage_tenants, recent=usage_recent,
+            service=service_name, registry=registry, recorder=self._rec,
+            instruments=self._ins, max_tenants=usage_tenants,
+            recent=usage_recent,
             slot_row_bytes=0 if self.paged else row_bytes,
             staging_row_bytes=0 if self.paged else row_bytes,
             token_bytes=self._token_bytes,
@@ -741,18 +745,155 @@ class ContinuousBatchingEngine:
         #: for library handles and allocator growth, so its wall is not
         #: billed (the JAX engine's warm set, whose cold call compiles)
         self._warm: set = set()
+        #: the distinct dispatch signatures ``_run`` launched (program
+        #: name, argument shapes and dtypes, static strings): the
+        #: recompile watchdog's probe, flat after warmup
+        self._signatures: set = set()
         self._last_kv_accrue: Optional[float] = None
+        self._prefix_evictions_seen = 0
+        self._prefix_demotions_seen = 0
+        self._prefix_host_evictions_seen = 0
+        self._page_seen = {"allocated": 0, "shared": 0, "cow_forks": 0,
+                           "freed": 0}
+        self._ins.slots.set(max_slots, force=True)
+        self._ins.quantized_kv.set(1 if self.kv_dtype else 0, force=True)
+        self._ins.quantized_weights.set(1 if self.weights_dtype else 0,
+                                        force=True)
+        self._ins.kv_row_bytes.set(row_bytes, force=True)
+
+        #: per-pool byte attribution (``stats()["mesh"]``), fixed at
+        #: construction: the pools' shapes never change
+        self._pool_bytes = self._snapshot_pool_bytes()
+        n_dev = len(mesh.ranks) if mesh is not None else 1
+        self._ins.mesh_devices.set(n_dev, force=True)
+        self._ins.mesh_model_shards.set(shards, force=True)
+        for pool_name, summary in self._pool_bytes.items():
+            self._ins.mesh_pool_bytes_per_device.labels(
+                service_name, pool_name).set(summary["bytes_per_device"],
+                                             force=True)
+        # per-pool device-memory attribution behind /debug/memory, under
+        # weakrefs (the monitor must never keep a dead engine's pools
+        # alive); a same-named successor engine takes the names over
+        self._memory_pools: List[str] = []
+        if leader:
+            def pool_reader(key):
+                return lambda e: e._pool_bytes[key]["bytes_per_device"]
+
+            pools = {f"serving/{service_name}/{key}": pool_reader(key)
+                     for key in self._pool_bytes}
+            if self.paged:
+                # the page pool's LIVE footprint beside its capacity
+                pools[f"serving/{service_name}/kv_pages_in_use"] = (
+                    lambda e: e._pages.bytes_in_use // shards)
+                if self.draft is not None:
+                    pools[f"serving/{service_name}/draft_pages_in_use"] = (
+                        lambda e: e._d_pages.bytes_in_use // shards)
+            self._memory_pools = obs_memory.register_owned_pools(self, pools)
+            if self._prefix is not None:
+                self._memory_pools.append(self._prefix.register_memory_pool(
+                    f"serving/{service_name}/prefix_kv_in_use"))
+                if self._prefix.host_rows > 0:
+                    self._memory_pools.append(
+                        self._prefix.register_host_memory_pool(
+                            f"serving/{service_name}/prefix_host_kv"))
+
+        # ---- dispatch cost model and loop-phase attribution: analytic
+        # FLOPs/bytes per dispatch kind (no compiler cost analysis here),
+        # priced against the card's peak row. Under a mesh ``self.model``
+        # is this rank's shard, so the prices are already one device's
+        # share (the JAX engine prices the whole program and divides)
+        self._cost = DispatchCostModel(device_peaks(self.device), devices=1)
+        self._loop_obs = LoopPhaseAccumulator()
+        self._iter_disp = {"prefill": 0.0, "decode": 0.0}
+        self._price_programs()
+        self._loop_phase_counters = {
+            p: self._ins.loop_phase_seconds.labels(service_name, p)
+            for p in LoopPhaseAccumulator.PHASES}
+        self._loop_flushed = {p: 0.0 for p in LoopPhaseAccumulator.PHASES}
+        # background gauge/rate sampler behind /debug/timeseries and the
+        # dashboard: started with the loop thread, joined in stop()
+        self._ts = TimeSeriesSampler(
+            interval_s=timeseries_interval_s,
+            capacity=timeseries_capacity, registry=registry)
+        self._ts.add_source("mfu", lambda: self._cost.rates("decode")[0])
+        self._ts.add_source(
+            "mfu_prefill", lambda: self._cost.rates("prefill")[0])
+        self._ts.add_source("tokens_per_sec",
+                            self._ins.decode_tokens_total.get, rate=True)
+        self._ts.add_source(
+            "slot_occupancy",
+            lambda: (sum(s is not None for s in self._slots)
+                     / max(1, self.max_slots)))
+        self._ts.add_source("queue_depth", lambda: len(self._queue))
+        if self._spec is not None:
+            self._ts.add_source(
+                "acceptance_rate",
+                lambda: (self._spec_accepted / self._spec_proposed
+                         if self._spec_proposed else None))
+        if self.paged:
+            self._ts.add_source(
+                "page_pool_occupancy",
+                lambda: (self._pages.pages_in_use
+                         / max(1, self._pages.max_pages - 1)))
+            self._ts.add_source("page_fragmentation", self._fragmentation)
+        self._ts.add_source("alerts", lambda: float(len(self.alerts())))
+        if self.device.type == "cuda":
+            # the allocator's host counter, read on the sampler thread
+            # (never in the loop)
+            self._ts.add_source(
+                "hbm_bytes_in_use",
+                lambda: float(torch.cuda.memory_allocated(self.device)))
+
+        # ---- anomaly detection and incident capture: the detectors see
+        # every sampler point on the sampler thread and only record
+        # triggers; the loop drains them once an iteration
+        if anomaly_detectors is None:
+            self._bank = default_detector_bank()
+        elif isinstance(anomaly_detectors, DetectorBank):
+            self._bank = anomaly_detectors
+        else:
+            self._bank = DetectorBank(anomaly_detectors)
+        self._ts.set_observer(self._bank.observe)
+        self._incidents = IncidentManager(
+            service_name, recorder=self._rec, registry=registry,
+            dirpath=incident_dir if leader else None,
+            cooldown_s=incident_cooldown_s,
+            config={"service_name": service_name,
+                    "max_slots": max_slots, "max_len": self.max_len,
+                    "prefill_chunk": self._policy.chunk,
+                    "admission_window": admission_window,
+                    "kv_dtype": self.kv_dtype,
+                    "weights_dtype": self.weights_dtype,
+                    "paged": self.paged,
+                    "shed_classes": list(shed_classes or ()),
+                    "preempt_slack_s": preempt_slack_s})
+        self._inc_ins = incident_instruments(registry)
+        self._det_gauges: Dict[str, object] = {}
+        self._trig_counters: Dict[str, object] = {}
+
+        # ---- watchdogs, sampled once an iteration: dispatch signatures
+        # that keep growing after warmup (a shape leak), and SLO burns
+        # over the TTFT / inter-token / queue-wait histograms
+        self._recompile_wd = RecompileWatchdog(
+            self._compile_total, service=service_name, registry=registry,
+            recorder=self._rec)
         self._slo_wd = SloWatchdog(service=service_name, registry=registry,
-                                   recorder=recorder)
+                                   recorder=self._rec)
+        slo_children = {"ttft": self._ins.ttft_seconds,
+                        "inter_token": self._ins.inter_token_seconds,
+                        "queue_wait": self._ins.queue_wait_seconds}
+        self._slo_budget = SloBudgetTracker(
+            service=service_name, registry=registry, recorder=self._rec)
         for obj in (slo_objectives or ()):
             if isinstance(obj, dict):
                 obj = SloObjective(**obj)
-            if obj.metric not in self._hists:
+            if obj.metric not in slo_children:
                 raise ValueError(
                     f"SloObjective {obj.name!r} names unknown engine "
                     f"metric {obj.metric!r}; expected one of "
-                    f"{sorted(self._hists)}")
-            self._slo_wd.watch(obj, self._hists[obj.metric])
+                    f"{sorted(slo_children)}")
+            self._slo_wd.watch(obj, slo_children[obj.metric])
+            self._slo_budget.watch(obj, slo_children[obj.metric])
 
         # ---- QoS: preemption, burn-rate shedding, token buckets
         self.preempt_slack_s = preempt_slack_s
@@ -773,11 +914,14 @@ class ContinuousBatchingEngine:
         self._qos_counts = {"preempted": 0, "shed": 0, "rate_limited": 0}
 
         self._queue = AdmissionQueue(
-            queue_capacity, wait_histogram=self._hists["queue_wait"])
+            queue_capacity, recorder=self._rec,
+            wait_histogram=self._ins.queue_wait_seconds)
         self._slots: List[Optional[_SlotState]] = [None] * max_slots
         self._adms: List[_Admission] = []
         self._counts = dict.fromkeys(_FLOW + _TALLIES, 0)
         self._counts_lock = threading.Lock()
+        self._flow_ctrs = {k: getattr(self._ins, k + "_total")
+                           for k in _FLOW + ("iterations",)}
 
         self._wake = threading.Condition()
         self._stop_evt = threading.Event()
@@ -785,9 +929,7 @@ class ContinuousBatchingEngine:
         self._lifecycle = threading.Lock()
         self._crashed: Optional[BaseException] = None
         self._draining = False
-        #: per-pool byte attribution (``stats()["mesh"]``), fixed at
-        #: construction: the pools' shapes never change
-        self._pool_bytes = self._snapshot_pool_bytes()
+        self._register_conditional_programs()
 
     # ----------------------------------------------- the device programs
     # (the JAX engine's jitted step / chunk / copies / sample0 and, with a
@@ -807,7 +949,84 @@ class ContinuousBatchingEngine:
         in the header (a host tree that ``_p_land`` scatters)."""
         if self._tp is not None:
             self._tp.send((name, kw))
+        self._signatures.add(self._signature(name, kw))
         return getattr(self, "_p_" + name)(**kw, **(local or {}))
+
+    @staticmethod
+    def _signature(name: str, kw: dict) -> tuple:
+        """A dispatch's signature: the program's name, each host array's
+        shape and dtype, each cache list's name (its shapes are fixed)
+        and the type of each integer (a traced value in JAX)."""
+        return (name,) + tuple(
+            (k, v.shape, v.dtype.str) if isinstance(v, np.ndarray)
+            else (k, v if isinstance(v, str) else type(v).__name__)
+            for k, v in sorted(kw.items()))
+
+    def _register_conditional_programs(self) -> None:
+        """The signatures of the programs whose first launch is
+        conditional (the slot, staging and prefix copies, the host-tier
+        moves, the speculative round): the JAX engine compiles these at
+        construction, so its count is flat from the first finished
+        request, and so is this one. Nothing is launched."""
+        def add(name, **kw):
+            self._signatures.add(self._signature(name, kw))
+
+        if self.paged:
+            add("copy_page", dst=0, src=0)
+        else:
+            add("copy_row", dst="caches", src="staging", dst_row=0,
+                src_row=0)
+            if self._pool is not None:
+                add("copy_row", dst="staging", src="pool", dst_row=0,
+                    src_row=0)
+                add("copy_row", dst="pool", src="caches", dst_row=0,
+                    src_row=0)
+            if self.draft is not None:
+                add("copy_row", dst="d_caches", src="d_staging", dst_row=0,
+                    src_row=0)
+        if self._prefix is not None and self._prefix.host_rows > 0:
+            tree = "kv_pool" if self.paged else "pool"
+            add("host_copy", tree=tree, row=0)
+            add("land", tree=tree, row=0)
+        if self.draft is not None:
+            tok, pos = self._ride_along()
+            add("propose", tok=tok, pos=pos,
+                tables=self._slot_tables(draft=True))
+            add("spec_verify", tok=tok, pos=pos, tables=self._slot_tables())
+            add("d_sync", tok=tok, pos=pos,
+                tables=self._slot_tables(draft=True))
+
+    def _compile_total(self) -> int:
+        """The recompile watchdog's probe and ``stats()["jit_compiles"]``:
+        the distinct dispatch signatures launched so far (what a JAX
+        compile is keyed on), with the conditional programs registered
+        at construction. Shapes depend only on the engine's geometry, so
+        the count is flat after warmup."""
+        return len(self._signatures)
+
+    def _price_programs(self) -> None:
+        """Price each dispatch kind once by the analytic transformer
+        formulas (the JAX engine's fallback, ``source`` ``"analytic"``)
+        at a representative context of half the cache: prefill is the
+        target chunk (plus the draft's), decode the fused step (or the
+        draft's gamma proposals plus the target's verify)."""
+        S, rows = self.max_slots, self._policy.prefill_rows
+        c = self._policy.chunk
+        ctx = self._phys_len // 2
+        g = self._gamma()
+        analytic = {"prefill": (rows * c, ctx),
+                    "decode": (S * (g + 1) if g else S, ctx)}
+        kv_tree = self._kv_pool if self.paged else self._caches
+        cache_itemsize = int(kv_tree[0][0].dtype.itemsize)
+        for kind, (tokens, c_ctx) in analytic.items():
+            flops = self.model.analytic_flops(tokens, c_ctx)
+            byts = self.model.analytic_bytes(tokens, c_ctx, cache_itemsize)
+            if self.draft is not None:
+                d_tok = rows * c if kind == "prefill" else S * g
+                flops += self.draft.analytic_flops(d_tok, c_ctx)
+                byts += self.draft.analytic_bytes(d_tok, c_ctx,
+                                                  cache_itemsize)
+            self._cost.set_program_cost(kind, flops, byts, "analytic")
 
     def _tree(self, name: str):
         """A persistent cache list by its header name (``"caches"``,
@@ -1046,6 +1265,7 @@ class ContinuousBatchingEngine:
                 self._thread = threading.Thread(
                     target=self._loop, name="serving-engine", daemon=True)
                 self._thread.start()
+            self._ts.start()
         return self
 
     def stop(self, drain: bool = True,
@@ -1064,6 +1284,7 @@ class ContinuousBatchingEngine:
                     break
                 time.sleep(0.002)
         self._stop_evt.set()
+        self._ts.stop()
         with self._wake:
             self._wake.notify_all()
         if self._thread is not None:
@@ -1080,16 +1301,28 @@ class ContinuousBatchingEngine:
         for h in self._queue.drain():
             self._finish_handle(h, err, "stopped")
         self._fail_in_flight(err, "stopped")
+        if self.paged:
+            self._sync_page_gauges()
 
     def drain(self) -> None:
         """Stop admitting NEW requests while everything already
         submitted runs to completion; ``submit`` raises
         ``EngineDraining`` until ``resume()``. Idempotent."""
+        if self._draining:
+            return
         self._draining = True
+        self._rec.record("engine/drain", self.service_name,
+                         service=self.service_name,
+                         in_flight=len(self._queue) + len(self._adms)
+                         + sum(s is not None for s in self._slots))
 
     def resume(self) -> None:
         """Lift a ``drain()``: the engine admits new requests again."""
+        if not self._draining:
+            return
         self._draining = False
+        self._rec.record("engine/resume", self.service_name,
+                         service=self.service_name)
 
     @property
     def draining(self) -> bool:
@@ -1166,10 +1399,17 @@ class ContinuousBatchingEngine:
         self.start()
         h = RequestHandle(prompt, n, timeout_s, priority=priority)
         h.trace_id = trace_id
+        if trace_id is not None:
+            # one binding covers the request's whole recorded arc
+            self._rec.bind_request(h.request_id, trace=trace_id)
         h._usage = self._usage.begin(h.request_id, tenant, t0, n,
                                      submitted_at=h.submitted_at)
         h._usage.trace_id = trace_id
         h.tenant = h._usage.tenant
+        self._rec.record("request/submitted", h.request_id,
+                         service=self.service_name, prompt_tokens=t0,
+                         max_new_tokens=n, tenant=h.tenant,
+                         priority=priority)
         # QoS gates, the JAX engine's order: burn-rate shedding, then the
         # tenant's token bucket. Both finish the handle with their
         # outcome (the ledger bills its queue-side life) and raise
@@ -1210,9 +1450,13 @@ class ContinuousBatchingEngine:
         try:
             self._queue.put(h, block=block, timeout=queue_timeout_s)
         except Exception as e:
-            # a backpressure rejection still closes the request's record
+            # a backpressure rejection still closes the request's
+            # record, and the outcome event stays its last
             self._usage.finalize(h._usage, "rejected", time.monotonic())
             self._settle(h._usage)
+            self._rec.record("request/rejected", h.request_id,
+                             service=self.service_name,
+                             error=type(e).__name__)
             if isinstance(e, RequestTimedOut):
                 self._count("timed_out")
             raise
@@ -1255,17 +1499,27 @@ class ContinuousBatchingEngine:
         pin = h.__dict__.pop("_preempt_pin", None)
         if pin is not None and self._prefix is not None:
             self._prefix.release(pin)
+        self._rec.record("request/" + outcome, h.request_id,
+                         service=self.service_name, tokens=len(h._tokens),
+                         tenant=h.tenant)
         tl = h.timeline()
         tl["request_id"] = h.request_id
         tl["outcome"] = outcome
         tl["tenant"] = h.tenant
         tl["trace_id"] = h.trace_id
+        tl["page_waited"] = bool(getattr(h, "_page_waited", False))
         with self._timelines_lock:
             self._timelines.append(tl)
 
     def _count(self, key: str, n: int = 1) -> None:
+        """One of ``stats()``'s tallies (exact per engine) and, for the
+        flow counters and the iterations, its registry counter (shared
+        by engines of one ``service_name``, as in JAX)."""
         with self._counts_lock:
             self._counts[key] += n
+        ctr = self._flow_ctrs.get(key)
+        if ctr is not None:
+            ctr.inc(n)
 
     # ------------------------------------------------------ QoS plumbing
     def _shed_state(self) -> dict:
@@ -1345,6 +1599,8 @@ class ContinuousBatchingEngine:
         caller raises ``err`` to the submitter."""
         with self._counts_lock:
             self._qos_counts[outcome] += 1
+        getattr(self._qos_ins, outcome + "_total").labels(
+            self.service_name, h.priority, h.tenant).inc()
         self._finish_handle(h, err, outcome)
 
     def stats(self) -> dict:
@@ -1361,24 +1617,39 @@ class ContinuousBatchingEngine:
         table, totals and goodput block), ``qos`` (shedding state, the
         preempted / shed / rate-limited tallies, queue depth by class,
         each tenant bucket's balance, and the chaos injector's script),
-        ``alerts`` (the active SLO alerts) and, in paged mode,
-        ``paging`` (the page pools' stats, the reservations'
-        fragmentation, the page waits). A decode step of a speculative
-        engine is one propose / verify round."""
+        ``alerts`` (the active watchdog alerts), ``jit_compiles`` (the
+        distinct dispatch signatures), ``cost`` (the dispatch cost
+        model's per-kind FLOPs/bytes, achieved rates, MFU and
+        memory-bandwidth shares, roofline class), ``loop`` (the
+        loop-phase breakdown of the device-idle share), ``slo_budget``,
+        ``capacity``, ``incidents`` and, in paged mode, ``paging`` (the
+        page pools' stats, the reservations' fragmentation, the page
+        waits). A decode step of a speculative engine is one propose /
+        verify round. The flow counters are this engine's own tallies;
+        with the registry enabled and no other engine of the same
+        ``service_name``, each equals its ``bdt_serving_*_total``."""
         with self._counts_lock:
             out = dict(self._counts)
         out["active_slots"] = sum(s is not None for s in self._slots)
         out["queue_depth"] = len(self._queue)
+        out["jit_compiles"] = self._compile_total()
         out["latency"] = self._latency_summary()
         out["prefix_cache"] = self._prefix_summary()
         out["speculation"] = self._spec_summary()
         out["quantization"] = self._quant_summary()
         out["usage"] = self._usage.summary()
+        out["cost"] = self._cost.summary()
+        out["loop"] = self._loop_obs.summary()
+        out["slo_budget"] = self._slo_budget.state()
+        out["capacity"] = self._capacity_summary(
+            loop=out["loop"], cost=out["cost"], usage=out["usage"])
         out["qos"] = self._qos_summary()
         if self.paged:
             out["paging"] = self._paging_summary()
         out["mesh"] = self._mesh_summary()
         out["alerts"] = self.alerts()
+        out["incidents"] = {"count": self._incidents.total,
+                            "by_kind": self._incidents.counts_by_kind()}
         return out
 
     def _pool_trees(self) -> dict:
@@ -1417,9 +1688,9 @@ class ContinuousBatchingEngine:
                                            < logical * n)}
 
         for name, tree in self._pool_trees().items():
-            local = _tree_nbytes(tree)
+            local = obs_memory.tree_bytes(tree)
             put(name, local, local * shards)
-        put("params", _tree_nbytes(self.model.params_dict()),
+        put("params", obs_memory.tree_bytes(self.model.params_dict()),
             self._logical_param_bytes)
         return pools
 
@@ -1466,9 +1737,157 @@ class ContinuousBatchingEngine:
         return out
 
     def alerts(self) -> List[dict]:
-        """The active SLO alerts as plain dicts (empty while healthy);
-        the same list rides in ``stats()["alerts"]``."""
-        return self._slo_wd.alerts()
+        """The active watchdog alerts (recompile storm, SLO burns) as
+        plain dicts, empty while healthy; the same list rides in
+        ``stats()["alerts"]`` and the ``healthz`` body."""
+        out = []
+        storm = self._recompile_wd.alert()
+        if storm is not None:
+            out.append(storm)
+        out.extend(self._slo_wd.alerts())
+        return out
+
+    def healthz(self) -> dict:
+        """Liveness probe for ``MetricsHTTPServer(healthz=...)``: a
+        status dict while the engine serves, raising ``EngineStopped``
+        once the loop has crashed (the endpoint then answers 503). While
+        a watchdog alert is active the body says ``status: degraded``
+        with the alert list, still HTTP 200."""
+        if self._crashed is not None:
+            raise EngineStopped(
+                f"engine loop crashed: {self._crashed!r}"
+            ) from self._crashed
+        alerts = self.alerts()
+        with self._counts_lock:
+            qos = dict(self._qos_counts)
+        return {
+            "status": "degraded" if alerts else "ok",
+            "engine": self.service_name,
+            "loop_alive": bool(self._thread is not None
+                               and self._thread.is_alive()),
+            "active_slots": sum(s is not None for s in self._slots),
+            "queue_depth": len(self._queue),
+            "draining": self._draining,
+            "in_flight": (len(self._queue) + len(self._adms)
+                          + sum(s is not None for s in self._slots)),
+            "qos": {"shedding": self._shed_state()["active"], **qos},
+            "alerts": alerts,
+        }
+
+    def debug_requests(self) -> dict:
+        """The ``/debug/requests`` payload: every in-flight request's id,
+        phase and progress, the recent finished timelines, their
+        percentile summary and the prefix-cache block. Snapshot
+        semantics: safe from an HTTP thread while the loop runs."""
+        now = time.monotonic()
+        in_flight = []
+        for h in self._queue.snapshot():
+            in_flight.append({
+                "request_id": h.request_id, "state": "queued",
+                "age_s": now - h.submitted_at,
+                "prompt_tokens": int(h.prompt.shape[0]),
+                "max_new_tokens": h.max_new_tokens,
+                "tenant": getattr(h, "tenant", None),
+                "priority": h.priority, "preempted": h.preempted,
+            })
+        for adm in list(self._adms):
+            h = adm.handle
+            row = {
+                "request_id": h.request_id, "state": "prefill",
+                "age_s": now - h.submitted_at,
+                "prompt_tokens": int(h.prompt.shape[0]),
+                "max_new_tokens": h.max_new_tokens,
+                "tenant": getattr(h, "tenant", None),
+                "priority": h.priority, "preempted": h.preempted,
+                "chunks_done": adm.next_chunk,
+                "chunks_total": adm.n_chunks,
+                "staging_row": adm.row,
+                "prefix_tokens": adm.base,
+            }
+            if self.draft is not None:
+                row["draft_chunks_done"] = adm.d_next_chunk
+                row["draft_chunks_total"] = adm.d_n_chunks
+            in_flight.append(row)
+        for sid, st in enumerate(list(self._slots)):
+            if st is None:
+                continue
+            h = st.handle
+            in_flight.append({
+                "request_id": h.request_id, "state": "decoding",
+                "slot": sid, "age_s": now - h.submitted_at,
+                "prompt_tokens": int(h.prompt.shape[0]),
+                "max_new_tokens": h.max_new_tokens,
+                "tenant": getattr(h, "tenant", None),
+                "priority": h.priority, "preempted": h.preempted,
+                "tokens_delivered": st.delivered,
+            })
+        with self._timelines_lock:
+            recent = list(self._timelines)[-50:]
+        return {"service": self.service_name,
+                "in_flight": in_flight,
+                "recent": recent,
+                "latency": self._latency_summary(),
+                "prefix_cache": self._prefix_summary(),
+                "speculation": self._spec_summary(),
+                "mesh": self._mesh_summary(),
+                "alerts": self.alerts()}
+
+    def debug_timeseries(self, metric: Optional[str] = None,
+                         n: Optional[int] = None) -> dict:
+        """The ``GET /debug/timeseries?metric=&n=`` payload: the
+        sampler's bounded rings as ``{metric: {points, last}}``."""
+        return {"service": self.service_name,
+                "running": self._ts.running,
+                **self._ts.snapshot(metric=metric, n=n)}
+
+    def debug_incidents(self, n: Optional[int] = None) -> dict:
+        """The ``GET /debug/incidents[?n=]`` payload: the newest ``n``
+        captured bundles, the lifetime count, per-kind tallies and the
+        detectors' states."""
+        n = 10 if n is None else int(n)
+        return {"service": self.service_name,
+                "count": self._incidents.total,
+                "by_kind": self._incidents.counts_by_kind(),
+                "detectors": self._bank.states(),
+                "incidents": self._incidents.snapshot(n)}
+
+    def _capacity_summary(self, loop=None, cost=None, usage=None) -> dict:
+        """The ``stats()["capacity"]`` block: the what-if model over this
+        engine's measured loop, cost and usage summaries."""
+        return estimate_capacity(
+            loop if loop is not None else self._loop_obs.summary(),
+            cost if cost is not None else self._cost.summary(),
+            usage if usage is not None else self._usage.summary(),
+            max_slots=self.max_slots, service=self.service_name)
+
+    def debug_capacity(self) -> dict:
+        """The ``GET /debug/capacity`` payload: the capacity estimate and
+        the error-budget ledger."""
+        return {"service": self.service_name,
+                "capacity": self._capacity_summary(),
+                "slo_budget": self._slo_budget.state()}
+
+    def dashboard(self) -> str:
+        """The ``GET /debug/dashboard`` page: one self-contained HTML
+        document over the sampler rings, with the cost, loop, capacity
+        and alert blocks, incident markers and SLO budget bars."""
+        markers = [{"ts_s": t.get("ts_s"), "kind": "alert",
+                    "label": t.get("detector")}
+                   for t in self._incidents.history()]
+        markers += [{"ts_s": b.get("ts_s"), "kind": "incident",
+                     "label": "%s (%s)" % (b.get("id"), b.get("kind"))}
+                    for b in self._incidents.snapshot()]
+        markers.sort(key=lambda m: m.get("ts_s") or 0.0)
+        return render_dashboard(
+            self._ts.snapshot(), title=self.service_name,
+            extra={"alerts": self.alerts() or None,
+                   "incidents": (self._incidents.counts_by_kind()
+                                 or None),
+                   "cost": self._cost.summary(),
+                   "loop": self._loop_obs.summary(),
+                   "capacity": self._capacity_summary()},
+            markers=markers,
+            budgets=self._slo_budget.budget_bars() or None)
 
     def debug_usage(self, top_n: int = 10) -> dict:
         """The usage payload the JAX engine serves at ``/debug/usage``:
@@ -1561,7 +1980,7 @@ class ContinuousBatchingEngine:
         with self._timelines_lock:
             snap = list(self._timelines)
         tls = [t for t in snap if t.get("outcome") == "finished"]
-        return {phase: _percentile_summary(t[phase + "_s"] for t in tls)
+        return {phase: percentile_summary(t[phase + "_s"] for t in tls)
                 for phase in ("queue_wait", "prefill", "ttft", "decode",
                               "total")}
 
@@ -1579,10 +1998,17 @@ class ContinuousBatchingEngine:
                             self._wake.wait(self.idle_wait_s)
                     if self._stop_evt.is_set():
                         break
-                    self._iterate()
+                    with trace.span("serving/iteration",
+                                    histogram=self._ins.iteration_seconds):
+                        self._iterate()
                     self._count("iterations")
         except BaseException as e:
             self._crash(e)
+            if _is_cuda_error(e):
+                # a sticky CUDA error poisons the context: after the
+                # host-side evidence is written, it surfaces from the
+                # loop thread instead of being swallowed
+                raise
         finally:
             self._release_followers()
 
@@ -1617,15 +2043,115 @@ class ContinuousBatchingEngine:
                 getattr(self, "_p_" + name)(**kw)
 
     def _crash(self, e: BaseException) -> None:
+        """Record the crash, write the postmortem and the crash incident
+        from host state only (no device call: the device may be what
+        failed), then fail every handle."""
         with self._lifecycle:
             self._crashed = e
-        print(f"[bigdl_tpu_torch.serving] engine {self.service_name!r} "
-              f"crashed: {e!r}", file=sys.stderr)
+        self._rec.record("engine/crash", service=self.service_name,
+                         error=repr(e))
+        # the in-flight picture BEFORE the handles are failed
+        try:
+            states = self.debug_requests()["in_flight"]
+        except Exception:
+            states = []
+        self._write_postmortem(e, states)
+        self._capture_incident(
+            {"detector": "engine", "metric": "loop", "kind": "crash",
+             "reason": f"engine loop crashed: {e!r}",
+             "ts_s": time.monotonic(), "value": 1.0, "score": 1.0},
+            error=e)
         err = EngineStopped(f"engine loop crashed: {e!r}")
         err.__cause__ = e
         self._fail_in_flight(err, "crashed")
         for h in self._queue.drain():
             self._finish_handle(h, err, "crashed")
+        # a dead loop's sampler has nothing left to sample; its rings
+        # stay readable
+        self._ts.stop()
+
+    def _write_postmortem(self, e: BaseException,
+                          states: List[dict]) -> None:
+        """Best-effort crash black box: the crash path never raises."""
+        path = (self.postmortem_path
+                or os.environ.get("BIGDL_POSTMORTEM_PATH")
+                or "bigdl_postmortem.json")
+        with self._counts_lock:
+            counts = {k: self._counts[k] for k in _FLOW}
+        try:
+            write_postmortem(
+                path, error=e, requests=states, recorder=self._rec,
+                registry=self._registry,
+                context={"service": self.service_name,
+                         "max_slots": self.max_slots,
+                         "max_len": self.max_len,
+                         "queue_depth": len(self._queue),
+                         "stats": counts})
+            print(f"[bigdl_tpu_torch.serving] engine "
+                  f"{self.service_name!r} crashed: {e!r}; postmortem -> "
+                  f"{path}", file=sys.stderr)
+        except Exception as pe:
+            print(f"[bigdl_tpu_torch.serving] postmortem write failed: "
+                  f"{pe!r} (crash: {e!r})", file=sys.stderr)
+
+    def _process_triggers(self, occupied: List[int],
+                          advanced: List[int]) -> None:
+        """Once-an-iteration incident funnel: drain the triggers the
+        detectors recorded on the sampler thread, feed the stall
+        detector, and map active watchdog alerts (and a chaos-forced
+        burn) onto the same stream; each surviving trigger is one
+        capture attempt, deduplicated by the manager's cooldown."""
+        now = time.monotonic()
+        triggers = self._bank.drain()
+        triggers += self._bank.observe_iteration(now, occupied, advanced)
+        alerts = self.alerts()
+        if self._chaos is not None and self._chaos.burn_active():
+            alerts = alerts + [{"alert": "slo:forced_burn",
+                                "severity": "critical", "forced": True}]
+        triggers += self._bank.alert_triggers(alerts, now)
+        for t in triggers:
+            name = str(t.get("detector", "detector"))
+            c = self._trig_counters.get(name)
+            if c is None:
+                c = self._inc_ins.triggers_total.labels(
+                    self.service_name, name)
+                self._trig_counters[name] = c
+            c.inc()
+            self._capture_incident(t)
+        for name, state in self._bank.states().items():
+            g = self._det_gauges.get(name)
+            if g is None:
+                g = self._inc_ins.detector_state.labels(
+                    self.service_name, name)
+                self._det_gauges[name] = g
+            g.set(1.0 if state == "firing" else 0.0)
+
+    def _capture_incident(self, trigger: dict,
+                          error: Optional[BaseException] = None):
+        """Hand one trigger to the incident manager with the live
+        evidence (the finished-timeline ring, the qos / latency / cost /
+        loop blocks, the memory pools and page pool). Best-effort: a
+        capture never takes down the loop or the crash path."""
+        try:
+            with self._timelines_lock:
+                tls = list(self._timelines)
+            stats = {
+                "qos": self._qos_summary(),
+                "latency": self._latency_summary(),
+                "cost": self._cost.summary(),
+                "loop": self._loop_obs.summary(),
+                "queue_depth": len(self._queue),
+                "active_slots": sum(s is not None for s in self._slots),
+                "jit_compiles": self._compile_total(),
+            }
+            memory = {"pools": self._pool_bytes}
+            if self.paged:
+                memory["paging"] = self._paging_summary()
+            return self._incidents.capture(
+                trigger, timelines=tls, stats=stats, memory=memory,
+                error=error)
+        except Exception:
+            return None
 
     def _fail_in_flight(self, err: Exception, outcome: str) -> None:
         """Fail every admission and occupied slot with ``err`` and drop
@@ -1659,6 +2185,11 @@ class ContinuousBatchingEngine:
     def _iterate(self) -> bool:
         now = time.monotonic()
         worked = False
+        lo = self._loop_obs
+        # the iteration's dispatch walls, accumulated by _prefill_round
+        # and _decode_all*, come off the host segments below, so the
+        # phases sum to the iteration's wall
+        self._iter_disp = {"prefill": 0.0, "decode": 0.0}
         # paged: a fresh iteration may admit again (pages freed since
         # can satisfy what the pool refused before)
         self._adm_blocked = False
@@ -1694,6 +2225,8 @@ class ContinuousBatchingEngine:
         # 2. queued requests: mid-queue deadline/cancel sweep
         for h, err in self._queue.sweep(now):
             self._finish_dropped(h, err)
+        t_sweep = time.monotonic()
+        lo.add("sweep", t_sweep - now)
 
         # 3. admission: prefix-aware intake, then batched chunked-prefill
         #    rounds under this iteration's budget
@@ -1704,23 +2237,59 @@ class ContinuousBatchingEngine:
                 break
             self._prefill_round()
             worked = True
+        t_adm = time.monotonic()
+        lo.add("admission",
+               max(0.0, t_adm - t_sweep - self._iter_disp["prefill"]))
 
         # 4. one fused decode step over every occupied slot but the
         #    ones a chaos freeze holds out (a simulated straggler: its KV
         #    and handle wait untouched until the freeze expires)
-        active = [sid for sid, st in enumerate(self._slots)
-                  if st is not None]
+        occupied = [sid for sid, st in enumerate(self._slots)
+                    if st is not None]
+        active = list(occupied)
         if self._chaos is not None:
             active = [sid for sid in active
                       if not self._chaos.slot_frozen(sid)]
         if active:
             self._decode_all(active)
             worked = True
+        t_dec = time.monotonic()
+        lo.add("deliver",
+               max(0.0, t_dec - t_adm - self._iter_disp["decode"]))
 
-        # 5. paged KV billing and the SLO watchdog's sample
+        # 5. load gauges, paged KV billing, the watchdogs and the
+        #    incident funnel: host values only, no device read
+        ins = self._ins
+        ins.active_slots.set(sum(s is not None for s in self._slots))
+        ins.queue_depth.set(len(self._queue))
+        ins.jit_compiles.set(self._compile_total())
         if self.paged:
             self._accrue_paged_kv()
+            self._sync_page_gauges()
+        self._recompile_wd.sample()
         self._slo_wd.sample()
+        self._slo_budget.sample(
+            forced=self._chaos is not None and self._chaos.burn_active())
+        self._process_triggers(occupied, active)
+        mfu_d, bw_d = self._cost.rates("decode")
+        if mfu_d is not None:
+            ins.mfu_decode.set(mfu_d)
+        if bw_d is not None:
+            ins.membw_util_decode.set(bw_d)
+        mfu_p, bw_p = self._cost.rates("prefill")
+        if mfu_p is not None:
+            ins.mfu_prefill.set(mfu_p)
+        if bw_p is not None:
+            ins.membw_util_prefill.set(bw_p)
+        lo.iteration()
+        lo.add("observe", time.monotonic() - t_dec)
+        snap = lo.summary()
+        for p, child in self._loop_phase_counters.items():
+            delta = snap["phases"][p] - self._loop_flushed[p]
+            if delta > 0.0:
+                child.inc(delta)
+                self._loop_flushed[p] += delta
+        ins.loop_idle_fraction.set(snap["device_idle_fraction"])
         return worked
 
     # ------------------------------------------------ admission stages
@@ -1848,9 +2417,28 @@ class ContinuousBatchingEngine:
         else:
             e, matched = self._prefix.lookup(prompt)
         if e is None:
-            return None, 0
+            return None, 0, matched
         c = self._policy.chunk
-        return e, (min(matched, prompt.shape[0] - 1) // c) * c
+        return e, (min(matched, prompt.shape[0] - 1) // c) * c, matched
+
+    def _note_hit(self, h: RequestHandle, entry, base: int, matched: int,
+                  t0: int, from_host: bool) -> None:
+        """A prefix hit's bookkeeping: the cache's tally, the hit
+        counters and the ``request/prefix_hit`` event."""
+        self._prefix.record_hit(entry, base, host=from_host)
+        self._ins.prefix_hits_total.inc()
+        if from_host:
+            self._ins.prefix_host_hits_total.inc()
+            self._sync_prefix_gauges()
+        self._ins.prefix_reused_tokens_total.inc(base)
+        self._rec.record("request/prefix_hit", h.request_id,
+                         service=self.service_name, matched_tokens=base,
+                         raw_matched_tokens=matched, tail_tokens=t0 - base,
+                         tier="host" if from_host else "device")
+
+    def _note_miss(self) -> None:
+        self._prefix.record_miss()
+        self._ins.prefix_misses_total.inc()
 
     def _start_admission(self, h: RequestHandle, slot: int,
                          row: int) -> bool:
@@ -1864,7 +2452,7 @@ class ContinuousBatchingEngine:
         prompt = self._effective_prompt(h)
         base, entry = 0, None
         if self._prefix is not None:
-            e, base = self._lookup_base(h, prompt)
+            e, base, matched = self._lookup_base(h, prompt)
             from_host = base > 0 and e.tier == "host"
             if from_host and not self._promote_entry(e):
                 # the host row could not be made device-resident: a clean
@@ -1872,12 +2460,13 @@ class ContinuousBatchingEngine:
                 e, base = None, 0
             if base > 0:
                 entry = e
-                self._prefix.record_hit(entry, base, host=from_host)
+                self._note_hit(h, entry, base, matched, prompt.shape[0],
+                               from_host)
                 self._prefix.acquire(entry)
                 self._run("copy_row", dst="staging", src="pool",
                           dst_row=row, src_row=entry.row)
             else:
-                self._prefix.record_miss()
+                self._note_miss()
         self._stage(h, slot, row, prompt, base, entry)
         return True
 
@@ -1897,8 +2486,9 @@ class ContinuousBatchingEngine:
         ps = self.page_size
         prompt = self._effective_prompt(h)
         t0 = prompt.shape[0]
-        entry, base = (self._lookup_base(h, prompt)
-                       if self._prefix is not None else (None, 0))
+        entry, base, matched = (self._lookup_base(h, prompt)
+                                if self._prefix is not None
+                                else (None, 0, 0))
         from_host = base > 0 and entry.tier == "host"
         if from_host and not self._promote_entry_paged(entry):
             entry, base, from_host = None, 0, False
@@ -1934,15 +2524,19 @@ class ContinuousBatchingEngine:
             self._adm_blocked = True
             self._page_waits += 1
             h._page_waited = True
+            self._rec.record("request/page_wait", h.request_id,
+                             service=self.service_name,
+                             needed_pages=n_fresh,
+                             free_pages=self._pages.free_pages)
             return False
         if self._prefix is not None:
             if base > 0:
                 # no staging copy and no entry pin: the shared
                 # refcounts keep the pages alive even if the entry is
                 # evicted while this admission prefills
-                self._prefix.record_hit(entry, base, host=from_host)
+                self._note_hit(h, entry, base, matched, t0, from_host)
             else:
-                self._prefix.record_miss()
+                self._note_miss()
         a = self._stage(h, slot, row, prompt, base, None)
         a.table, a.d_table = table, d_table
         return True
@@ -1980,6 +2574,10 @@ class ContinuousBatchingEngine:
             # queue wait closes (a re-admission accumulates from its
             # requeue), staging residency opens, the reuse is credited
             self._usage.admitted(h._usage, t_adm, reused_tokens=base)
+        self._rec.record("request/admitted", h.request_id,
+                         service=self.service_name, slot=slot,
+                         staging_row=row, n_chunks=n_chunks,
+                         prefix_tokens=base)
         self._count("admitted")
         return a
 
@@ -2042,6 +2640,11 @@ class ContinuousBatchingEngine:
             self._warm.add("sample0")
         wall = time.monotonic() - t_disp
         self._count("prefill_rounds")
+        # the same warm-only wall feeds the ledger, the cost model and
+        # the loop's busy pool: one measurement, three views
+        self._iter_disp["prefill"] += wall
+        self._loop_obs.dispatch("prefill_dispatch", wall, warm=was_warm)
+        self._cost.charge("prefill", wall, warm=was_warm)
         # pro-rata by the real tokens each row advanced (a final chunk's
         # pads and a replayed chunk earn nothing; draft chunks are real
         # mirrored work); the weights sum to 1
@@ -2062,8 +2665,14 @@ class ContinuousBatchingEngine:
         for a, t_done, _ in done_by:
             if t_done:
                 self._prefilled_tokens += t_done
+                self._ins.prefill_tokens_total.inc(t_done)
                 if a.handle._usage is not None:
                     self._usage.add_prefill(a.handle._usage, t_done)
+                self._rec.record("request/prefill_chunk",
+                                 a.handle.request_id,
+                                 service=self.service_name,
+                                 chunk=a.next_chunk, n_chunks=a.n_chunks,
+                                 tokens=t_done)
                 a.next_chunk += 1
             if spec:
                 a.d_next_chunk += 1
@@ -2103,13 +2712,27 @@ class ContinuousBatchingEngine:
         if first:
             # a resumed request's first token shipped long ago: one TTFT
             # observation per request
-            self._hists["ttft"].observe(now - h.submitted_at)
+            self._ins.ttft_seconds.observe(now - h.submitted_at)
+            # the histograms carry no priority label: the budget
+            # ledger's per-class view is fed here
+            self._slo_budget.observe_class(h.priority or "normal",
+                                           now - h.submitted_at)
+            self._rec.record("request/first_token", h.request_id,
+                             service=self.service_name, token=tok,
+                             ttft_s=now - h.submitted_at)
+        else:
+            self._rec.record("request/resumed", h.request_id,
+                             service=self.service_name, slot=a.slot,
+                             tokens_so_far=len(h._tokens),
+                             prefix_tokens=a.base,
+                             reprefilled_tokens=a.t0 - a.base)
         if (self.eos_id is not None and tok == self.eos_id) \
                 or len(h._tokens) >= h.max_new_tokens:
             # instant finisher: the slot holds the prompt's KV; donate it
             # before the slot identity is lost
             self._maybe_donate(a.slot, np.concatenate(
-                [h.prompt, np.asarray(h._tokens[:-1], np.int32)]))
+                [h.prompt, np.asarray(h._tokens[:-1], np.int32)]),
+                h.request_id)
             self._free_slot_table(a.slot)
             self._finish_handle(h, None, "finished")
             self._count("finished")
@@ -2128,7 +2751,8 @@ class ContinuousBatchingEngine:
         self._count(kind)
         self._finish_handle(a.handle, err, kind)
 
-    def _maybe_donate(self, sid: int, tokens: np.ndarray) -> None:
+    def _maybe_donate(self, sid: int, tokens: np.ndarray,
+                      request_id: str) -> None:
         """Offer a finishing slot's KV to the prefix cache. ``tokens`` are
         exactly the ids whose KV the slot holds (positions
         ``0..len-1``); the index decides (covered / LRU-evict /
@@ -2141,8 +2765,13 @@ class ContinuousBatchingEngine:
         if self.paged:
             tbl = self._tables[sid]
             if tbl is not None and tokens.shape[0] > 0:
-                self._prefix.donate_pages(
-                    tokens, tbl.covering(int(tokens.shape[0])))
+                held = tbl.covering(int(tokens.shape[0]))
+                if self._prefix.donate_pages(tokens, held):
+                    self._rec.record("request/prefix_donated", request_id,
+                                     service=self.service_name,
+                                     tokens=int(tokens.shape[0]),
+                                     pages=len(held))
+            self._sync_prefix_gauges()
             return
         row = self._prefix.donate(tokens)
         if row is not None:
@@ -2151,6 +2780,58 @@ class ContinuousBatchingEngine:
             self._resolve_pending_demotion()
             self._run("copy_row", dst="pool", src="caches", dst_row=row,
                       src_row=sid)
+            self._rec.record("request/prefix_donated", request_id,
+                             service=self.service_name,
+                             tokens=int(tokens.shape[0]), pool_row=row)
+        self._sync_prefix_gauges()
+
+    def _sync_prefix_gauges(self) -> None:
+        """Publish the prefix cache's flow deltas and occupancy, both
+        tiers (device pool and host spill)."""
+        ev = self._prefix.evictions
+        if ev > self._prefix_evictions_seen:
+            self._ins.prefix_evicted_total.inc(
+                ev - self._prefix_evictions_seen)
+            self._prefix_evictions_seen = ev
+        self._ins.prefix_cache_bytes.set(self._prefix.bytes_in_use)
+        self._ins.prefix_cache_entries.set(len(self._prefix))
+        if self._prefix.host_rows > 0:
+            dm = self._prefix.demotions
+            if dm > self._prefix_demotions_seen:
+                self._ins.prefix_host_demoted_total.inc(
+                    dm - self._prefix_demotions_seen)
+                self._prefix_demotions_seen = dm
+            hev = self._prefix.host_evictions
+            if hev > self._prefix_host_evictions_seen:
+                self._ins.prefix_host_evicted_total.inc(
+                    hev - self._prefix_host_evictions_seen)
+                self._prefix_host_evictions_seen = hev
+            self._ins.prefix_host_cache_bytes.set(
+                self._prefix.host_bytes_in_use)
+            self._ins.prefix_host_cache_entries.set(
+                self._prefix.stats()["host_entries"])
+
+    def _sync_page_gauges(self) -> None:
+        """Publish the page-flow counter deltas (target and draft pools
+        summed) and the pools' occupancy and fragmentation gauges."""
+        pools = [self._pages]
+        if self._d_pages is not None:
+            pools.append(self._d_pages)
+        stats = [p.stats() for p in pools]
+        ins = self._ins
+        flows = (("allocated", "allocated_total", ins.page_allocated_total),
+                 ("shared", "shared_total", ins.page_shared_total),
+                 ("cow_forks", "cow_forks_total", ins.page_cow_forks_total),
+                 ("freed", "freed_total", ins.page_freed_total))
+        for key, stat_key, counter in flows:
+            cur = sum(st[stat_key] for st in stats)
+            if cur > self._page_seen[key]:
+                counter.inc(cur - self._page_seen[key])
+                self._page_seen[key] = cur
+        ins.page_pool_bytes.set(sum(st["bytes_in_use"] for st in stats))
+        ins.page_pool_pages_in_use.set(
+            sum(st["pages_in_use"] for st in stats))
+        ins.page_pool_fragmentation.set(self._fragmentation())
 
     # ------------------------------------------------------ preemption
     def _maybe_preempt(self, now: float) -> bool:
@@ -2191,7 +2872,7 @@ class ContinuousBatchingEngine:
         h = st.handle
         tokens = np.concatenate(
             [h.prompt, np.asarray(h._tokens[:-1], np.int32)])
-        self._maybe_donate(sid, tokens)
+        self._maybe_donate(sid, tokens, h.request_id)
         if self._prefix is not None:
             pin = self._prefix.pin_covering(tokens)
             if pin is not None:
@@ -2209,6 +2890,13 @@ class ContinuousBatchingEngine:
             self._usage.preempted(h._usage, now)
         with self._counts_lock:
             self._qos_counts["preempted"] += 1
+        self._qos_ins.preempted_total.labels(
+            self.service_name, h.priority, h.tenant or "unknown").inc()
+        self._rec.record("request/preempted", h.request_id,
+                         service=self.service_name, slot=sid,
+                         priority=h.priority, preempted=h.preempted,
+                         tokens_so_far=len(h._tokens),
+                         donated_tokens=int(tokens.shape[0]))
         self._queue.requeue(h)
 
     def _accrue_paged_kv(self) -> None:
@@ -2367,6 +3055,7 @@ class ContinuousBatchingEngine:
             self._resolve_pending_demotion()
             self._run("land", tree="pool", row=row, local={"src": src})
             self._prefix.promote(entry, row)
+            self._ins.prefix_host_promoted_total.inc()
             return True
         finally:
             self._prefix.release(entry)
@@ -2392,6 +3081,7 @@ class ContinuousBatchingEngine:
             self._run("land", tree="kv_pool", row=dst,
                       local={"src": host_page})
         self._prefix.promote_pages(entry, pages)
+        self._ins.prefix_host_promoted_total.inc()
         return True
 
     def _spill(self, pages):
@@ -2437,6 +3127,10 @@ class ContinuousBatchingEngine:
         self._warm.add("step")
         now = time.monotonic()
         self._count("decode_steps")
+        self._iter_disp["decode"] += now - t_disp
+        self._loop_obs.dispatch("decode_dispatch", now - t_disp,
+                                warm=was_warm)
+        self._cost.charge("decode", now - t_disp, warm=was_warm)
         # every advanced row got one token: the wall splits evenly (idle
         # and frozen rows ride along as padding waste, unbilled)
         if was_warm:
@@ -2470,6 +3164,9 @@ class ContinuousBatchingEngine:
         self._warm.add("spec")
         emit_np, n_np = host[:, :-1], host[:, -1]
         self._count("decode_steps")
+        self._iter_disp["decode"] += wall
+        self._loop_obs.dispatch("decode_dispatch", wall, warm=was_warm)
+        self._cost.charge("decode", wall, warm=was_warm)
         # a row that accepted all gamma proposals lacks the draft KV of
         # its last one: re-write each row's last accepted token at its
         # own position (no-ops for the others, a held-out row's own
@@ -2486,11 +3183,12 @@ class ContinuousBatchingEngine:
                       tables=self._slot_tables(draft=True))
         now = time.monotonic()
         bursts = {}
+        proposed = accepted = 0
         for sid in active:
             st = self._slots[sid]
             n_r = int(n_np[sid])
-            self._spec_proposed += g
-            self._spec_accepted += n_r
+            proposed += g
+            accepted += n_r
             st.handle.spec_proposed += g
             st.handle.spec_accepted += n_r
             room = st.handle.max_new_tokens - st.delivered
@@ -2500,6 +3198,12 @@ class ContinuousBatchingEngine:
                 if hits.size:     # eos mid-burst: stop AT it
                     toks = toks[:hits[0] + 1]
             bursts[sid] = toks
+        self._spec_proposed += proposed
+        self._spec_accepted += accepted
+        self._ins.spec_proposed_tokens_total.inc(proposed)
+        self._ins.spec_accepted_tokens_total.inc(accepted)
+        if proposed:
+            self._ins.spec_acceptance_ratio.observe(accepted / proposed)
         if was_warm:
             # the round's wall splits by each row's delivered tokens,
             # billed before any row can finalize
@@ -2527,12 +3231,16 @@ class ContinuousBatchingEngine:
         for t in toks:
             st.delivered += 1
             h._deliver(int(t), now)
-            self._hists["inter_token"].observe(gap)
+            self._ins.inter_token_seconds.observe(gap)
         st.pos += m
         st.last_token = int(toks[-1])
         st.last_token_at = now
         if h._usage is not None:
             self._usage.delivered(h._usage, m)
+        self._ins.decode_tokens_total.inc(m)
+        self._rec.record("request/decode_token", h.request_id,
+                         service=self.service_name, slot=sid,
+                         token=st.last_token, n=st.delivered, accepted=m)
         if (self.eos_id is not None and st.last_token == self.eos_id) \
                 or st.delivered >= h.max_new_tokens:
             self._release(sid, None, "finished")
@@ -2546,7 +3254,8 @@ class ContinuousBatchingEngine:
         # novel suffix)
         self._maybe_donate(sid, np.concatenate(
             [st.handle.prompt,
-             np.asarray(st.handle._tokens[:-1], np.int32)]))
+             np.asarray(st.handle._tokens[:-1], np.int32)]),
+            st.handle.request_id)
         self._free_slot_table(sid)
         self._slots[sid] = None
         self._count("evicted")

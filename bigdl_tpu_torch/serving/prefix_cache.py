@@ -1,7 +1,6 @@
 """Host-side prefix index over retained KV-cache rows (port of
 ``bigdl_tpu/serving/prefix_cache.py``, a copy: the JAX package's module
-is framework-free, but importing it would import JAX. The memory-pool
-registration waits for the observability slice).
+is framework-free, but importing it would import JAX).
 
 Real serving traffic is prefix-heavy: system prompts, few-shot
 templates, and multi-turn conversations share long identical prompt
@@ -62,6 +61,8 @@ import threading
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
+
+from bigdl_tpu_torch.observability import memory as obs_memory
 
 
 class PrefixEntry:
@@ -580,6 +581,28 @@ class PrefixCache:
                 break
 
     # ------------------------------------------------------------ stats
+    # --------------------------------------------------- memory account
+    def register_memory_pool(self, name: str) -> str:
+        """Register this cache's OCCUPIED pool bytes as a named device-
+        memory pool (``observability.memory``) — the `/debug/memory`
+        attribution line that separates "prefix KV actually retained"
+        from the pool's fixed capacity (which the engine registers
+        alongside). Weakly referenced: the registration never keeps the
+        cache (or, transitively, its engine) alive. Returns the pool
+        name (the unregistration token)."""
+        names = obs_memory.register_owned_pools(
+            self, {name: lambda c: c.bytes_in_use})
+        return names[0]
+
+    def register_host_memory_pool(self, name: str) -> str:
+        """Same attribution for the HOST tier: the pinned host-RAM
+        bytes the demoted rows occupy, alongside the device pools in
+        the one registry — ``/debug/memory`` answers "who owns the
+        spill" exactly like "who owns the HBM"."""
+        names = obs_memory.register_owned_pools(
+            self, {name: lambda c: c.host_bytes_in_use})
+        return names[0]
+
     def stats(self) -> dict:
         """Operational snapshot: occupancy, byte budget, and cumulative
         hit/reuse/eviction flow (the engine's ``stats()['prefix_cache']``

@@ -1,8 +1,6 @@
 """Admission control for the continuous-batching engine (port of
 ``bigdl_tpu/serving/scheduler.py``, a copy: the JAX package's module is
-framework-free, but importing it would import JAX; the port has no
-flight recorder yet, so queue transitions go to ``recorder`` only when
-one is given).
+framework-free, but importing it would import JAX).
 
 Two policies live here, deliberately separate from the device loop:
 
@@ -46,17 +44,11 @@ import time
 from collections import deque
 from typing import List, Optional, Tuple
 
+from bigdl_tpu_torch.observability.events import default_recorder
 from bigdl_tpu_torch.serving.streams import (
     PRIORITIES, PRIORITY_RANK, QueueFull, RequestCancelled,
     RequestHandle, RequestTimedOut,
 )
-
-
-class _NoRecorder:
-    """Stands in for the flight recorder the port does not have yet."""
-
-    def record(self, *args, **kwargs) -> None:
-        return None
 
 
 def _rank(h: RequestHandle) -> int:
@@ -86,7 +78,9 @@ class AdmissionQueue:
         # queue transitions land in the flight recorder (request/queued
         # on put, request/queue_dropped for sweep/pop casualties) so a
         # request's timeline starts before it ever reaches a slot
-        self._rec = recorder if recorder is not None else _NoRecorder()
+        if recorder is None:
+            recorder = default_recorder()
+        self._rec = recorder
         #: consecutive scorer-driven head bypasses (pop_ready fairness)
         self._head_bypasses = 0
 

@@ -19,18 +19,11 @@ from __future__ import annotations
 import queue
 import threading
 import time
-import itertools
 from typing import Iterator, Optional
 
 import numpy as np
 
-_REQ_SEQ = itertools.count(1)
-
-
-def next_request_id(prefix: str = "req") -> str:
-    """A process-unique request id (``req-000042``): the key a handle,
-    its timeline and the engine's ``stats()`` ring share."""
-    return f"{prefix}-{next(_REQ_SEQ):06d}"
+from bigdl_tpu_torch.observability.events import next_request_id
 
 #: admission priority classes, best-first. Rank (the tuple index) is
 #: the primary ordering key in ``AdmissionQueue.pop_ready`` and the

@@ -592,6 +592,21 @@ TP_TIMEOUT_S = 900
 # the sharded scoring forward against the unsharded one (f32: only the
 # row-parallel sums' order differs)
 TP_RTOL = 1e-5
+# obs_serving (slice 15): the flagship engine with every observability
+# hook on, 16 Poisson requests at 20/s from two tenants, the HTTP routes
+# held to the engine's numbers, a 1 s /debug/profile taken under load, a
+# chaos crash; then the overhead A/B (on, off, off, on) on one seeded
+# workload, PredictionService scoring and a 3-step LocalOptimizer run
+OBS_SERVING = dict(n_requests=16, rate_hz=20.0, max_slots=8,
+                   prefill_chunk=64, prefill_rows=4, prompt_lens=(64, 512),
+                   decode_lens=(16, 128), seed=5, interval_s=0.25,
+                   profile_s=1.0, tenants=("alpha", "beta"))
+OBS_PREDICT = dict(clients=8, tokens=1024, max_batch=4, timeout_ms=20.0)
+# the training flagship's widths (vocab, embed, heads, seq, batch) at a
+# reduced depth of 2 layers
+OBS_TRAIN = dict(layers=2, iterations=3, lr=1e-3)
+# the loop-phase fractions are six figures rounded to 1e-6 each
+LOOP_FRACTION_TOL = 6 * 0.5e-6
 # bf16 rows may part where the unsharded model's two candidate tokens
 # sit within this of each other (4 bf16 ulps of a logit in [1, 2)): a
 # row-parallel sum rounds to bf16 differently from the whole GEMM in
@@ -5336,6 +5351,391 @@ def native_augment_check() -> dict:
             "bit_equal_to_numpy": True}
 
 
+# ------------------------------------------------------------- slice 15
+def _get(base, path):
+    """(status, body bytes) of one GET on the local metrics server."""
+    import urllib.error
+    import urllib.request
+
+    try:
+        with urllib.request.urlopen(base + path, timeout=120) as r:
+            return r.status, r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read()
+
+
+def _prometheus(body: str) -> dict:
+    """``{series: value}`` of Prometheus text; every sample line must be
+    ``name{labels} value`` with a float value."""
+    out = {}
+    for line in body.splitlines():
+        if line and not line.startswith("#"):
+            name, value = line.rsplit(" ", 1)
+            out[name] = float(value)
+    return out
+
+
+def _obs_overhead(torch, model, wl, enabled: bool) -> dict:
+    """One replay of ``wl`` through a fresh engine on the default
+    registry, recorder and tracer, observability on or off
+    (``observability.disable()``): inter-token p50/p99 and the loop's
+    host-accounted ms an iteration."""
+    from bigdl_tpu_torch import observability as obs
+    from bigdl_tpu_torch.serving.benchmark import _engine_replay
+
+    cfg = OBS_SERVING
+    if not enabled:
+        obs.disable()
+    try:
+        res = _engine_replay(
+            model, wl, wl[0]["prompt"], 4, (), lambda *a, **k: None,
+            "obs_overhead", max_slots=cfg["max_slots"],
+            prefill_chunk=cfg["prefill_chunk"],
+            prefill_rows=cfg["prefill_rows"],
+            service_name="obs_overhead_" + ("on" if enabled else "off"))
+    finally:
+        obs.enable()
+    loop = res["stats"]["loop"]
+    return {"enabled": enabled,
+            "inter_token_s": res["inter_token"], "ttft_s": res["ttft"],
+            "ms_per_iteration": loop["accounted_s"] / loop["iterations"]
+            * 1e3, "iterations": loop["iterations"],
+            "tokens_per_s": res["tokens_per_sec"]}
+
+
+def obs_serving(torch, fa, smi, model) -> int:
+    """obs_serving (bf16): the serving flagship's engine (8 slots, 64-token
+    chunks, the prefix cache) with a registry, a recorder, the sampler at
+    0.25 s, the default detectors, an incident directory and a chaos
+    injector, serving ``OBS_SERVING``'s 16 Poisson requests at 20/s from
+    two tenants while ``start_http_server(port=0)`` serves every route.
+    Held: ``/metrics`` parses and each ``bdt_serving_*_total`` flow
+    counter equals ``stats()``'s; ``bdt_serving_jit_compiles`` is flat
+    over the second half of the load; in ``/debug/memory`` the KV slot
+    pool's bytes equal its tensors' ``nbytes`` and the engine's pools
+    (the ``*_in_use`` views of the same tensors left out) sum to at most
+    ``torch.cuda.memory_allocated()``; ``stats()["cost"]`` names the H100
+    row (``source`` ``"table"``) with MFU and bandwidth shares in (0, 1];
+    the loop-phase fractions sum to 1 (six figures rounded to 1e-6); a
+    1 s ``/debug/profile`` taken on an HTTP thread under load writes a
+    trace holding CUDA kernel events; then a chaos decode crash writes
+    the postmortem and a crash incident, and ``/healthz`` answers 503.
+    Then the overhead A/B (observability on, off, off, on) on one seeded
+    workload (a finding, no limit); ``PredictionService(registry=...)``
+    over the flagship's scoring forward (8 flash launches a dispatch, the
+    family's counters equal ``stats()``); a 3-step ``LocalOptimizer`` run
+    at the training flagship's widths and 2 layers whose
+    ``write_chrome_trace`` holds its ``train/step`` spans and whose train
+    family is populated. Returns the flash launches of the scoring and
+    training parts."""
+    import tempfile
+
+    import numpy as np
+
+    from bigdl_tpu_torch import observability as obs
+    from bigdl_tpu_torch.dataset import MiniBatch
+    from bigdl_tpu_torch.models.perf import LMLoss
+    from bigdl_tpu_torch.models.transformer import TransformerLM
+    from bigdl_tpu_torch.observability import memory as obs_memory
+    from bigdl_tpu_torch.optim import SGD, Optimizer, PredictionService, Trigger
+    from bigdl_tpu_torch.serving import (ChaosInjector,
+                                         ContinuousBatchingEngine,
+                                         EngineStopped)
+    from bigdl_tpu_torch.serving.benchmark import poisson_workload
+
+    cfg = OBS_SERVING
+    t_phase = time.monotonic()
+    tmp = tempfile.mkdtemp(prefix="obs_serving_")
+    vocab = FLAGSHIP["vocab_size"]
+    reg, rec = obs.MetricRegistry(), obs.FlightRecorder()
+    chaos = ChaosInjector()
+    eng = ContinuousBatchingEngine(
+        model, max_slots=cfg["max_slots"],
+        prefill_chunk=cfg["prefill_chunk"], prefill_rows=cfg["prefill_rows"],
+        registry=reg, recorder=rec, service_name="obs_serving",
+        timeseries_interval_s=cfg["interval_s"],
+        incident_dir=os.path.join(tmp, "incidents"),
+        postmortem_path=os.path.join(tmp, "postmortem.json"), chaos=chaos)
+    wl = poisson_workload(cfg["n_requests"], cfg["rate_hz"], vocab,
+                          prompt_lens=cfg["prompt_lens"],
+                          decode_lens=cfg["decode_lens"], seed=cfg["seed"],
+                          tenants=cfg["tenants"])
+    srv = obs.start_http_server(
+        port=0, host="127.0.0.1", registry=reg, recorder=rec,
+        healthz=eng.healthz, debug_requests=eng.debug_requests,
+        debug_usage=eng.debug_usage, debug_timeseries=eng.debug_timeseries,
+        dashboard=eng.dashboard, debug_incidents=eng.debug_incidents,
+        debug_capacity=eng.debug_capacity)
+    base = f"http://127.0.0.1:{srv.port}"
+    done, jit_half, prof = [], {}, {}
+    lock = threading.Lock()
+
+    def one(req):
+        h = eng.submit(req["prompt"], req["n"], tenant=req["tenant"])
+        row = h.result(timeout=600)
+        assert row.shape == (len(req["prompt"]) + req["n"],), row.shape
+        assert ((row >= 0) & (row < vocab)).all()
+        with lock:
+            done.append(h)
+            if len(done) == len(wl) // 2:
+                jit_half["compiles"] = _prometheus(_get(
+                    base, "/metrics")[1].decode())[
+                    'bdt_serving_jit_compiles{service="obs_serving"}']
+
+    def profile_under_load():
+        # the capture starts on this (HTTP client) thread's request, on
+        # the server's HTTP thread, while the loop thread launches
+        time.sleep(0.5)
+        prof["status"], prof["body"] = _get(
+            base, f"/debug/profile?seconds={cfg['profile_s']}")
+
+    with eng:
+        pt = threading.Thread(target=profile_under_load, daemon=True)
+        pt.start()
+        threads = []
+        t0 = time.monotonic()
+        for req in wl:
+            delay = t0 + req["arrival_s"] - time.monotonic()
+            if delay > 0:
+                time.sleep(delay)
+            th = threading.Thread(target=one, args=(req,), daemon=True)
+            th.start()
+            threads.append(th)
+        for th in threads:
+            th.join(timeout=600)
+        pt.join(timeout=120)
+        load_s = time.monotonic() - t0
+        assert len(done) == len(wl), len(done)
+        time.sleep(2 * cfg["interval_s"])          # sampler points
+        stats = eng.stats()
+        routes = {}
+        for path in ("/metrics", "/healthz", "/debug/events?n=64",
+                     "/debug/requests", "/debug/trace", "/debug/memory",
+                     "/debug/usage?n=4", "/debug/incidents?n=4",
+                     "/debug/capacity", "/debug/timeseries",
+                     "/debug/dashboard"):
+            status, body = _get(base, path)
+            assert status == 200, (path, status, body[:200])
+            routes[path] = body
+        allocated = torch.cuda.memory_allocated()
+    metrics = _prometheus(routes["/metrics"].decode())
+    flows = {}
+    for k in ("admitted", "finished", "evicted", "timed_out", "cancelled"):
+        got = metrics.get(f'bdt_serving_{k}_total{{service="obs_serving"}}',
+                          0.0)
+        flows[k] = got
+        assert got == stats[k], (k, got, stats[k])
+    jit_end = metrics['bdt_serving_jit_compiles{service="obs_serving"}']
+    assert jit_half["compiles"] == jit_end == stats["jit_compiles"], \
+        (jit_half, jit_end, stats["jit_compiles"])
+    mem = json.loads(routes["/debug/memory"])
+    pools = {k: v for k, v in mem["now"]["pools"].items()
+             if k.startswith("serving/obs_serving/")}
+    kv_key = "serving/obs_serving/kv_slots"
+    kv_nbytes = obs_memory.tree_bytes(eng._caches)
+    assert pools[kv_key] == kv_nbytes, (pools[kv_key], kv_nbytes)
+    distinct = sum(v for k, v in pools.items() if not k.endswith("_in_use"))
+    assert distinct <= allocated, (distinct, allocated)
+    dev0 = mem["now"]["devices"][0]
+    assert dev0["source"] == "torch.cuda" and dev0["bytes_in_use"] > 0
+    cost = stats["cost"]
+    assert "H100" in cost["device_kind"], cost["device_kind"]
+    assert cost["peak_source"] == "table", cost["peak_source"]
+    shares = {}
+    for kind in ("prefill", "decode"):
+        k = cost["kinds"][kind]
+        assert k["flops_source"] == "analytic", k
+        shares[kind] = {"mfu": k["mfu"], "membw_util": k["membw_util"],
+                        "roofline": k["roofline"]}
+        for key in ("mfu", "membw_util"):
+            assert k[key] is not None and 0.0 < k[key] <= 1.0, (kind, k)
+    loop = stats["loop"]
+    frac_sum = sum(loop["fractions"].values())
+    assert abs(frac_sum - 1.0) <= LOOP_FRACTION_TOL, loop["fractions"]
+    assert prof.get("status") == 200, prof
+    artifact = json.loads(prof["body"])["artifact"]
+    traces = [f for f in os.listdir(artifact) if f.endswith(".json")]
+    assert len(traces) == 1, traces
+    kernels_in_trace = _trace_kernels(os.path.join(artifact, traces[0]))
+    assert kernels_in_trace > 0, "the capture holds no CUDA kernel"
+    ts = json.loads(routes["/debug/timeseries"])
+    assert ts["metrics"]["hbm_bytes_in_use"]["points"], ts["metrics"].keys()
+    hz = json.loads(routes["/healthz"])
+    assert hz["status"] in ("ok", "degraded"), hz
+
+    # the crash: a scripted dispatch fault on a fresh request
+    crash_err = None
+    with eng:
+        chaos.fail_dispatch(nth=1)
+        h = eng.submit(wl[0]["prompt"], 8, tenant="alpha")
+        try:
+            h.result(timeout=120)
+        except EngineStopped as e:
+            crash_err = e
+    assert crash_err is not None, "the injected fault did not crash the loop"
+    with open(os.path.join(tmp, "postmortem.json")) as f:
+        pm = json.load(f)
+    assert pm["error"]["type"] == "ChaosFault", pm["error"]
+    inc = eng.debug_incidents()
+    assert inc["by_kind"].get("crash") == 1, inc["by_kind"]
+    inc_files = [f for f in os.listdir(os.path.join(tmp, "incidents"))
+                 if f.startswith("incident-")]
+    status, body = _get(base, "/healthz")
+    assert status == 503, (status, body)
+    srv.close()
+    eng_s = time.monotonic() - t_phase
+
+    # the overhead: one seeded workload, observability on / off in turns
+    wl2 = poisson_workload(cfg["n_requests"], cfg["rate_hz"], vocab,
+                           prompt_lens=cfg["prompt_lens"],
+                           decode_lens=cfg["decode_lens"],
+                           seed=cfg["seed"] + 1, tenants=cfg["tenants"])
+    runs = [_obs_overhead(torch, model, wl2, on)
+            for on in (True, False, False, True)]
+
+    def med(on, key, q=None):
+        vals = [(r[key][q] if q else r[key]) for r in runs
+                if r["enabled"] is on]
+        return statistics.median(vals)
+
+    overhead = {
+        "runs": runs,
+        "inter_token_p50_s": {"on": med(True, "inter_token_s", "p50"),
+                              "off": med(False, "inter_token_s", "p50")},
+        "inter_token_p99_s": {"on": med(True, "inter_token_s", "p99"),
+                              "off": med(False, "inter_token_s", "p99")},
+        "ms_per_iteration": {"on": med(True, "ms_per_iteration"),
+                             "off": med(False, "ms_per_iteration")},
+        "order": "on, off, off, on; medians of the two runs each",
+        "nvidia_smi": smi}
+    print(f"obs_serving overhead on {smi}: inter-token p50 "
+          f"{overhead['inter_token_p50_s']} p99 "
+          f"{overhead['inter_token_p99_s']} ms/iteration "
+          f"{overhead['ms_per_iteration']}", flush=True)
+
+    # scoring: PredictionService over the flagship's forward
+    pcfg = OBS_PREDICT
+    preg = obs.MetricRegistry()
+    svc = PredictionService(model, num_threads=pcfg["clients"],
+                            max_batch=pcfg["max_batch"],
+                            batch_timeout_ms=pcfg["timeout_ms"],
+                            sample_ndim=1, registry=preg,
+                            service_name="obs_predict")
+    rs = np.random.RandomState(6)
+    preqs = [rs.randint(0, vocab, pcfg["tokens"])
+             for _ in range(pcfg["clients"])]
+    outs = [None] * len(preqs)
+    obs.trace.reset()
+    fa.launches = 0
+    pth = [threading.Thread(
+        target=lambda i=i: outs.__setitem__(i, svc.predict(preqs[i])),
+        daemon=True) for i in range(len(preqs))]
+    for th in pth:
+        th.start()
+    for th in pth:
+        th.join(timeout=300)
+    torch.cuda.synchronize()
+    score_launches = fa.launches
+    pst = svc.stats()
+    assert all(o is not None and o.dtype.kind == "f" for o in outs)
+    assert score_launches == model.num_layers * pst["dispatches"], \
+        (score_launches, pst)
+    pfam = _prometheus(obs.render_prometheus(preg))
+
+    def ser(name):
+        return pfam[f'{name}{{service="obs_predict"}}']
+
+    assert ser("bdt_serve_dispatches_total") == pst["dispatches"]
+    assert ser("bdt_serve_batch_occupancy_sum") == pst["served"]
+    assert ser("bdt_serve_requests_total") == len(preqs)
+    assert ser("bdt_serve_errors_total") == 0
+    spans = obs.trace.roots(name="serve/dispatch")
+    assert len(spans) == pst["dispatches"], (len(spans), pst)
+    del svc, outs
+
+    # training: 3 LocalOptimizer steps at the training flagship's widths
+    tcfg = OBS_TRAIN
+    treg = obs.MetricRegistry()
+    prev = obs.set_default_registry(treg)
+    obs.trace.reset()
+    try:
+        lm = TransformerLM(TRAIN["vocab"], TRAIN["embed_dim"],
+                           TRAIN["heads"], tcfg["layers"], TRAIN["seq_len"],
+                           use_flash=True, seed=0, device="cuda",
+                           dtype=torch.float32)
+        ids = rs.randint(0, TRAIN["vocab"], (TRAIN_BATCH, TRAIN["seq_len"]))
+        opt = Optimizer(model=lm, dataset=[MiniBatch(ids, ids)],
+                        criterion=LMLoss(TRAIN["vocab"]),
+                        batch_size=TRAIN_BATCH,
+                        end_when=Trigger.max_iteration(tcfg["iterations"]))
+        opt.set_optim_method(SGD(learning_rate=tcfg["lr"]))
+        opt.set_compute_dtype(torch.bfloat16)
+        fa.launches = 0
+        opt.optimize()
+        torch.cuda.synchronize()
+        train_launches = fa.launches
+        trace_path = os.path.join(tmp, "train_trace.json")
+        obs.write_chrome_trace(trace_path)
+    finally:
+        obs.set_default_registry(prev)
+    assert train_launches == tcfg["layers"] * tcfg["iterations"], \
+        train_launches
+    with open(trace_path) as f:
+        tev = json.load(f)["traceEvents"]
+    steps = [e for e in tev if e.get("name") == "train/step"
+             and e.get("ph") == "X"]
+    assert len(steps) == tcfg["iterations"], len(steps)
+    tfam = _prometheus(obs.render_prometheus(treg))
+    train = {k: tfam[f"bdt_train_{k}"] for k in (
+        "step_seconds_count", "records_total", "loss", "grad_norm",
+        "learning_rate", "jit_compiles", "throughput_records_per_sec")}
+    assert train["step_seconds_count"] == tcfg["iterations"], train
+    assert train["records_total"] == TRAIN_BATCH * tcfg["iterations"]
+    assert train["loss"] > 0 and train["grad_norm"] > 0, train
+    assert train["jit_compiles"] == 1, train
+    del lm, opt
+
+    emit({"phase": "obs_serving", "nvidia_smi": smi, "dtype": "bfloat16",
+          "config": cfg, "load_s": load_s,
+          "requests": len(wl), "flows_metrics_eq_stats": flows,
+          "jit_compiles": {"half": jit_half["compiles"], "end": jit_end},
+          "memory": {"kv_slots_bytes": pools[kv_key],
+                     "kv_slots_nbytes": kv_nbytes,
+                     "engine_pools_bytes": distinct,
+                     "memory_allocated": allocated, "pools": pools,
+                     "device": dev0},
+          "cost": {"device_kind": cost["device_kind"],
+                   "peak_source": cost["peak_source"],
+                   "peak_flops_per_s": cost["peak_flops_per_s"],
+                   "peak_hbm_bytes_per_s": cost["peak_hbm_bytes_per_s"],
+                   "kinds": shares, "overall": cost["overall"]},
+          "loop": {"fractions": loop["fractions"],
+                   "fraction_sum": frac_sum,
+                   "device_busy_fraction": loop["device_busy_fraction"],
+                   "device_idle_fraction": loop["device_idle_fraction"],
+                   "iterations": loop["iterations"]},
+          "profile": {"seconds": cfg["profile_s"],
+                      "cuda_kernel_events": kernels_in_trace},
+          "latency_s": {k: {q: v[q] for q in ("p50", "p99")}
+                        for k, v in stats["latency"].items()},
+          "capacity": stats["capacity"],
+          "crash": {"postmortem": pm["error"]["type"],
+                    "incidents": inc["by_kind"],
+                    "incident_files": len(inc_files),
+                    "healthz_status": status},
+          "routes": sorted(routes),
+          "overhead": overhead,
+          "scoring": {"stats": pst, "flash_launches": score_launches,
+                      "serve_dispatch_spans": len(spans)},
+          "train": {**train, "flash_launches": train_launches,
+                    "train_step_spans": len(steps),
+                    "config": {**TRAIN, "layers": tcfg["layers"],
+                               "batch": TRAIN_BATCH}},
+          "engine_part_s": eng_s,
+          "phase_s": time.monotonic() - t_phase})
+    return score_launches + train_launches
+
+
 def main() -> int:
     import torch
 
@@ -5547,6 +5947,9 @@ def main() -> int:
         # QoS: preemption, shedding, rate limits, chaos, the ledger
         + qos_gate(torch, fa, smi, model32)
         + qos_serving(torch, fa, smi, model16))
+    # observability: every hook of the engine, the routes, the overhead,
+    # the prediction family and the train family (slice 15)
+    obs_launches = obs_serving(torch, fa, smi, model16)
     # the int8 clone's scoring forward goes through the flash kernel
     quant_launches = quant_scoring(torch, fa, smi, model16)
     # beam search (no flash launch), the prediction service and the
@@ -5609,7 +6012,7 @@ def main() -> int:
                      + zoo_launches + perf_cli_launches
                      + variants_launches + table_launches
                      + text_launches + distri_launches + ring_launches
-                     + longcontext_launches + tp_launches),
+                     + longcontext_launches + tp_launches + obs_launches),
         "launches_serving": serving_launches,
         "launches_train": train_launches,
         "launches_engine": engine_launches,
@@ -5627,6 +6030,7 @@ def main() -> int:
         "launches_ring": ring_launches,
         "launches_longcontext": longcontext_launches,
         "launches_tp": tp_launches,
+        "launches_obs": obs_launches,
         "tp_local_heads": {k: tp_local[k] for k in (
             "shape", "max_abs_err", "kernel_ms", "device_ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms", "library_device_ms")},

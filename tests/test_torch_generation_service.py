@@ -92,20 +92,47 @@ def test_eos_sampling_and_validation(lms):
         GenerationService(tm).generate(np.zeros((2, 3), np.int32), 2)
 
 
-@pytest.mark.parametrize("option,value", [("registry", object()),
+@pytest.mark.parametrize("option,value", [("registry", "a registry"),
                                           ("service_name", "generation")])
 def test_observability_options_raise_naming_their_roadmap_item(lms, option,
                                                                value):
-    """The JAX service's metric hooks wait for the observability slice:
-    given any value (the JAX default name included) they raise, naming
-    the item; the JAX constructor takes every other option the port's
-    does."""
+    """The JAX service's metric hooks are ported: ``registry`` and
+    ``service_name`` are taken (they raised before) and the service's
+    ``bdt_serve_*`` / ``bdt_generation_*`` families under that name count
+    what ``stats()`` counts; the recorder gets each request's submitted
+    and finished events; the JAX constructor takes the same options."""
     import inspect
 
+    from bigdl_tpu_torch.observability import FlightRecorder, MetricRegistry
+    from bigdl_tpu_torch.observability import events as obs_events
+
     _, tm = lms
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP.md, Queue 1 item 11"):
-        GenerationService(tm, **{option: value})
+    reg = MetricRegistry()
+    if option == "registry":
+        value = reg
+        kw = {"registry": reg, "service_name": "gen_reg"}
+    else:
+        kw = {"registry": reg, "service_name": value}
+    rec = FlightRecorder()
+    prev = obs_events.set_default_recorder(rec)
+    try:
+        svc = GenerationService(tm, max_batch=2, batch_timeout_ms=1.0,
+                                **kw)
+        row = svc.generate(np.asarray([1, 2, 3], np.int32), 4)
+    finally:
+        obs_events.set_default_recorder(prev)
+    assert row.shape == (7,)
+    st = svc.stats()
+    name = kw["service_name"]
+    assert reg.get("bdt_serve_requests_total").labels(name).get() == 1
+    assert reg.get("bdt_serve_dispatches_total").labels(name).get() \
+        == st["dispatches"] == 1
+    assert reg.get("bdt_generation_tokens_total").labels(name).get() \
+        == st["tokens"] == 4
+    assert st["latency"]["total"]["count"] == 1
+    kinds = [e["kind"] for e in rec.snapshot()]
+    assert kinds[0] == "request/submitted" and kinds[-1] == \
+        "request/finished"
     jax_opts = set(inspect.signature(JaxService.__init__).parameters)
     ours = set(inspect.signature(GenerationService.__init__).parameters)
     assert jax_opts == ours

@@ -34,6 +34,7 @@ from bigdl_tpu_torch import nn as tnn
 from bigdl_tpu_torch.nn.module import activity_tensors, tree_leaves
 from bigdl_tpu_torch.utils.table import Table
 from bigdl_tpu_torch.utils.weights import load_jax_buffers, load_jax_params
+from tests.jax_numpy_init import numpy_weight_draws, seed_of
 from tests.test_layer_sweep import FIXTURES
 
 TOL = dict(rtol=1e-5, atol=1e-6)
@@ -264,6 +265,19 @@ def _port_inputs(x):
     return conv(_to_port(x)), leaves
 
 
+_JAX_BUILT = {}
+
+
+def _jax_fixture(tag):
+    """The JAX fixture's module, built once per module run (its initial
+    weights drawn by numpy, ``tests/jax_numpy_init.py``): the layer case
+    and the coverage check share it."""
+    if tag not in _JAX_BUILT:
+        with numpy_weight_draws(seed_of(tag)):
+            _JAX_BUILT[tag] = FIXTURES[tag][0]()
+    return _JAX_BUILT[tag]
+
+
 def _float_leaves(tree):
     return [np.asarray(a) for a in jax.tree.leaves(tree)
             if jnp.issubdtype(jnp.asarray(a).dtype, jnp.floating)]
@@ -273,7 +287,7 @@ def _float_leaves(tree):
 def test_layer_matches_jax(tag):
     entry = FIXTURES[tag]
     flags = entry[2] if len(entry) > 2 else ""
-    jm = entry[0]()
+    jm = _jax_fixture(tag)
     tm = PORT[tag]()
     load_jax_params(tm, jax.tree.map(np.asarray, jm.params_dict()))
     load_jax_buffers(tm, jax.tree.map(np.asarray, jm.buffers_dict()))
@@ -332,8 +346,8 @@ def test_port_fixtures_cover_every_exported_tag():
     exports: a fixture of the sweep whose classes all exist in the port
     must be swept here."""
     ported = _port_exports()
-    want = {tag for tag, entry in FIXTURES.items()
-            if _classes(entry[0]()) <= ported}
+    want = {tag for tag in FIXTURES
+            if _classes(_jax_fixture(tag)) <= ported}
     assert set(PORT) == want, (sorted(want - set(PORT)),
                                sorted(set(PORT) - want))
 
@@ -469,10 +483,11 @@ def test_sync_bn_axis_waits_for_the_distributed_slice(tmp_path):
                 xx, jnp.asarray(w_out))
         return jnp.sum(s), (out, nb)
 
-    (_, (out, nb)), dx = jax.value_and_grad(loss, has_aux=True)(
-        jnp.asarray(x))
+    # the ranks boot while the JAX side computes
     world = World(2, tmp_path)
     try:
+        (_, (out, nb)), dx = jax.value_and_grad(loss, has_aux=True)(
+            jnp.asarray(x))
         got = world.run(jobs.sync_bn_forward_and_grad, x, w_out, weight,
                         bias)
     finally:

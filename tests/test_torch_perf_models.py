@@ -15,6 +15,7 @@ import torch
 
 from bigdl_tpu.models import perf as jperf
 from bigdl_tpu_torch.models import perf
+from tests.jax_numpy_init import numpy_weight_draws, seed_of
 
 QUIET = dict(log=lambda *_: None, device="cpu")
 
@@ -25,10 +26,13 @@ QUIET = dict(log=lambda *_: None, device="cpu")
 ])
 def test_build_model_zoo_rows_match_jax(name, fmt):
     """The same architecture as the JAX row (parameter count, input
-    shape, classes) and the same output shape."""
+    shape, classes) and the same output shape. The JAX row's weights
+    are drawn by numpy (``tests/jax_numpy_init.py``): only its shapes
+    are read."""
     model, shape, classes = perf.build_model(name, 10, format=fmt,
                                              device="cpu")
-    jm, jshape, jclasses = jperf.build_model(name, 10, format=fmt)
+    with numpy_weight_draws(seed_of(name)):
+        jm, jshape, jclasses = jperf.build_model(name, 10, format=fmt)
     assert (tuple(shape), classes) == (tuple(jshape), jclasses)
     assert sum(p.numel() for p in model.parameters()) == sum(
         int(np.prod(a.shape)) for a in jax.tree.leaves(jm.params_dict()))

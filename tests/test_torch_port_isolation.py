@@ -200,7 +200,10 @@ def test_no_jax_or_jax_package_import_in_the_port():
     assert {"__init__", "benchmark", "chaos", "engine", "paging",
             "prefix_cache", "scheduler", "streams"} <= {
         f.stem for f in files if f.parent.name == "serving"}
-    assert {"__init__", "accounting", "histogram", "watchdog"} <= {
+    assert {"__init__", "accounting", "anomaly", "capacity", "chrometrace",
+            "costmodel", "events", "exporters", "incidents", "instruments",
+            "memory", "metrics", "postmortem", "profiler", "slo_budget",
+            "timeseries", "tracing", "watchdog"} <= {
         f.stem for f in files if f.parent.name == "observability"}
     assert {"attention", "criterion", "linear", "module", "quantized"} <= {
         f.stem for f in files if f.parent.name == "nn"}

@@ -235,7 +235,42 @@ def test_a_malformed_request_leaves_its_batch_mates_served():
 
 
 def test_registry_accepted_and_unused():
+    """``registry=`` and ``service_name=`` feed the service's
+    ``bdt_serve_*`` family (they were once accepted and ignored): with a
+    fresh registry, the family's counters equal ``stats()``, standalone
+    and micro-batched."""
+    from bigdl_tpu_torch.observability import MetricRegistry
+
     _, tm = _models()
-    svc = PredictionService(tm, registry=object(), service_name="s")
+    reg = MetricRegistry()
+    svc = PredictionService(tm, registry=reg, service_name="s")
     assert svc.stats() == {"served": 0, "dispatches": 0,
                            "mean_batch_occupancy": 0.0}
+    x = np.random.RandomState(0).rand(3, 8).astype(np.float32)
+    svc.predict(x)
+    svc.predict(np.zeros((2,), np.float32))     # a forward that fails
+    bat = PredictionService(tm, registry=reg, service_name="b",
+                            max_batch=4, batch_timeout_ms=50.0,
+                            sample_ndim=1)
+    threads = [threading.Thread(target=bat.predict, args=(x[i],))
+               for i in range(3)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=60)
+    assert not any(t.is_alive() for t in threads)
+
+    def fam(name, service):
+        return reg.get(name).labels(service)
+
+    for service, s in (("s", svc), ("b", bat)):
+        st = s.stats()
+        _, occ_sum, occ_n = fam("bdt_serve_batch_occupancy", service).get()
+        assert fam("bdt_serve_dispatches_total", service).get() \
+            == st["dispatches"] == occ_n
+        assert occ_sum == st["served"]
+        assert fam("bdt_serve_inflight_requests", service).get() == 0
+    assert fam("bdt_serve_requests_total", "s").get() == 2
+    assert fam("bdt_serve_errors_total", "s").get() == 1
+    assert fam("bdt_serve_requests_total", "b").get() == 3
+    assert bat.stats()["served"] == 3

@@ -319,13 +319,13 @@ def test_validation_and_sampled_mode(lm):
     ("incident_cooldown_s", 30.0, 11, "incidents and anomaly detectors"),
 ])
 def test_later_options_raise_naming_their_roadmap_item(lm, option, value,
-                                                       item, step):
-    """Each JAX engine option the port lacks raises, given any value (the
-    JAX defaults included), naming the item that brings it. Item 10's
-    options are ported: the engine takes them and serves (a mesh of one
+                                                       item, step,
+                                                       tmp_path):
+    """Every JAX engine option is ported now: items 10 (the mesh) and 11
+    (observability). The engine takes each and serves (a mesh of one
     rank runs every program on the whole model, no message sent; rules
     without a mesh are unused, as in JAX), rows equal to a lone
-    ``generate``."""
+    ``generate``; no option raises ``NotImplementedError``."""
     if item == 10:
         from bigdl_tpu_torch.parallel import Engine
         from bigdl_tpu_torch.parallel.tp import transformer_tp_rules
@@ -334,35 +334,36 @@ def test_later_options_raise_naming_their_roadmap_item(lm, option, value,
                                                     devices=[0]),
                  "tp_rules": transformer_tp_rules,
                  "model_axis": lambda: "model"}[option]()
-        p = np.asarray([3, 1, 4, 1, 5])
-        with ContinuousBatchingEngine(lm, max_slots=2, prefill_chunk=4,
-                                      **{option: value}) as eng:
-            row = eng.submit(p, 5).result(timeout=60)
-            mesh = eng.stats()["mesh"]
-        np.testing.assert_array_equal(row, _direct(lm, p, 5))
-        assert mesh["enabled"] is (option == "mesh")
-        return
-    with pytest.raises(NotImplementedError,
-                       match=f"ROADMAP.md, Queue 1 item {item}: .*{step}"):
-        ContinuousBatchingEngine(lm, **{option: value})
+    elif option == "incident_dir":
+        value = str(tmp_path / value)
+    p = np.asarray([3, 1, 4, 1, 5])
+    with ContinuousBatchingEngine(lm, max_slots=2, prefill_chunk=4,
+                                  **{option: value}) as eng:
+        row = eng.submit(p, 5).result(timeout=60)
+        st = eng.stats()
+    np.testing.assert_array_equal(row, _direct(lm, p, 5))
+    assert st["mesh"]["enabled"] is (option == "mesh")
+    assert st["finished"] == 1 and st["incidents"]["count"] == 0
 
 
 def test_later_holds_only_the_tensor_parallel_options():
-    """QoS (item 5), chaos (item 6) and the mesh options (item 10) left
-    ``_LATER``: only the observability options of item 11 still raise,
-    and every other option of the JAX engine's constructor is accepted."""
+    """Every later step of the engine's port has landed: the module keeps
+    no table of options that raise, and the port's constructor takes
+    every option of the JAX engine's."""
     import inspect
 
-    from bigdl_tpu_torch.serving.engine import _LATER
+    from bigdl_tpu_torch.serving import engine as port_engine
 
-    assert set(_LATER) == {"postmortem_path", "timeseries_interval_s",
-                           "timeseries_capacity", "incident_dir",
-                           "anomaly_detectors", "incident_cooldown_s"}
-    assert {item for item, _ in _LATER.values()} == {11}
+    assert not hasattr(port_engine, "_LATER")
     jax_opts = set(inspect.signature(JaxEngine.__init__).parameters)
     ours = set(inspect.signature(ContinuousBatchingEngine.__init__)
                .parameters)
     assert jax_opts <= ours, sorted(jax_opts - ours)
+    for name in jax_opts - {"self", "model"}:
+        assert (inspect.signature(JaxEngine.__init__).parameters[name]
+                .default == inspect.signature(
+                    ContinuousBatchingEngine.__init__).parameters[name]
+                .default), name
 
 
 def test_high_priority_raises_and_engine_keeps_serving(lm):

@@ -401,8 +401,10 @@ def test_paged_host_tier_drains_every_page(lms):
 
 def test_working_set_sweep_holds_the_hit_rate(lm):
     """``run_working_set_sweep``: past the pool's rows the device-only
-    cache loses its hits, the host tier keeps them, and both cached legs
-    give the cache-off leg's rows."""
+    cache loses its hits, the host tier keeps them, both cached legs
+    give the cache-off leg's rows, and no leg's dispatch signatures grew
+    after its warm request (``jit_flat``: demote and promote traffic
+    launches no new program signature)."""
     res = run_working_set_sweep(lm, working_sets=(2, 8), device_rows=2,
                                 requests_per_template=2, rate_hz=40.0,
                                 max_slots=2, prefill_chunk=4,
@@ -414,3 +416,6 @@ def test_working_set_sweep_holds_the_hit_rate(lm):
     assert res["tiered"]["demotions"] >= 1
     assert res["tiered"]["promotions"] >= 1
     assert res["workload"]["kind"] == "working_set_sweep"
+    assert head["jit_flat"] is True
+    assert all(p[leg]["jit_flat"] for p in res["points"]
+               for leg in ("tiered", "device_only", "disabled"))

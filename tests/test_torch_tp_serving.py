@@ -396,3 +396,34 @@ def test_sampled_rows_equal_the_unsharded_engine(world, lms, spec):
     want = _unsharded(tm, reqs, draft=spec, **kw)
     for a, b in zip(out["rows"], want):
         np.testing.assert_array_equal(a, b)
+
+
+def test_observability_is_the_leaders_alone(world, lms):
+    """On a tp-2 world with every observability hook on, instruments,
+    recorder, memory pools, sampler and detectors are the leader's: its
+    registry holds the serving series and counts the requests, while
+    each follower's process registry holds no serving series, its
+    recorder no event, its pool table no engine pool and its sampler no
+    point; the followers ran the leader's headers, no more, no fewer
+    (no hang, no reordering), and the rows equal the unsharded
+    engine's."""
+    _, tm, params = lms
+    reqs = _mixed(31, [(5, 4), (7, 3), (4, 5)])
+    res = world.run(jobs.serve_observed, CFG, params, reqs, 2)
+    out = _leader(res)
+    assert any(n.startswith("bdt_serving_") for n in out["names"])
+    assert out["admitted"] == out["stats"]["admitted"] == len(reqs)
+    assert out["stats"]["finished"] == len(reqs)
+    assert out["pools"] and out["events"] > 0 and out["sampler_ran"]
+    assert out["stats"]["incidents"]["count"] == 0
+    for got, want in zip(out["rows"],
+                         _unsharded(tm, reqs, max_slots=2,
+                                    prefill_chunk=4)):
+        np.testing.assert_array_equal(got, want)
+    for f in res[1:]:
+        if f is None:
+            continue
+        assert not f["leader"]
+        assert not any(n.startswith("bdt_serving_") for n in f["names"])
+        assert f["events"] == 0 and f["pools"] == []
+        assert not f["sampler_ran"]

@@ -1,8 +1,7 @@
 """Per-request usage accounting in the port (bigdl_tpu_torch/observability/
 accounting.py and its serving-engine wiring) against the JAX package's
-(the cases of tests/test_usage_accounting.py that need no metric
-registry, flight recorder or HTTP front door: those wait for ROADMAP.md
-Queue 1 item 11; the metrics-lint drift case has no counterpart here).
+(the cases of tests/test_usage_accounting.py; the metrics-lint drift
+case is the tree's and runs there).
 
 The contract is CONSERVATION: a finished request's ledgered token counts
 equal its delivered tokens exactly (``prefill + prefix_reused ==
@@ -422,3 +421,103 @@ def test_benchmark_legs_carry_the_ledger(lm):
     assert res["headline"]["ledger_conserved"] is True
     for leg in ("tiered", "device_only", "disabled"):
         assert res["points"][0][leg]["ledger_conserved"] is True
+
+
+# ------------------------------------ the registry, recorder and routes
+@pytest.fixture()
+def reg_rec():
+    """A fresh default registry and recorder, restored after the test."""
+    from bigdl_tpu_torch import observability as obs
+
+    reg, rec = obs.MetricRegistry(), obs.FlightRecorder()
+    prev_reg = obs.set_default_registry(reg)
+    prev_rec = obs.set_default_recorder(rec)
+    try:
+        yield reg, rec
+    finally:
+        obs.set_default_registry(prev_reg)
+        obs.set_default_recorder(prev_rec)
+        obs.enable()
+
+
+def test_engine_conservation_tenants_and_flat_jit(lm, reg_rec):
+    """Conservation with the registry on: the dispatch signatures stay
+    flat under more traffic, the per-tenant counters mirror the
+    aggregates, the device-second counters sum to the busy time, the
+    padding-waste histogram and utilization gauge move, and every
+    request records its ``request/usage_final`` event."""
+    reg, rec = reg_rec
+    r = np.random.RandomState(3)
+    with _engine(lm, service_name="usage_eng") as eng:
+        reqs = [(5, 6, "alice"), (9, 4, "bob"), (3, 8, None),
+                (7, 5, "alice"), (6, 3, "bob")]
+        handles = [eng.submit(r.randint(0, 32, (t0,)), n, tenant=t)
+                   for t0, n, t in reqs]
+        for h in handles:
+            h.result(timeout=120)
+        jit_after_warmup = eng.stats()["jit_compiles"]
+        more = [eng.submit(r.randint(0, 32, (t0,)), n, tenant=t)
+                for t0, n, t in reqs[:3]]
+        for h in more:
+            h.result(timeout=120)
+        st = eng.stats()
+        assert st["jit_compiles"] == jit_after_warmup
+        usage = st["usage"]
+        assert _conserves(usage)
+        tens = usage["tenants"]
+        assert set(tens) == {"alice", "bob", "default"}
+        for t, agg in tens.items():
+            assert reg.get("bdt_serving_tenant_decode_tokens_total") \
+                .labels("usage_eng", t).get() == agg["decode_tokens"]
+            assert reg.get("bdt_serving_tenant_requests_total") \
+                .labels("usage_eng", t).get() == agg["requests"]
+        busy = usage["goodput"]["device_seconds"]
+        got = sum(reg.get("bdt_serving_device_seconds_total")
+                  .labels("usage_eng", k).get()
+                  for k in ("prefill", "decode"))
+        # summaries round to 6 decimals; counters keep full precision
+        assert got == pytest.approx(busy["total"], abs=1e-5)
+        _, _, waste_n = reg.get("bdt_serving_dispatch_padding_waste") \
+            .labels("usage_eng", "decode").get()
+        assert waste_n > 0
+        assert 0.0 < reg.get(
+            "bdt_serving_occupancy_weighted_utilization") \
+            .labels("usage_eng").get() <= 1.0
+        finals = [e for e in rec.snapshot(4096)
+                  if e["kind"] == "request/usage_final"]
+        assert len(finals) == len(handles) + len(more)
+
+
+def test_debug_usage_http_roundtrip(lm, reg_rec):
+    import json
+    import urllib.request
+
+    from bigdl_tpu_torch import observability as obs
+
+    reg, _ = reg_rec
+    r = np.random.RandomState(9)
+    with _engine(lm, service_name="usage_http") as eng:
+        hs = [eng.submit(r.randint(0, 32, (6,)), 4, tenant=t)
+              for t in ("alice", "bob", "alice")]
+        for h in hs:
+            h.result(timeout=120)
+        with obs.start_http_server(host="127.0.0.1", registry=reg,
+                                   debug_usage=eng.debug_usage) as srv:
+            base = f"http://127.0.0.1:{srv.port}"
+            got = json.loads(urllib.request.urlopen(
+                f"{base}/debug/usage?n=2").read())
+            assert got["service"] == "usage_http"
+            assert set(got["tenants"]) == {"alice", "bob"}
+            assert got["tenants"]["alice"]["requests"] == 2
+            assert len(got["top_requests"]) == 2
+            assert got["goodput"]["device_seconds"]["total"] > 0
+            assert _conserves(got)
+            assert got["tenants"] == eng.stats()["usage"]["tenants"]
+            body = urllib.request.urlopen(f"{base}/metrics") \
+                .read().decode()
+            assert ('bdt_serving_tenant_requests_total'
+                    '{service="usage_http",tenant="alice"} 2') in body
+    with obs.start_http_server(host="127.0.0.1", registry=reg) as srv:
+        got = json.loads(urllib.request.urlopen(
+            f"http://127.0.0.1:{srv.port}/debug/usage").read())
+        assert got["tenants"] == {} and "note" in got

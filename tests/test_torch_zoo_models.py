@@ -183,7 +183,10 @@ def test_zoo_sgd_step_matches_jax(name):
     jm, tm = _pair(name)
     crit = ZOO[name][3]
     x = _input(name, seed=2)
-    out_shape = _jax_eval(jm, x).shape
+    # the output's shape only: traced, not compiled or run
+    out_shape = jax.eval_shape(
+        lambda p, b, xx: pure_apply(jm)(p, b, xx, training=False)[0],
+        jm.params_dict(), jm.buffers_dict(), jnp.asarray(x)).shape
     y = _targets(name, out_shape, x)
     jts = jax_train_step(jm, getattr(jnn, crit)(),
                          jom.SGD(learning_rate=0.01))

@@ -7,6 +7,7 @@ collective over the world) and the ranks outside it return None."""
 from __future__ import annotations
 
 import threading
+import time
 
 import numpy as np
 
@@ -491,3 +492,50 @@ def fault_and_abandon(cfg, params, n, prompt):
             out["abandon"] = "stopped"
     out["headers"] = eng._tp.headers
     return out
+
+
+def serve_observed(cfg, params, reqs, n):
+    """The sharded engine with every observability hook on (a fresh
+    default registry and recorder on every rank, the sampler at 50 ms,
+    the default detectors): the leader serves ``reqs`` in turn and
+    returns the rows, its ``stats()`` and the names in its registry; a
+    follower returns what its own process's registry, recorder and pool
+    table hold after the leader's stop header."""
+    from bigdl_tpu_torch import observability as obs
+    from bigdl_tpu_torch.observability import memory as obs_memory
+    from bigdl_tpu_torch.serving import ContinuousBatchingEngine
+
+    msh = mesh(n)
+    if rank() >= n:
+        return None
+    reg, rec = obs.MetricRegistry(), obs.FlightRecorder()
+    prev_reg = obs.set_default_registry(reg)
+    prev_rec = obs.set_default_recorder(rec)
+    try:
+        eng = ContinuousBatchingEngine(
+            lm(cfg, params), mesh=msh, max_slots=2, prefill_chunk=4,
+            service_name="tp_obs", timeseries_interval_s=0.05)
+        with eng:
+            if eng.is_leader:
+                rows = [eng.submit(p, k).result(timeout=120)
+                        for p, k in reqs]
+                time.sleep(0.2)            # a few sampler points
+                st = eng.stats()
+        out = {"leader": eng.is_leader, "headers": eng._tp.headers,
+               "names": sorted(m.name for m in reg.collect()),
+               "events": len(rec),
+               "pools": sorted(p for p in obs_memory.pool_sizes()
+                               if p.startswith("serving/tp_obs/")),
+               "sampler_ran": eng._ts.running or bool(
+                   eng._ts.snapshot()["metrics"].get("queue_depth", {})
+                   .get("points"))}
+        if eng.is_leader:
+            out.update(rows=rows, stats={
+                k: st[k] for k in ("admitted", "finished", "jit_compiles",
+                                   "incidents", "alerts")},
+                admitted=reg.get("bdt_serving_admitted_total")
+                .labels("tp_obs").get())
+        return out
+    finally:
+        obs.set_default_registry(prev_reg)
+        obs.set_default_recorder(prev_rec)
