@@ -1,5 +1,5 @@
 """bigdl_tpu_torch.observability — runtime telemetry (port of
-``bigdl_tpu/observability`` without its fleet parts).
+``bigdl_tpu/observability``).
 
 - **Metrics registry** (``metrics``): thread-safe ``Counter`` /
   ``Gauge`` / ``Histogram`` instruments with labels, near-zero cost when
@@ -38,9 +38,13 @@
   ``/metrics`` + ``/healthz`` + ``/debug/*`` HTTP endpoint, and a
   bridge into ``visualization`` TensorBoard writers.
 
-The fleet halves (``fleettrace``, the fleet time-series merge and
-dashboard, the fleet capacity aggregate, ``fleet_instruments``) and the
-benchmark's instruments wait for later slices (ROADMAP.md, Queue 1
+- **Fleet halves**: ``fleettrace`` (trace ids, the min-RTT clock
+  offset, the hop breakdown, the merged fleet trace), the fleet
+  time-series merge and dashboard, the fleet capacity aggregate, the
+  replica-labelled snapshot rendering and ``fleet_instruments``, read by
+  ``bigdl_tpu_torch.serving.fleet``.
+
+The benchmark's instruments wait for the benchmark (ROADMAP.md, Queue 1
 item 11).
 
 ``disable()`` turns every built-in instrument mutation into a no-op
@@ -60,16 +64,23 @@ from bigdl_tpu_torch.observability.events import (
 from bigdl_tpu_torch.observability.chrometrace import (
     chrome_trace_events, render_chrome_trace, write_chrome_trace,
 )
+from bigdl_tpu_torch.observability.fleettrace import (
+    FLEET_HOPS, estimate_clock_offset, hop_breakdown,
+    merge_fleet_trace, merge_request_timelines, mint_trace_id,
+    parse_traceparent, render_fleet_trace, write_fleet_trace,
+)
 from bigdl_tpu_torch.observability.postmortem import (
     build_postmortem, registry_snapshot, write_postmortem,
 )
 from bigdl_tpu_torch.observability.exporters import (
     MetricsHTTPServer, PROMETHEUS_CONTENT_TYPE, TensorBoardBridge,
-    render_prometheus, start_http_server, write_prometheus,
+    render_prometheus, render_snapshot_prometheus, start_http_server,
+    write_prometheus,
 )
 from bigdl_tpu_torch.observability.instruments import (
     FRACTION_BUCKETS, Histogram, OCCUPANCY_BUCKETS, OccupancyStats,
-    TIME_BUCKETS, engine_instruments, generation_instruments,
+    TIME_BUCKETS, engine_instruments, fleet_instruments,
+    generation_instruments,
     incident_instruments, memory_instruments, parallel_instruments,
     qos_instruments, serving_engine_instruments, serving_instruments,
     tenant_usage_instruments, train_instruments, watchdog_instruments,
@@ -81,13 +92,14 @@ from bigdl_tpu_torch.observability.costmodel import (
     DispatchCostModel, LoopPhaseAccumulator, device_peaks, peak_flops,
 )
 from bigdl_tpu_torch.observability.timeseries import (
-    TimeSeriesSampler, render_dashboard,
+    TimeSeriesSampler, merge_fleet_timeseries, render_dashboard,
+    render_fleet_dashboard,
 )
 from bigdl_tpu_torch.observability.slo_budget import (
     DEFAULT_BURN_WINDOWS, SloBudgetTracker,
 )
 from bigdl_tpu_torch.observability.capacity import (
-    estimate_capacity, replicas_needed,
+    aggregate_fleet_capacity, estimate_capacity, replicas_needed,
 )
 from bigdl_tpu_torch.observability.memory import (
     DeviceMemoryMonitor, default_monitor, pool_sizes, register_pool,
@@ -117,12 +129,16 @@ __all__ = [
     "set_default_recorder", "record", "next_request_id",
     "percentile_summary",
     "chrome_trace_events", "render_chrome_trace", "write_chrome_trace",
+    "FLEET_HOPS", "estimate_clock_offset", "hop_breakdown",
+    "merge_fleet_trace", "merge_request_timelines", "mint_trace_id",
+    "parse_traceparent", "render_fleet_trace", "write_fleet_trace",
     "build_postmortem", "registry_snapshot", "write_postmortem",
     "MetricsHTTPServer", "PROMETHEUS_CONTENT_TYPE", "TensorBoardBridge",
-    "render_prometheus", "start_http_server", "write_prometheus",
+    "render_prometheus", "render_snapshot_prometheus",
+    "start_http_server", "write_prometheus",
     "FRACTION_BUCKETS", "Histogram", "OCCUPANCY_BUCKETS",
     "OccupancyStats", "TIME_BUCKETS",
-    "engine_instruments", "generation_instruments",
+    "engine_instruments", "fleet_instruments", "generation_instruments",
     "incident_instruments", "memory_instruments", "parallel_instruments",
     "qos_instruments", "serving_engine_instruments",
     "serving_instruments", "tenant_usage_instruments",
@@ -130,9 +146,10 @@ __all__ = [
     "KINDS", "UsageLedger", "UsageRecord",
     "DispatchCostModel", "LoopPhaseAccumulator", "device_peaks",
     "peak_flops",
-    "TimeSeriesSampler", "render_dashboard",
+    "TimeSeriesSampler", "merge_fleet_timeseries", "render_dashboard",
+    "render_fleet_dashboard",
     "DEFAULT_BURN_WINDOWS", "SloBudgetTracker",
-    "estimate_capacity", "replicas_needed",
+    "aggregate_fleet_capacity", "estimate_capacity", "replicas_needed",
     "DeviceMemoryMonitor", "default_monitor", "pool_sizes",
     "register_pool", "register_owned_pools", "static_pools",
     "tree_bytes", "tree_device_bytes", "unregister_pool",

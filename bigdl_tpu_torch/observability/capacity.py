@@ -1,6 +1,5 @@
 """Capacity / what-if model: measured signals -> sustainable load (port of
-``bigdl_tpu/observability/capacity.py`` without the fleet aggregate,
-which waits for the fleet).
+``bigdl_tpu/observability/capacity.py``).
 
 The serving tier already measures everything a capacity question
 needs; this module just combines it, entirely host-side:
@@ -29,9 +28,10 @@ saved dump.
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Dict, Optional
 
-__all__ = ["estimate_capacity", "replicas_needed"]
+__all__ = ["aggregate_fleet_capacity", "estimate_capacity",
+           "replicas_needed"]
 
 #: loop phases that are host work serialized with dispatch — the
 #: non-overlapped remainder after device-busy time prices the host's
@@ -139,3 +139,46 @@ def replicas_needed(capacity: dict, offered_rps: float) -> Optional[int]:
     if not per_replica or per_replica <= 0:
         return None
     return max(1, int(math.ceil(float(offered_rps) / per_replica)))
+
+
+def aggregate_fleet_capacity(per_replica: Dict[str, Optional[dict]],
+                             offered_rps: Optional[float] = None,
+                             fleet: str = "fleet") -> dict:
+    """Fold per-replica :func:`estimate_capacity` blocks into the
+    fleet view: summed observed/sustainable rates, fleet headroom,
+    and replicas-needed for the observed load (or an explicit
+    ``offered_rps`` what-if). Replicas that are not ready (or whose
+    stats read failed -> None) are listed but priced out."""
+    ready = {rid: c for rid, c in per_replica.items()
+             if c and c.get("ready")}
+    observed = sum(c.get("observed_rps") or 0.0
+                   for c in ready.values())
+    sustainable = sum(c.get("sustainable_rps") or 0.0
+                      for c in ready.values())
+    tokens = sum(c.get("sustainable_tokens_per_s") or 0.0
+                 for c in ready.values())
+    utilization = (observed / sustainable) if sustainable > 0 else None
+    offered = observed if offered_rps is None else float(offered_rps)
+    mean_per_replica = (sustainable / len(ready)) if ready else None
+    needed = (max(1, int(math.ceil(offered / mean_per_replica)))
+              if mean_per_replica and mean_per_replica > 0
+              and offered > 0 else (1 if ready else None))
+    return {
+        "fleet": fleet,
+        "ready": bool(ready),
+        "replicas": {rid: (c if c else {"ready": False,
+                                        "reason": "stats unavailable"})
+                     for rid, c in sorted(per_replica.items())},
+        "replicas_ready": sorted(ready),
+        "observed_rps": round(observed, 4),
+        "sustainable_rps": round(sustainable, 4),
+        "sustainable_tokens_per_s": round(tokens, 2),
+        "utilization": (round(utilization, 4)
+                        if utilization is not None else None),
+        "headroom": (round(1.0 - utilization, 4)
+                     if utilization is not None else None),
+        "offered_rps": round(offered, 4),
+        "replicas_needed": needed,
+        "sustainable_rps_per_replica": (
+            round(mean_per_replica, 4) if mean_per_replica else None),
+    }

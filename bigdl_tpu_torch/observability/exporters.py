@@ -1,13 +1,13 @@
 """Exporters: Prometheus text rendering, a stdlib /metrics HTTP endpoint,
 and a bridge mirroring registry metrics into TensorBoard writers (port
-of ``bigdl_tpu/observability/exporters.py``; the fleet's snapshot
-rendering waits for the fleet).
+of ``bigdl_tpu/observability/exporters.py``).
 
 Three sinks over one source (the MetricRegistry):
 
 - ``render_prometheus(registry)`` — the text exposition format
   (``text/plain; version=0.0.4``) any Prometheus-compatible scraper
-  ingests.
+  ingests; ``render_snapshot_prometheus`` renders plain-data registry
+  snapshots shipped from fleet workers under a ``replica=`` label.
 - ``MetricsHTTPServer`` / ``start_http_server`` — a stdlib-only
   ``ThreadingHTTPServer`` serving ``/metrics`` + ``/healthz`` plus the
   flight-recorder debug routes (``/debug/events``, ``/debug/requests``,
@@ -84,6 +84,45 @@ def render_prometheus(registry: Optional[MetricRegistry] = None) -> str:
                 out.append(f"{m.name}_sum{_labels_str(kv)} "
                            f"{_fmt(total_sum)}")
                 out.append(f"{m.name}_count{_labels_str(kv)} {count}")
+    return "\n".join(out) + ("\n" if out else "")
+
+
+def render_snapshot_prometheus(snapshots: dict,
+                               label: str = "replica") -> str:
+    """Render plain-data registry snapshots (``registry_snapshot()``
+    dumps shipped across a process boundary — the fleet workers'
+    ``metrics_export`` RPC) as Prometheus text, with ``label`` (the
+    replica id) injected into every series so one scrape of the front
+    door's ``/metrics`` carries the whole fleet, per-replica
+    attributable. ``snapshots`` maps label value -> snapshot list;
+    HELP/TYPE headers are emitted once per metric name."""
+    by_name: dict = {}
+    for lv, snap in snapshots.items():
+        for m in snap or []:
+            ent = by_name.setdefault(
+                m["name"], {"type": m.get("type", "gauge"),
+                            "help": m.get("help", ""), "rows": []})
+            for row in m.get("series") or []:
+                ent["rows"].append((lv, row))
+    out = []
+    for name in sorted(by_name):
+        ent = by_name[name]
+        out.append(f"# HELP {name} {_escape_help(ent['help'])}")
+        out.append(f"# TYPE {name} {ent['type']}")
+        for lv, row in ent["rows"]:
+            kv = [(label, lv)] + sorted(
+                (row.get("labels") or {}).items())
+            if ent["type"] in ("counter", "gauge"):
+                out.append(f"{name}{_labels_str(kv)} "
+                           f"{_fmt(row.get('value', 0))}")
+            else:  # histogram snapshot: cumulative buckets + sum/count
+                for le, c in (row.get("buckets") or {}).items():
+                    out.append(f"{name}_bucket"
+                               f"{_labels_str(kv + [('le', le)])} {c}")
+                out.append(f"{name}_sum{_labels_str(kv)} "
+                           f"{_fmt(row.get('sum', 0.0))}")
+                out.append(f"{name}_count{_labels_str(kv)} "
+                           f"{row.get('count', 0)}")
     return "\n".join(out) + ("\n" if out else "")
 
 

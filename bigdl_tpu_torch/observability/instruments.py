@@ -7,7 +7,7 @@ engine all speak one schema. The port's names are the JAX package's
 with the ``bigdl_`` head replaced by ``bdt_`` (``bigdl_tpu_torch``):
 kind, label names and buckets are the JAX ones, so one dashboard reads
 both, and a host running both packages exports distinct series. The
-benchmark's and the fleet's families are not ported yet.
+benchmark's families are not ported yet.
 
 Each ``*_instruments`` helper is get-or-create against the CURRENT
 default registry (resolved at call time, so tests can swap registries),
@@ -685,6 +685,97 @@ def incident_instruments(registry: Optional[MetricRegistry] = None
             "cooldown) per detector — each one hands a capture "
             "request to the incident manager",
             labelnames=("service", "detector")),
+    )
+
+
+def fleet_instruments(fleet: str = "fleet",
+                      registry: Optional[MetricRegistry] = None
+                      ) -> SimpleNamespace:
+    """Multi-replica serving-fleet instruments
+    (``bigdl_tpu_torch.serving.fleet``), labelled by ``fleet`` — the
+    control plane's view: how many replicas are taking traffic vs draining,
+    where the router sent each request (affinity hit vs spill vs
+    round-robin), the drain/rejoin flow, and each replica's admission
+    backlog as the router's load signal. The per-replica families are
+    returned UNBOUND (``.labels(fleet, replica)`` at the call site) —
+    replica ids are dynamic."""
+    r = registry or default_registry()
+    lbl = ("fleet",)
+    return SimpleNamespace(
+        replicas_live=r.gauge(
+            "bdt_fleet_replicas_live",
+            "Replicas currently accepting routed traffic",
+            labelnames=lbl).labels(fleet),
+        replicas_draining=r.gauge(
+            "bdt_fleet_replicas_draining",
+            "Replicas draining (in-flight finishing, new traffic "
+            "routed away)", labelnames=lbl).labels(fleet),
+        requests_total=r.counter(
+            "bdt_fleet_requests_total",
+            "Requests accepted by the fleet front door / supervisor",
+            labelnames=lbl).labels(fleet),
+        routed_total=r.counter(
+            "bdt_fleet_routed_total",
+            "Routing decisions by kind: affinity (consistent-hash "
+            "target took it), spilled (target saturated or the forced-"
+            "spill bound fired -> least-loaded), round_robin (affinity "
+            "disabled)", labelnames=("fleet", "route")),
+        rerouted_total=r.counter(
+            "bdt_fleet_rerouted_total",
+            "Submissions re-routed after the chosen replica refused "
+            "(drain/stop race)", labelnames=lbl).labels(fleet),
+        drains_total=r.counter(
+            "bdt_fleet_drains_total",
+            "Replica drains by reason (degraded watchdog alerts / "
+            "crashed 503 / operator)", labelnames=("fleet", "reason")),
+        rejoins_total=r.counter(
+            "bdt_fleet_rejoins_total",
+            "Drained replicas returned to rotation", labelnames=lbl
+        ).labels(fleet),
+        disconnects_total=r.counter(
+            "bdt_fleet_client_disconnects_total",
+            "Streaming clients that vanished mid-response (request "
+            "cancelled, slot freed)", labelnames=lbl).labels(fleet),
+        replica_queue_depth=r.gauge(
+            "bdt_fleet_replica_queue_depth",
+            "One replica's admission-queue depth as last polled (the "
+            "router's least-loaded signal)",
+            labelnames=("fleet", "replica")),
+        replica_active_slots=r.gauge(
+            "bdt_fleet_replica_active_slots",
+            "One replica's occupied decode slots as last polled",
+            labelnames=("fleet", "replica")),
+        hop_seconds=r.histogram(
+            "bdt_fleet_hop_seconds",
+            "Per-request wall seconds by fleet hop (route / "
+            "rpc_submit / queue / prefill / first_token / decode / "
+            "stream) — the components sum to the client-observed "
+            "total, so any hop's histogram is its share of end-to-end "
+            "latency", buckets=TIME_BUCKETS,
+            labelnames=("fleet", "hop")),
+        rpc_timeouts_total=r.counter(
+            "bdt_fleet_rpc_timeouts_total",
+            "Worker pipe-RPC control calls (healthz/stats/ping) that "
+            "hit their deadline — the wedged-child signal that "
+            "degrades the replica to auto-drain",
+            labelnames=("fleet", "replica")),
+        clock_offset_seconds=r.gauge(
+            "bdt_fleet_clock_offset_seconds",
+            "Estimated monotonic-clock offset of one replica vs the "
+            "supervisor (min-RTT ping estimate; added to replica "
+            "timestamps when merging fleet traces)",
+            labelnames=("fleet", "replica")),
+        capacity_headroom=r.gauge(
+            "bdt_fleet_capacity_headroom",
+            "Fleet-wide headroom fraction from the capacity model: "
+            "1 - offered/sustainable request rate across live "
+            "replicas (0 = saturated, negative = overloaded)",
+            labelnames=lbl).labels(fleet),
+        capacity_replicas_needed=r.gauge(
+            "bdt_fleet_capacity_replicas_needed",
+            "Replicas the capacity model estimates the current "
+            "offered load needs at each replica's measured "
+            "sustainable rate", labelnames=lbl).labels(fleet),
     )
 
 

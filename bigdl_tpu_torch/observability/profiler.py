@@ -16,6 +16,7 @@ machine with a card) behind:
 - ``GET/POST /debug/profile?seconds=N`` on
   ``exporters.MetricsHTTPServer`` — the zero-redeploy path: the
   endpoint runs one bounded ``capture`` and returns the artifact path.
+- ``available()`` — whether the profiler can record CUDA activity here.
 
 Exactly ONE capture runs at a time (``ProfilerBusy`` otherwise — the
 underlying profiler is a process-global singleton; ``models/perf.py``'s
@@ -73,6 +74,21 @@ def exclusive():
         yield
     finally:
         _LOCK.release()
+
+
+def available() -> bool:
+    """Whether ``torch.profiler`` can record CUDA activity here: the
+    profiler imports and the machine has a card (a True here does not
+    guarantee a capture succeeds — ``start_capture`` still fails
+    cleanly if it cannot)."""
+    try:
+        import torch
+        from torch.profiler import ProfilerActivity
+
+        return torch.cuda.is_available() and hasattr(
+            ProfilerActivity, "CUDA")
+    except Exception:
+        return False
 
 
 def activities():

@@ -1,6 +1,5 @@
-"""Bounded in-process time series + the stdlib HTML dashboard (port of
-``bigdl_tpu/observability/timeseries.py`` without its fleet merge and
-fleet dashboard, which wait for the fleet).
+"""Bounded in-process time series + the stdlib HTML dashboard, and their
+fleet halves (port of ``bigdl_tpu/observability/timeseries.py``).
 
 :class:`TimeSeriesSampler` runs one daemon thread that, every
 ``interval_s``, reads a set of named zero-arg sources (gauge getters,
@@ -35,6 +34,7 @@ Design points:
 from __future__ import annotations
 
 import html
+import math
 import threading
 import time
 from collections import deque
@@ -204,6 +204,82 @@ class TimeSeriesSampler:
                 "metrics": out}
 
 
+def merge_fleet_timeseries(exports, fleet: str = "fleet") -> dict:
+    """Fold per-replica sampler exports onto ONE clock-aligned fleet
+    timeline.
+
+    ``exports`` is a list of ``{"replica", "clock_offset_s",
+    "export": <snapshot()>}`` entries (failed replicas carry
+    ``{"replica", "error"}`` instead).  Each replica's points are
+    shifted by its measured ``clock_offset_s`` — the min-RTT offset
+    from :func:`fleettrace.estimate_clock_offset` that maps the
+    worker's monotonic clock into the supervisor's — so one metric's
+    rings from every replica land on a shared time axis.  The shift
+    is a constant per export, so within-replica monotonic order is
+    preserved by construction.
+
+    Returns ``{"fleet", "interval_s", "replicas", "clock": {replica:
+    offset_s}, "errors": {replica: msg}, "metrics": {name:
+    {"replicas": {replica: {"points", "last"}}, "fleet": {"sum":
+    [[ts, v], ...], "mean": ...}}}}``.  The derived fleet series bin
+    aligned timestamps at the sampler interval and take, per bin, the
+    newest value each replica contributed; non-finite values are
+    dropped so one NaN ring cannot poison the fleet sum.
+    """
+    interval = 0.0
+    clock: Dict[str, float] = {}
+    errors: Dict[str, str] = {}
+    metrics: Dict[str, dict] = {}
+    replicas = []
+    for ent in exports or []:
+        rid = str(ent.get("replica", "?"))
+        if ent.get("error"):
+            errors[rid] = str(ent["error"])
+            continue
+        exp = ent.get("export") or {}
+        off = float(ent.get("clock_offset_s") or 0.0)
+        clock[rid] = off
+        replicas.append(rid)
+        interval = max(interval, float(exp.get("interval_s") or 0.0))
+        for name, series in (exp.get("metrics") or {}).items():
+            pts = []
+            for p in series.get("points") or []:
+                try:
+                    t, v = float(p[0]), p[1]
+                except (TypeError, ValueError, IndexError):
+                    continue
+                if v is None:
+                    continue
+                v = float(v)
+                if not math.isfinite(v):
+                    continue
+                pts.append([round(t + off, 3), v])
+            slot = metrics.setdefault(name, {"replicas": {}})
+            slot["replicas"][rid] = {
+                "points": pts,
+                "last": pts[-1][1] if pts else None,
+            }
+    step = interval or 1.0
+    for slot in metrics.values():
+        # bin -> {replica: (aligned_ts, newest value in bin)}
+        bins: Dict[int, dict] = {}
+        for rid, series in slot["replicas"].items():
+            for t, v in series["points"]:
+                bins.setdefault(int(t // step), {})[rid] = (t, v)
+        sum_pts, mean_pts = [], []
+        for b in sorted(bins):
+            per = bins[b]
+            ts = round(max(t for t, _ in per.values()), 3)
+            vals = [v for _, v in per.values()]
+            sum_pts.append([ts, sum(vals)])
+            mean_pts.append([ts, sum(vals) / len(vals)])
+        slot["fleet"] = {"sum": sum_pts, "mean": mean_pts}
+    return {"fleet": fleet, "interval_s": step,
+            "replicas": sorted(replicas), "clock": clock,
+            "errors": errors, "metrics": metrics}
+
+
+#: marker stroke by event kind (unknown kinds fall back to "alert")
 _MARKER_COLORS = {"incident": "#c53030", "alert": "#dd6b20",
                   "drain": "#6b46c1", "rejoin": "#2f855a"}
 
@@ -427,5 +503,105 @@ def render_dashboard(snapshot: dict, title: str = "engine",
         "<code>/debug/timeseries</code></p>"
         "</body></html>"
         % {"title": html.escape(title), "cards": "".join(cards),
+           "budgets": _budget_bars(budgets),
+           "blocks": "".join(blocks)})
+
+
+def render_fleet_dashboard(merged: dict, title: Optional[str] = None,
+                           extra: Optional[dict] = None,
+                           markers=None, budgets=None) -> str:
+    """Render a :func:`merge_fleet_timeseries` result into one
+    self-contained HTML page: one row per metric with every replica's
+    ring overlaid on the shared clock-aligned axis (plus the dashed
+    fleet mean), incident/drain markers as vertical rules, and SLO
+    budget bars.  Same zero-asset contract as
+    :func:`render_dashboard` — viewable from saved ``curl`` output."""
+    extra = dict(extra or {})
+    replicas = list(merged.get("replicas") or [])
+    color_of = {rid: _REPLICA_PALETTE[i % len(_REPLICA_PALETTE)]
+                for i, rid in enumerate(replicas)}
+    legend = " ".join(
+        "<span class='chip' style='border-color:%s;color:%s'>%s"
+        "</span>" % (color_of[rid], color_of[rid], html.escape(rid))
+        for rid in replicas)
+    rows = []
+    for name in sorted(merged.get("metrics", {})):
+        slot = merged["metrics"][name]
+        series = [(color_of.get(rid, "#888"),
+                   (slot["replicas"].get(rid) or {}).get("points", []))
+                  for rid in replicas]
+        mean = (slot.get("fleet") or {}).get("mean") or []
+        if len(replicas) > 1:
+            series.append(("#718096", mean, "4,3"))
+        last = mean[-1][1] if mean else None
+        cells = "".join(
+            "<td class='rlast' style='color:%s'>%s</td>"
+            % (color_of.get(rid, "#888"),
+               _fmt((slot["replicas"].get(rid) or {}).get("last")))
+            for rid in replicas)
+        rows.append(
+            "<tr><td class='name'>%s</td>"
+            "<td>%s</td><td class='last'>%s</td>%s</tr>"
+            % (html.escape(name),
+               _multi_sparkline(series, markers=markers),
+               _fmt(last), cells))
+    head = "".join("<th style='color:%s'>%s</th>"
+                   % (color_of[rid], html.escape(rid))
+                   for rid in replicas)
+    if merged.get("errors"):
+        extra.setdefault("replica_errors", merged["errors"])
+    if markers:
+        extra.setdefault("markers", "; ".join(
+            "%s@%.1fs (%s)" % (html.escape(str(
+                mk.get("label") or mk.get("kind") or "event")),
+                mk.get("ts_s") or 0.0,
+                html.escape(str(mk.get("kind") or "alert")))
+            for mk in markers[-12:]))
+    blocks = []
+    for key in sorted(extra):
+        val = extra[key]
+        if val is None:
+            continue
+        try:
+            import json as _json
+            body = html.escape(_json.dumps(val, indent=2, default=str))
+        except Exception:
+            body = html.escape(repr(val))
+        blocks.append("<details><summary>%s</summary><pre>%s</pre>"
+                      "</details>" % (html.escape(str(key)), body))
+    title = title or str(merged.get("fleet") or "fleet")
+    return (
+        "<!doctype html><html><head><meta charset='utf-8'>"
+        "<meta http-equiv='refresh' content='5'>"
+        "<title>bigdl_tpu_torch fleet — %(title)s</title><style>"
+        "body{font-family:system-ui,sans-serif;margin:1.2em;"
+        "background:#fafafa;color:#222}"
+        "h1{font-size:1.2em}"
+        "table{border-collapse:collapse;background:#fff;"
+        "border:1px solid #ddd;border-radius:6px}"
+        "td,th{padding:4px 10px;border-bottom:1px solid #eee;"
+        "font-size:.85em;text-align:left}"
+        ".name{color:#555}"
+        ".last{font-weight:600}"
+        ".empty{fill:#999;font-size:.7em}"
+        ".chip{border:1px solid;border-radius:4px;padding:1px 6px;"
+        "font-size:.8em;margin-right:4px}"
+        ".budget{display:flex;align-items:center;gap:8px;"
+        "padding:2px 0;font-size:.85em}"
+        ".bname{min-width:14em;color:#555}"
+        "pre{background:#fff;border:1px solid #ddd;border-radius:6px;"
+        "padding:8px;font-size:.8em;overflow-x:auto}"
+        "</style></head><body>"
+        "<h1>bigdl_tpu_torch fleet dashboard — %(title)s</h1>"
+        "<p>%(legend)s</p>"
+        "<table><tr><th>metric</th><th>clock-aligned overlay</th>"
+        "<th>fleet mean</th>%(head)s</tr>%(rows)s</table>"
+        "%(budgets)s%(blocks)s"
+        "<p style='color:#888;font-size:.75em'>self-contained page, "
+        "auto-refreshes every 5s; raw data at "
+        "<code>/debug/fleet/timeseries</code></p>"
+        "</body></html>"
+        % {"title": html.escape(title), "legend": legend,
+           "head": head, "rows": "".join(rows),
            "budgets": _budget_bars(budgets),
            "blocks": "".join(blocks)})

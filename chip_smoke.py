@@ -322,6 +322,32 @@ Then tensor-parallel serving (slice 14):
   killed after a checkpoint and retried, its parameters equal to the
   uninterrupted run's bit for bit.
 
+After obs_serving, the serving fleet (slice 16; workers are spawned
+processes, each with its own CUDA context: this file's top level
+touches no CUDA, since a spawned child re-imports it):
+
+- fleet_gate (f32, TF32 off): two workers of the serving flagship from
+  seed 0 behind a ``ReplicaSupervisor`` and a ``FleetFrontDoor`` on
+  127.0.0.1:0; the server phase's 8 requests as SSE, each row held to a
+  lone in-process engine (or a near tie of the lone ``generate``); an
+  operator drain of r0 mid-flight (nothing lost, new traffic to r1, the
+  ring restored by ``rejoin``); the merged ``/debug/fleet/trace`` (the
+  processes front-door, r0, r1; no negative duration; hops summing to
+  each total, which ``hop_breakdown`` makes so by taking the stream hop
+  as the residual); a worker from seed 1 rejected by the parity rule;
+- fleet_serving (bf16): ``run_fleet_comparison`` on the flagship through
+  the door, an affinity and a round-robin leg of two workers each under
+  a shared-prefix storm: client TTFT and inter-token p50/p99, the fleet
+  hit rate, routing tallies, per-hop means, start-up seconds, clock
+  offsets, a control round trip, each worker's peak memory (the replicas
+  share the card: routing and prefix reuse, not scaling), every row held
+  to a lone bf16 engine's replay (a row that parts does so at a near
+  tie, ``BF16_NEAR_TIE``); then ``run_fleet_comparison(n_replicas=2)`` at
+  JAX's recipe: token parity and a drain drill losing nothing;
+- serve_example: ``example.serving.serve.main`` with its default steps
+  and with ``--fleet 2`` on the card, rows held as the JAX test holds
+  them and to the lone ``generate``.
+
 Earlier lines are one JSON object each; the last line is
 ``{"ok": true, "device": {...}}``. Exits non-zero without that line when
 CUDA is not available or the port cannot be imported.
@@ -602,6 +628,18 @@ OBS_SERVING = dict(n_requests=16, rate_hz=20.0, max_slots=8,
                    decode_lens=(16, 128), seed=5, interval_s=0.25,
                    profile_s=1.0, tenants=("alpha", "beta"))
 OBS_PREDICT = dict(clients=8, tokens=1024, max_batch=4, timeout_ms=20.0)
+# the fleet (slice 16): spawned flagship workers behind the front door;
+# the affinity key is the engine's 64-token prefill chunk
+FLEET = dict(chunk=64, rpc_timeout=60.0,
+             engine=dict(max_slots=4, prefill_chunk=64, prefill_rows=2))
+# fleet_serving's shared-prefix storm (bf16): 4 templates of 512 tokens
+# over 4 s, so most requests arrive after one of their template finished
+# (a flagship request lives 0.3-1 s); each replica's prefix pool holds
+# its affinity share of the templates + 1 (run_fleet_comparison's rule)
+FLEET_SERVING = dict(n_requests=32, rate_hz=8.0, n_templates=4,
+                     template_len=512, tail_lens=(4, 32),
+                     decode_lens=(8, 32), seed=3, max_slots=8,
+                     prefill_chunk=64, prefill_rows=4)
 # the training flagship's widths (vocab, embed, heads, seq, batch) at a
 # reduced depth of 2 layers
 OBS_TRAIN = dict(layers=2, iterations=3, lr=1e-3)
@@ -5736,6 +5774,384 @@ def obs_serving(torch, fa, smi, model) -> int:
     return score_launches + train_launches
 
 
+# ------------------------------------------------------------ the fleet
+def _sse_all(base, reqs, on_meta=None) -> list:
+    """``sse_generate`` for every (prompt, n) from a thread each, all at
+    once; the results in order."""
+    from bigdl_tpu_torch.serving.fleet.benchmark import sse_generate
+
+    outs = [None] * len(reqs)
+    errs = []
+
+    def one(i, p, n):
+        try:
+            outs[i] = sse_generate(base, p, n, on_meta=on_meta)
+        except Exception as e:
+            errs.append(e)
+
+    threads = []
+    for i, (p, n) in enumerate(reqs):
+        th = threading.Thread(target=one, args=(i, p, n), daemon=True)
+        th.start()
+        threads.append(th)
+    for th in threads:
+        th.join()
+    if errs:
+        raise errs[0]
+    return outs
+
+
+def _fleet_row(prompt, out):
+    import numpy as np
+
+    return np.concatenate([np.asarray(prompt, np.int64),
+                           np.asarray(out["tokens"], np.int64)])
+
+
+def _trace_checks(base) -> dict:
+    """The merged ``/debug/fleet/trace`` and ``/debug/fleet/requests``:
+    the processes, negative durations, the worst hop-sum gap."""
+    status, body = _get(base, "/debug/fleet/trace")
+    assert status == 200, (status, body[:200])
+    evs = json.loads(body)["traceEvents"]
+    procs = sorted({e["args"]["name"] for e in evs
+                    if e.get("name") == "process_name"})
+    negative = sum(1 for e in evs if e.get("ph") == "X" and e["dur"] < 0)
+    status, body = _get(base, "/debug/fleet/requests")
+    assert status == 200, status
+    ring = json.loads(body)["requests"]
+    gaps = [abs(e["hop_sum_s"] - e["total_s"]) / e["total_s"]
+            for e in ring if e["total_s"] > 0]
+    return {"processes": procs, "events": len(evs),
+            "negative_durations": negative, "requests": len(ring),
+            "max_hop_gap": max(gaps) if gaps else None}
+
+
+def _owned_by(router, rid, prompt):
+    """``prompt`` with its first token moved (mod the vocabulary) until
+    ``router`` gives its key to ``rid``."""
+    import numpy as np
+
+    p = np.array(prompt)
+    for step in range(FLAGSHIP["vocab_size"]):
+        p[0] = (int(prompt[0]) + step) % FLAGSHIP["vocab_size"]
+        if router.owner(router.key_for(p)) == rid:
+            return p
+    raise AssertionError(f"no first token gives the key to {rid}")
+
+
+def fleet_gate(torch, fa, smi, model32, reqs) -> int:
+    """fleet_gate (f32, TF32 off): two spawned workers of the serving
+    flagship from seed 0 (``model32``'s seed) behind a
+    ``ReplicaSupervisor`` and a ``FleetFrontDoor`` on 127.0.0.1:0. The
+    server phase's 8 requests go through the door as SSE; each streamed
+    row is held to a lone in-process engine on ``model32`` (equal, or at
+    its first difference a near tie of the lone ``generate``,
+    ``NEAR_TIE``). Then an operator drain of r0 while 8 requests stream
+    (the 8 with their first token moved until the ring gives them to r0,
+    each held to its own lone ``generate`` the same way): every request
+    finishes, the 4 sent during the drain go to r1, and ``rejoin``
+    restores the ring's ownership exactly. The merged
+    ``/debug/fleet/trace`` holds the processes front-door, r0 and
+    r1 and no negative duration; every finished request's hops sum to
+    its total within 10% (by construction: ``hop_breakdown`` takes the
+    stream hop as the residual, so this guards the ring's bookkeeping).
+    A worker from seed 1 fails the parity check. Returns the flash
+    launches of the parent and of every worker by its own ``stats()``
+    (0: engines launch none)."""
+    from bigdl_tpu_torch.serving import ContinuousBatchingEngine
+    from bigdl_tpu_torch.serving.fleet import (
+        FleetFrontDoor, ReplicaSupervisor, spawn_worker_fleet,
+    )
+
+    fa.launches = 0
+    t_phase = time.monotonic()
+    engine = dict(FLEET["engine"])
+    reps = spawn_worker_fleet(2, FLAGSHIP, engine=engine, seed=0,
+                              device="cuda", dtype="float32",
+                              rpc_timeout=FLEET["rpc_timeout"])
+    (wrong,) = spawn_worker_fleet(1, FLAGSHIP, engine=engine, seed=1,
+                                  prefix="w", device="cuda",
+                                  dtype="float32",
+                                  rpc_timeout=FLEET["rpc_timeout"])
+    for rep in (*reps, wrong):
+        rep.launch()         # the three start-ups overlap the lone run
+    with ContinuousBatchingEngine(model32, **engine) as lone_eng:
+        lone = [h.result(timeout=300) for h in
+                [lone_eng.submit(p, n) for p, n in reqs]]
+    with ReplicaSupervisor(reps, chunk=FLEET["chunk"], poll_interval=0.1,
+                           fleet_name="gate") as sup, \
+            FleetFrontDoor(sup, host="127.0.0.1", port=0) as door:
+        base = f"http://127.0.0.1:{door.port}"
+        startup_s = {rep.id: rep.startup_s for rep in reps}
+        outs = _sse_all(base, reqs)
+        rows = [_fleet_row(p, o) for (p, _), o in zip(reqs, outs)]
+        equal_engine = [bool((r == l).all()) for r, l in zip(rows, lone)]
+        ties = held_to_lone(model32, reqs, rows, label="fleet")
+        placed = {rid: sum(o["meta"]["replica"] == rid for o in outs)
+                  for rid in ("r0", "r1")}
+
+        # the operator drain mid-flight, then new traffic and a rejoin:
+        # the storm's prompts are the 8 with their first token moved
+        # until the ring gives them to r0, so r0 is busy at the drain
+        before = sup.router.ownership()
+        storm_reqs = [(_owned_by(sup.router, "r0", p), n) for p, n in reqs]
+        drill = {}
+        on_r0 = threading.Event()
+
+        def storm():
+            drill["outs"] = _sse_all(
+                base, storm_reqs, on_meta=lambda m: m["replica"] == "r0"
+                and on_r0.set())
+
+        th = threading.Thread(target=storm, daemon=True)
+        th.start()
+        # drain as soon as r0 has accepted a request of the storm
+        in_flight = on_r0.wait(60)
+        sup.drain("r0", reason="operator")
+        during = _sse_all(base, reqs[:4])
+        th.join()
+        drained = sup.drain_wait("r0", timeout=120)
+        sup.rejoin("r0")
+        after = sup.router.ownership()
+        drill_outs = drill["outs"] + during
+        drill_reqs = storm_reqs + list(reqs[:4])
+        lost = sum(1 for (p, n), o in zip(drill_reqs, drill_outs)
+                   if o is None or o["done"] is None
+                   or len(o["tokens"]) != n)
+        drill_ties = held_to_lone(
+            model32, drill_reqs,
+            [_fleet_row(p, o) for (p, _), o in zip(drill_reqs, drill_outs)],
+            label="drain")
+        trace = _trace_checks(base)
+        stats = sup.stats()
+        clock = {rep.id: {"offset_s": rep.clock_offset_s,
+                          "rtt_s": rep.clock_rtt_s} for rep in reps}
+
+        # the wrong-seed worker: its rows must fail the parity rule
+        wrong.start()
+        wrong_rejected = 0
+        for p, n in reqs[:2]:
+            row = _fleet_row(p, {"tokens": wrong.submit(p, n).result(
+                timeout=300)})
+            try:
+                lone_mismatch(model32, p, n, row)
+            except AssertionError:
+                wrong_rejected += 1
+        worker_launches = {
+            rid: r["flash_launches"]
+            for rid, r in [*stats["replicas"].items(),
+                           (wrong.id, wrong.stats())]}
+        wrong.stop()
+    launches = fa.launches + sum(worker_launches.values())
+    rec = {"phase": "fleet_gate", "dtype": "float32",
+           "allow_tf32": torch.backends.cuda.matmul.allow_tf32,
+           "nvidia_smi": smi, "replicas": 2, "engine": engine,
+           "chunk": FLEET["chunk"], "requests": len(reqs),
+           "startup_s": startup_s, "placed": placed,
+           "rows_equal_lone_engine": sum(equal_engine),
+           "near_ties": ties, "near_tie_limit": NEAR_TIE,
+           "drain": {"lost": lost, "drained": drained,
+                     "storm_replicas": sorted(
+                         {o["meta"]["replica"] for o in drill["outs"]}),
+                     "r0_in_flight_at_drain": in_flight,
+                     "during_replicas": sorted(
+                         {o["meta"]["replica"] for o in during}),
+                     "ring_restored": before == after,
+                     "near_ties": drill_ties,
+                     "routing": stats["routing"]["decisions"]},
+           "trace": trace, "clock": clock,
+           "wrong_seed_rejected": wrong_rejected,
+           "flash_launches": launches,
+           "worker_flash_launches": worker_launches,
+           "seconds": time.monotonic() - t_phase}
+    emit(rec)
+    assert launches == 0, launches
+    assert all(o["done"] is not None for o in outs)
+    assert lost == 0, lost
+    assert in_flight, "r0 took no request of the drain storm"
+    assert rec["drain"]["during_replicas"] == ["r1"], rec["drain"]
+    assert before == after
+    assert trace["processes"] == ["front-door", "r0", "r1"], trace
+    assert trace["negative_durations"] == 0, trace
+    assert trace["max_hop_gap"] is not None and \
+        trace["max_hop_gap"] <= 0.10, trace
+    assert wrong_rejected == 2, wrong_rejected
+    return launches
+
+
+def _leg_block(leg: dict) -> dict:
+    """A ``run_fleet_comparison`` leg as fleet_serving reports it."""
+    f = leg["fleet"]
+    return {"ttft": leg["ttft"], "inter_token": leg["inter_token"],
+            "latency": leg["latency"],
+            "tokens_per_s": leg["tokens_per_sec"],
+            "wall_s": leg["wall_s"], "hit_rate": f["hit_rate"],
+            "prefix_cache": f["prefix_cache"],
+            "routing": f["routing"]["decisions"],
+            "per_replica": f["routing"]["per_replica"],
+            "hops_mean_s": leg["hops"], "startup_s": f["startup_s"],
+            "clock": f["clock"], "control_ms": f["control_ms"],
+            "peak_memory_bytes": f["peak_memory_bytes"],
+            "worker_flash_launches": f["flash_launches"]}
+
+
+def fleet_serving(torch, fa, smi, model16) -> int:
+    """fleet_serving (bf16): ``run_fleet_comparison`` on the serving
+    flagship (``model16``'s seed and dtype) through the front door, two
+    spawned workers a leg under ``FLEET_SERVING``'s shared-prefix storm,
+    an affinity leg and a round-robin leg: client TTFT and inter-token
+    p50/p99, the fleet hit rate, the routing tallies, the per-hop means,
+    each worker's start-up seconds, clock offset and RTT, the ms of one
+    control round trip and each worker's peak memory from its own
+    ``stats()``. Every row of both legs is held to a lone bf16 engine's
+    replay of the storm: a row that parts does so where ``model16``'s
+    teacher-forced logits of the two tokens lie within
+    ``BF16_NEAR_TIE``. The replicas share one card: these numbers
+    measure routing and prefix reuse, not scaling. Then
+    ``run_fleet_comparison(n_replicas=2)`` on the card at JAX's model
+    recipe (f32): ``token_parity`` true and a drain drill losing 0.
+    Returns the flash launches of the parent and of every worker."""
+    from bigdl_tpu_torch.serving.fleet import run_fleet_comparison
+
+    fa.launches = 0
+    t_phase = time.monotonic()
+    quiet = lambda *a: None  # noqa: E731
+    flag = run_fleet_comparison(
+        n_replicas=2, model=FLAGSHIP, model_seed=0, dtype="bfloat16",
+        device="cuda", front_door=True, drain_drill=False,
+        rpc_timeout=FLEET["rpc_timeout"], log=quiet, **FLEET_SERVING)
+    flag_s = time.monotonic() - t_phase
+    t_cmp = time.monotonic()
+    cmp_ = run_fleet_comparison(n_replicas=2, device="cuda", log=quiet)
+    cmp_s = time.monotonic() - t_cmp
+    worker_launches = sum(
+        n for res in (flag, cmp_)
+        for leg in ("affinity", "round_robin")
+        for n in res[leg]["fleet"]["flash_launches"].values())
+    launches = fa.launches + worker_launches
+    # where a bf16 row parts from the lone engine's: model16's
+    # teacher-forced margin between the two tokens (its forward without
+    # the flash kernel, so the phase's launch count stays the fleet's)
+    flash = [blk.attn.use_flash for blk in model16.blocks()]
+    for blk in model16.blocks():
+        blk.attn.use_flash = False
+    for m in flag["mismatches"]:
+        with torch.inference_mode():
+            logits = model16(torch.tensor([m.pop("prefix")],
+                                          device="cuda"))[0, -1].float()
+        m["margin"] = None if m["fleet_token"] is None else (
+            logits[m["reference_token"]]
+            - logits[m["fleet_token"]]).item()
+    for blk, on in zip(model16.blocks(), flash):
+        blk.attn.use_flash = on
+    aff, rr = flag["affinity"], flag["round_robin"]
+    a50, r50 = aff["ttft"]["p50"], rr["ttft"]["p50"]
+    rec = {"phase": "fleet_serving", "dtype": "bfloat16",
+           "nvidia_smi": smi, "replicas": 2, "workload": flag["workload"],
+           "note": "the replicas share one card: routing and prefix "
+                   "reuse, not scaling",
+           "affinity": _leg_block(aff), "round_robin": _leg_block(rr),
+           "ttft_p50_speedup": (r50 / a50) if a50 and r50 else None,
+           "hit_rate_gain": flag["hit_rate_gain"],
+           "rows_equal_between_legs": flag["rows_equal_between_legs"],
+           "rows_equal_lone_engine": 2 * FLEET_SERVING["n_requests"]
+           - len(flag["mismatches"]),
+           "near_ties": flag["mismatches"],
+           "near_tie_limit": BF16_NEAR_TIE,
+           "flagship_seconds": flag_s,
+           "comparison": {
+               "seconds": cmp_s,
+               "token_parity": cmp_["token_parity"],
+               "ttft_p50_speedup": cmp_["ttft_p50_speedup"],
+               "hit_rate_gain": cmp_["hit_rate_gain"],
+               "drain": {k: cmp_["drain"][k] for k in
+                         ("completed", "lost", "token_parity",
+                          "drained")},
+               "affinity": {k: cmp_["affinity"][k] for k in
+                            ("ttft", "inter_token", "tokens_per_sec")},
+               "round_robin": {k: cmp_["round_robin"][k] for k in
+                               ("ttft", "inter_token",
+                                "tokens_per_sec")},
+               "hit_rate": {
+                   "affinity": cmp_["affinity"]["fleet"]["hit_rate"],
+                   "round_robin":
+                       cmp_["round_robin"]["fleet"]["hit_rate"]},
+               "startup_s": cmp_["affinity"]["fleet"]["startup_s"],
+               "capacity": cmp_["capacity"],
+               "slo_budget": cmp_["slo_budget"],
+               "workload": cmp_["workload"]},
+           "flash_launches": launches,
+           "seconds": time.monotonic() - t_phase}
+    emit(rec)
+    assert launches == 0, launches
+    for m in flag["mismatches"]:
+        assert m["margin"] is not None and \
+            abs(m["margin"]) <= BF16_NEAR_TIE, m
+    assert cmp_["token_parity"] is True, cmp_["mismatches"]
+    assert cmp_["drain"]["lost"] == 0 and \
+        cmp_["drain"]["token_parity"], cmp_["drain"]
+    for leg in (aff, rr):
+        assert leg["ttft"]["p50"] is not None
+        assert leg["requests"] == FLEET_SERVING["n_requests"]
+    return launches
+
+
+def serve_example(torch, fa, smi) -> int:
+    """serve_example: ``example.serving.serve.main`` with its default
+    steps on the card (generate, sampling, beam, ragged, the int8 draft,
+    ``GenerationService``, the engine with its ops surface), its rows
+    held as the JAX test holds them (exactly prompt + n tokens each);
+    then ``--fleet 2``, each streamed row equal to the lone greedy
+    ``generate`` of the walkthrough's model or parting at a near tie.
+    Returns the parent's flash launches (0: the walkthrough's model has
+    flash off)."""
+    import contextlib
+    import io
+
+    import numpy as np
+
+    from bigdl_tpu_torch.example.serving.serve import main as serve_main
+    from bigdl_tpu_torch.models.transformer import TransformerLM
+
+    fa.launches = 0
+    t0 = time.monotonic()
+    log = io.StringIO()
+    with contextlib.redirect_stdout(log):
+        rows = serve_main(["--device", "cuda"])
+    steps_s = time.monotonic() - t0
+    n = 24
+    shapes = [int(r.shape[0]) for r in rows]
+    want = [t0_ + n_ for t0_, n_ in ((5, n), (9, n // 2), (12, n),
+                                    (7, n // 2))]
+    t1 = time.monotonic()
+    with contextlib.redirect_stdout(log):
+        frows = serve_main(["--device", "cuda", "--fleet", "2"])
+    fleet_s = time.monotonic() - t1
+    model = TransformerLM(128, embed_dim=32, num_heads=4, num_kv_heads=2,
+                          num_layers=2, max_len=96, use_rope=True, seed=0,
+                          device="cuda")
+    model.evaluate()
+    ties = held_to_lone(
+        model, [(np.asarray(r["prompt"]), 8) for r in frows],
+        [_fleet_row(r["prompt"], r) for r in frows], label="fleet")
+    launches = fa.launches
+    rec = {"phase": "serve_example", "nvidia_smi": smi,
+           "default_steps_s": steps_s, "row_lengths": shapes,
+           "want_lengths": want, "fleet_s": fleet_s,
+           "fleet_rows": len(frows),
+           "fleet_replicas": sorted({r["meta"]["replica"]
+                                     for r in frows}),
+           "fleet_near_ties": ties,
+           "log_lines": len(log.getvalue().splitlines()),
+           "flash_launches": launches}
+    emit(rec)
+    assert shapes == want, (shapes, want)
+    assert len(frows) == 5 and frows[-1]["meta"]["replica"] == "r1"
+    assert launches == 0, launches
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -5950,6 +6366,11 @@ def main() -> int:
     # observability: every hook of the engine, the routes, the overhead,
     # the prediction family and the train family (slice 15)
     obs_launches = obs_serving(torch, fa, smi, model16)
+    # the serving fleet: spawned workers behind the front door, the
+    # affinity against round-robin storm, the walkthrough (slice 16)
+    fleet_launches = (fleet_gate(torch, fa, smi, model32, engine_reqs)
+                      + fleet_serving(torch, fa, smi, model16)
+                      + serve_example(torch, fa, smi))
     # the int8 clone's scoring forward goes through the flash kernel
     quant_launches = quant_scoring(torch, fa, smi, model16)
     # beam search (no flash launch), the prediction service and the
@@ -6031,6 +6452,7 @@ def main() -> int:
         "launches_longcontext": longcontext_launches,
         "launches_tp": tp_launches,
         "launches_obs": obs_launches,
+        "launches_fleet": fleet_launches,
         "tp_local_heads": {k: tp_local[k] for k in (
             "shape", "max_abs_err", "kernel_ms", "device_ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms", "library_device_ms")},

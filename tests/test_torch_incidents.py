@@ -461,13 +461,21 @@ def test_chaos_burn_spends_the_error_budget(reg, rec):
                                  threshold_s=60.0, target=0.9,
                                  window_s=600.0, min_count=1)]) as eng:
         eng.submit(np.arange(1, 7), 2).result(timeout=120)
+        gauge = reg.get("bdt_slo_budget_remaining").labels(
+            "ttft_slo", "t-budget")
         chaos.force_burn(active=True, severe=True)
-        eng.submit(np.arange(1, 9), 6).result(timeout=120)
+        # the drill spends budget per second of burn: keep it burning
+        # across requests until the spend shows in the state block's
+        # 4 decimals (a fast host serves one request in milliseconds)
+        deadline = time.monotonic() + 60.0
+        while True:
+            eng.submit(np.arange(1, 9), 6).result(timeout=120)
+            if gauge.get() < 1.0 - 1e-3 or time.monotonic() > deadline:
+                break
         chaos.force_burn(active=False)
         state = eng.stats()["slo_budget"]
     row = [o for o in state["objectives"] if o["objective"] == "ttft_slo"]
     assert row and row[0]["budget_remaining"] < 1.0, state
     # the state block rounds to 4 decimals, the gauge does not
-    assert reg.get("bdt_slo_budget_remaining").labels(
-        "ttft_slo", "t-budget").get() == pytest.approx(
-            row[0]["budget_remaining"], abs=1e-4)
+    assert gauge.get() == pytest.approx(
+        row[0]["budget_remaining"], abs=1e-4)

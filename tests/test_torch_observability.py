@@ -605,7 +605,7 @@ _FAMILIES = ("train_instruments", "parallel_instruments",
              "serving_engine_instruments", "tenant_usage_instruments",
              "qos_instruments", "memory_instruments",
              "watchdog_instruments", "incident_instruments",
-             "engine_instruments")
+             "engine_instruments", "fleet_instruments")
 
 
 def _schema(mod, prefix):
@@ -618,7 +618,7 @@ def _schema(mod, prefix):
     for fam in _FAMILIES:
         fn = getattr(mod, fam)
         if fam in ("serving_instruments", "generation_instruments",
-                   "serving_engine_instruments"):
+                   "serving_engine_instruments", "fleet_instruments"):
             fn("svc", reg)
         else:
             fn(reg)
@@ -647,9 +647,19 @@ def test_bdt_schema_maps_to_the_jax_schema():
             tins.FRACTION_BUCKETS) == (jins.TIME_BUCKETS,
                                        jins.OCCUPANCY_BUCKETS,
                                        jins.FRACTION_BUCKETS)
-    # the families waiting for the fleet and the benchmark are not minted
-    for fam in ("bench_instruments", "serving_bench_instruments",
-                "fleet_instruments"):
+    # the fleet's families are minted, bdt_fleet_* to bigdl_fleet_*
+    fleet = sorted(n for n in ours if n.startswith("fleet_"))
+    assert fleet == sorted(n for n in theirs if n.startswith("fleet_"))
+    assert {"fleet_replicas_live", "fleet_replicas_draining",
+            "fleet_requests_total", "fleet_routed_total",
+            "fleet_rerouted_total", "fleet_drains_total",
+            "fleet_client_disconnects_total", "fleet_rpc_timeouts_total",
+            "fleet_clock_offset_seconds", "fleet_replica_queue_depth",
+            "fleet_replica_active_slots", "fleet_hop_seconds",
+            "fleet_rejoins_total", "fleet_capacity_headroom",
+            "fleet_capacity_replicas_needed"} == set(fleet)
+    # the families waiting for the benchmark are not minted
+    for fam in ("bench_instruments", "serving_bench_instruments"):
         assert not hasattr(tins, fam)
 
 

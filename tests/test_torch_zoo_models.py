@@ -20,7 +20,11 @@ through up to 22 layers):
   step the JAX package's own f32 gradient reads 4.0e-3 (MobileNet,
   batch 2) and 5.9e-4 (VGG CIFAR, batch 8: its head BN normalizes over
   the batch alone, and at batch 2 the step's gradient outgrows the
-  parameters) in this norm, the port's 5.3e-3 and 5.9e-4;
+  parameters) in this norm, the port's 5.3e-3 and 5.9e-4; so the port's
+  f32 step is also held to its own f64 step, at least as close to it as
+  the JAX package's f32 step is (new parameters, relative L2), or, where
+  JAX's is within one f32 epsilon of it (the rounding floor, where the
+  order is noise), within two;
 - parameter counts equal.
 
 Then the JAX shape tests of tests/test_models.py (the VGG CIFAR forward,
@@ -28,6 +32,8 @@ the autoencoder, InceptionV1's (B, 3 * classes) output, MobileNet's
 shapes and parameter count, NHWC against NCHW, and MobileNet learning
 four samples), run on the port.
 """
+
+import copy
 
 import jax
 import jax.numpy as jnp
@@ -51,6 +57,9 @@ EVAL_RTOL = 1e-4
 STEP_RTOL = 1e-4
 UPDATE_RTOL = 2e-2
 LOSS_RTOL = 1e-4
+#: f32's machine epsilon: a step this close to the f64 step in relative
+#: L2 is at the rounding floor of its f32 storage
+F32_EPS = float(np.finfo(np.float32).eps)
 CPU = dict(device="cpu")
 
 
@@ -220,6 +229,24 @@ def test_zoo_sgd_step_matches_jax(name):
     assert rel_l2(d_t, d_j) <= UPDATE_RTOL, (name, rel_l2(d_t, d_j))
     moved = sum(bool(np.abs(d).max() > 0) for d in d_j)
     assert moved >= len(leaves) // 2, (name, moved, len(leaves))
+    # the same step of the port in f64 is the reference both f32 steps
+    # are held to: the port's is at least as close to it as JAX's
+    tm64 = copy.deepcopy(tm).to(torch.float64)
+    tts64 = topt.make_train_step(tm64, getattr(tnn, crit)(),
+                                 topt.SGD(learning_rate=0.01))
+    tp64, tb64 = tm64.params_dict(), tm64.buffers_dict()
+    y64 = y.astype(np.float64) if y.dtype == np.float32 else y
+    _, tp64_2, _, _ = tts64.step(tp64, tb64, tts64.init_slots(tp64),
+                                 torch.from_numpy(x.astype(np.float64)),
+                                 torch.from_numpy(y64),
+                                 tts64.current_lrs(), None)
+    new_64 = [o for _, o in tree_leaves(params_to_numpy(tp64_2))]
+    err_t, err_j = rel_l2(new_t, new_64), rel_l2(new_j, new_64)
+    print(f"f64 step: {name} port {err_t:.3e} jax {err_j:.3e}")
+    if err_j > F32_EPS:
+        assert err_t <= err_j, (name, err_t, err_j)
+    else:   # both at f32's rounding floor, where the order is noise
+        assert err_t <= 2 * F32_EPS, (name, err_t, err_j)
 
 
 @pytest.mark.parametrize("name", sorted(ZOO))
