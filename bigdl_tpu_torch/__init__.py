@@ -21,7 +21,9 @@ and chaos drills) with the usage ledger and SLO watchdog that QoS reads
 (``observability/``), and distributed training over ``torch.distributed``
 (``parallel/``: the engine and its mesh of process groups, the ZeRO-1
 ``DistriOptimizer``, ring and Ulysses attention, MoE and pipeline stages;
-``tools/launch.py`` starts the ranks).
+``tools/launch.py`` starts the ranks), the graph container
+(``nn/graph.py``, ``LookupTable``) and the recurrent family
+(``nn/recurrent.py``, ``nn/tree_lstm.py``) with their models and mains.
 """
 
 from bigdl_tpu_torch.device import resolve_device

@@ -22,13 +22,13 @@ from bigdl_tpu_torch.dataset.records import (
 )
 from bigdl_tpu_torch.dataset.sample import Sample
 from bigdl_tpu_torch.dataset.transformer import (
-    ChainedTransformer, SampleToMiniBatch, Transformer,
+    ChainedTransformer, Identity, SampleToMiniBatch, Transformer,
 )
 from bigdl_tpu_torch.dataset import (bpe, cifar, image, mnist, movielens,
                                      news20, row_transformer, text)
 
 __all__ = ["AbstractDataSet", "ChainedTransformer", "DataSet",
-           "LocalDataSet", "MiniBatch", "PaddingParam", "RecordFileDataSet",
+           "Identity", "LocalDataSet", "MiniBatch", "PaddingParam", "RecordFileDataSet",
            "Sample", "SampleToMiniBatch", "ShardedDataSet",
            "TransformedDataSet", "Transformer", "bpe", "cifar",
            "decode_sample", "encode_sample", "image", "mnist", "movielens",

@@ -1,7 +1,7 @@
 """Transformer: composable iterator -> iterator transforms (port of
-``Transformer``, ``FuncTransformer``, ``SampleToMiniBatch`` and
-``Normalizer`` in ``bigdl_tpu/dataset/transformer.py``; ``>>`` chains
-them)."""
+``Transformer``, ``Identity``, ``FuncTransformer``, ``SampleToMiniBatch``
+and ``Normalizer`` in ``bigdl_tpu/dataset/transformer.py``; ``>>``
+chains them)."""
 
 from __future__ import annotations
 
@@ -29,6 +29,13 @@ class ChainedTransformer(Transformer):
 
     def __call__(self, it):
         return self.second(self.first(it))
+
+
+class Identity(Transformer):
+    """The records as they come."""
+
+    def __call__(self, it):
+        return it
 
 
 class FuncTransformer(Transformer):

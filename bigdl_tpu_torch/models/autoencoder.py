@@ -8,6 +8,7 @@ import torch
 from bigdl_tpu_torch.device import DEFAULT_DEVICE, resolve_device
 from bigdl_tpu_torch.nn.activation import ReLU, Sigmoid
 from bigdl_tpu_torch.nn.container import Sequential
+from bigdl_tpu_torch.nn.graph import Graph, Input
 from bigdl_tpu_torch.nn.linear import Linear
 from bigdl_tpu_torch.nn.shape_ops import Reshape
 from bigdl_tpu_torch.utils.random import RandomGenerator
@@ -34,8 +35,15 @@ class Autoencoder:
                 .add(Sigmoid()))
 
     @staticmethod
-    def graph(class_num: int = 32):
-        raise NotImplementedError(
-            "the graph container (nn/graph.py) is not ported yet: see "
-            "ROADMAP.md, Queue 1 item 12; Autoencoder(class_num) builds "
-            "the same layers as a Sequential")
+    def graph(class_num: int = 32, *, seed: int = 1, device=DEFAULT_DEVICE,
+              dtype=torch.float32) -> Graph:
+        """The same layers wired as a ``Graph``; from the same ``seed``
+        they draw the Sequential form's weights."""
+        kw = dict(rng=RandomGenerator(seed), device=resolve_device(device),
+                  dtype=dtype)
+        inp = Input()
+        flat = Reshape((FEATURE_SIZE,)).inputs(inp)
+        linear1 = Linear(FEATURE_SIZE, class_num, **kw).inputs(flat)
+        relu = ReLU().inputs(linear1)
+        linear2 = Linear(class_num, FEATURE_SIZE, **kw).inputs(relu)
+        return Graph(inp, Sigmoid().inputs(linear2))

@@ -14,7 +14,7 @@ from bigdl_tpu_torch.nn.attention import (
 )
 from bigdl_tpu_torch.nn.container import (
     Bottle, Concat, ConcatTable, Container, MapTable, ParallelTable,
-    Sequential,
+    Sequential, flatten_sequential,
 )
 from bigdl_tpu_torch.nn.conv import (
     LocallyConnected1D, LocallyConnected2D, SpatialConvolution,
@@ -28,6 +28,9 @@ from bigdl_tpu_torch.nn.dropout import (
     Dropout, GaussianDropout, GaussianNoise, GaussianSampler,
     SpatialDropout1D, SpatialDropout2D, SpatialDropout3D, bind_generator,
 )
+from bigdl_tpu_torch.nn.embedding import LookupTable
+from bigdl_tpu_torch.nn.graph import (DynamicGraph, Graph, Input, Node,
+                                      StaticGraph)
 from bigdl_tpu_torch.nn.linear import (
     Add, Bilinear, CAdd, CMul, Cosine, Euclidean, Linear, Mul, Scale,
 )
@@ -44,13 +47,18 @@ from bigdl_tpu_torch.nn.pooling import (
     VolumetricMaxPooling,
 )
 from bigdl_tpu_torch.nn.quantized import Quantizer
-from bigdl_tpu_torch.nn.recurrent import TimeDistributed
+from bigdl_tpu_torch.nn.recurrent import (
+    GRU, LSTM, RNN, BiRecurrent, Cell, ConvLSTMPeephole, ConvLSTMPeephole3D,
+    LSTMPeephole, MultiRNNCell, Recurrent, RecurrentDecoder, RnnCell,
+    TimeDistributed,
+)
 from bigdl_tpu_torch.nn.shape_ops import (
     Contiguous, Cropping2D, Cropping3D, Index, InferReshape, MaskedSelect,
     Masking, Narrow, Pack, Padding, Replicate, Reshape, ResizeBilinear,
     Reverse, Select, SpatialZeroPadding, Squeeze, Tile, Transpose,
     Unsqueeze, UpSampling1D, UpSampling2D, UpSampling3D, View,
 )
+from bigdl_tpu_torch.nn.tree_lstm import BinaryTreeLSTM, TreeLSTM
 from bigdl_tpu_torch.nn.table_ops import (
     MM, MV, BifurcateSplitTable, CAddTable, CAveTable, CDivTable, CMaxTable,
     CMinTable, CMulTable, CosineDistance, CrossProduct, CSubTable,
@@ -61,26 +69,29 @@ from bigdl_tpu_torch.nn.table_ops import (
 # the reference's add()-based container base: ``Container`` has add()
 DynamicContainer = Container
 
-__all__ = ["Abs", "Add", "AddConstant", "BatchNormalization",
-           "BifurcateSplitTable", "Bilinear", "BinaryThreshold", "Bottle",
-           "CAdd", "CAddTable", "CAveTable", "CDivTable", "CMaxTable",
-           "CMinTable", "CMul", "CMulTable", "CSubTable", "Clamp", "Concat",
-           "ConcatTable", "Container", "Contiguous", "Cosine",
+__all__ = ["Abs", "Add", "AddConstant", "BatchNormalization", "BiRecurrent",
+           "BifurcateSplitTable", "Bilinear", "BinaryThreshold",
+           "BinaryTreeLSTM", "Bottle", "CAdd", "CAddTable", "CAveTable",
+           "CDivTable", "CMaxTable", "CMinTable", "CMul", "CMulTable",
+           "CSubTable", "Cell", "Clamp", "Concat", "ConcatTable", "Container",
+           "Contiguous", "ConvLSTMPeephole", "ConvLSTMPeephole3D", "Cosine",
            "CosineDistance", "Cropping2D", "Cropping3D", "CrossProduct",
-           "DotProduct", "Dropout", "DynamicContainer", "ELU", "Echo",
-           "Euclidean", "Exp", "FlattenTable", "GaussianDropout",
-           "GaussianNoise", "GaussianSampler", "GradientReversal",
-           "HardShrink", "HardSigmoid", "HardTanh", "Identity", "Index",
-           "InferReshape", "JoinTable", "L1Penalty", "LayerNorm",
+           "DotProduct", "Dropout", "DynamicContainer", "DynamicGraph", "ELU",
+           "Echo", "Euclidean", "Exp", "FlattenTable", "GRU",
+           "GaussianDropout", "GaussianNoise", "GaussianSampler",
+           "GradientReversal", "Graph", "HardShrink", "HardSigmoid",
+           "HardTanh", "Identity", "Index", "InferReshape", "Input",
+           "JoinTable", "L1Penalty", "LSTM", "LSTMPeephole", "LayerNorm",
            "LeakyReLU", "Linear", "LocallyConnected1D", "LocallyConnected2D",
-           "Log", "Log1p", "LogSigmoid", "LogSoftMax", "MM", "MV",
-           "MapTable", "MaskedSelect", "Masking", "Max", "Maxout", "Mean",
-           "Min", "MixtureTable", "Module", "Mul", "MulConstant",
-           "MultiHeadAttention", "Narrow", "NarrowTable", "Negative",
-           "NegativeEntropyPenalty", "Normalize", "NormalizeScale", "PReLU",
-           "Pack", "Padding", "PairwiseDistance", "ParallelTable", "Power",
-           "Quantizer", "RReLU", "ReLU", "ReLU6", "Replicate", "Reshape",
-           "ResizeBilinear", "Reverse", "SReLU", "Scale", "Select",
+           "Log", "Log1p", "LogSigmoid", "LogSoftMax", "LookupTable", "MM",
+           "MV", "MapTable", "MaskedSelect", "Masking", "Max", "Maxout",
+           "Mean", "Min", "MixtureTable", "Module", "Mul", "MulConstant",
+           "MultiHeadAttention", "MultiRNNCell", "Narrow", "NarrowTable",
+           "Negative", "NegativeEntropyPenalty", "Node", "Normalize",
+           "NormalizeScale", "PReLU", "Pack", "Padding", "PairwiseDistance",
+           "ParallelTable", "Power", "Quantizer", "RNN", "RReLU", "ReLU",
+           "ReLU6", "Recurrent", "RecurrentDecoder", "Replicate", "Reshape",
+           "ResizeBilinear", "Reverse", "RnnCell", "SReLU", "Scale", "Select",
            "SelectTable", "Sequential", "Sigmoid", "SoftMax", "SoftMin",
            "SoftPlus", "SoftShrink", "SoftSign", "SpatialAveragePooling",
            "SpatialBatchNormalization", "SpatialContrastiveNormalization",
@@ -92,11 +103,12 @@ __all__ = ["Abs", "Add", "AddConstant", "BatchNormalization",
            "SpatialSeparableConvolution", "SpatialShareConvolution",
            "SpatialSubtractiveNormalization", "SpatialUnpooling",
            "SpatialWithinChannelLRN", "SpatialZeroPadding", "SplitTable",
-           "Sqrt", "Square", "Squeeze", "Sum", "Tanh", "TanhShrink",
-           "TemporalConvolution", "TemporalMaxPooling", "Threshold", "Tile",
-           "TimeDistributed", "TransformerBlock", "Transpose", "Unsqueeze",
-           "UpSampling1D", "UpSampling2D", "UpSampling3D", "View",
-           "VolumetricAveragePooling", "VolumetricBatchNormalization",
-           "VolumetricConvolution", "VolumetricFullConvolution",
-           "VolumetricMaxPooling", "bind_generator", "dot_product_attention",
+           "Sqrt", "Square", "Squeeze", "StaticGraph", "Sum", "Tanh",
+           "TanhShrink", "TemporalConvolution", "TemporalMaxPooling",
+           "Threshold", "Tile", "TimeDistributed", "TransformerBlock",
+           "Transpose", "TreeLSTM", "Unsqueeze", "UpSampling1D",
+           "UpSampling2D", "UpSampling3D", "View", "VolumetricAveragePooling",
+           "VolumetricBatchNormalization", "VolumetricConvolution",
+           "VolumetricFullConvolution", "VolumetricMaxPooling",
+           "bind_generator", "dot_product_attention", "flatten_sequential",
            "rotary_embedding", "rotary_embedding_rowwise"] + _CRITERIONS

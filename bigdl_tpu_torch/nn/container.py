@@ -1,6 +1,6 @@
 """Containers (port of ``Container``, ``Sequential``, ``Concat``,
-``ConcatTable``, ``ParallelTable``, ``MapTable`` and ``Bottle`` in
-``bigdl_tpu/nn/container.py``).
+``ConcatTable``, ``ParallelTable``, ``MapTable``, ``Bottle`` and
+``flatten_sequential`` in ``bigdl_tpu/nn/container.py``).
 
 Children are registered as ``m0``, ``m1``, ... in the order they are
 added, the names the JAX package gives them, so ``params_dict()`` and
@@ -100,3 +100,14 @@ class Bottle(Container):
         cut = len(shape) - self.n_input_dim + 1
         out = self[0](input.reshape((-1,) + shape[cut:]))
         return out.reshape(shape[:cut] + tuple(out.shape[1:]))
+
+
+def flatten_sequential(module):
+    """The layers of ``module`` with every nested ``Sequential`` opened,
+    in order (the exporters' walk over a linear pipeline)."""
+    if isinstance(module, Sequential):
+        out = []
+        for m in module._modules.values():
+            out.extend(flatten_sequential(m))
+        return out
+    return [module]

@@ -192,7 +192,8 @@ class Module(torch.nn.Module):
     forward from those states, so a Dropout's mask in the backward is the
     forward's (the JAX package's ``_forward_key``).
 
-    Also ported: ``set_training``, ``is_container``, ``reset`` (layers
+    Also ported: ``inputs`` (graph wiring, ``nn/graph.py``),
+    ``set_training``, ``is_container``, ``reset`` (layers
     with weights draw them again), ``quantize`` and the host timings
     ``get_times`` / ``get_times_group_by_module_type`` / ``reset_times``
     (each call and ``backward`` adds its host seconds)."""
@@ -253,6 +254,13 @@ class Module(torch.nn.Module):
         """The name given by :meth:`set_name`, else the class name and a
         per-class counter (``Linear3``), as in the JAX package."""
         return self._name if self._name is not None else self._default_name
+
+    def inputs(self, *nodes):
+        """This module wired into a graph after ``nodes``: a new
+        :class:`~bigdl_tpu_torch.nn.graph.Node` (see ``nn/graph.py``)."""
+        from bigdl_tpu_torch.nn.graph import Node
+
+        return Node(self).inputs(*nodes)
 
     def _port_modules(self) -> Iterator["Module"]:
         return (m for m in self.modules() if isinstance(m, Module))

@@ -21,10 +21,11 @@ from bigdl_tpu_torch.optim.regularizer import (
 )
 from bigdl_tpu_torch.optim.trigger import Trigger
 from bigdl_tpu_torch.optim.validation import (
-    Loss, Top1Accuracy, Top5Accuracy, ValidationMethod, ValidationResult,
+    AUC, MAE, BinaryAccuracy, Loss, Top1Accuracy, Top5Accuracy,
+    TreeNNAccuracy, ValidationMethod, ValidationResult,
 )
 
-__all__ = ["Adadelta", "Adagrad", "Adam", "Adamax", "AdamW", "CosineDecay",
+__all__ = ["AUC", "BinaryAccuracy", "MAE", "TreeNNAccuracy", "Adadelta", "Adagrad", "Adam", "Adamax", "AdamW", "CosineDecay",
            "Default", "EMA", "EpochDecay", "EpochSchedule", "EpochStep",
            "Evaluator", "Exponential", "Ftrl", "GenerationService",
            "LBFGS", "LocalPredictor", "ParallelAdam", "PredictionService",

@@ -1,7 +1,6 @@
 """Validation methods with mergeable results (port of ``Top1Accuracy``,
-``Top5Accuracy``, ``Loss``, ``MAE``, ``BinaryAccuracy`` and ``AUC`` in
-``bigdl_tpu/optim/validation.py``; ``TreeNNAccuracy`` waits for the tree
-models, ROADMAP.md Queue 1 item 12).
+``Top5Accuracy``, ``Loss``, ``MAE``, ``TreeNNAccuracy``,
+``BinaryAccuracy`` and ``AUC`` in ``bigdl_tpu/optim/validation.py``).
 
 Each method maps (output, target) of one batch to a result that adds to
 the results of other batches. Class targets and predictions are 1-based.
@@ -127,6 +126,30 @@ class MAE(ValidationMethod):
         n = out.shape[0] if out.ndim else 1
         return LossResult(float(np.sum(np.abs(out - t))
                                 / max(out[0].size, 1)), n)
+
+
+class TreeNNAccuracy(ValidationMethod):
+    """Accuracy at the root (first node) of a tree model's output
+    (batch, n_nodes, n_classes) against ``target[:, 0]`` (a (n_nodes,
+    n_classes) output is one tree): the 1-based argmax, or, for a single
+    logit, 1 where it is at least 0.5 and 0 below."""
+
+    def __call__(self, output, target):
+        out, tgt = _numpy(output), _numpy(target)
+        if out.ndim == 3:
+            root = out[:, 0]
+            t = tgt[:, 0] if tgt.ndim > 1 else tgt
+        elif out.ndim == 2:
+            root = out[0][None]
+            t = np.asarray([tgt.reshape(-1)[0]])
+        else:
+            raise ValueError(f"unexpected output rank {out.ndim}")
+        if root.shape[-1] == 1:
+            pred = (root[:, 0] >= 0.5).astype(np.int64)
+        else:
+            pred = np.argmax(root, axis=-1) + 1
+        return AccuracyResult(int(np.sum(pred == t.astype(np.int64))),
+                              root.shape[0])
 
 
 class BinaryAccuracy(ValidationMethod):

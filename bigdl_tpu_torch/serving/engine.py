@@ -159,6 +159,7 @@ from bigdl_tpu_torch.parallel.tp import (
     transformer_tp_rules,
 )
 from bigdl_tpu_torch.observability import memory as obs_memory
+from bigdl_tpu_torch.observability import profiler as obs_profiler
 from bigdl_tpu_torch.observability.accounting import UsageLedger
 from bigdl_tpu_torch.observability.anomaly import (
     DetectorBank, default_detector_bank,
@@ -1987,15 +1988,22 @@ class ContinuousBatchingEngine:
     # ------------------------------------------------------------ loop
     def _loop(self):
         try:
-            # inference_mode is thread-local: the loop thread sets its own
-            with torch.inference_mode():
+            # inference_mode is thread-local: the loop thread sets its own;
+            # a profiler capture asked for on another thread runs on this
+            # one, which launches the kernels it should hold
+            with torch.inference_mode(), \
+                    obs_profiler.hosting(wake=self._rouse):
                 while not self._stop_evt.is_set():
-                    # an idle engine blocks (submit/stop notify; the
-                    # timeout is only a lost-wakeup safety net)
+                    left = obs_profiler.poll()
+                    # an idle engine blocks (submit/stop/a capture notify;
+                    # the timeout is only a lost-wakeup safety net, or the
+                    # end of a capture this thread runs)
                     with self._wake:
-                        while (not self._stop_evt.is_set()
-                               and not self._has_work()):
-                            self._wake.wait(self.idle_wait_s)
+                        if (not self._stop_evt.is_set()
+                                and not self._has_work()):
+                            self._wake.wait(self.idle_wait_s if left is None
+                                            else min(self.idle_wait_s, left))
+                            continue
                     if self._stop_evt.is_set():
                         break
                     with trace.span("serving/iteration",
@@ -2011,6 +2019,10 @@ class ContinuousBatchingEngine:
                 raise
         finally:
             self._release_followers()
+
+    def _rouse(self) -> None:
+        with self._wake:
+            self._wake.notify_all()
 
     def _release_followers(self) -> None:
         """The leader's stop header (once): the followers leave their

@@ -69,7 +69,7 @@ a non-zero exit, at the first phase that does not hold:
      equal between the legs; then the profile window over 16 steady
      paged-decode iterations;
    - spec_serving (bf16): ``run_speculative_comparison`` with draft (a)
-     (24 requests at 30/s, 8 slots, gamma 4): inter-token and TTFT
+     (12 requests at 30/s, 8 slots, gamma 4): inter-token and TTFT
      speedups, acceptance rate, token parity; then the profile window
      over 16 steady speculative iterations;
    - quant_gate (f32, TF32 off): ``quantize_kv`` on the card gives the
@@ -86,7 +86,7 @@ a non-zero exit, at the first phase that does not hold:
      way); dense against paged and the int8-draft speculative rows
      against the plain ones (int8 weights, and int8 KV over float
      weights) are reported; ``quantized_quality_report``;
-   - quant_serving (bf16): ``run_quantized_comparison`` (24 requests at
+   - quant_serving (bf16): ``run_quantized_comparison`` (12 requests at
      30/s, 8 slots; int8 against float, int8 KV only, the int8 draft
      over float and int8 KV): latencies, row bytes (ratio 0.5312 at
      head_dim 64), quality, acceptance, parity within each regime; then
@@ -348,6 +348,27 @@ touches no CUDA, since a spawned child re-imports it):
   and with ``--fleet 2`` on the card, rows held as the JAX test holds
   them and to the lone ``generate``.
 
+After the tp phases, the graph container and the recurrent family
+(slice 17; no kernel of the port: each phase counts the flash launches
+from 0 and asserts 0, their sum is the kernels line's
+``launches_sequence``):
+
+- sequence_gate (f32, TF32 off): every class of the slice at the JAX
+  sweep's widths and the mains' sequence lengths, card against CPU:
+  forward and every input and parameter gradient within
+  ``VARIANTS_RTOL`` of the largest |value|;
+- graph_train: LeNet-5's and the autoencoder's graph forms equal to
+  their Sequential forms (forward and one SGD step, deterministic
+  cuDNN), the NCF main at its defaults above the majority baseline +
+  0.1, NCF at MovieLens-1M's tables through the ``LocalOptimizer``;
+- rnn_train: the SimpleRNN main at its default widths on a written
+  corpus of 4500 words, the language model at PTB "small" widths (one
+  epoch as given, then five: the loss must fall), each with a
+  ``torch.profiler`` window over its train step;
+- tree_train: the tree-LSTM sentiment main at the JAX test's sizes
+  (root accuracy >= 0.7) and at the reference's widths (10 of its 30
+  epochs), with a profiler window over one step of 4 trees.
+
 Earlier lines are one JSON object each; the last line is
 ``{"ok": true, "device": {...}}``. Exits non-zero without that line when
 CUDA is not available or the port cannot be imported.
@@ -472,7 +493,7 @@ PAGED_SERVING = dict(n_requests=32, rate_hz=200.0, dense_slots=2,
                      paged_slots=8, page_size=PAGE_SIZE, prefill_chunk=64,
                      prefill_rows=4)
 # spec_serving: draft (a) proposing against plain decode (bf16 flagship)
-SPEC_SERVING = dict(n_requests=24, rate_hz=30.0, max_slots=8,
+SPEC_SERVING = dict(n_requests=12, rate_hz=30.0, max_slots=8,
                     prefill_chunk=64, prefill_rows=4, gamma=SPEC_GAMMA)
 # the self-draft's proposals equal the target's argmax but for f32 GEMMs
 # of another shape flipping a near tie
@@ -487,7 +508,7 @@ QUANT_ROWS = (4, 8, 24, 256)
 # K = 4608 (ResNet-50's last stage) does not, and is reported
 QUANT_CONV_SHAPES = [(2, 64, 56, 64, 3), (2, 512, 7, 512, 3)]
 # quant_serving: int8 against full precision, with the int8 draft (bf16)
-QUANT_SERVING = dict(n_requests=24, rate_hz=30.0, max_slots=8,
+QUANT_SERVING = dict(n_requests=12, rate_hz=30.0, max_slots=8,
                      prefill_chunk=64, prefill_rows=4, gamma=SPEC_GAMMA)
 # tier_serving: a 2-row prefix pool under 2 and 8 round-robin templates of
 # 256 tokens, host tier against device only (bf16)
@@ -6152,6 +6173,476 @@ def serve_example(torch, fa, smi) -> int:
     return launches
 
 
+# ------------------------------------------------------------- slice 17
+#: sequence_gate: the unrolls at the mains' sequence lengths (SimpleRNN's
+#: 32, the language model's 20) over the JAX sweep's widths
+SEQ_GATE = dict(batch=2, rnn_t=32, lstm_t=20)
+#: graph_train: the NCF main at its defaults (64 users, 128 items, 4096
+#: synthetic ratings, 12 epochs) and build_ncf at MovieLens-1M's tables
+NCF_MAIN = ["--ratings", "4096", "--max-epoch", "12"]
+NCF_FULL = dict(users=6040, items=3706, ratings=65536, batch=64,
+                iterations=40)
+#: the JAX test's bar: held-out accuracy above the majority baseline + 0.1
+NCF_MARGIN = 0.1
+#: rnn_train: the SimpleRNN main at its default widths on a written
+#: corpus (its 30 epochs cut to RNN_EPOCHS), then the language model at
+#: PTB "small" widths on its synthetic corpus
+RNN_CORPUS = dict(words=4500, sentences=500, sentence_len=12)
+RNN_EPOCHS = 3
+LM_PTB_SMALL = ["--vocab", "10000", "--embed", "200", "--hidden", "200",
+                "--num-steps", "20", "--batch-size", "20", "--max-epoch",
+                "1"]
+#: epochs of the language model's second run, where its windows repeat
+LM_EPOCHS = 5
+#: train steps in each main's torch.profiler window
+SEQ_PROFILE_STEPS = 3
+#: tree_train: the JAX test's sizes (root accuracy >= 0.7), then the
+#: reference's widths (its 30 epochs cut to 10)
+TREE_TEST = ["--samples", "16", "--leaves", "2", "--embed-dim", "4",
+             "--hidden", "8", "--epochs", "15", "--lr", "0.3"]
+TREE_ACC_MIN = 0.7
+TREE_WIDE = ["--embed-dim", "300", "--hidden", "150", "--leaves", "8",
+             "--epochs", "10"]
+#: trees in tree_train's profiler window (the profiler's own processing
+#: of a full 32-tree step's ~44,500 launches takes ~40 s)
+TREE_PROFILE_SAMPLES = 4
+
+
+def _seq_cases(tnn, torch, Table):
+    """(name, CPU module factory, input builder) of every class of slice
+    17: the JAX sweep's widths at the mains' sequence lengths."""
+    import numpy as np
+
+    cpu = dict(device="cpu")
+    b = SEQ_GATE["batch"]
+    rt, lt = SEQ_GATE["rnn_t"], SEQ_GATE["lstm_t"]
+
+    def f(*shape):
+        return lambda: _sweep_input(torch, *shape)
+
+    def ids():
+        t = torch.tensor(np.random.RandomState(5).randint(1, 11, (3, lt)))
+        t[0, :3] = 4                      # the padding value
+        return t
+
+    def graph():
+        inp = tnn.Input()
+        shared = tnn.Linear(6, 6, **cpu)
+        a = shared.inputs(tnn.Tanh().inputs(shared.inputs(inp)))
+        b_ = tnn.Linear(6, 6, **cpu).set_name("stopped").inputs(inp)
+        return tnn.Graph(inp, tnn.CAddTable().inputs(a, b_)).stop_gradient(
+            ["stopped"])
+
+    def tree_input():
+        trees = torch.tensor([[[2, 3, 0], [4, 5, 0], [0, 0, 3], [0, 0, 1],
+                               [0, 0, 2]],
+                              [[2, 3, 0], [0, 0, 2], [0, 0, 3], [0, 0, 0],
+                               [0, 0, 0]]], dtype=torch.float32)
+        return Table(_sweep_input(torch, 2, 3, 6), trees)
+
+    return [
+        ("LookupTable_max_norm_padding", lambda: tnn.LookupTable(
+            10, 6, padding_value=4, max_norm=1.5, **cpu), ids),
+        ("Recurrent_RnnCell", lambda: tnn.Recurrent(tnn.RnnCell(
+            5, 7, tnn.Tanh(), **cpu)), f(b, rt, 5)),
+        ("Recurrent_LSTM", lambda: tnn.Recurrent(tnn.LSTM(4, 6, **cpu)),
+         f(b, lt, 4)),
+        ("Recurrent_LSTMPeephole", lambda: tnn.Recurrent(
+            tnn.LSTMPeephole(4, 6, **cpu)), f(b, lt, 4)),
+        ("Recurrent_GRU", lambda: tnn.Recurrent(tnn.GRU(4, 6, **cpu)),
+         f(b, lt, 4)),
+        ("Recurrent_MultiRNNCell", lambda: tnn.Recurrent(tnn.MultiRNNCell(
+            [tnn.LSTM(4, 5, **cpu), tnn.GRU(5, 6, **cpu)])), f(b, lt, 4)),
+        ("BiRecurrent", lambda: tnn.BiRecurrent(cell=tnn.RnnCell(
+            4, 4, tnn.Tanh(), **cpu)), f(b, rt, 4)),
+        ("RecurrentDecoder", lambda: tnn.RecurrentDecoder(
+            lt, cell=tnn.LSTM(4, 4, **cpu)), f(b, 4)),
+        ("Recurrent_ConvLSTMPeephole", lambda: tnn.Recurrent(
+            tnn.ConvLSTMPeephole(2, 3, kernel_i=4, **cpu)),
+         f(1, 3, 2, 6, 6)),
+        ("Recurrent_ConvLSTMPeephole3D", lambda: tnn.Recurrent(
+            tnn.ConvLSTMPeephole3D(2, 3, **cpu)), f(1, 2, 2, 4, 6, 6)),
+        ("Graph_shared_and_stopped", graph, f(3, 6)),
+        ("BinaryTreeLSTM_padded", lambda: tnn.BinaryTreeLSTM(6, 5, **cpu),
+         tree_input),
+    ]
+
+
+def sequence_gate(torch, fa, smi) -> int:
+    """sequence_gate (f32, TF32 off): every class of slice 17 on the card
+    against the same module on the CPU, parameters drawn from a seed:
+    ``LookupTable`` with ``max_norm`` and ``padding_value``, each cell
+    under ``Recurrent``, ``MultiRNNCell``, ``BiRecurrent``,
+    ``RecurrentDecoder``, both convolutional cells (an even input kernel),
+    a two-branch ``Graph`` with a shared module and a stopped branch, and
+    ``BinaryTreeLSTM`` on a padded tree; the forward and, for one random
+    cotangent, the gradients of every float input and parameter, each
+    within ``VARIANTS_RTOL`` of its largest |value|. Returns the flash
+    launches (0)."""
+    import copy
+
+    from bigdl_tpu_torch import nn as tnn
+    from bigdl_tpu_torch.nn.module import (activity_tensors, tree_leaves,
+                                           with_tensors)
+    from bigdl_tpu_torch.utils.table import Table
+
+    fa.launches = 0
+    g = torch.Generator().manual_seed(31)
+    results, classes = [], set()
+    worst, worst_case = 0.0, None
+    t0 = time.monotonic()
+    for name, factory, build in _seq_cases(tnn, torch, Table):
+        cpu_m = factory()
+        cpu_m.evaluate()
+        with torch.no_grad():
+            for _, p in tree_leaves(cpu_m.params_dict()):
+                p.copy_(torch.randn(p.shape, generator=g) * 0.5)
+        card_m = copy.deepcopy(cpu_m).cuda()
+        classes |= {type(m).__name__ for m in cpu_m.modules()}
+        x = build()
+        outs = []
+        for m, dev in ((cpu_m, "cpu"), (card_m, "cuda")):
+            leaves = [t.to(dev).requires_grad_(t.is_floating_point())
+                      for t in activity_tensors(x)]
+            got = activity_tensors(m(with_tensors(x, iter(leaves))))
+            wrt = ([t for t in leaves if t.requires_grad]
+                   + [p for _, p in tree_leaves(m.params_dict())])
+            cg = torch.Generator().manual_seed(32)
+            cots = [torch.randn(o.shape, generator=cg).to(dev) for o in got]
+            grads = torch.autograd.grad(got, wrt, cots, allow_unused=True)
+            outs.append([o.detach() for o in got] + [
+                torch.zeros_like(w) if d is None else d
+                for w, d in zip(wrt, grads)])
+        errs = [_rel_err(torch, ref, got) for ref, got in zip(*outs)]
+        case_worst = max(errs)
+        if case_worst > worst:
+            worst, worst_case = case_worst, name
+        results.append({"case": name, "tensors": len(errs),
+                        "worst": case_worst})
+    emit({"phase": "sequence_gate", "nvidia_smi": smi, "dtype": "float32",
+          "allow_tf32": {"matmul": torch.backends.cuda.matmul.allow_tf32,
+                         "cudnn": torch.backends.cudnn.allow_tf32},
+          "cases": len(results), "classes": sorted(classes),
+          "rtol": VARIANTS_RTOL, "worst": worst, "worst_case": worst_case,
+          "worst_excess": worst / VARIANTS_RTOL,
+          "seconds": time.monotonic() - t0, "results": results,
+          "flash_launches": fa.launches})
+    assert worst <= VARIANTS_RTOL, (worst_case, worst)
+    assert fa.launches == 0, fa.launches
+    return fa.launches
+
+
+def _main_summary(torch, main, argv):
+    """(the main's return, its last printed JSON line, the loop's (loss,
+    records/s) rows, seconds) of one main run on the card."""
+    import contextlib
+    import io
+
+    out, box = io.StringIO(), {}
+    t0 = time.monotonic()
+    with contextlib.redirect_stdout(out):
+        rows = logged("bigdl_tpu_torch.optim",
+                      lambda: box.setdefault("ret", main(argv)))
+    torch.cuda.synchronize()
+    seconds = time.monotonic() - t0
+    text = out.getvalue().strip()
+    summary = json.loads(text.splitlines()[-1]) if text.endswith("}") \
+        else {}
+    return box["ret"], summary, rows, seconds
+
+
+def _rows_block(rows, dropped: int = 2) -> dict:
+    """The loop's rows in short: the first and last losses, the median
+    records/s past the first ``dropped`` (warm-up) iterations."""
+    import numpy as np
+
+    losses = [float(r[0]) for r in rows]
+    rates = [float(r[1]) for r in rows]
+    rates = rates[dropped:] or rates
+    k = max(1, min(4, len(losses) // 4))
+    return {"iterations": len(rows), "loss_first": losses[:k],
+            "loss_last": losses[-k:],
+            "loss_first_mean": float(np.mean(losses[:k])),
+            "loss_last_mean": float(np.mean(losses[-k:])),
+            "records_per_s_median": float(np.median(rates))}
+
+
+def _step_profile(torch, model, criterion, method, x, y) -> dict:
+    """A torch.profiler window over ``SEQ_PROFILE_STEPS`` train steps of
+    ``model`` on one batch (the loop's own step, without the loop):
+    kernel launches a step, the device's busy share, the top kernels."""
+    from bigdl_tpu_torch.optim import make_train_step
+    from bigdl_tpu_torch.utils.profiling import device_profile
+
+    step = make_train_step(model, criterion, method)
+    params, buffers = model.params_dict(), model.buffers_dict()
+    slots = step.init_slots(params)
+    lrs = step.current_lrs()
+    step.step(params, buffers, slots, x, y, lrs, None)     # warm-up
+    n = SEQ_PROFILE_STEPS
+    prof = device_profile(lambda: [step.step(params, buffers, slots, x, y,
+                                             lrs, None) for _ in range(n)],
+                          top=6)
+    return {"steps": n, "launches_per_step": prof["kernel_launches"] / n,
+            "ms_per_step": prof["wall_ms"] / n,
+            "device_busy_ms_per_step": prof["device_busy_ms"] / n,
+            "device_busy_share": 1.0 - prof["device_idle_share"],
+            "top_kernels_ms": prof["top_kernels_ms"],
+            "top_ops_ms": prof["top_ops_ms"][:6]}
+
+
+def graph_train(torch, fa, smi) -> int:
+    """graph_train: LeNet-5's and the autoencoder's graph forms against
+    their Sequential forms on the card (the same weights: equal forwards
+    and one equal SGD step, under cuDNN's deterministic algorithms), the
+    NCF main at its defaults (held-out
+    accuracy above the majority baseline + ``NCF_MARGIN``), and
+    ``build_ncf`` at MovieLens-1M's tables (6040 users x 3706 items) over
+    ``synthetic_movielens`` ratings for ``NCF_FULL["iterations"]``
+    LocalOptimizer steps: ms a step and records/s. Returns the flash
+    launches (0)."""
+    import numpy as np
+
+    from bigdl_tpu_torch import models as tmodels
+    from bigdl_tpu_torch import nn as tnn
+    from bigdl_tpu_torch.dataset.movielens import synthetic_movielens
+    from bigdl_tpu_torch.example.recommendation import ncf
+    from bigdl_tpu_torch.nn.module import tree_leaves
+    from bigdl_tpu_torch.optim import (SGD, Adam, Optimizer, Trigger,
+                                       make_train_step)
+
+    fa.launches = 0
+    t0 = time.monotonic()
+    forms = []
+    rs = np.random.RandomState(17)
+    # cuDNN's default weight-gradient algorithms reduce in a run-dependent
+    # order: the two forms are compared under deterministic algorithms,
+    # where the same kernels on the same inputs give the same bits
+    cudnn_flags = (torch.backends.cudnn.deterministic,
+                   torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    for name, model_cls, crit, y in (
+            ("lenet5", tmodels.LeNet5, tnn.ClassNLLCriterion(),
+             torch.tensor(rs.randint(1, 11, 16), dtype=torch.float32)),
+            ("autoencoder", tmodels.Autoencoder, tnn.MSECriterion(),
+             torch.tensor(rs.rand(16, 784), dtype=torch.float32))):
+        # from one seed the two forms draw the same weights in the same
+        # order; their parameters (each of its own shape) pair by shape
+        seq = model_cls(seed=3, device="cuda")
+        graph = model_cls.graph(seed=3, device="cuda")
+        x = torch.tensor(rs.rand(16, 28, 28), dtype=torch.float32,
+                         device="cuda")
+        yc = y.cuda()
+        seq.evaluate()
+        graph.evaluate()
+        init = max(_rel_err(torch, a, b) for a, b in zip(*[
+            [t for _, t in sorted(tree_leaves(m.params_dict()),
+                                  key=lambda kv: tuple(kv[1].shape))]
+            for m in (seq, graph)]))
+        with torch.no_grad():
+            fwd = _rel_err(torch, seq(x), graph(x))
+        losses, news = [], []
+        for m in (seq, graph):
+            step = make_train_step(m, crit, SGD(learning_rate=0.1))
+            p = m.params_dict()
+            loss, new, _, _ = step.step(p, {}, step.init_slots(p), x, yc,
+                                        step.current_lrs(), None)
+            losses.append(loss)
+            news.append([t for _, t in sorted(
+                tree_leaves(new), key=lambda kv: tuple(kv[1].shape))])
+        step_err = max(_rel_err(torch, a, b) for a, b in zip(*news))
+        loss_err = _rel_err(torch, losses[0], losses[1])
+        forms.append({"model": name, "initial_weights": init,
+                      "forward": fwd, "sgd_step": step_err,
+                      "loss": loss_err, "parameters": len(news[0])})
+    (torch.backends.cudnn.deterministic,
+     torch.backends.cudnn.benchmark) = cudnn_flags
+    forms_s = time.monotonic() - t0
+
+    (_, acc, base), main_summary, main_rows, main_s = _main_summary(
+        torch, ncf.main, NCF_MAIN + ["--device", "cuda"])
+
+    cfg = NCF_FULL
+    data = synthetic_movielens(n_users=cfg["users"], n_items=cfg["items"],
+                               n_ratings=cfg["ratings"])
+    samples = ncf.ratings_to_samples(data)
+    model = ncf.build_ncf(cfg["users"], cfg["items"], device="cuda")
+    opt = Optimizer(model=model, dataset=samples,
+                    criterion=tnn.BCECriterion(), batch_size=cfg["batch"],
+                    end_when=Trigger.max_iteration(cfg["iterations"]))
+    opt.set_optim_method(Adam(learning_rate=0.02))
+    t1 = time.monotonic()
+    full_rows = logged("bigdl_tpu_torch.optim", opt.optimize)
+    torch.cuda.synchronize()
+    full_s = time.monotonic() - t1
+    full = _rows_block(full_rows)
+    n_params = sum(t.numel() for t in model.parameters())
+    emit({"phase": "graph_train", "nvidia_smi": smi, "forms": forms,
+          "forms_s": forms_s, "rtol": VARIANTS_RTOL,
+          "ncf_main": {"argv": NCF_MAIN, "seconds": main_s,
+                       "held_out_accuracy": acc, "majority_baseline": base,
+                       "margin_min": NCF_MARGIN, **main_summary,
+                       **_rows_block(main_rows)},
+          "ncf_ml1m_tables": {**cfg, "parameters": n_params,
+                              "seconds": full_s,
+                              "ms_per_step": 1e3 * cfg["batch"]
+                              / full["records_per_s_median"], **full},
+          "flash_launches": fa.launches})
+    for rec in forms:
+        assert rec["initial_weights"] == 0.0, rec
+        assert max(rec["forward"], rec["sgd_step"],
+                   rec["loss"]) <= VARIANTS_RTOL, rec
+    assert acc > base + NCF_MARGIN, (acc, base)
+    assert full["iterations"] == cfg["iterations"], full
+    assert math.isfinite(full["loss_last_mean"]), full
+    assert fa.launches == 0, fa.launches
+    return fa.launches
+
+
+def _rnn_corpus(folder) -> int:
+    """Writes ``train.txt``: ``RNN_CORPUS["sentences"]`` sentences over
+    ``RNN_CORPUS["words"]`` distinct words, each word used at least once,
+    the rest drawn Zipf-like. Returns the distinct words written."""
+    import numpy as np
+
+    cfg = RNN_CORPUS
+    rs = np.random.RandomState(4)
+    n, length = cfg["sentences"], cfg["sentence_len"]
+    words = [f"w{i}" for i in range(cfg["words"])]
+    tokens = list(range(cfg["words"]))
+    p = 1.0 / np.arange(1, cfg["words"] + 1)
+    tokens += list(rs.choice(cfg["words"], n * length - len(tokens),
+                             p=p / p.sum()))
+    rs.shuffle(tokens)
+    with open(os.path.join(folder, "train.txt"), "w") as f:
+        for i in range(n):
+            f.write(" ".join(words[t] for t in
+                             tokens[i * length:(i + 1) * length]) + ". ")
+    return len(set(tokens))
+
+
+def rnn_train(torch, fa, smi) -> int:
+    """rnn_train: the SimpleRNN main at its default widths (vocab 4000,
+    hidden 40, sequence 32, batch 8; ``RNN_EPOCHS`` epochs) on a corpus
+    written to a temporary folder with more than 4000 distinct words, and
+    the language-model main at PTB "small" widths on its synthetic
+    corpus, for one epoch (the given flags) and for ``LM_EPOCHS``: ms a
+    step, records/s, the loss (falling over the epochs), and each
+    model's train step in a ``torch.profiler`` window (launches a step,
+    the device's busy share). Returns the flash launches (0)."""
+    import tempfile
+
+    import numpy as np
+
+    from bigdl_tpu_torch import nn as tnn
+    from bigdl_tpu_torch.dataset.minibatch import MiniBatch
+    from bigdl_tpu_torch.example.languagemodel import train as lm
+    from bigdl_tpu_torch.models.rnn import train as rnn
+    from bigdl_tpu_torch.optim import SGD, Adagrad
+
+    fa.launches = 0
+    runs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        distinct = _rnn_corpus(tmp)
+        argv = ["-f", tmp, "-e", str(RNN_EPOCHS), "--device", "cuda"]
+        model, _, rows, seconds = _main_summary(torch, rnn.main, argv)
+        samples, dictionary = rnn.build_samples(tmp, 4000, 32)
+    batch = MiniBatch.from_samples(samples[:8])
+    x = torch.tensor(batch.get_input(), device="cuda")
+    y = torch.tensor(batch.get_target(), device="cuda")
+    crit = tnn.TimeDistributedCriterion(tnn.CrossEntropyCriterion(),
+                                        size_average=True)
+    block = _rows_block(rows)
+    runs["simple_rnn"] = {
+        "argv": argv[2:], "corpus": RNN_CORPUS,
+        "distinct_words": distinct, "vocab": dictionary.vocab_size(),
+        "sentences": len(samples), "seconds": seconds, **block,
+        "ms_per_step": 1e3 * 8 / block["records_per_s_median"],
+        "profile": _step_profile(torch, model, crit,
+                                 SGD(learning_rate=0.1), x, y)}
+    assert distinct >= 4000 and dictionary.vocab_size() >= 4000
+    assert block["loss_last_mean"] < block["loss_first_mean"], block
+
+    # the main at PTB-small's flags: one epoch of its 4000-token stream
+    # (one rolled progression: no window repeats within the epoch)
+    _, summary, rows, seconds = _main_summary(
+        torch, lm.main, LM_PTB_SMALL + ["--device", "cuda"])
+    runs["ptb_small_lm"] = {"argv": LM_PTB_SMALL, "seconds": seconds,
+                            **summary, **_rows_block(rows, dropped=1)}
+    assert all(np.isfinite(r[0]) for r in rows)
+    # the same flags for LM_EPOCHS epochs: the windows repeat, the loss
+    # must fall
+    argv = LM_PTB_SMALL[:-1] + [str(LM_EPOCHS)]
+    model, summary, rows, seconds = _main_summary(
+        torch, lm.main, argv + ["--device", "cuda"])
+    stream, _ = lm.load_tokens(None, 10000)
+    batch = MiniBatch.from_samples(lm.windows(stream, 20)[:20])
+    x = torch.tensor(batch.get_input(), device="cuda")
+    y = torch.tensor(batch.get_target(), device="cuda")
+    crit = tnn.TimeDistributedCriterion(tnn.ClassNLLCriterion(),
+                                        size_average=True)
+    per_epoch = len(rows) // LM_EPOCHS
+    block = _rows_block(rows, dropped=1)
+    block.update(
+        loss_first_epoch_mean=float(np.mean([r[0] for r in
+                                             rows[:per_epoch]])),
+        loss_last_epoch_mean=float(np.mean([r[0] for r in
+                                            rows[-per_epoch:]])))
+    runs["ptb_small_lm_epochs"] = {
+        "argv": argv, "seconds": seconds, **summary, **block,
+        "profile": _step_profile(torch, model, crit,
+                                 Adagrad(learning_rate=0.1), x, y)}
+    assert block["loss_last_epoch_mean"] < block["loss_first_epoch_mean"], \
+        block
+    assert all(np.isfinite(r[0]) for r in rows)
+    emit({"phase": "rnn_train", "nvidia_smi": smi, "runs": runs,
+          "flash_launches": fa.launches})
+    assert fa.launches == 0, fa.launches
+    return fa.launches
+
+
+def tree_train(torch, fa, smi) -> int:
+    """tree_train: the tree-LSTM sentiment main on the card at the JAX
+    test's sizes (root accuracy at least ``TREE_ACC_MIN``) and at the
+    reference's widths (embeddings 300, hidden 150, 8 leaves, 10 of its
+    30 epochs): seconds, the first and last loss; then one hand-driven
+    step at those widths over ``TREE_PROFILE_SAMPLES`` trees in a
+    ``torch.profiler`` window (launches a tree, the device's busy share).
+    Returns the flash launches (0)."""
+    from bigdl_tpu_torch.example.treeLSTMSentiment import train as tree
+    from bigdl_tpu_torch.utils.profiling import device_profile
+
+    fa.launches = 0
+    runs = {}
+    for name, argv in (("jax_test_sizes", TREE_TEST),
+                       ("reference_widths", TREE_WIDE)):
+        (loss, _), summary, _, seconds = _main_summary(
+            torch, tree.main, argv + ["--device", "cuda"])
+        runs[name] = {"argv": argv, "seconds": seconds, **summary}
+        assert math.isfinite(loss) and summary["last_loss"] == loss
+    args = tree.parser().parse_args(TREE_WIDE + ["--device", "cuda"])
+    x, trees, labels = tree.synthetic_trees(TREE_PROFILE_SAMPLES,
+                                            args.leaves, args.embed_dim)
+    tree_mod, head = tree.build(args.embed_dim, args.hidden, device="cuda")
+    tree.train(tree_mod, head, x, trees, labels, 1, args.lr)   # warm-up
+    prof = device_profile(lambda: tree.train(tree_mod, head, x, trees,
+                                             labels, 1, args.lr), top=6)
+    runs["reference_widths"]["profile_one_step"] = {
+        "trees": TREE_PROFILE_SAMPLES,
+        "launches_per_tree": prof["kernel_launches"] / TREE_PROFILE_SAMPLES,
+        "launches": prof["kernel_launches"], "wall_ms": prof["wall_ms"],
+        "device_busy_share": 1.0 - prof["device_idle_share"],
+        "top_kernels_ms": prof["top_kernels_ms"]}
+    emit({"phase": "tree_train", "nvidia_smi": smi, "runs": runs,
+          "acc_min": TREE_ACC_MIN, "flash_launches": fa.launches})
+    assert runs["jax_test_sizes"]["root_accuracy"] >= TREE_ACC_MIN, runs
+    wide = runs["reference_widths"]
+    assert wide["last_loss"] < wide["first_loss"], wide
+    assert fa.launches == 0, fa.launches
+    return fa.launches
+
+
 def main() -> int:
     import torch
 
@@ -6420,6 +6911,16 @@ def main() -> int:
     # ------------------------ tensor-parallel serving (slice 14)
     tp_launches = tp_one_launches + tp_phases(torch, fa, smi)
 
+    # -- the graph container and the recurrent family (slice 17)
+    t_seq = time.monotonic()
+    sequence_launches = (sequence_gate(torch, fa, smi)
+                         + graph_train(torch, fa, smi)
+                         + rnn_train(torch, fa, smi)
+                         + tree_train(torch, fa, smi))
+    emit({"phase": "slice17_phases", "nvidia_smi": smi,
+          "seconds": time.monotonic() - t_seq,
+          "flash_launches": sequence_launches})
+
     # ----------------------------------------------------- 9. kernels line
     print(nvidia_smi(), flush=True)
     emit({"kernels": [{
@@ -6433,7 +6934,8 @@ def main() -> int:
                      + zoo_launches + perf_cli_launches
                      + variants_launches + table_launches
                      + text_launches + distri_launches + ring_launches
-                     + longcontext_launches + tp_launches + obs_launches),
+                     + longcontext_launches + tp_launches + obs_launches
+                     + sequence_launches),
         "launches_serving": serving_launches,
         "launches_train": train_launches,
         "launches_engine": engine_launches,
@@ -6453,6 +6955,7 @@ def main() -> int:
         "launches_tp": tp_launches,
         "launches_obs": obs_launches,
         "launches_fleet": fleet_launches,
+        "launches_sequence": sequence_launches,
         "tp_local_heads": {k: tp_local[k] for k in (
             "shape", "max_abs_err", "kernel_ms", "device_ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms", "library_device_ms")},

@@ -194,6 +194,24 @@ PORT = {
     "maptable": lambda: tnn.MapTable(tnn.Linear(4, 3, **CPU)),
     "bottle": lambda: tnn.Bottle(tnn.Linear(4, 3, **CPU)),
     "timedistributed": lambda: tnn.TimeDistributed(tnn.Linear(5, 3, **CPU)),
+    # the embedding and the recurrent stack
+    "lookup": lambda: tnn.LookupTable(10, 6, **CPU),
+    "recurrent_rnn": lambda: tnn.Recurrent(tnn.RnnCell(5, 7, tnn.Tanh(),
+                                                       **CPU)),
+    "recurrent_lstm": lambda: tnn.Recurrent(tnn.LSTM(4, 6, **CPU)),
+    "recurrent_lstmpeephole": lambda: tnn.Recurrent(
+        tnn.LSTMPeephole(4, 6, **CPU)),
+    "recurrent_gru": lambda: tnn.Recurrent(tnn.GRU(4, 6, **CPU)),
+    "recurrent_convlstm": lambda: tnn.Recurrent(
+        tnn.ConvLSTMPeephole(2, 3, **CPU)),
+    "recurrent_convlstm3d": lambda: tnn.Recurrent(
+        tnn.ConvLSTMPeephole3D(2, 3, **CPU)),
+    "recurrent_multi": lambda: tnn.Recurrent(tnn.MultiRNNCell(
+        [tnn.LSTM(4, 5, **CPU), tnn.LSTM(5, 6, **CPU)])),
+    "birecurrent": lambda: tnn.BiRecurrent(cell=tnn.RnnCell(4, 4, tnn.Tanh(),
+                                                            **CPU)),
+    "recurrent_decoder": lambda: tnn.RecurrentDecoder(
+        3, cell=tnn.RnnCell(4, 4, tnn.Tanh(), **CPU)),
 }
 
 # JAX layers the port exports that the sweep does not reach, and why
@@ -203,6 +221,13 @@ ELSEWHERE = {
     "DynamicContainer": "alias of Container (an abstract base)",
     "SpatialConvolutionMap": "connection-table input, "
                              "tests/test_torch_conv_pool_variants.py",
+    "Cell": "abstract recurrent base",
+    "RNN": "alias of RnnCell",
+    "TreeLSTM": "abstract tree base",
+    "BinaryTreeLSTM": "tree input, tests/test_torch_tree_lstm.py",
+    "Graph": "node-wired, tests/test_torch_graph.py",
+    "StaticGraph": "node-wired, tests/test_torch_graph.py",
+    "DynamicGraph": "node-wired, tests/test_torch_graph.py",
 }
 
 _ITEM12 = "ROADMAP.md Queue 1 item 12: the long tail"
@@ -211,15 +236,11 @@ _ITEM12 = "ROADMAP.md Queue 1 item 12: the long tail"
 # that ports it
 WAITING = {
     **dict.fromkeys([
-        # nn/{recurrent,tree_lstm,sparse,detection,tf_ops,graph,embedding}
-        "Recurrent", "BiRecurrent", "RecurrentDecoder", "Cell", "RnnCell",
-        "RNN", "LSTM", "LSTMPeephole", "GRU", "ConvLSTMPeephole",
-        "ConvLSTMPeephole3D", "MultiRNNCell", "TreeLSTM", "BinaryTreeLSTM",
+        # nn/{sparse,detection,tf_ops}
         "SparseLinear", "SparseJoinTable", "LookupTableSparse",
         "DenseToSparse", "PriorBox", "Proposal", "RoiPooling",
         "DetectionOutputSSD", "DetectionOutputFrcnn", "If", "WhileLoop",
-        "Variable", "Assign", "ParseExample", "Graph", "StaticGraph",
-        "DynamicGraph", "LookupTable"], _ITEM12),
+        "Variable", "Assign", "ParseExample"], _ITEM12),
 }
 
 

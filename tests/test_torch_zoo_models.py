@@ -325,8 +325,20 @@ def test_vgg_cifar_forward():
 def test_autoencoder_reconstruction_shape():
     m = tmodels.Autoencoder(32, **CPU)
     assert m(torch.ones(5, 28, 28)).shape == (5, 28 * 28)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        tmodels.Autoencoder.graph(32)
+    # the graph form: on the JAX graph form's weights, its forward and
+    # gradients are the JAX graph's, and it equals the Sequential form
+    from tests.test_torch_graph import like_jax
+
+    jg = jmodels.Autoencoder.graph(32)
+    g = tmodels.Autoencoder.graph(32, **CPU)
+    x = np.random.RandomState(3).rand(5, 28, 28).astype(np.float32)
+    out = like_jax(jg, g, x)[0]
+    assert out.shape == (5, 28 * 28)
+    linears = [n.module for n in g._topo if isinstance(n.module, tnn.Linear)]
+    for lin, ours in zip(linears, [m[1], m[3]]):
+        ours.load_params_dict(lin.params_dict())
+    np.testing.assert_allclose(m(torch.tensor(x)).detach().numpy(),
+                               out.detach().numpy(), rtol=1e-5, atol=1e-6)
 
 
 def test_inception_aux_heads():
