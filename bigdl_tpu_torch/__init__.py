@@ -23,9 +23,19 @@ and chaos drills) with the usage ledger and SLO watchdog that QoS reads
 ``DistriOptimizer``, ring and Ulysses attention, MoE and pipeline stages;
 ``tools/launch.py`` starts the ranks), the graph container
 (``nn/graph.py``, ``LookupTable``) and the recurrent family
-(``nn/recurrent.py``, ``nn/tree_lstm.py``) with their models and mains.
+(``nn/recurrent.py``, ``nn/tree_lstm.py``) with their models and mains,
+the sparse stack with sparse samples (``nn/sparse.py``) and the
+detection heads (``nn/detection.py``).
 """
 
-from bigdl_tpu_torch.device import resolve_device
-
 __all__ = ["resolve_device"]
+
+
+def __getattr__(name):
+    # torch is imported with the first module that needs it, not with the
+    # package: the launcher (tools/launch.py) only spawns and polls ranks
+    if name == "resolve_device":
+        from bigdl_tpu_torch.device import resolve_device
+
+        return resolve_device
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -8,8 +8,8 @@ CIFAR readers, the image records and their augmentations
 ``bigdl_tpu_torch/native``), and the text readers: tokenizers and
 dictionaries (``text``), BPE (``bpe``), 20 Newsgroups and GloVe
 (``news20``), MovieLens (``movielens``) and tabular rows
-(``row_transformer``). Sparse samples wait for the sparse layers
-(ROADMAP.md, Queue 1 item 12)."""
+(``row_transformer``). A Sample's sparse features (``nn/sparse.py``'s
+``SparseTensor``) batch into a ``SparseMiniBatch``."""
 
 from bigdl_tpu_torch.dataset.dataset import (
     AbstractDataSet, DataSet, LocalDataSet, ShardedDataSet,

@@ -23,6 +23,8 @@ import numpy as np
 import torch
 
 from bigdl_tpu_torch.device import DEFAULT_DEVICE, resolve_device
+from bigdl_tpu_torch.nn.sparse import SparseMiniBatch, SparseTensor
+from bigdl_tpu_torch.utils.table import Table
 
 
 class _Stop:
@@ -97,7 +99,11 @@ def prefetch(iterator: Iterator, buffer_size: int = 2,
 
 def to_device(value, device: torch.device):
     """A numpy array (or tensor) as a tensor on ``device``: through pinned
-    memory and a non-blocking copy for a CUDA device."""
+    memory and a non-blocking copy for a CUDA device. A ``SparseTensor``
+    moves its indices and values so."""
+    if isinstance(value, SparseTensor):
+        return SparseTensor(to_device(value.indices, device),
+                            to_device(value.values, device), value.shape)
     t = torch.as_tensor(np.ascontiguousarray(value)
                         if isinstance(value, np.ndarray) else value)
     if device.type == "cuda":
@@ -107,11 +113,10 @@ def to_device(value, device: torch.device):
     return t
 
 
-
 def device_prefetch(batch_iterator: Iterator, sharding=None,
                     buffer_size: int = 2, device=DEFAULT_DEVICE) -> Iterator:
-    """Batches (``MiniBatch``es, arrays, or lists / tuples / dicts of
-    arrays) staged onto ``device`` by :func:`to_device` on a prefetch
+    """Batches (``MiniBatch``es, ``SparseMiniBatch``es, arrays, or lists /
+    tuples / dicts / Tables of arrays) staged onto ``device`` by :func:`to_device` on a prefetch
     thread, ``buffer_size`` ahead. ``sharding`` (the JAX placement of the
     batch dimension over a mesh) names the process group, or the axis of
     the default mesh, that the global batch is split over: each rank
@@ -123,6 +128,8 @@ def device_prefetch(batch_iterator: Iterator, sharding=None,
     shard = _sharder(sharding) if sharding is not None else (lambda x: x)
 
     def put(x):
+        if isinstance(x, Table):
+            return Table(*[put(v) for v in x.values()])
         if isinstance(x, dict):
             return {k: put(v) for k, v in x.items()}
         if isinstance(x, (list, tuple)):
@@ -133,6 +140,10 @@ def device_prefetch(batch_iterator: Iterator, sharding=None,
         if isinstance(b, MiniBatch):
             return MiniBatch([put(x) for x in b.inputs],
                              [put(t) for t in b.targets] or None)
+        if isinstance(b, SparseMiniBatch):
+            return SparseMiniBatch([put(x) for x in b.features],
+                                   None if b.labels is None
+                                   else put(b.labels))
         return put(b)
 
     return prefetch(batch_iterator, buffer_size=buffer_size,

@@ -1,9 +1,10 @@
 """Sample: one training record of feature and label arrays (port of
-``bigdl_tpu/dataset/sample.py``, dense features only: sparse features
-come with the sparse layers).
+``bigdl_tpu/dataset/sample.py``).
 
-Features and labels are numpy arrays on the host; they reach the device
-when a MiniBatch is staged there.
+Features and labels are numpy arrays on the host, and a sparse feature
+stays a ``SparseTensor`` (``nn/sparse.py``), which ``SampleToMiniBatch``
+batches into a ``SparseMiniBatch``; they reach the device when the batch
+is staged there.
 """
 
 from __future__ import annotations
@@ -11,6 +12,12 @@ from __future__ import annotations
 from typing import List, Optional
 
 import numpy as np
+
+from bigdl_tpu_torch.nn.sparse import SparseTensor
+
+
+def _as_feature(f):
+    return f if isinstance(f, SparseTensor) else np.asarray(f)
 
 
 class Sample:
@@ -20,7 +27,7 @@ class Sample:
         if isinstance(features, np.ndarray) or not isinstance(
                 features, (list, tuple)):
             features = [features]
-        self.features: List[np.ndarray] = [np.asarray(f) for f in features]
+        self.features: List[np.ndarray] = [_as_feature(f) for f in features]
         if labels is None:
             labels = []
         elif isinstance(labels, np.ndarray) or not isinstance(

@@ -11,6 +11,7 @@ import numpy as np
 
 from bigdl_tpu_torch.dataset.minibatch import MiniBatch, PaddingParam
 from bigdl_tpu_torch.dataset.sample import Sample
+from bigdl_tpu_torch.nn.sparse import SparseMiniBatch, SparseTensor
 
 
 class Transformer:
@@ -51,7 +52,8 @@ class FuncTransformer(Transformer):
 class SampleToMiniBatch(Transformer):
     """Group Samples into MiniBatches of ``total_batch / parallelism``
     records (the global batch must divide evenly); a last, partial batch
-    only with ``partial_batch``."""
+    only with ``partial_batch``. Samples with a sparse feature batch into
+    a ``SparseMiniBatch`` (``nn/sparse.py``)."""
 
     def __init__(self, total_batch: int, parallelism: int = 1,
                  feature_padding: Optional[PaddingParam] = None,
@@ -66,18 +68,21 @@ class SampleToMiniBatch(Transformer):
         self.label_padding = label_padding
         self.partial_batch = partial_batch
 
+    def _batch(self, buf: List[Sample]):
+        if any(isinstance(f, SparseTensor) for f in buf[0].features):
+            return SparseMiniBatch.from_samples(buf)
+        return MiniBatch.from_samples(buf, self.feature_padding,
+                                      self.label_padding)
+
     def __call__(self, it):
         buf: List[Sample] = []
         for s in it:
             buf.append(s)
             if len(buf) == self.batch_per_iter:
-                yield MiniBatch.from_samples(buf, self.feature_padding,
-                                             self.label_padding)
+                yield self._batch(buf)
                 buf = []
         if buf and self.partial_batch:
-            yield MiniBatch.from_samples(buf, self.feature_padding,
-                                         self.label_padding)
-
+            yield self._batch(buf)
 
 
 class Normalizer(Transformer):

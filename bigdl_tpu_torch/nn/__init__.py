@@ -24,6 +24,10 @@ from bigdl_tpu_torch.nn.conv import (
 )
 from bigdl_tpu_torch.nn.criterion import *  # noqa: F401,F403
 from bigdl_tpu_torch.nn.criterion import __all__ as _CRITERIONS
+from bigdl_tpu_torch.nn.detection import (
+    Anchor, DetectionOutputFrcnn, DetectionOutputSSD, Nms, PriorBox, Proposal,
+    RoiPooling, bbox_iou, decode_boxes, nms,
+)
 from bigdl_tpu_torch.nn.dropout import (
     Dropout, GaussianDropout, GaussianNoise, GaussianSampler,
     SpatialDropout1D, SpatialDropout2D, SpatialDropout3D, bind_generator,
@@ -58,6 +62,10 @@ from bigdl_tpu_torch.nn.shape_ops import (
     Reverse, Select, SpatialZeroPadding, Squeeze, Tile, Transpose,
     Unsqueeze, UpSampling1D, UpSampling2D, UpSampling3D, View,
 )
+from bigdl_tpu_torch.nn.sparse import (
+    DenseToSparse, LookupTableSparse, SparseJoinTable, SparseLinear,
+    SparseMiniBatch, SparseTensor,
+)
 from bigdl_tpu_torch.nn.tree_lstm import BinaryTreeLSTM, TreeLSTM
 from bigdl_tpu_torch.nn.table_ops import (
     MM, MV, BifurcateSplitTable, CAddTable, CAveTable, CDivTable, CMaxTable,
@@ -69,13 +77,14 @@ from bigdl_tpu_torch.nn.table_ops import (
 # the reference's add()-based container base: ``Container`` has add()
 DynamicContainer = Container
 
-__all__ = ["Abs", "Add", "AddConstant", "BatchNormalization", "BiRecurrent",
-           "BifurcateSplitTable", "Bilinear", "BinaryThreshold",
+__all__ = ["Abs", "Add", "AddConstant", "Anchor", "BatchNormalization",
+           "BiRecurrent", "BifurcateSplitTable", "Bilinear", "BinaryThreshold",
            "BinaryTreeLSTM", "Bottle", "CAdd", "CAddTable", "CAveTable",
            "CDivTable", "CMaxTable", "CMinTable", "CMul", "CMulTable",
            "CSubTable", "Cell", "Clamp", "Concat", "ConcatTable", "Container",
            "Contiguous", "ConvLSTMPeephole", "ConvLSTMPeephole3D", "Cosine",
            "CosineDistance", "Cropping2D", "Cropping3D", "CrossProduct",
+           "DenseToSparse", "DetectionOutputFrcnn", "DetectionOutputSSD",
            "DotProduct", "Dropout", "DynamicContainer", "DynamicGraph", "ELU",
            "Echo", "Euclidean", "Exp", "FlattenTable", "GRU",
            "GaussianDropout", "GaussianNoise", "GaussianSampler",
@@ -83,32 +92,35 @@ __all__ = ["Abs", "Add", "AddConstant", "BatchNormalization", "BiRecurrent",
            "HardTanh", "Identity", "Index", "InferReshape", "Input",
            "JoinTable", "L1Penalty", "LSTM", "LSTMPeephole", "LayerNorm",
            "LeakyReLU", "Linear", "LocallyConnected1D", "LocallyConnected2D",
-           "Log", "Log1p", "LogSigmoid", "LogSoftMax", "LookupTable", "MM",
-           "MV", "MapTable", "MaskedSelect", "Masking", "Max", "Maxout",
-           "Mean", "Min", "MixtureTable", "Module", "Mul", "MulConstant",
-           "MultiHeadAttention", "MultiRNNCell", "Narrow", "NarrowTable",
-           "Negative", "NegativeEntropyPenalty", "Node", "Normalize",
-           "NormalizeScale", "PReLU", "Pack", "Padding", "PairwiseDistance",
-           "ParallelTable", "Power", "Quantizer", "RNN", "RReLU", "ReLU",
-           "ReLU6", "Recurrent", "RecurrentDecoder", "Replicate", "Reshape",
-           "ResizeBilinear", "Reverse", "RnnCell", "SReLU", "Scale", "Select",
-           "SelectTable", "Sequential", "Sigmoid", "SoftMax", "SoftMin",
-           "SoftPlus", "SoftShrink", "SoftSign", "SpatialAveragePooling",
+           "Log", "Log1p", "LogSigmoid", "LogSoftMax", "LookupTable",
+           "LookupTableSparse", "MM", "MV", "MapTable", "MaskedSelect",
+           "Masking", "Max", "Maxout", "Mean", "Min", "MixtureTable", "Module",
+           "Mul", "MulConstant", "MultiHeadAttention", "MultiRNNCell",
+           "Narrow", "NarrowTable", "Negative", "NegativeEntropyPenalty",
+           "Nms", "Node", "Normalize", "NormalizeScale", "PReLU", "Pack",
+           "Padding", "PairwiseDistance", "ParallelTable", "Power", "PriorBox",
+           "Proposal", "Quantizer", "RNN", "RReLU", "ReLU", "ReLU6",
+           "Recurrent", "RecurrentDecoder", "Replicate", "Reshape",
+           "ResizeBilinear", "Reverse", "RnnCell", "RoiPooling", "SReLU",
+           "Scale", "Select", "SelectTable", "Sequential", "Sigmoid",
+           "SoftMax", "SoftMin", "SoftPlus", "SoftShrink", "SoftSign",
+           "SparseJoinTable", "SparseLinear", "SparseMiniBatch",
+           "SparseTensor", "SpatialAveragePooling",
            "SpatialBatchNormalization", "SpatialContrastiveNormalization",
-           "SpatialConvolution", "SpatialConvolutionMap",
-           "SpatialCrossMapLRN", "SpatialDilatedConvolution",
-           "SpatialDivisiveNormalization", "SpatialDropout1D",
-           "SpatialDropout2D", "SpatialDropout3D", "SpatialFullConvolution",
-           "SpatialMaxPooling", "SpatialMaxPoolingWithIndices",
-           "SpatialSeparableConvolution", "SpatialShareConvolution",
-           "SpatialSubtractiveNormalization", "SpatialUnpooling",
-           "SpatialWithinChannelLRN", "SpatialZeroPadding", "SplitTable",
-           "Sqrt", "Square", "Squeeze", "StaticGraph", "Sum", "Tanh",
-           "TanhShrink", "TemporalConvolution", "TemporalMaxPooling",
+           "SpatialConvolution", "SpatialConvolutionMap", "SpatialCrossMapLRN",
+           "SpatialDilatedConvolution", "SpatialDivisiveNormalization",
+           "SpatialDropout1D", "SpatialDropout2D", "SpatialDropout3D",
+           "SpatialFullConvolution", "SpatialMaxPooling",
+           "SpatialMaxPoolingWithIndices", "SpatialSeparableConvolution",
+           "SpatialShareConvolution", "SpatialSubtractiveNormalization",
+           "SpatialUnpooling", "SpatialWithinChannelLRN", "SpatialZeroPadding",
+           "SplitTable", "Sqrt", "Square", "Squeeze", "StaticGraph", "Sum",
+           "Tanh", "TanhShrink", "TemporalConvolution", "TemporalMaxPooling",
            "Threshold", "Tile", "TimeDistributed", "TransformerBlock",
            "Transpose", "TreeLSTM", "Unsqueeze", "UpSampling1D",
            "UpSampling2D", "UpSampling3D", "View", "VolumetricAveragePooling",
            "VolumetricBatchNormalization", "VolumetricConvolution",
-           "VolumetricFullConvolution", "VolumetricMaxPooling",
-           "bind_generator", "dot_product_attention", "flatten_sequential",
-           "rotary_embedding", "rotary_embedding_rowwise"] + _CRITERIONS
+           "VolumetricFullConvolution", "VolumetricMaxPooling", "bbox_iou",
+           "bind_generator", "decode_boxes", "dot_product_attention",
+           "flatten_sequential", "nms", "rotary_embedding",
+           "rotary_embedding_rowwise"] + _CRITERIONS

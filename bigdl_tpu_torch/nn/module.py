@@ -151,17 +151,25 @@ def _replaying(states):
 
 
 def activity_tensors(activity) -> List:
-    """The tensors of an activity (a tensor, a Table, a list or tuple)."""
+    """The tensors of an activity (a tensor, a Table, a list or tuple, a
+    ``SparseTensor``, whose values are its one tensor: the indices ride
+    along, as in the JAX package's pytree)."""
+    from bigdl_tpu_torch.nn.sparse import SparseTensor
+
     if isinstance(activity, Table):
         return [x for v in activity.values() for x in activity_tensors(v)]
     if isinstance(activity, (list, tuple)):
         return [x for v in activity for x in activity_tensors(v)]
+    if isinstance(activity, SparseTensor):
+        return [activity.values]
     return [activity] if torch.is_tensor(activity) else []
 
 
 def with_tensors(activity, leaves: Iterator):
     """``activity`` with its tensors replaced, in
     :func:`activity_tensors` order, by ``leaves``."""
+    from bigdl_tpu_torch.nn.sparse import SparseTensor
+
     if isinstance(activity, Table):
         out = Table()
         for k, v in activity.items():
@@ -169,6 +177,8 @@ def with_tensors(activity, leaves: Iterator):
         return out
     if isinstance(activity, (list, tuple)):
         return type(activity)(with_tensors(v, leaves) for v in activity)
+    if isinstance(activity, SparseTensor):
+        return SparseTensor(activity.indices, next(leaves), activity.shape)
     return next(leaves) if torch.is_tensor(activity) else activity
 
 

@@ -88,6 +88,7 @@ from bigdl_tpu_torch.dataset.dataset import (AbstractDataSet, ShardedDataSet,
 from bigdl_tpu_torch.dataset.prefetch import prefetch
 from bigdl_tpu_torch.device import resolve_device
 from bigdl_tpu_torch.nn.dropout import bind_generator
+from bigdl_tpu_torch.nn.sparse import SparseTensor
 from bigdl_tpu_torch import observability as obs
 from bigdl_tpu_torch.nn.module import (PARAMS_KEY, Module, tree_leaves,
                                        tree_unflatten)
@@ -395,6 +396,9 @@ def step_signature(*trees) -> tuple:
     def walk(t):
         if torch.is_tensor(t):
             out.append((tuple(t.shape), str(t.dtype)))
+        elif isinstance(t, SparseTensor):
+            out.append(("sparse", t.shape))
+            walk((t.indices, t.values))
         elif hasattr(t, "items"):
             for k, v in t.items():
                 out.append(repr(k))

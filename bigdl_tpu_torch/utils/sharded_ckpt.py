@@ -39,7 +39,6 @@ from typing import Optional
 
 import torch
 import torch.distributed as dist
-import torch.distributed.checkpoint as dcp
 
 from bigdl_tpu_torch.utils.file import is_remote
 
@@ -148,8 +147,13 @@ def _blocks(grid):
     return out
 
 
-def _dcp_kw() -> dict:
-    return {"no_dist": not dist.is_initialized()}
+def _dcp():
+    """``torch.distributed.checkpoint`` and the keywords of its calls.
+    Imported at the first save or load, not with this module: it takes
+    ~2 s, which every process that imports ``parallel/`` would pay."""
+    import torch.distributed.checkpoint as dcp
+
+    return dcp, {"no_dist": not dist.is_initialized()}
 
 
 def save_train_state(path: str, step: int, params, buffers, slots,
@@ -189,7 +193,8 @@ def save_train_state(path: str, step: int, params, buffers, slots,
         sd[_block_key(p, coords)] = leaf.detach().cpu().contiguous()
         layout[p] = {"shape": shape, "grid": grid,
                      "dtype": str(leaf.dtype)}
-    dcp.save(sd, checkpoint_id=tmp, **_dcp_kw())
+    dcp, kw = _dcp()
+    dcp.save(sd, checkpoint_id=tmp, **kw)
     _barrier()      # every rank's blocks are written
     if _rank0():
         kept = {k: v for k, v in (state or {}).items()
@@ -229,7 +234,8 @@ def restore_train_state(path: str, like, shardings=None):
         for c in _blocks(lay["grid"]):
             sd[_block_key(p, c)] = torch.empty(block,
                                                dtype=_dtype(lay["dtype"]))
-    dcp.load(sd, checkpoint_id=path, **_dcp_kw())
+    dcp, kw = _dcp()
+    dcp.load(sd, checkpoint_id=path, **kw)
     values = {}
     for p, leaf in leaves:
         lay = layout[p]

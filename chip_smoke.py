@@ -369,6 +369,25 @@ from 0 and asserts 0, their sum is the kernels line's
   (root accuracy >= 0.7) and at the reference's widths (10 of its 30
   epochs), with a profiler window over one step of 4 trees.
 
+Then the sparse stack and the detection heads (slice 18; no kernel of
+the port, as in JAX: each phase counts the flash launches from 0 and
+asserts 0, their sum is the kernels line's ``launches_sparse_detection``):
+
+- sparse_gate (f32, TF32 off): every sparse class and a
+  ``SparseMiniBatch`` on the card against the port on the CPU at the JAX
+  tests' sizes, with padding, duplicates, an entry out of bounds and
+  ``backward_start``: indices equal, forward and gradients within
+  ``VARIANTS_RTOL`` of the largest |value|;
+- sparse_train: a wide-and-deep ``Graph`` at the Criteo layout's widths
+  (``SPARSE_TRAIN``) through the ``LocalOptimizer`` from sparse Samples:
+  its first 3 losses within 1e-5 of the port's CPU run on the same
+  weights, the loss falling, ms a step, records/s and a profiler window;
+- detection_infer: SSD300's VOC head over its 8732 priors and Faster
+  R-CNN VGG16's test-time Proposal, RoiPooling and output head, each
+  held to the port on the CPU (equal kept sets, boxes within 1e-5, or a
+  near tie under 1e-5 of the IoU threshold), with ms, launches and host
+  syncs a call and RoiPooling's peak memory (under 2 GB).
+
 Earlier lines are one JSON object each; the last line is
 ``{"ok": true, "device": {...}}``. Exits non-zero without that line when
 CUDA is not available or the port cannot be imported.
@@ -6643,6 +6662,526 @@ def tree_train(torch, fa, smi) -> int:
     return fa.launches
 
 
+# ------------------------------------------------------------- slice 18
+#: sparse_train: the Criteo Display Advertising layout (13 integer and 26
+#: categorical fields) in the Wide & Deep shape of Cheng et al. 2016 §4
+#: (32-dim embeddings, a 1024-512-256 ReLU tower): a wide SparseLinear
+#: over 2^20 hashed columns (26 categorical values and 13 bucketed
+#: integers: 39 active a row), the embeddings' mean over the 26 ids in a
+#: 2^18-row table; cut to synthetic rows from a seed with a planted
+#: sparse rule (``vocab`` values a field) and 64 steps of batch 512
+SPARSE_TRAIN = dict(wide=1 << 20, ids=1 << 18, embed=32, fields=26,
+                    dense=13, tower=(1024, 512, 256), batch=512, steps=64,
+                    rows=8192, vocab=1000, lr=1e-3, parity_steps=3)
+#: detection_infer: SSD300 on VOC (Liu et al. 2016, the deploy
+#: prototxt): the six source maps, their steps, min and max sizes and
+#: aspect ratios (flipped), variances 0.1/0.1/0.2/0.2: 8732 priors
+SSD300 = dict(maps=(38, 19, 10, 5, 3, 1), steps=(8, 16, 32, 64, 100, 300),
+              min_sizes=(30, 60, 111, 162, 213, 264),
+              max_sizes=(60, 111, 162, 213, 264, 315),
+              ratios=((2,), (2, 3), (2, 3), (2, 3), (2,), (2,)),
+              classes=21, nms=0.45, topk=400, keep=200, conf=0.01)
+#: Faster R-CNN VGG16 at py-faster-rcnn's TEST settings
+#: (lib/fast_rcnn/config.py): a 600 x 1000 image, conv5 at 38 x 63, 9
+#: anchors, 6000 / 300 proposals at NMS 0.7, rois pooled 7 x 7 at 1/16
+#: from 512 channels, the output head at NMS 0.3, 100 a image, score 0.05
+FRCNN = dict(image=(600, 1000), conv5=(38, 63), channels=512,
+             ratios=(0.5, 1.0, 2.0), scales=(8, 16, 32), pre_nms=6000,
+             post_nms=300, rpn_nms=0.7, min_size=16, pooled=7,
+             classes=21, nms=0.3, max_per_image=100, thresh=0.05)
+#: RoiPooling's peak allocation a call, bytes
+ROI_PEAK_LIMIT = 2 << 30
+#: a kept set may part from the CPU's only at a near tie: an IoU within
+#: this of the threshold
+NEAR_TIE_IOU = 1e-5
+
+
+def _sparse_cases(tnn, torch, Table):
+    """(name, CPU module factory, input builder, eager backward) of every
+    class of slice 18 at the JAX tests' sizes."""
+    import numpy as np
+
+    from bigdl_tpu_torch.dataset import Sample
+    from bigdl_tpu_torch.nn.sparse import SparseMiniBatch, SparseTensor
+
+    cpu = dict(device="cpu")
+    rs = np.random.RandomState(41)
+
+    def dense(*shape):
+        x = rs.rand(*shape).astype(np.float32)
+        x[x < 0.6] = 0.0
+        return torch.tensor(x)
+
+    x46, x235 = dense(4, 6), dense(2, 3, 5)
+    nnz = int((x46 != 0).sum())
+    a, b = dense(2, 2) + 1.0, dense(2, 3)
+    dup = ([[0, 0, 1, 1, 3], [2, 2, 0, 3, 5]], [1.5, -0.5, 2.0, 1.0, 4.0])
+    id_at = [[0, 0, 0, 1, 2], [0, 0, 2, 1, 0]]
+    ids = SparseTensor.coo(id_at, [3, 5, 2, 7, 10], (3, 3))
+    wts = SparseTensor.coo(id_at, [1.0, 2.0, 0.5, 1.5, 0.25], (3, 3))
+    batch = SparseMiniBatch.from_samples([
+        Sample([SparseTensor.coo([[0, 1]], [4, 5], (3,)),
+                SparseTensor.coo([[1, 3, 3]], [0.5, 1.0, 2.0], (4,))],
+               np.asarray([1.0])),
+        Sample([SparseTensor.coo([[0]], [6], (3,)),
+                SparseTensor.coo([[0]], [3.0], (4,))], np.asarray([0.0]))])
+    return [
+        ("DenseToSparse_counted", lambda: tnn.DenseToSparse(),
+         lambda: x46, False),
+        ("DenseToSparse_padded", lambda: tnn.DenseToSparse(nse=nnz + 5),
+         lambda: x46, False),
+        ("DenseToSparse_truncated", lambda: tnn.DenseToSparse(nse=4),
+         lambda: x46, False),
+        ("SparseLinear_padded", lambda: tnn.SparseLinear(6, 3, **cpu),
+         lambda: SparseTensor.from_dense(x46, nse=nnz + 4), False),
+        ("SparseLinear_duplicates_out_of_bounds", lambda: tnn.SparseLinear(
+            5, 3, **cpu), lambda: SparseTensor.coo(*dup, (3, 5)), False),
+        ("SparseLinear_3d", lambda: tnn.SparseLinear(5, 4, **cpu),
+         lambda: SparseTensor.from_dense(x235), False),
+        ("SparseLinear_backward_slice", lambda: tnn.SparseLinear(
+            6, 2, backward_start=3, backward_length=2, **cpu),
+         lambda: SparseTensor.from_dense(x46, nse=nnz + 2), True),
+        ("LookupTableSparse_sum_dense_ids", lambda: tnn.LookupTableSparse(
+            10, 4, "sum", **cpu),
+         lambda: torch.tensor([[1, 3, -1], [2, -1, -1], [9, 9, 0]]), False),
+        ("LookupTableSparse_mean_duplicates_weights", lambda:
+         tnn.LookupTableSparse(11, 4, "mean", **cpu),
+         lambda: Table(ids, wts), False),
+        ("LookupTableSparse_sqrtn_max_norm", lambda: tnn.LookupTableSparse(
+            11, 4, "sqrtn", max_norm=0.5, **cpu), lambda: ids, False),
+        ("SparseJoinTable_dim2_padded", lambda: tnn.SparseJoinTable(2),
+         lambda: Table(SparseTensor.from_dense(a, nse=6),
+                       SparseTensor.from_dense(b, nse=7)), False),
+        ("SparseJoinTable_dim1", lambda: tnn.SparseJoinTable(1),
+         lambda: Table(SparseTensor.from_dense(b, nse=4),
+                       SparseTensor.from_dense(b)), False),
+        ("SparseMiniBatch_ids", lambda: tnn.LookupTableSparse(
+            7, 3, "sum", **cpu), lambda: batch.get_input()[1], False),
+        ("SparseMiniBatch_wide", lambda: tnn.SparseLinear(4, 2, **cpu),
+         lambda: batch.get_input()[2], False),
+    ]
+
+
+def _sparse_outputs(out):
+    """(float tensors, index tensors) of an output: a SparseTensor gives
+    its values, its dense form and its indices."""
+    from bigdl_tpu_torch.nn.sparse import SparseTensor
+
+    if isinstance(out, SparseTensor):
+        return [out.values, out.to_dense()], [out.indices]
+    return [out], []
+
+
+def sparse_gate(torch, fa, smi) -> int:
+    """sparse_gate (f32, TF32 off): every sparse class on the card against
+    the same module on the CPU (``_sparse_cases``), parameters drawn from
+    a seed: the output's indices equal, its values (and dense form), and
+    for one random cotangent the gradients of every float input and
+    parameter, each within ``VARIANTS_RTOL`` of its largest |value| (the
+    ``backward_start`` case through the eager ``backward``). Returns the
+    flash launches (0)."""
+    import copy
+
+    from bigdl_tpu_torch import nn as tnn
+    from bigdl_tpu_torch.nn.module import (activity_tensors, tree_leaves,
+                                           with_tensors)
+    from bigdl_tpu_torch.optim.evaluator import batch_to_device
+    from bigdl_tpu_torch.utils.table import Table
+
+    fa.launches = 0
+    g = torch.Generator().manual_seed(43)
+    results, classes = [], set()
+    worst, worst_case, index_mismatch = 0.0, None, []
+    t0 = time.monotonic()
+    for name, factory, build, eager in _sparse_cases(tnn, torch, Table):
+        cpu_m = factory()
+        with torch.no_grad():
+            for _, p in tree_leaves(cpu_m.params_dict()):
+                p.copy_(torch.randn(p.shape, generator=g) * 0.5)
+        card_m = copy.deepcopy(cpu_m).cuda()
+        classes.add(type(cpu_m).__name__)
+        x = build()
+        outs, idxs = [], []
+        for m, dev in ((cpu_m, "cpu"), (card_m, "cuda")):
+            xd = batch_to_device(x, torch.device(dev))
+            leaves = [t.detach().requires_grad_(t.is_floating_point())
+                      for t in activity_tensors(xd)]
+            xd = with_tensors(xd, iter(leaves))
+            floats, ints = _sparse_outputs(m(xd))
+            cg = torch.Generator().manual_seed(44)
+            cot = torch.randn(floats[0].shape, generator=cg).to(dev)
+            params = [p for _, p in tree_leaves(m.params_dict())]
+            if eager:
+                m.zero_grad_parameters()
+                grads = [m.backward(xd, cot)] + [p.grad for p in params]
+            else:
+                wrt = [t for t in leaves if t.requires_grad] + params
+                grads = [torch.zeros_like(w) if d is None else d
+                         for w, d in zip(wrt, torch.autograd.grad(
+                             floats[0], wrt, cot, allow_unused=True))] \
+                    if wrt else []
+            outs.append([f.detach() for f in floats] + grads)
+            idxs.append([i.cpu() for i in ints])
+        if not all(torch.equal(a, b) for a, b in zip(*idxs)):
+            index_mismatch.append(name)
+        errs = [_rel_err(torch, ref, got) for ref, got in zip(*outs)]
+        case_worst = max(errs)
+        if case_worst > worst:
+            worst, worst_case = case_worst, name
+        results.append({"case": name, "tensors": len(errs),
+                        "worst": case_worst})
+    emit({"phase": "sparse_gate", "nvidia_smi": smi, "dtype": "float32",
+          "allow_tf32": {"matmul": torch.backends.cuda.matmul.allow_tf32,
+                         "cudnn": torch.backends.cudnn.allow_tf32},
+          "cases": len(results), "classes": sorted(classes),
+          "rtol": VARIANTS_RTOL, "worst": worst, "worst_case": worst_case,
+          "index_mismatch": index_mismatch,
+          "seconds": time.monotonic() - t0, "results": results,
+          "flash_launches": fa.launches})
+    assert not index_mismatch, index_mismatch
+    assert worst <= VARIANTS_RTOL, (worst_case, worst)
+    assert fa.launches == 0, fa.launches
+    return fa.launches
+
+
+def _criteo_samples(cfg, seed: int):
+    """``cfg["rows"]`` Samples of the wide-and-deep model: a SparseTensor
+    of the 39 hashed wide columns (value 1), one of the 26 1-based hashed
+    ids, 13 dense features (log1p of exponential counts) and a label from
+    a planted rule: a sparse set of (field, value) weights plus a dense
+    projection, thresholded at its median."""
+    import numpy as np
+
+    from bigdl_tpu_torch.dataset import Sample
+    from bigdl_tpu_torch.nn.sparse import SparseTensor
+
+    rs = np.random.RandomState(seed)
+    n, fields, vocab = cfg["rows"], cfg["fields"], cfg["vocab"]
+    cats = rs.randint(0, vocab, (n, fields))
+    dense = np.log1p(rs.exponential(2.0, (n, cfg["dense"]))).astype(
+        np.float32)
+    rule = rs.randn(fields, vocab) * (rs.rand(fields, vocab) < 0.1)
+    logit = rule[np.arange(fields), cats].sum(1) + dense @ rs.randn(
+        cfg["dense"])
+    labels = (logit > np.median(logit)).astype(np.float32)
+    key = np.arange(fields) * vocab + cats                       # (n, 26)
+    buckets = (np.minimum(dense * 4, 9).astype(np.int64)
+               + 10 * np.arange(cfg["dense"]) + fields * vocab)  # (n, 13)
+    mix = np.uint64(2654435761)
+    wide = (np.concatenate([key, buckets], 1).astype(np.uint64) * mix
+            % np.uint64(cfg["wide"])).astype(np.int64)
+    ids = (key.astype(np.uint64) * mix % np.uint64(cfg["ids"])).astype(
+        np.int64) + 1
+    ones = np.ones(wide.shape[1], np.float32)
+    field_at = np.arange(fields)[None]
+    return [Sample([SparseTensor.coo(wide[i][None], ones, (cfg["wide"],)),
+                    SparseTensor.coo(field_at, ids[i], (fields,)),
+                    dense[i]], labels[i:i + 1]) for i in range(n)]
+
+
+def _wide_deep(tnn, cfg, device):
+    """The wide-and-deep Graph of ``SPARSE_TRAIN`` on ``device``."""
+    wide_in, ids_in, dense_in = tnn.Input(), tnn.Input(), tnn.Input()
+    wide = tnn.SparseLinear(cfg["wide"], 1, device=device).inputs(wide_in)
+    h = tnn.JoinTable(2).inputs(tnn.LookupTableSparse(
+        cfg["ids"], cfg["embed"], "mean", device=device).inputs(ids_in),
+        dense_in)
+    width = cfg["embed"] + cfg["dense"]
+    for n in cfg["tower"]:
+        h = tnn.ReLU().inputs(tnn.Linear(width, n, device=device).inputs(h))
+        width = n
+    deep = tnn.Linear(width, 1, device=device).inputs(h)
+    return tnn.Graph([wide_in, ids_in, dense_in],
+                     tnn.Sigmoid().inputs(tnn.CAddTable().inputs(wide,
+                                                                  deep)))
+
+
+def sparse_train(torch, fa, smi) -> int:
+    """sparse_train: the wide-and-deep ``Graph`` of ``SPARSE_TRAIN``
+    trained by the ``LocalOptimizer`` (Adam, BCE) from sparse Samples for
+    ``steps`` steps on the card; the same initial weights through the
+    same loop on the CPU for ``parity_steps`` steps: their losses within
+    ``VARIANTS_RTOL`` relative; the loss must fall; ms a step, records/s
+    and a profiler window over the train step (launches a step, the
+    device's busy share). Returns the flash launches (0)."""
+    import copy
+
+    import numpy as np
+
+    from bigdl_tpu_torch import nn as tnn
+    from bigdl_tpu_torch.dataset import SampleToMiniBatch
+    from bigdl_tpu_torch.optim import Adam, Optimizer, Trigger
+    from bigdl_tpu_torch.optim.evaluator import batch_to_device
+
+    fa.launches = 0
+    cfg = SPARSE_TRAIN
+    t0 = time.monotonic()
+    samples = _criteo_samples(cfg, seed=18)
+    data_s = time.monotonic() - t0
+    init = _wide_deep(tnn, cfg, "cpu")
+
+    def run(model, steps):
+        opt = Optimizer(model=model, dataset=samples,
+                        criterion=tnn.BCECriterion(), batch_size=cfg["batch"],
+                        end_when=Trigger.max_iteration(steps))
+        opt.set_optim_method(Adam(learning_rate=cfg["lr"]))
+        t = time.monotonic()
+        rows = logged("bigdl_tpu_torch.optim", opt.optimize)
+        if next(model.parameters()).is_cuda:
+            torch.cuda.synchronize()
+        return rows, time.monotonic() - t
+
+    card = copy.deepcopy(init).cuda()
+    rows, card_s = run(card, cfg["steps"])
+    cpu_rows, cpu_s = run(copy.deepcopy(init), cfg["parity_steps"])
+    k = cfg["parity_steps"]
+    card_losses = [float(r[0]) for r in rows[:k]]
+    cpu_losses = [float(r[0]) for r in cpu_rows]
+    parity = max(abs(a - b) / abs(b) for a, b in zip(card_losses,
+                                                     cpu_losses))
+    block = _rows_block(rows)
+    batch = next(SampleToMiniBatch(cfg["batch"])(iter(samples)))
+    x = batch_to_device(batch.get_input(), torch.device("cuda"))
+    y = torch.tensor(batch.get_target(), device="cuda")
+    prof = _step_profile(torch, card, tnn.BCECriterion(),
+                         Adam(learning_rate=cfg["lr"]), x, y)
+    n_params = sum(p.numel() for p in card.parameters())
+    emit({"phase": "sparse_train", "nvidia_smi": smi, "config": cfg,
+          "dtype": "float32", "parameters": n_params,
+          "active_wide_a_row": int(batch.get_input()[1].nse
+                                   // cfg["batch"]),
+          "data_seconds": data_s, "card_seconds": card_s,
+          "cpu_seconds": cpu_s, "card_losses": card_losses,
+          "cpu_losses": cpu_losses, "loss_parity": parity,
+          "rtol": VARIANTS_RTOL, **block,
+          "ms_per_step": 1e3 * cfg["batch"] / block["records_per_s_median"],
+          "profile": prof, "flash_launches": fa.launches})
+    assert len(rows) == cfg["steps"] and len(cpu_rows) == k
+    assert parity <= VARIANTS_RTOL, (card_losses, cpu_losses)
+    assert all(np.isfinite(r[0]) for r in rows)
+    assert block["loss_last_mean"] < block["loss_first_mean"], block
+    assert fa.launches == 0, fa.launches
+    return fa.launches
+
+
+def _host_syncs(torch, fn) -> int:
+    """Host waits of ``fn()`` on the card: the warnings of CUDA's sync
+    debug mode (stream and device synchronizes, blocking copies, reads of
+    a device value)."""
+    import warnings
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return sum("synchroniz" in str(w.message) for w in caught)
+
+
+def _head_figures(torch, fn, calls: int = 5) -> dict:
+    """ms a call (host clock over ``calls`` synchronized calls after one
+    warm-up), kernel launches and the device's busy share of one call
+    (``torch.profiler``), and host syncs a call."""
+    from bigdl_tpu_torch.utils.profiling import device_profile
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    for _ in range(calls):
+        fn()
+    torch.cuda.synchronize()
+    ms = (time.monotonic() - t0) * 1e3 / calls
+    prof = device_profile(fn, top=4)
+    return {"ms_per_call": ms, "launches_per_call": prof["kernel_launches"],
+            "device_busy_share": 1.0 - prof["device_idle_share"],
+            "top_kernels_ms": prof["top_kernels_ms"],
+            "host_syncs_per_call": _host_syncs(torch, fn)}
+
+
+def _rows_apart(torch, card_rows, cpu_rows, thresh) -> dict:
+    """Card rows against CPU rows, each ``[label, score, x1, y1, x2, y2]``:
+    equal kept sets (labels and scores equal, boxes within
+    ``VARIANTS_RTOL`` of the largest |coordinate|, row for row); else,
+    for each row the other side has not (no row of its label and score
+    with a box that close), the least distance from ``thresh`` of its
+    IoU with another box of its label on either side (``near_tie``: the
+    largest of those)."""
+    import numpy as np
+
+    from bigdl_tpu_torch.nn import bbox_iou
+
+    a, b = (np.asarray(r, np.float64).reshape(-1, 6)
+            for r in (card_rows, cpu_rows))
+    both = np.concatenate([a, b])
+    scale = max(np.abs(both[:, 2:]).max(initial=0.0), 1e-30)
+    tol = VARIANTS_RTOL * scale
+    if a.shape == b.shape and np.array_equal(a[:, :2], b[:, :2]):
+        err = np.abs(a[:, 2:] - b[:, 2:]).max(initial=0.0) / scale
+        if err <= VARIANTS_RTOL:
+            return {"kept": len(b), "equal_sets": True,
+                    "box_rel_err": float(err)}
+
+    def close(r, rows):
+        return (rows[:, :2] == r[:2]).all(1) & (
+            np.abs(rows[:, 2:] - r[2:]).max(1) <= tol)
+
+    lone = [r for x, y in ((a, b), (b, a)) for r in x if not close(r, y).any()]
+    near = 0.0
+    for r in lone:
+        others = both[(both[:, 0] == r[0]) & ~close(r, both)]
+        if not len(others):
+            near = math.inf
+            continue
+        iou = bbox_iou(torch.tensor(r[None, 2:]),
+                       torch.tensor(others[:, 2:]))[0].numpy()
+        near = max(near, float(np.abs(iou - thresh).min()))
+    return {"kept": [len(a), len(b)], "equal_sets": False,
+            "only_one_side": len(lone), "near_tie": near}
+
+
+def detection_infer(torch, fa, smi) -> int:
+    """detection_infer on seeded random inputs: SSD300's VOC head
+    (``SSD300``: six ``PriorBox`` layers, 8732 priors, softmaxed
+    confidences, ``DetectionOutputSSD``) and Faster R-CNN VGG16's test
+    path (``FRCNN``: ``Proposal`` over 21,546 anchors, ``RoiPooling`` of
+    its rois over a ReLU'd 512 x 38 x 63 map, ``DetectionOutputFrcnn``),
+    each head held to the port on the CPU on the same inputs (kept sets
+    by ``_rows_apart``, pooled values within ``VARIANTS_RTOL``), with ms,
+    launches and host syncs a call, and RoiPooling's peak allocation
+    (under ``ROI_PEAK_LIMIT``). Returns the flash launches (0)."""
+    import numpy as np
+
+    from bigdl_tpu_torch import nn as tnn
+    from bigdl_tpu_torch.utils.table import Table
+
+    fa.launches = 0
+    t0 = time.monotonic()
+    rs = np.random.RandomState(18)
+    heads = {}
+
+    def on(dev, *arrays):
+        return Table(*[torch.tensor(np.asarray(a, np.float32), device=dev)
+                       for a in arrays])
+
+    def softmax(logits):
+        e = np.exp(logits - logits.max(-1, keepdims=True))
+        return (e / e.sum(-1, keepdims=True)).astype(np.float32)
+
+    # ------------------------------------------------ SSD300 on VOC
+    cfg = SSD300
+    priors = {}
+    for dev in ("cpu", "cuda"):
+        parts = [tnn.PriorBox([mn], [mx], list(ar), is_flip=True,
+                              variances=[0.1, 0.1, 0.2, 0.2], img_size=300,
+                              step=st)(torch.zeros(1, 1, m, m, device=dev))
+                 for m, st, mn, mx, ar in zip(
+                     cfg["maps"], cfg["steps"], cfg["min_sizes"],
+                     cfg["max_sizes"], cfg["ratios"])]
+        priors[dev] = torch.cat(parts, dim=2)
+    n_priors = priors["cuda"].shape[-1] // 4
+    prior_err = _rel_err(torch, priors["cpu"], priors["cuda"])
+    loc = (0.5 * rs.randn(1, 4 * n_priors)).astype(np.float32)
+    conf = softmax(rs.randn(n_priors, cfg["classes"]) * 2).reshape(1, -1)
+    ssd = tnn.DetectionOutputSSD(cfg["classes"], nms_thresh=cfg["nms"],
+                                 nms_topk=cfg["topk"],
+                                 keep_top_k=cfg["keep"],
+                                 conf_thresh=cfg["conf"])
+    ins = {dev: Table(*on(dev, loc, conf).values(), priors[dev])
+           for dev in ("cpu", "cuda")}
+    out = ssd(ins["cuda"])
+    ref = ssd(ins["cpu"])
+    heads["ssd300_detection_output"] = {
+        "priors": n_priors, "prior_rel_err": prior_err,
+        **_rows_apart(torch, out[0, 0, :, 1:].cpu().numpy(),
+                      ref[0, 0, :, 1:].numpy(), cfg["nms"]),
+        **_head_figures(torch, lambda: ssd(ins["cuda"]))}
+
+    # ----------------------------------- Faster R-CNN VGG16, test time
+    cfg = FRCNN
+    (ih, iw), (fh, fw) = cfg["image"], cfg["conv5"]
+    n_anchor = len(cfg["ratios"]) * len(cfg["scales"])
+    rpn = softmax(rs.randn(fh, fw, n_anchor, 2) * 2)
+    rpn = rpn.transpose(3, 2, 0, 1).reshape(1, 2 * n_anchor, fh, fw)
+    rpn_deltas = (0.2 * rs.randn(1, 4 * n_anchor, fh, fw)).astype(
+        np.float32)
+    im_info = np.asarray([ih, iw, 1.0, 1.0], np.float32)
+    prop = tnn.Proposal(cfg["pre_nms"], cfg["post_nms"],
+                        list(cfg["ratios"]), list(cfg["scales"]),
+                        min_size=cfg["min_size"], nms_thresh=cfg["rpn_nms"])
+    prop.evaluate()
+    p_in = {dev: on(dev, rpn, rpn_deltas, im_info) for dev in ("cpu",
+                                                                "cuda")}
+    rois = prop(p_in["cuda"])
+    rois_cpu = prop(p_in["cpu"])
+
+    def roi_rows(r):        # [0, 0, x1, y1, x2, y2]: one label, no score
+        r = r.cpu().numpy()
+        return np.concatenate([r[:, :1], r], 1)
+
+    heads["frcnn_proposal"] = {
+        "anchors": fh * fw * n_anchor, "rois": int(rois.shape[0]),
+        **_rows_apart(torch, roi_rows(rois), roi_rows(rois_cpu),
+                      cfg["rpn_nms"]),
+        **_head_figures(torch, lambda: prop(p_in["cuda"]))}
+
+    fmap = np.maximum(rs.randn(1, cfg["channels"], fh, fw), 0).astype(
+        np.float32)
+    pool = tnn.RoiPooling(cfg["pooled"], cfg["pooled"], 1.0 / 16)
+    f_in = {"cuda": Table(torch.tensor(fmap, device="cuda"), rois),
+            "cpu": Table(torch.tensor(fmap), rois.cpu())}
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    pooled = pool(f_in["cuda"])
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    heads["frcnn_roi_pooling"] = {
+        "rois": int(rois.shape[0]), "out_shape": list(pooled.shape),
+        "rel_err": _rel_err(torch, pool(f_in["cpu"]), pooled),
+        "peak_bytes_over_base": peak - base, "peak_bytes": peak,
+        "base_bytes": base, "peak_limit": ROI_PEAK_LIMIT,
+        **_head_figures(torch, lambda: pool(f_in["cuda"]))}
+
+    n_rois = int(rois.shape[0])
+    scores = softmax(rs.randn(n_rois, cfg["classes"]) * 3)
+    deltas = (0.1 * rs.randn(n_rois, 4 * cfg["classes"])).astype(np.float32)
+    head = tnn.DetectionOutputFrcnn(cfg["nms"], cfg["classes"],
+                                    max_per_image=cfg["max_per_image"],
+                                    thresh=cfg["thresh"])
+    head.evaluate()
+    h_in = {dev: Table(torch.tensor(im_info[None], device=dev),
+                       rois.to(dev), *on(dev, deltas, scores).values())
+            for dev in ("cpu", "cuda")}
+
+    def flat_rows(out):
+        out = out.cpu().numpy()[0]
+        return out[1:1 + int(out[0]) * 6].reshape(-1, 6)
+
+    heads["frcnn_detection_output"] = {
+        **_rows_apart(torch, flat_rows(head(h_in["cuda"])),
+                      flat_rows(head(h_in["cpu"])), cfg["nms"]),
+        **_head_figures(torch, lambda: head(h_in["cuda"]))}
+
+    emit({"phase": "detection_infer", "nvidia_smi": smi, "ssd300": SSD300,
+          "frcnn": FRCNN, "heads": heads, "rtol": VARIANTS_RTOL,
+          "near_tie_iou": NEAR_TIE_IOU, "seconds": time.monotonic() - t0,
+          "flash_launches": fa.launches})
+    assert n_priors == 8732, n_priors
+    assert prior_err == 0.0, prior_err
+    for name, rec in heads.items():
+        if "equal_sets" in rec:
+            assert rec["kept"] and (rec["equal_sets"] and rec[
+                "box_rel_err"] <= VARIANTS_RTOL or not rec["equal_sets"]
+                and rec["near_tie"] < NEAR_TIE_IOU), (name, rec)
+    pool_rec = heads["frcnn_roi_pooling"]
+    assert pool_rec["rel_err"] <= VARIANTS_RTOL, pool_rec
+    assert pool_rec["peak_bytes_over_base"] < ROI_PEAK_LIMIT, pool_rec
+    assert fa.launches == 0, fa.launches
+    return fa.launches
+
+
 def main() -> int:
     import torch
 
@@ -6921,6 +7460,15 @@ def main() -> int:
           "seconds": time.monotonic() - t_seq,
           "flash_launches": sequence_launches})
 
+    # -------- the sparse stack and the detection heads (slice 18)
+    t_sd = time.monotonic()
+    sparse_detection_launches = (sparse_gate(torch, fa, smi)
+                                 + sparse_train(torch, fa, smi)
+                                 + detection_infer(torch, fa, smi))
+    emit({"phase": "slice18_phases", "nvidia_smi": smi,
+          "seconds": time.monotonic() - t_sd,
+          "flash_launches": sparse_detection_launches})
+
     # ----------------------------------------------------- 9. kernels line
     print(nvidia_smi(), flush=True)
     emit({"kernels": [{
@@ -6935,7 +7483,7 @@ def main() -> int:
                      + variants_launches + table_launches
                      + text_launches + distri_launches + ring_launches
                      + longcontext_launches + tp_launches + obs_launches
-                     + sequence_launches),
+                     + sequence_launches + sparse_detection_launches),
         "launches_serving": serving_launches,
         "launches_train": train_launches,
         "launches_engine": engine_launches,
@@ -6956,6 +7504,7 @@ def main() -> int:
         "launches_obs": obs_launches,
         "launches_fleet": fleet_launches,
         "launches_sequence": sequence_launches,
+        "launches_sparse_detection": sparse_detection_launches,
         "tp_local_heads": {k: tp_local[k] for k in (
             "shape", "max_abs_err", "kernel_ms", "device_ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms", "library_device_ms")},

@@ -228,6 +228,15 @@ ELSEWHERE = {
     "Graph": "node-wired, tests/test_torch_graph.py",
     "StaticGraph": "node-wired, tests/test_torch_graph.py",
     "DynamicGraph": "node-wired, tests/test_torch_graph.py",
+    "SparseLinear": "sparse input, tests/test_torch_sparse.py",
+    "SparseJoinTable": "sparse input, tests/test_torch_sparse.py",
+    "LookupTableSparse": "sparse input, tests/test_torch_sparse.py",
+    "DenseToSparse": "sparse output, tests/test_torch_sparse.py",
+    "PriorBox": "detection head, tests/test_torch_detection.py",
+    "Proposal": "detection head, tests/test_torch_detection.py",
+    "RoiPooling": "detection head, tests/test_torch_detection.py",
+    "DetectionOutputSSD": "detection head, tests/test_torch_detection.py",
+    "DetectionOutputFrcnn": "detection head, tests/test_torch_detection.py",
 }
 
 _ITEM12 = "ROADMAP.md Queue 1 item 12: the long tail"
@@ -236,11 +245,8 @@ _ITEM12 = "ROADMAP.md Queue 1 item 12: the long tail"
 # that ports it
 WAITING = {
     **dict.fromkeys([
-        # nn/{sparse,detection,tf_ops}
-        "SparseLinear", "SparseJoinTable", "LookupTableSparse",
-        "DenseToSparse", "PriorBox", "Proposal", "RoiPooling",
-        "DetectionOutputSSD", "DetectionOutputFrcnn", "If", "WhileLoop",
-        "Variable", "Assign", "ParseExample"], _ITEM12),
+        # nn/tf_ops
+        "If", "WhileLoop", "Variable", "Assign", "ParseExample"], _ITEM12),
 }
 
 

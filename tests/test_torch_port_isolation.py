@@ -205,7 +205,8 @@ def test_no_jax_or_jax_package_import_in_the_port():
             "memory", "metrics", "postmortem", "profiler", "slo_budget",
             "timeseries", "tracing", "watchdog"} <= {
         f.stem for f in files if f.parent.name == "observability"}
-    assert {"attention", "criterion", "linear", "module", "quantized"} <= {
+    assert {"attention", "criterion", "detection", "linear", "module",
+            "quantized", "sparse"} <= {
         f.stem for f in files if f.parent.name == "nn"}
     assert {"__init__", "proto", "tensorboard"} <= {
         f.stem for f in files if f.parent.name == "visualization"}
@@ -233,7 +234,8 @@ def test_entry_points_default_to_the_card_and_never_fall_back():
     from bigdl_tpu_torch.models.perf import (build_model, run_perf,
                                              transformer_perf)
     from bigdl_tpu_torch.nn import (BatchNormalization, LayerNorm, Linear,
-                                    MultiHeadAttention, SpatialConvolution)
+                                    LookupTableSparse, MultiHeadAttention,
+                                    SparseLinear, SpatialConvolution)
     from bigdl_tpu_torch.nn.module import Module
     from bigdl_tpu_torch.example.longcontext import train as lc_train
     from bigdl_tpu_torch.optim import load_latest_checkpoint
@@ -244,6 +246,8 @@ def test_entry_points_default_to_the_card_and_never_fall_back():
     for make in (lambda: TransformerLM(64, 32, 4, 2, 64),
                  lambda: MultiHeadAttention(32, 4),
                  lambda: LayerNorm(8), lambda: Linear(4, 4),
+                 lambda: SparseLinear(4, 2),
+                 lambda: LookupTableSparse(4, 2),
                  lambda: resolve_device(),
                  lambda: Module.load("/nonexistent/model.1"),
                  lambda: load_latest_checkpoint("/nonexistent"),

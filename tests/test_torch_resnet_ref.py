@@ -29,9 +29,18 @@ LR, MOMENTUM = 0.01, 0.9
 
 @pytest.fixture(scope="module")
 def carried():
-    """The JAX ``init_params(PRNGKey(0))`` list as numpy, and the layout."""
-    params, layout = J.init_params(jax.random.PRNGKey(0))
-    return [np.asarray(p) for p in params], layout
+    """The JAX ``init_params(PRNGKey(0))`` list as numpy, and the layout,
+    compiled as one program (op by op, its ~160 draws of distinct shapes
+    each compile on their own: ~13 s against ~9 s)."""
+    layout = []
+
+    def init(key):
+        params, lay = J.init_params(key)
+        layout.append(lay)
+        return params
+
+    params = jax.jit(init)(jax.random.PRNGKey(0))
+    return [np.asarray(p) for p in params], layout[0]
 
 
 def _random_bn(arrays):
