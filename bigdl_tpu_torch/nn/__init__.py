@@ -67,6 +67,14 @@ from bigdl_tpu_torch.nn.sparse import (
     SparseMiniBatch, SparseTensor,
 )
 from bigdl_tpu_torch.nn.tree_lstm import BinaryTreeLSTM, TreeLSTM
+# TF-style Operation modules and the TF infra ops: ``ops.Select``,
+# ``ops.Max``, ``ops.Sum`` and ``ops.Tile`` stay under ``nn.ops`` (the
+# layers of those names are the port's), as in the JAX package
+from bigdl_tpu_torch.nn import ops, tf_ops  # noqa: E402
+from bigdl_tpu_torch.nn.tf_ops import (
+    Assign, AssignAdd, AssignSub, ControlNodes, If, ParseExample,
+    TensorArray, Variable, WhileLoop,
+)
 from bigdl_tpu_torch.nn.table_ops import (
     MM, MV, BifurcateSplitTable, CAddTable, CAveTable, CDivTable, CMaxTable,
     CMinTable, CMulTable, CosineDistance, CrossProduct, CSubTable,
@@ -77,19 +85,20 @@ from bigdl_tpu_torch.nn.table_ops import (
 # the reference's add()-based container base: ``Container`` has add()
 DynamicContainer = Container
 
-__all__ = ["Abs", "Add", "AddConstant", "Anchor", "BatchNormalization",
+__all__ = ["Abs", "Add", "AddConstant", "Anchor", "Assign",
+           "AssignAdd", "AssignSub", "BatchNormalization",
            "BiRecurrent", "BifurcateSplitTable", "Bilinear", "BinaryThreshold",
            "BinaryTreeLSTM", "Bottle", "CAdd", "CAddTable", "CAveTable",
            "CDivTable", "CMaxTable", "CMinTable", "CMul", "CMulTable",
            "CSubTable", "Cell", "Clamp", "Concat", "ConcatTable", "Container",
-           "Contiguous", "ConvLSTMPeephole", "ConvLSTMPeephole3D", "Cosine",
+           "Contiguous", "ControlNodes", "ConvLSTMPeephole", "ConvLSTMPeephole3D", "Cosine",
            "CosineDistance", "Cropping2D", "Cropping3D", "CrossProduct",
            "DenseToSparse", "DetectionOutputFrcnn", "DetectionOutputSSD",
            "DotProduct", "Dropout", "DynamicContainer", "DynamicGraph", "ELU",
            "Echo", "Euclidean", "Exp", "FlattenTable", "GRU",
            "GaussianDropout", "GaussianNoise", "GaussianSampler",
            "GradientReversal", "Graph", "HardShrink", "HardSigmoid",
-           "HardTanh", "Identity", "Index", "InferReshape", "Input",
+           "HardTanh", "Identity", "If", "Index", "InferReshape", "Input",
            "JoinTable", "L1Penalty", "LSTM", "LSTMPeephole", "LayerNorm",
            "LeakyReLU", "Linear", "LocallyConnected1D", "LocallyConnected2D",
            "Log", "Log1p", "LogSigmoid", "LogSoftMax", "LookupTable",
@@ -98,7 +107,7 @@ __all__ = ["Abs", "Add", "AddConstant", "Anchor", "BatchNormalization",
            "Mul", "MulConstant", "MultiHeadAttention", "MultiRNNCell",
            "Narrow", "NarrowTable", "Negative", "NegativeEntropyPenalty",
            "Nms", "Node", "Normalize", "NormalizeScale", "PReLU", "Pack",
-           "Padding", "PairwiseDistance", "ParallelTable", "Power", "PriorBox",
+           "Padding", "PairwiseDistance", "ParallelTable", "ParseExample", "Power", "PriorBox",
            "Proposal", "Quantizer", "RNN", "RReLU", "ReLU", "ReLU6",
            "Recurrent", "RecurrentDecoder", "Replicate", "Reshape",
            "ResizeBilinear", "Reverse", "RnnCell", "RoiPooling", "SReLU",
@@ -115,12 +124,12 @@ __all__ = ["Abs", "Add", "AddConstant", "Anchor", "BatchNormalization",
            "SpatialShareConvolution", "SpatialSubtractiveNormalization",
            "SpatialUnpooling", "SpatialWithinChannelLRN", "SpatialZeroPadding",
            "SplitTable", "Sqrt", "Square", "Squeeze", "StaticGraph", "Sum",
-           "Tanh", "TanhShrink", "TemporalConvolution", "TemporalMaxPooling",
+           "Tanh", "TanhShrink", "TemporalConvolution", "TensorArray", "TemporalMaxPooling",
            "Threshold", "Tile", "TimeDistributed", "TransformerBlock",
            "Transpose", "TreeLSTM", "Unsqueeze", "UpSampling1D",
-           "UpSampling2D", "UpSampling3D", "View", "VolumetricAveragePooling",
+           "UpSampling2D", "UpSampling3D", "Variable", "View", "VolumetricAveragePooling",
            "VolumetricBatchNormalization", "VolumetricConvolution",
-           "VolumetricFullConvolution", "VolumetricMaxPooling", "bbox_iou",
+           "VolumetricFullConvolution", "VolumetricMaxPooling", "WhileLoop", "bbox_iou",
            "bind_generator", "decode_boxes", "dot_product_attention",
-           "flatten_sequential", "nms", "rotary_embedding",
-           "rotary_embedding_rowwise"] + _CRITERIONS
+           "flatten_sequential", "nms", "ops", "rotary_embedding",
+           "rotary_embedding_rowwise", "tf_ops"] + _CRITERIONS

@@ -102,8 +102,9 @@ class Graph(Module):
                 return
             if s == 0:
                 raise ValueError(
-                    "graph contains a cycle; a graph must be acyclic (the "
-                    "JAX package expresses loops with its while-loop ops)")
+                    "graph contains a cycle; loops must be expressed with "
+                    "nn.tf_ops.WhileLoop / ControlNodes.while_loop, not "
+                    "back-edges")
             state[node._uid] = 0
             for p in node.prev:
                 visit(p)

@@ -388,6 +388,31 @@ asserts 0, their sum is the kernels line's ``launches_sparse_detection``):
   near tie under 1e-5 of the IoU threshold), with ms, launches and host
   syncs a call and RoiPooling's peak memory (under 2 GB).
 
+Then the TF op set, its control flow and the wide-and-deep example
+(slice 19; no kernel of the port, as in JAX: each phase counts the flash
+launches from 0 and asserts 0, their sum is the kernels line's
+``launches_ops_widedeep``):
+
+- ops_gate (f32, TF32 off): every class of ``nn.ops`` and ``nn.tf_ops``
+  on the card against the port on the CPU at the JAX tests' sizes, with
+  ties, ids out of range, NaN and -0.0, saturating casts and values on a
+  boundary: indices, masks, hash buckets, strings and specials equal,
+  floats within ``VARIANTS_RTOL`` of the largest |value|; the random ops
+  by range, truncation and moments; the CUDA state checked at the end;
+  then BatchMatMul, DepthwiseConv2D, ResizeBilinearOp, TopK, SegmentSum
+  and Dilation2D timed at ``OPS_TIMED`` (ms a call beside a bound);
+- control_flow: a ``WhileLoop`` of 256 iterations whose body is a
+  ``Graph`` (Linear 512 -> 512, Tanh over a 64 x 512 state) writing a
+  ``TensorArray``, stacked states against the CPU run, host syncs (one a
+  condition read) and ms an iteration; ``If``, ``Switch`` / ``Merge``
+  (no sync) and ``Assign`` into a ``Variable`` an SGD step then updates;
+- widedeep_train: the wide-and-deep main at its defaults (held-out
+  accuracy above the majority baseline + 0.08), its first 3 losses
+  against the CPU's on the same weights, a profiler window over one
+  step, and the rows serialized as tf.Example records through
+  ``ParseExample`` into the model on the card (the same predictions as
+  the direct features; records/s of the parse).
+
 Earlier lines are one JSON object each; the last line is
 ``{"ok": true, "device": {...}}``. Exits non-zero without that line when
 CUDA is not available or the port cannot be imported.
@@ -7182,6 +7207,658 @@ def detection_infer(torch, fa, smi) -> int:
     return fa.launches
 
 
+# ------------------------------------------------------------ slice 19
+#: ops_gate's timed ops at realistic shapes (f32, TF32 off): BatchMatMul
+#: of attention scores, MobileNetV1's first depthwise layer, an image
+#: resized to ResNet's input, top 5 of LM logits, a segment sum over 2**20
+#: rows, a 3 x 3 dilation over a 224 x 224 image
+OPS_TIMED = dict(bmm=(64, 512, 512), depthwise=(1, 112, 112, 32),
+                 resize=((1, 480, 640, 3), (224, 224)), topk=(64, 32000, 5),
+                 segment=(2 ** 20, 16, 4096), dilation=(1, 224, 224, 3))
+#: control_flow: a WhileLoop of ``iterations`` whose body is a Graph
+#: (Linear width -> width, Tanh) over a (batch, width) state
+CONTROL_FLOW = dict(iterations=256, batch=64, width=512)
+#: widedeep_train: the main's defaults; the held-out accuracy must beat
+#: the majority baseline by the JAX test's margin
+WIDEDEEP_MARGIN = 0.08
+WIDEDEEP_PARITY_STEPS = 3
+
+
+def _public_names(module):
+    import inspect
+
+    return {name for name, obj in vars(module).items()
+            if not name.startswith("_")
+            and (inspect.isclass(obj) or inspect.isfunction(obj))
+            and getattr(obj, "__module__", None) == module.__name__}
+
+
+def _ops_cases(torch):
+    """(name, classes it runs, ``run(device) -> output``) of every class
+    of ``nn.ops`` and ``nn.tf_ops`` at the JAX tests' sizes, with the
+    edge cases where torch's plain call parts from JAX: ties, ids out of
+    range, NaN and -0.0, saturating casts, values on a boundary. Each
+    ``run`` builds its inputs from a seed on the host and moves them to
+    ``device``."""
+    import numpy as np
+
+    from bigdl_tpu_torch import nn as tnn
+    from bigdl_tpu_torch.nn import ops as o
+    from bigdl_tpu_torch.nn import tf_ops as tf
+    from bigdl_tpu_torch.utils import protowire as pw
+    from bigdl_tpu_torch.utils.table import Table
+
+    rs = np.random.RandomState(19)
+    f32, i32 = np.float32, np.int32
+    x34, y34 = rs.randn(3, 4).astype(f32), rs.randn(3, 4).astype(f32)
+    x234 = rs.randn(2, 3, 4).astype(f32)
+    halves = np.asarray([-2.5, -1.5, -0.5, 0.5, 1.5, 2.5, 1.2, -3.7], f32)
+    special = np.asarray([1.0, np.inf, -np.inf, np.nan, -0.0, 0.0], f32)
+    gamma_x = np.asarray([0.5, 1.0, 2.5, 10.0, -0.5, -2.5, 0.0, -1.0], f32)
+    sat = np.asarray([1e10, -1e10, np.nan, np.inf, -np.inf, 300.0, -1.5,
+                      2.7, 255.9, -129.0], f32)
+    ia = np.asarray([-7, 7, 9, -9, 0, 5], i32)
+    ib = np.asarray([3, -3, 2, 4, 5, -2], i32)
+    fb = np.asarray([3.0, -3.0, 2.5, 0.7, 5.0, -2.0], f32)
+    ba, bb = np.asarray([1, 0, 1, 0], bool), np.asarray([1, 1, 0, 0], bool)
+    ties = np.asarray([[1, 3, 3, 2, 3], [0, 0, 0, 0, 0], [5, 1, 5, 1, 4]],
+                      f32)
+    nhwc = rs.randn(2, 7, 6, 3).astype(f32)
+    hwim = rs.randn(3, 3, 3, 2).astype(f32)
+    img = rs.rand(1, 8, 8, 2).astype(f32)
+    words = np.asarray(["engineer", "teacher", "farmer", "artist", "clerk"])
+
+    def t(a, d):
+        return torch.from_numpy(np.asarray(a).copy()).to(d)
+
+    cases = []
+
+    def case(name, run, classes=None):
+        cases.append((name, classes or [name.split("_")[0]], run))
+
+    def op(cls, *args, x, **kw):
+        """``cls(*args, **kw)`` on a Table of the inputs ``x`` (a tuple)
+        or on the one input."""
+        def run(d, cls=cls, args=args, kw=kw, x=x):
+            m = getattr(o, cls)(*args, **kw)
+            return m(Table(*[t(v, d) for v in x]) if isinstance(x, tuple)
+                     else t(x, d))
+        case(f"{cls}_{len(cases)}", run, [cls])
+
+    for cls, x in [("Ceil", halves), ("Floor", halves), ("Round", halves),
+                   ("Rint", halves), ("Exp", x34), ("Expm1", x34 * 1e-3),
+                   ("Inv", gamma_x[:4]), ("Sign", special), ("Erf", x34),
+                   ("Erfc", x34), ("Lgamma", gamma_x), ("Digamma", gamma_x),
+                   ("IsFinite", special), ("IsInf", special),
+                   ("IsNan", special), ("LogicalNot", ba)]:
+        op(cls, x=x)
+    for cls, x in [("Pow", (np.abs(fb) + 0.5, fb)), ("FloorDiv", (ia, ib)),
+                   ("FloorDiv", (ia * 1.5, fb)), ("FloorMod", (ia, ib)),
+                   ("Mod", (ia, ib)), ("Mod", (ia * 1.5, fb)),
+                   ("TruncateDiv", (ia, np.asarray([0, 0, 0, 2, 5, -2],
+                                                   i32))),
+                   ("TruncateDiv", (ia * 1.5, fb)),
+                   ("SquaredDifference", (x34, y34)),
+                   ("Maximum", (special, np.zeros(6, f32))),
+                   ("Minimum", (x234, y34[0])),
+                   ("Minimum", (special, -np.zeros(6, f32))),
+                   ("Maximum", (-np.zeros(6, f32), special)),
+                   ("Equal", (ia, -ib)),
+                   ("NotEqual", (ia, -ib)), ("Greater", (x34, y34)),
+                   ("GreaterEqual", (ia, ib)), ("Less", (x34, y34)),
+                   ("LessEqual", (ia, ib)), ("LogicalAnd", (ba, bb)),
+                   ("LogicalOr", (ba, bb))]:
+        op(cls, x=x)
+    for dt in (np.int32, np.int8, np.uint8, np.float32, bool):
+        op("Cast", dt, x=sat)
+    op("ApproximateEqual", 0.5, x=(x34, y34))
+    op("All", (0,), x=x234 > -1.0)
+    op("Any", (0, 2), True, x=x234 > 1.0)
+    op("Max", (1,), x=x234)
+    op("Max", x=special)
+    op("Prod", (0, 2), x=x234)
+    op("Sum", (-1,), True, x=x234)
+    op("ArgMax", 1, x=ties)
+    op("ArgMax", x=(x234, np.asarray(2, i32)))
+    op("BatchMatMul", True, True, x=(rs.randn(2, 4, 3).astype(f32),
+                                     rs.randn(2, 5, 4).astype(f32)))
+    op("Gather", 1, x=(x34, np.asarray([-1, 4, -5, 0, 3], i32)))
+    op("Gather", x=(ia, np.asarray([-1, 6, 2], i32)))
+    op("OneHot", 3, 2.0, -1.0, axis=0, x=np.asarray([[-1, 3], [1, 2]], i32))
+    op("TopK", 2, x=ties)
+    op("InTopK", 1, x=(ties, np.asarray([7, -1, 0], i32)))
+    op("Rank", x=x234)
+    op("Shape", x=x234)
+    op("Select", x=(x34 > 0, x34, y34))
+    op("Slice", [0, 1, 1], [2, -1, 2], x=x234)
+    op("Tile", [2, 1, 3], x=x234)
+    op("Tile", x=(x34, np.asarray([1, 2], i32)))
+    op("Pad", [[1, 0], [0, 2], [1, 1]], 0.5, x=x234)
+    op("L2Loss", x=x234)
+    op("SegmentSum", x=(x34, np.asarray([0, 0, 2], i32)))
+    op("SegmentSum", 3, x=(np.ones(4, f32), np.asarray([0, 1, 5, -1], i32)))
+    op("CrossEntropy", x=(x34, np.asarray([4, -1, 1], i32)))
+    op("ResizeBilinearOp", 13, 11, x=img)
+    op("ResizeBilinearOp", 3, 5, x=img)
+    op("ResizeBilinearOp", 13, 5, True, x=img)
+    op("ResizeBilinear", 4, 4, x=img)
+    op("BucketizedCol", [25.0, 35.0, 45.0, 55.0, 65.0],
+       x=np.asarray([18.0, 25.0, 34.9, 35.0, 45.0, 65.0, 70.0], f32))
+    op("IndicatorCol", 5, x=np.asarray([[0, 2, 2], [4, 7, -1]], i32))
+    op("DepthwiseConv2D", 2, 1, 1, 0, x=(nhwc, hwim))
+    op("DepthwiseConv2D", 1, 2, 0, 1, "NCHW",
+       x=(np.ascontiguousarray(nhwc.transpose(0, 3, 1, 2)), hwim))
+    op("Dilation2D", (1, 2, 2, 1), (1, 1, 1, 1), x=(nhwc, hwim[..., 0]))
+    op("Dilation2D", (1, 1, 2, 1), (1, 2, 1, 1), "VALID",
+       x=(nhwc, hwim[:2, :2, :, 0]))
+    case("RangeOps", lambda d: Table(o.RangeOps(2, 11, 3, device=d)(),
+                                     o.RangeOps(0.0, 1.0, 0.25, device=d)()))
+    case("hash_columns", lambda d: Table(
+        o.CategoricalColHashBucket(32, device=d)(words),
+        o.CategoricalColHashBucket(7, device=d)(t(ia, d)),
+        o.CrossCol(64, device=d)([words, t(ia[:5], d)]),
+        o.Kv2Tensor(",", ":", 6, device=d)(
+            np.asarray(["0:1.5,3:2", "", "5:-1,1:0.25"]))),
+        ["CategoricalColHashBucket", "CrossCol", "Kv2Tensor"])
+    case("CategoricalColVocaList", lambda d: Table(
+        o.CategoricalColVocaList(["a", "b", "c"], device=d)(
+            np.asarray(["a,b", "c", "zzz", "c,q,a"])),
+        o.CategoricalColVocaList(["a", "b"], ";", True, device=d)(
+            np.asarray(["zzz;a", "b"])),
+        o.CategoricalColVocaList(["a", "b"], num_oov_buckets=4, device=d)(
+            np.asarray(["zzz,a,qq", "b,yy"]))))
+    case("host_strings", lambda d: Table(
+        o.MkString("|")(t(ia.reshape(2, 3), d)),
+        o.Substr()(Table("abcdef", t(1, d), t(3, d)))),
+        ["MkString", "Substr"])
+
+    class GreaterPlus(o.Compare):
+        compare_fn = staticmethod(lambda a, b: a > b)
+
+    case("op_wrappers", lambda d: Table(
+        ((((o.TensorOp() + 2.0) * 3.0 - 1.0) / 2.0) ** 2)(t(x34, d)),
+        o.TensorOp().abs().sqrt().log().exp().sigmoid().tanh()(t(x34, d)),
+        o.ModuleToOperation(tnn.Tanh())(t(x34, d)),
+        GreaterPlus()(Table(t(x34, d), t(y34, d)))),
+        ["TensorOp", "ModuleToOperation", "Compare", "Operation"])
+
+    # ---- tf_ops: control flow, state, TensorArray, parsing
+    def control(d):
+        loop = tf.WhileLoop(lambda i, acc: i < 10,
+                            lambda i, acc: (i + 1, acc * 0.5 + i))
+        capped = tf.WhileLoop(lambda v: v.sum() < 1e9, tnn.Tanh(),
+                              max_iterations=3)
+        branch = tf.If(lambda a, b: a * b, lambda a, b: a - b)
+        x, y = t(np.arange(3, dtype=f32), d), t(np.full(3, 2.0, f32), d)
+        f_, t_, pred = tf.Switch()(Table(x, t(False, d)))
+        ident = [getattr(tf, c)()(x) for c in (
+            "Exit", "NextIteration", "NoOp", "ControlDependency")]
+        cn = tf.ControlNodes
+        sw = cn.switch(x, t(True, d))
+        return Table(*loop(Table(t(np.int32(0), d), t(np.ones(3, f32), d))),
+                     capped(x), branch(Table(t(True, d), x, y)),
+                     branch(Table(t(False, d), x, y)),
+                     tf.Merge()(Table(f_ * 2.0, t_ + 1.0, pred)),
+                     tf.Merge()(Table(x * 3, x)), tf.Enter("f")(x), *ident,
+                     tf.Assert("never")(Table(t(True, d), x)),
+                     cn.while_loop(lambda v: v.sum() < 100.0,
+                                   lambda v: v * 2.0, [x + 1], name="dbl"),
+                     cn.merge(sw[1] * 2, sw[2], sw[3]))
+
+    case("control", control, ["WhileLoop", "If", "Switch", "Merge", "Enter",
+                              "Exit", "NextIteration", "NoOp",
+                              "ControlDependency", "Assert", "ControlNodes"])
+
+    def state(d):
+        v = tf.Variable(np.zeros(3, f32), device=d)
+        first = tf.Assign(v)(Table(None, t([1.0, 2.0, 3.0], d))) * 1.0
+        tf.AssignAdd(v)(t(np.full(3, 0.5, f32), d))
+        added = v.value * 1.0
+        tf.AssignSub(v)(t(np.full(3, 2.0, f32), d))
+        return Table(first, added, v(None) * 1.0)
+
+    case("state", state, ["Variable", "Assign", "AssignAdd", "AssignSub"])
+
+    def tensor_array(d):
+        ta = tf.TensorArray(3, element_shape=(2,), device=d)
+        for i in range(3):
+            ta.write(i, t(np.full(2, i + 1.0, f32), d))
+        ta.write(t(5, d), t(np.full(2, 9.0, f32), d))
+        ta.write(t(-3, d), t(np.full(2, 7.0, f32), d))
+        lazy = tf.TensorArrayCreator(device=d)(t(4, d))
+        lazy = tf.TensorArrayScatter()(Table(lazy, t([0, 9, -1], d),
+                                             t(np.arange(6, dtype=f32)
+                                               .reshape(3, 2), d)))
+        lazy = tf.TensorArrayWrite()(Table(lazy, 1, t([5.0, 6.0], d)))
+        split = tf.TensorArraySplit()(Table(
+            tf.TensorArray(2, device=d),
+            t(np.arange(10, dtype=f32).reshape(5, 2), d), [2, 3]))
+        return Table(ta.stack(), tf.TensorArrayRead()(Table(ta, t(-1, d))),
+                     tf.TensorArrayGather()(Table(ta, t([2, -1, 3], d))),
+                     tf.TensorArrayConcat()(Table(ta)), lazy.stack(),
+                     split.stack(), tf.TensorArraySize()(Table(split)),
+                     tf.TensorArrayClose()(Table(split)))
+
+    case("tensor_array", tensor_array, [
+        "TensorArray", "TensorArrayCreator", "TensorArrayWrite",
+        "TensorArrayRead", "TensorArrayGather", "TensorArrayScatter",
+        "TensorArrayConcat", "TensorArraySize", "TensorArraySplit",
+        "TensorArrayClose"])
+
+    def parsing(d):
+        def example(feats):
+            return pw.enc_bytes(1, b"".join(
+                pw.enc_bytes(1, pw.enc_string(1, k) + pw.enc_bytes(2, fv))
+                for k, fv in feats.items()))
+
+        recs = [example({"x": pw.enc_bytes(2, pw.enc_packed_floats(
+                    1, [1.5, -2.0])), "n": pw.enc_bytes(
+                    3, pw.enc_packed_varints(1, [5, 2 ** 40]))}),
+                example({"n": pw.enc_bytes(3, pw.enc_varint(1, 7)
+                                           + pw.enc_varint(1, -3))})]
+        assert tf.parse_example_bytes(recs[0])["n"].tolist() == [5, 2 ** 40]
+        pe = tf.ParseExample(2, [np.float32, np.int64], [(2,), (2,)],
+                             device=d)
+        return pe(Table(np.asarray(recs, object), None, "x", "n",
+                        np.asarray([8.0, 9.0], f32),
+                        np.asarray([-1, -1], np.int64)))
+
+    case("parsing", parsing, ["ParseExample", "parse_example_bytes"])
+    return cases
+
+
+def _ops_tensors(out):
+    """The tensors and host values of an op's output, in order (a
+    SparseTensor gives its indices, values and dense form)."""
+    from bigdl_tpu_torch.nn.sparse import SparseTensor
+    from bigdl_tpu_torch.utils.table import Table
+
+    if isinstance(out, (Table, list, tuple)):
+        return [x for v in out for x in _ops_tensors(v)]
+    if isinstance(out, SparseTensor):
+        return [out.indices, out.values, out.to_dense()]
+    return [out]
+
+
+def _ops_apart(torch, ref, got):
+    """(exact, relative error) of a card output against the CPU's: the
+    dtype, shape, non-finite entries and signs of zeros equal, integers
+    and bools equal, floats within a share of the largest |finite ref|;
+    host values (strings) equal."""
+    if not torch.is_tensor(ref):
+        import numpy as np
+
+        return bool(np.array_equal(np.asarray(ref), np.asarray(got))), 0.0
+    got = got.cpu()
+    if got.dtype != ref.dtype or got.shape != ref.shape:
+        return False, math.inf
+    if not ref.is_floating_point():
+        return bool(torch.equal(ref, got)), 0.0
+    fin = torch.isfinite(ref)
+    same_special = (torch.equal(fin, torch.isfinite(got))
+                    and torch.equal(ref.isnan(), got.isnan())
+                    and torch.equal(ref[torch.isinf(ref)],
+                                    got[torch.isinf(ref)]))
+    zero = ref == 0
+    same_zero_sign = torch.equal(torch.signbit(ref[zero & (got == 0)]),
+                                 torch.signbit(got[zero & (got == 0)]))
+    if not fin.any():
+        return same_special and same_zero_sign, 0.0
+    err = _rel_err(torch, ref[fin], got[fin])
+    return same_special and same_zero_sign, err
+
+
+def _op_timings(torch) -> list:
+    """ms a call (CUDA events, eager) of the ops that carry arithmetic at
+    the ``OPS_TIMED`` shapes, each beside its bound: the bytes it must
+    move (inputs once, output once) over the HBM rate or its f32 FLOPs
+    over the f32 peak (TF32 off), whichever is larger."""
+    from bigdl_tpu_torch.nn import ops as o
+    from bigdl_tpu_torch.utils.table import Table
+
+    g = torch.Generator(device="cuda").manual_seed(7)
+
+    def r(*shape):
+        return torch.randn(*shape, device="cuda", generator=g)
+
+    b, m, k = OPS_TIMED["bmm"]
+    a1, a2 = r(b, m, k), r(b, k, m)
+    ih = OPS_TIMED["depthwise"]
+    xd, fd = r(*ih), r(3, 3, ih[3], 1)
+    (src, (oh, ow)) = OPS_TIMED["resize"]
+    im = torch.rand(*src, device="cuda", generator=g)
+    rows, vocab, top = OPS_TIMED["topk"]
+    logits = r(rows, vocab)
+    n, width, segs = OPS_TIMED["segment"]
+    xs = r(n, width)
+    ids = torch.sort(torch.randint(0, segs, (n,), device="cuda",
+                                   generator=g)).values
+    dil_in = r(*OPS_TIMED["dilation"])
+    dil_f = r(3, 3, OPS_TIMED["dilation"][3])
+    specs = [
+        ("BatchMatMul", o.BatchMatMul(), Table(a1, a2), 2.0 * b * m * m * k),
+        ("DepthwiseConv2D", o.DepthwiseConv2D(1, 1, 1, 1), Table(xd, fd),
+         2.0 * xd.numel() * 9),
+        ("ResizeBilinearOp", o.ResizeBilinearOp(oh, ow), im,
+         2.0 * src[0] * oh * ow * src[3] * 4),
+        ("TopK", o.TopK(top), logits, 0.0),
+        ("SegmentSum", o.SegmentSum(segs), Table(xs, ids), 1.0 * xs.numel()),
+        ("Dilation2D", o.Dilation2D((1, 1, 1, 1), (1, 1, 1, 1)),
+         Table(dil_in, dil_f), 2.0 * dil_in.numel() * 9),
+    ]
+    out = []
+    for name, m_, x, flops in specs:
+        y = m_(x)
+        ins = [t for t in (x.values() if isinstance(x, Table) else [x])]
+        outs = list(y.values()) if isinstance(y, Table) else [y]
+        nbytes = sum(t.numel() * t.element_size() for t in ins + outs)
+        bound = max(nbytes / PEAK_BYTES, flops / PEAK_FLOPS["float32"]) * 1e3
+        ms = time_ms(torch, lambda m_=m_, x=x: m_(x), warmup=3, iters=20)
+        out.append({"op": name, "shape": [list(t.shape) for t in ins],
+                    "ms": ms, "bound_ms": bound,
+                    "bound_by": "bytes" if nbytes / PEAK_BYTES
+                    >= flops / PEAK_FLOPS["float32"] else "operations",
+                    "bound_share": bound / ms})
+    return out
+
+
+def _random_op_check(torch) -> dict:
+    """RandomUniform and TruncatedNormal on the card over 2**20 draws:
+    range, truncation at +-2 sigma and moments within sampling error
+    (their values differ from the CPU's: Philox against Mersenne)."""
+    from bigdl_tpu_torch.nn import ops as o
+
+    shape = torch.tensor([1024, 1024])
+    u = o.RandomUniform(-2.0, 3.0, seed=3, device="cuda")(shape)
+    z = o.TruncatedNormal(1.0, 2.0, seed=3, device="cuda")(shape)
+    n = u.numel()
+    sd_u, sd_z = 5.0 / math.sqrt(12.0), 2.0 * 0.8796
+    res = {"uniform": [float(u.min()), float(u.max()), float(u.mean()),
+                       float(u.std())],
+           "truncated_normal": [float(z.min()), float(z.max()),
+                                float(z.mean()), float(z.std())]}
+    ok = (u.is_cuda and z.is_cuda
+          and -2.0 <= res["uniform"][0] and res["uniform"][1] <= 3.0
+          and abs(res["uniform"][2] - 0.5) < 5 * sd_u / math.sqrt(n)
+          and abs(res["uniform"][3] - sd_u) < 0.01 * sd_u
+          and -3.0 <= res["truncated_normal"][0]
+          and res["truncated_normal"][1] <= 5.0
+          and abs(res["truncated_normal"][2] - 1.0) < 5 * sd_z / math.sqrt(n)
+          and abs(res["truncated_normal"][3] - sd_z) < 0.01 * sd_z)
+    res["ok"] = bool(ok)
+    return res
+
+
+def ops_gate(torch, fa, smi) -> int:
+    """ops_gate (f32, TF32 off): every class of ``nn.ops`` and
+    ``nn.tf_ops`` (``_ops_cases``) on the card against the port on the
+    CPU: indices, masks, hash buckets, strings and the specials (NaN, inf,
+    the sign of zero) equal, floats within ``VARIANTS_RTOL`` of the
+    largest |value|; the random ops by their distributions; the card's
+    CUDA state checked once at the end (a device-side assert would
+    surface there); then the ops that carry arithmetic timed at
+    ``OPS_TIMED``. Returns the flash launches (0)."""
+    from bigdl_tpu_torch.nn import ops as tops
+    from bigdl_tpu_torch.nn import tf_ops as ttf
+
+    fa.launches = 0
+    t0 = time.monotonic()
+    results, covered, mismatch = [], set(), []
+    worst, worst_case = 0.0, None
+    for name, classes, run in _ops_cases(torch):
+        covered.update(classes)
+        ref, got = _ops_tensors(run("cpu")), _ops_tensors(run("cuda"))
+        placed = all(g.is_cuda for g in got if torch.is_tensor(g))
+        checks = [_ops_apart(torch, a, b) for a, b in zip(ref, got)]
+        exact = len(ref) == len(got) and placed and all(c[0] for c in checks)
+        err = max((c[1] for c in checks), default=0.0)
+        if not exact:
+            mismatch.append(name)
+        if err > worst:
+            worst, worst_case = err, name
+        results.append({"case": name, "tensors": len(ref), "worst": err})
+    rand = _random_op_check(torch)
+    covered |= {"RandomUniform", "TruncatedNormal"}
+    torch.cuda.synchronize()          # raises if a device-side assert fired
+    missing = sorted((_public_names(tops) | _public_names(ttf)
+                      | {"ResizeBilinear"}) - covered)
+    gate_s = time.monotonic() - t0
+    timings = _op_timings(torch)
+    torch.cuda.synchronize()
+    emit({"phase": "ops_gate", "nvidia_smi": smi, "dtype": "float32",
+          "allow_tf32": {"matmul": torch.backends.cuda.matmul.allow_tf32,
+                         "cudnn": torch.backends.cudnn.allow_tf32},
+          "cases": len(results), "classes": len(covered),
+          "missing_classes": missing, "rtol": VARIANTS_RTOL,
+          "worst": worst, "worst_case": worst_case, "mismatch": mismatch,
+          "random": rand, "gate_seconds": gate_s,
+          "seconds": time.monotonic() - t0, "timed": timings,
+          "results": results, "flash_launches": fa.launches})
+    assert not missing, missing
+    assert not mismatch, mismatch
+    assert worst <= VARIANTS_RTOL, (worst_case, worst)
+    assert rand["ok"], rand
+    assert fa.launches == 0, fa.launches
+    return fa.launches
+
+
+def _loop_run(torch, dev, h0):
+    """``CONTROL_FLOW``'s loop on ``dev``: a ``WhileLoop`` whose body runs
+    the Graph and writes each state into a ``TensorArray``; (the loop
+    module, the stacked states)."""
+    from bigdl_tpu_torch import nn as tnn
+    from bigdl_tpu_torch.utils.random import RandomGenerator
+    from bigdl_tpu_torch.utils.table import Table
+
+    cfg = CONTROL_FLOW
+    n, width = cfg["iterations"], cfg["width"]
+    inp = tnn.Input()
+    graph = tnn.Graph(inp, tnn.Tanh().inputs(tnn.Linear(
+        width, width, rng=RandomGenerator(19), device=dev).inputs(inp)))
+    ta = tnn.TensorArray(n, element_shape=(cfg["batch"], width), device=dev)
+
+    def body(i, h):
+        h = graph(h)
+        ta.write(i, h)
+        return i + 1, h
+
+    loop = tnn.WhileLoop(lambda i, h: i < n, body)
+    with torch.no_grad():
+        loop(Table(torch.tensor(0, device=dev), h0.to(dev)))
+    return loop, ta.stack()
+
+
+def control_flow(torch, fa, smi) -> int:
+    """control_flow (f32, TF32 off): ``CONTROL_FLOW``'s ``WhileLoop`` on the
+    card against the CPU (the stacked states within ``VARIANTS_RTOL`` of
+    the largest |value|), its host syncs (the module's count and CUDA's
+    sync debug mode) and ms an iteration; ``If`` on a device predicate
+    (one sync), ``Switch`` / ``Merge`` (no sync); ``Assign`` into a
+    ``Variable`` that a ``torch.optim.SGD`` built before it then updates
+    from the assigned value. Returns the flash launches (0)."""
+    from bigdl_tpu_torch import nn as tnn
+    from bigdl_tpu_torch.utils.table import Table
+
+    fa.launches = 0
+    cfg = CONTROL_FLOW
+    t0 = time.monotonic()
+    h0 = torch.randn(cfg["batch"], cfg["width"],
+                     generator=torch.Generator().manual_seed(23))
+    _loop_run(torch, "cuda", h0)                       # warm-up
+    torch.cuda.synchronize()
+    t = time.monotonic()
+    loop, card = _loop_run(torch, "cuda", h0)
+    torch.cuda.synchronize()
+    loop_s = time.monotonic() - t
+    measured = _host_syncs(torch, lambda: _loop_run(torch, "cuda", h0))
+    _, cpu = _loop_run(torch, "cpu", h0)
+    err = _rel_err(torch, cpu, card)
+    n = cfg["iterations"]
+
+    x = torch.arange(4.0, device="cuda")
+    branch = tnn.If(lambda a: a * 2.0, lambda a: a - 1.0)
+    taken = [branch(Table(torch.tensor(p, device="cuda"), x)).tolist()
+             for p in (True, False)]
+    sw, mg = tnn.tf_ops.Switch(), tnn.tf_ops.Merge()
+    pred = torch.tensor(False, device="cuda")
+
+    def switch_merge():
+        f, t_, p = sw(Table(x, pred))
+        return mg(Table(f * 2.0, t_ + 1.0, p))
+
+    merge_syncs = _host_syncs(torch, switch_merge)
+    merged = switch_merge().tolist()
+
+    v = tnn.Variable(torch.zeros(512), device="cuda")
+    p = v.value
+    sgd = torch.optim.SGD(v.parameters(), lr=0.25)
+    target = torch.linspace(-1.0, 1.0, 512, device="cuda")
+    tnn.Assign(v)(target)
+    (v(None) ** 2).sum().backward()
+    sgd.step()
+    assign_err = float((v.value.detach() - 0.5 * target).abs().max())
+    emit({"phase": "control_flow", "nvidia_smi": smi, "config": cfg,
+          "dtype": "float32", "loop_seconds": loop_s,
+          "ms_per_iteration": 1e3 * loop_s / n,
+          "host_syncs_counted": loop.host_syncs,
+          "host_syncs_measured": measured, "iterations": loop.iterations,
+          "stack_rel_err": err, "rtol": VARIANTS_RTOL,
+          "if_branches": taken, "if_host_syncs": branch.host_syncs,
+          "switch_merge": merged, "switch_merge_host_syncs": merge_syncs,
+          "assign_same_parameter": v.value is p,
+          "assign_then_sgd_max_err": assign_err,
+          "seconds": time.monotonic() - t0, "flash_launches": fa.launches})
+    assert loop.iterations == n and loop.host_syncs == n + 1
+    assert measured >= n + 1, measured
+    assert err <= VARIANTS_RTOL, err
+    assert taken == [[0.0, 2.0, 4.0, 6.0], [-1.0, 0.0, 1.0, 2.0]], taken
+    assert branch.host_syncs == 2
+    assert merged == [0.0, 2.0, 4.0, 6.0] and merge_syncs == 0, merge_syncs
+    assert v.value is p and assign_err == 0.0, assign_err
+    assert fa.launches == 0, fa.launches
+    return fa.launches
+
+
+def _example_records(wide, deep):
+    """Each row as a serialized tf.Example: a float feature "wide" and an
+    int64 feature "deep", written with the port's protowire."""
+    from bigdl_tpu_torch.utils import protowire as pw
+
+    def entry(name, feat):
+        return pw.enc_bytes(1, pw.enc_string(1, name) + pw.enc_bytes(2, feat))
+
+    return [pw.enc_bytes(1, entry("wide", pw.enc_bytes(
+        2, pw.enc_packed_floats(1, w))) + entry("deep", pw.enc_bytes(
+            3, pw.enc_packed_varints(1, d)))) for w, d in zip(wide, deep)]
+
+
+def widedeep_train(torch, fa, smi) -> int:
+    """widedeep_train: the wide-and-deep main at its defaults on the card
+    (held-out accuracy above the majority baseline + ``WIDEDEEP_MARGIN``);
+    the same initial weights through the same loop on the card and the
+    CPU for ``WIDEDEEP_PARITY_STEPS`` steps (losses within
+    ``VARIANTS_RTOL``); a profiler window over one train step started on
+    this thread; then the held-out rows serialized as tf.Example records,
+    parsed by ``ParseExample`` onto the card and fed to the trained model:
+    the predictions equal those from the directly preprocessed features;
+    the parse rate. Returns the flash launches (0)."""
+    import copy
+
+    import numpy as np
+
+    from bigdl_tpu_torch import nn as tnn
+    from bigdl_tpu_torch.dataset.dataset import LocalDataSet
+    from bigdl_tpu_torch.dataset.sample import Sample
+    from bigdl_tpu_torch.example.widedeep import train as wd
+    from bigdl_tpu_torch.optim import Adam, Optimizer, Trigger
+    from bigdl_tpu_torch.optim import make_train_step
+    from bigdl_tpu_torch.utils.profiling import device_profile
+    from bigdl_tpu_torch.utils.table import Table
+
+    fa.launches = 0
+    t0 = time.monotonic()
+    (model, acc, base), summary, rows, main_s = _main_summary(
+        torch, wd.main, ["--device", "cuda"])
+
+    samples_n = wd.parser().parse_args([]).samples
+    census, labels = wd.synthetic_census(samples_n)
+    wide, deep = wd.preprocess(census)
+    split = int(0.9 * len(census))
+    samples = [Sample([wide[i], deep[i]], labels[i:i + 1])
+               for i in range(split)]
+    init = wd.build_wide_deep(wide.shape[1], device="cpu")
+
+    def run(m):
+        opt = Optimizer(model=m, dataset=LocalDataSet(samples),
+                        criterion=tnn.BCECriterion(), batch_size=64,
+                        end_when=Trigger.max_iteration(WIDEDEEP_PARITY_STEPS))
+        opt.set_optim_method(Adam(learning_rate=0.01))
+        return [float(r[0]) for r in logged("bigdl_tpu_torch.optim",
+                                            opt.optimize)]
+
+    card_losses = run(copy.deepcopy(init).cuda())
+    cpu_losses = run(copy.deepcopy(init))
+    parity = max(abs(a - b) / abs(b) for a, b in zip(card_losses,
+                                                     cpu_losses))
+
+    step = make_train_step(model, tnn.BCECriterion(), Adam(learning_rate=0.01))
+    params, buffers = model.params_dict(), model.buffers_dict()
+    slots = step.init_slots(params)
+    lrs = step.current_lrs()
+    x = Table(torch.from_numpy(wide[:64]).cuda(),
+              torch.from_numpy(deep[:64]).cuda())
+    y = torch.from_numpy(labels[:64, None]).cuda()
+    model.training_mode()
+    step.step(params, buffers, slots, x, y, lrs, None)        # warm-up
+    prof = device_profile(lambda: step.step(params, buffers, slots, x, y,
+                                            lrs, None), top=6)
+    model.evaluate()
+
+    held_w, held_d = wide[split:], deep[split:]
+    recs = _example_records(wide, deep)
+    pe = tnn.ParseExample(2, [np.float32, np.int64],
+                          [(wide.shape[1],), (3,)], device="cuda")
+    keys = (None, "wide", "deep", np.zeros(wide.shape[1], np.float32),
+            np.zeros(3, np.int64))
+    torch.cuda.synchronize()
+    t = time.monotonic()
+    all_w, all_d = pe(Table(np.asarray(recs, object), *keys))
+    torch.cuda.synchronize()
+    parse_s = time.monotonic() - t
+    with torch.no_grad():
+        direct = model(Table(torch.from_numpy(held_w).cuda(),
+                             torch.from_numpy(held_d).cuda()))
+        parsed = model(Table(all_w[split:], all_d[split:]))
+    features_equal = bool(
+        torch.equal(all_w.cpu(), torch.from_numpy(wide))
+        and torch.equal(all_d.cpu(), torch.from_numpy(deep).long()))
+    preds_equal = bool(torch.equal(direct, parsed))
+    emit({"phase": "widedeep_train", "nvidia_smi": smi, "dtype": "float32",
+          "main": summary, "main_seconds": main_s,
+          "held_out_accuracy": acc, "majority_baseline": base,
+          "margin": WIDEDEEP_MARGIN, "loop": _rows_block(rows),
+          "card_losses": card_losses, "cpu_losses": cpu_losses,
+          "loss_parity": parity, "rtol": VARIANTS_RTOL,
+          "profile": {"launches_per_step": prof["kernel_launches"],
+                      "ms_per_step": prof["wall_ms"],
+                      "device_busy_ms": prof["device_busy_ms"],
+                      "device_busy_share": 1.0 - prof["device_idle_share"],
+                      "top_kernels_ms": prof["top_kernels_ms"],
+                      "top_ops_ms": prof["top_ops_ms"][:6]},
+          "parse_records": len(recs), "parse_seconds": parse_s,
+          "parse_records_per_s": len(recs) / parse_s,
+          "parsed_features_equal": features_equal,
+          "parsed_predictions_equal": preds_equal,
+          "seconds": time.monotonic() - t0, "flash_launches": fa.launches})
+    assert acc > base + WIDEDEEP_MARGIN, (acc, base)
+    assert len(card_losses) == len(cpu_losses) == WIDEDEEP_PARITY_STEPS
+    assert parity <= VARIANTS_RTOL, (card_losses, cpu_losses)
+    assert prof["kernel_launches"] > 0, prof
+    assert features_equal and preds_equal
+    assert fa.launches == 0, fa.launches
+    return fa.launches
+
+
 def main() -> int:
     import torch
 
@@ -7469,6 +8146,15 @@ def main() -> int:
           "seconds": time.monotonic() - t_sd,
           "flash_launches": sparse_detection_launches})
 
+    # ---- the TF op set, its control flow and wide-and-deep (slice 19)
+    t_ow = time.monotonic()
+    ops_widedeep_launches = (ops_gate(torch, fa, smi)
+                             + control_flow(torch, fa, smi)
+                             + widedeep_train(torch, fa, smi))
+    emit({"phase": "slice19_phases", "nvidia_smi": smi,
+          "seconds": time.monotonic() - t_ow,
+          "flash_launches": ops_widedeep_launches})
+
     # ----------------------------------------------------- 9. kernels line
     print(nvidia_smi(), flush=True)
     emit({"kernels": [{
@@ -7483,7 +8169,8 @@ def main() -> int:
                      + variants_launches + table_launches
                      + text_launches + distri_launches + ring_launches
                      + longcontext_launches + tp_launches + obs_launches
-                     + sequence_launches + sparse_detection_launches),
+                     + sequence_launches + sparse_detection_launches
+                     + ops_widedeep_launches),
         "launches_serving": serving_launches,
         "launches_train": train_launches,
         "launches_engine": engine_launches,
@@ -7505,6 +8192,7 @@ def main() -> int:
         "launches_fleet": fleet_launches,
         "launches_sequence": sequence_launches,
         "launches_sparse_detection": sparse_detection_launches,
+        "launches_ops_widedeep": ops_widedeep_launches,
         "tp_local_heads": {k: tp_local[k] for k in (
             "shape", "max_abs_err", "kernel_ms", "device_ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms", "library_device_ms")},

@@ -237,17 +237,13 @@ ELSEWHERE = {
     "RoiPooling": "detection head, tests/test_torch_detection.py",
     "DetectionOutputSSD": "detection head, tests/test_torch_detection.py",
     "DetectionOutputFrcnn": "detection head, tests/test_torch_detection.py",
+    **dict.fromkeys(["If", "WhileLoop", "Variable", "Assign", "ParseExample"],
+                    "TF infra op, tests/test_torch_tf_ops.py"),
 }
-
-_ITEM12 = "ROADMAP.md Queue 1 item 12: the long tail"
 
 # every JAX nn Module class the port does not export yet, by the item
-# that ports it
-WAITING = {
-    **dict.fromkeys([
-        # nn/tf_ops
-        "If", "WhileLoop", "Variable", "Assign", "ParseExample"], _ITEM12),
-}
+# that ports it (none since the TF infra ops)
+WAITING = {}
 
 
 def _jax_exports():

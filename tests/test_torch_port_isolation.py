@@ -168,6 +168,13 @@ assert isinstance(dopt, DistriOptimizer)
 dopt.set_optim_method(SGD(learning_rate=0.1)).optimize()
 q = torch.randn(1, 2, 8, 4)
 assert ring_attention(q, q, q, causal=True, use_flash=True).shape == q.shape
+from bigdl_tpu_torch.example.widedeep import train as wd_train
+from bigdl_tpu_torch.utils.table import Table
+_, wd_acc, _ = wd_train.main(["--samples", "128", "--max-epoch", "1",
+                              "--device", "cpu"])
+assert 0.0 <= wd_acc <= 1.0
+loop = nn.WhileLoop(lambda i, t: i < 3, lambda i, t: (i + 1, t * 2))
+assert int(loop(Table(torch.tensor(0), torch.ones(2)))[2][0]) == 8
 bad = sorted(n for n in sys.modules
              if n.split(".")[0] in ("jax", "jaxlib", "bigdl_tpu"))
 assert not bad, bad
@@ -206,13 +213,13 @@ def test_no_jax_or_jax_package_import_in_the_port():
             "timeseries", "tracing", "watchdog"} <= {
         f.stem for f in files if f.parent.name == "observability"}
     assert {"attention", "criterion", "detection", "linear", "module",
-            "quantized", "sparse"} <= {
+            "ops", "quantized", "sparse", "tf_ops"} <= {
         f.stem for f in files if f.parent.name == "nn"}
     assert {"__init__", "proto", "tensorboard"} <= {
         f.stem for f in files if f.parent.name == "visualization"}
     assert {"optimizer", "predictor", "prediction_service"} <= {
         f.stem for f in files if f.parent.name == "optim"}
-    assert {"file", "tfrecord", "config"} <= {
+    assert {"file", "tfrecord", "config", "protowire"} <= {
         f.stem for f in files if f.parent.name == "utils"}
     assert {"__init__", "engine", "all_reduce", "collectives",
             "distri_optimizer", "ring_attention", "moe", "pipeline"} <= {
@@ -220,6 +227,8 @@ def test_no_jax_or_jax_package_import_in_the_port():
     assert {"launch"} <= {f.stem for f in files if f.parent.name == "tools"}
     assert {"train"} <= {f.stem for f in files
                          if f.parent.name == "longcontext"}
+    assert {"train"} <= {f.stem for f in files
+                         if f.parent.name == "widedeep"}
     found = [(str(f.relative_to(REPO)), name) for f in files
              for name in _imports(f)
              if name.split(".")[0] in ("jax", "jaxlib", "bigdl_tpu")]
@@ -238,6 +247,8 @@ def test_entry_points_default_to_the_card_and_never_fall_back():
                                     SparseLinear, SpatialConvolution)
     from bigdl_tpu_torch.nn.module import Module
     from bigdl_tpu_torch.example.longcontext import train as lc_train
+    from bigdl_tpu_torch.example.widedeep import train as wd_train
+    from bigdl_tpu_torch.nn import ParseExample, TensorArray, Variable, ops
     from bigdl_tpu_torch.optim import load_latest_checkpoint
     from bigdl_tpu_torch.parallel import Engine, MoEMLP
     from bigdl_tpu_torch.serving import ContinuousBatchingEngine
@@ -260,6 +271,14 @@ def test_entry_points_default_to_the_card_and_never_fall_back():
                  lambda: run_perf("lenet5", 2, 1, 1),
                  lambda: Engine.init(), lambda: MoEMLP(8, 16, 2),
                  lambda: lc_train.main(["--steps", "1"]),
+                 lambda: wd_train.main(["--samples", "64"]),
+                 lambda: ops.RangeOps(0, 3), lambda: ops.CrossCol(4),
+                 lambda: ops.RandomUniform(), lambda: ops.TruncatedNormal(),
+                 lambda: ops.CategoricalColHashBucket(4),
+                 lambda: ops.Kv2Tensor(feat_len=2),
+                 lambda: ops.CategoricalColVocaList(["a"]),
+                 lambda: Variable(0.0), lambda: TensorArray(2),
+                 lambda: ParseExample(1, ["float32"], [()]),
                  lambda: ContinuousBatchingEngine(
                      TransformerLM(64, 32, 4, 2, 64, device="cpu"),
                      device="cuda"),
