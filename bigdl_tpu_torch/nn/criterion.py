@@ -29,6 +29,7 @@ import torch
 import torch.nn.functional as F
 
 from bigdl_tpu_torch.nn.module import activity_tensors, with_tensors
+from bigdl_tpu_torch.utils.config_capture import ConfigCaptured
 from bigdl_tpu_torch.utils.table import Table
 
 __all__ = ["AbsCriterion", "ActivityRegularization", "BCECriterion",
@@ -50,7 +51,7 @@ __all__ = ["AbsCriterion", "ActivityRegularization", "BCECriterion",
            "TimeDistributedMaskCriterion", "TransformerCriterion"]
 
 
-class Criterion:
+class Criterion(ConfigCaptured):
     """Base: ``forward(input, target) -> scalar``."""
 
     def __init__(self):

@@ -14,8 +14,9 @@ has the JAX tree's keys and ``load_jax_params`` carries the weights
 across; a module wired into several nodes appears once in
 ``params_dict()`` and ``parameters()``, and its gradients add up.
 ``stop_gradient(names)`` detaches the named nodes' outputs.
-The serializer hooks of the JAX graph wait for ROADMAP.md Queue 1 item
-12.6 (``Module.save_module`` raises naming it).
+``__serialize_spec__`` / ``__deserialize_spec__`` give the structured
+serializer (``utils/serializer``) the topology as the JAX graph does:
+the nodes in that order with their predecessors' indices.
 """
 
 from __future__ import annotations
@@ -90,6 +91,36 @@ class Graph(Module):
                 seen.add(id(node.module))
                 setattr(self, f"n{i}_{type(node.module).__name__}",
                         node.module)
+
+    # --------------------------------------------------------- serialization
+    def __serialize_spec__(self, ser_module, ser_tensor):
+        """Topology for the structured serializer: nodes in topo order with
+        module record ids + predecessor indices (≙ bigdl.proto's subModules
+        + node edges)."""
+        idx = {n._uid: i for i, n in enumerate(self._topo)}
+        return {
+            "nodes": [{"module": ser_module(n.module),
+                       "prev": [idx[p._uid] for p in n.prev]}
+                      for n in self._topo],
+            "inputs": [idx[n._uid] for n in self.input_nodes],
+            "outputs": [idx[n._uid] for n in self.output_nodes],
+            "stop_gradient": sorted(self._stop_gradient_names),
+            "allow_unused_inputs": self._allow_unused_inputs,
+        }
+
+    @classmethod
+    def __deserialize_spec__(cls, spec, get_module, get_tensor):
+        nodes: List[Node] = []
+        for nrec in spec["nodes"]:
+            node = Node(get_module(nrec["module"]))
+            node.prev = [nodes[i] for i in nrec["prev"]]
+            nodes.append(node)
+        g = cls([nodes[i] for i in spec["inputs"]],
+                [nodes[i] for i in spec["outputs"]],
+                allow_unused_inputs=spec.get("allow_unused_inputs", False))
+        if spec.get("stop_gradient"):
+            g.stop_gradient(spec["stop_gradient"])
+        return g
 
     # ------------------------------------------------------------ structure
     def _topo_sort(self) -> List[Node]:

@@ -12,10 +12,11 @@ import math
 
 import torch
 
+from bigdl_tpu_torch.utils.config_capture import ConfigCaptured
 from bigdl_tpu_torch.utils.random import RandomGenerator
 
 
-class InitializationMethod:
+class InitializationMethod(ConfigCaptured):
     def __call__(self, shape, rng: RandomGenerator, fan_in=None,
                  fan_out=None):
         raise NotImplementedError

@@ -28,6 +28,7 @@ from typing import Dict, Iterator, List, Optional, Tuple
 
 import torch
 
+from bigdl_tpu_torch.utils.config_capture import capture_init
 from bigdl_tpu_torch.utils.table import Table
 
 PARAMS_KEY = "~params"
@@ -210,6 +211,12 @@ class Module(torch.nn.Module):
 
     _instance_counters: Dict[str, int] = {}
     draws_random = False
+
+    def __init_subclass__(cls, **kw):
+        # record constructor args for the structured serializer
+        # (utils/serializer), before torch.nn.Module.__init__ runs
+        super().__init_subclass__(**kw)
+        capture_init(cls)
 
     def __init__(self):
         super().__init__()
@@ -529,16 +536,21 @@ class Module(torch.nn.Module):
 
         return bt_file.load_module(path, device=device)
 
-    def save_module(self, path: str, overwrite: bool = False):
-        raise NotImplementedError(
-            "the structured serializer (saveModule) is not ported yet: "
-            "see ROADMAP.md, Queue 1 item 12; Module.save pickles")
+    def save_module(self, path: str, overwrite: bool = False) -> "Module":
+        """Structured save: the constructor configs and the tensors in
+        the JAX package's archive format (``utils/serializer``)."""
+        from bigdl_tpu_torch.utils import serializer
+
+        serializer.save_module(self, path, overwrite=overwrite)
+        return self
 
     @staticmethod
-    def load_module(path: str):
-        raise NotImplementedError(
-            "the structured serializer (loadModule) is not ported yet: "
-            "see ROADMAP.md, Queue 1 item 12; Module.load reads pickles")
+    def load_module(path: str, device="cuda") -> "Module":
+        """A module saved by :meth:`save_module`, or by the JAX package's
+        ``save_module``, built on ``device``."""
+        from bigdl_tpu_torch.utils import serializer
+
+        return serializer.load_module(path, device=device)
 
     # ------------------------------------------------------ inference
     def predict(self, dataset, batch_size: int = 32):

@@ -31,6 +31,8 @@ from typing import Any, Dict, Optional
 
 import torch
 
+from bigdl_tpu_torch.utils.config_capture import ConfigCaptured
+
 
 def _map(f, *trees):
     """``f`` over matching leaves of tensors or lists/tuples of tensors."""
@@ -42,7 +44,7 @@ def _map(f, *trees):
 # ---------------------------------------------------------------------------
 # Learning-rate schedules
 # ---------------------------------------------------------------------------
-class LearningRateSchedule:
+class LearningRateSchedule(ConfigCaptured):
     def rate(self, method: "OptimMethod", state: Dict[str, Any]) -> float:
         raise NotImplementedError
 
@@ -274,7 +276,7 @@ class NaturalExp(LearningRateSchedule):
 # ---------------------------------------------------------------------------
 # Methods
 # ---------------------------------------------------------------------------
-class OptimMethod:
+class OptimMethod(ConfigCaptured):
     """Base: a functional ``step`` and a host-side state table (keys
     ``epoch``, ``neval``, ``score``, ... as in BigDL)."""
 

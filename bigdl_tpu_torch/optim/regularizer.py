@@ -7,8 +7,10 @@ give it to a layer as ``Linear(..., w_regularizer=L2Regularizer(1e-4))``.
 
 from __future__ import annotations
 
+from bigdl_tpu_torch.utils.config_capture import ConfigCaptured
 
-class Regularizer:
+
+class Regularizer(ConfigCaptured):
     def __call__(self, w):
         raise NotImplementedError
 

@@ -413,6 +413,27 @@ launches from 0 and asserts 0, their sum is the kernels line's
   ``ParseExample`` into the model on the card (the same predictions as
   the direct features; records/s of the parse).
 
+Then the structured serializer and model interop (slice 20; the flagship
+scores through the flash kernel after its round trip, the other phases
+count 0; their sum is the kernels line's ``launches_serialize``):
+
+- serialize_gate: the serving flagship (bf16, full width) through
+  ``save_module`` from the card and ``load_module(device="cuda")``:
+  logits over 4 x 2048 tokens equal to the original's, 8 flash launches
+  a forward; ResNet-50 as ``bench.py`` builds it (NHWC, random BN state)
+  through the same round trip, its eval forward at batch 32 equal;
+  archive bytes, save and load seconds;
+- interop_gate (f32, TF32 off): VGG-16's body at ImageNet widths through
+  ``save_caffe`` from the card and ``load_caffe`` onto it (forward within
+  ``INTEROP_RTOL``, the caffemodel the bytes of a CPU copy's export),
+  the same body as a Lua Torch tree through the .t7 writer and
+  ``load_torch``, an NHWC convolutional net's GraphDef equal to its CPU
+  copy's;
+- imageclass_predict: ``VggForCifar10``'s body exported to Caffe and the
+  image-classification main over 64 seeded 32 x 32 images with
+  ``--model-type caffe`` on the card: classes equal to the original
+  body's ``predict_class`` but at near ties, which are printed.
+
 Earlier lines are one JSON object each; the last line is
 ``{"ok": true, "device": {...}}``. Exits non-zero without that line when
 CUDA is not available or the port cannot be imported.
@@ -7859,6 +7880,380 @@ def widedeep_train(torch, fa, smi) -> int:
     return fa.launches
 
 
+# -------------------------- the serializer and model interop (slice 20)
+# the image main's images: 64 seeded 32 x 32 HWC arrays in [0, 1), 8 a batch
+IMAGECLASS = dict(images=64, batch=8, seed=7)
+# ResNet-50 as bench.py builds it, at the batch of its eval check
+SERIALIZE_RESNET_BATCH = 32
+# caffe-loaded VGG-16 against the original: the same cuDNN convolutions
+# on the same weights; only the flatten/InnerProduct wiring differs
+INTEROP_RTOL = 1e-6
+
+
+def _files_equal(a: str, b: str) -> bool:
+    """Whether the files ``a`` and ``b`` hold the same bytes."""
+    if os.path.getsize(a) != os.path.getsize(b):
+        return False
+    with open(a, "rb") as fa_, open(b, "rb") as fb_:
+        while True:
+            x, y = fa_.read(1 << 24), fb_.read(1 << 24)
+            if x != y:
+                return False
+            if not x:
+                return True
+
+
+def _timed(torch, fn):
+    """(result, seconds) of ``fn()`` with the card synced on both sides."""
+    torch.cuda.synchronize()
+    t = time.monotonic()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.monotonic() - t
+
+
+def _body(torch, model):
+    """The zoo model's layers without its last ``LogSoftMax``, as one
+    Sequential sharing them (the exporters' linear pipeline)."""
+    from bigdl_tpu_torch import nn as tnn
+    from bigdl_tpu_torch.nn.container import flatten_sequential
+
+    layers = flatten_sequential(model)
+    assert isinstance(layers[-1], tnn.LogSoftMax), layers[-1]
+    return tnn.Sequential(*layers[:-1])
+
+
+def _t7_tree(torch, body):
+    """``body``'s layers as a Lua Torch ``nn.Sequential`` TorchObject
+    tree, its tensors still on the card (the .t7 writer copies them)."""
+    import numpy as np
+
+    from bigdl_tpu_torch import nn as tnn
+    from bigdl_tpu_torch.utils.torchfile import TorchObject
+
+    mods = {}
+    for i, m in enumerate(body.children(), 1):
+        if isinstance(m, tnn.SpatialConvolution):
+            cls, f = "nn.SpatialConvolution", {
+                "weight": m.weight, "bias": m.bias,
+                "nInputPlane": m.n_input_plane,
+                "nOutputPlane": m.n_output_plane, "kW": m.kernel_w,
+                "kH": m.kernel_h, "dW": m.stride_w, "dH": m.stride_h,
+                "padW": m.pad_w, "padH": m.pad_h}
+        elif isinstance(m, tnn.SpatialMaxPooling):
+            cls, f = "nn.SpatialMaxPooling", {
+                "kW": m.kw, "kH": m.kh, "dW": m.dw, "dH": m.dh,
+                "padW": m.pad_w, "padH": m.pad_h, "ceil_mode": m.ceil_mode}
+        elif isinstance(m, tnn.Linear):
+            cls, f = "nn.Linear", {"weight": m.weight, "bias": m.bias}
+        elif isinstance(m, tnn.View):
+            cls, f = "nn.View", {"size": np.asarray(m.sizes, np.float64)}
+        elif isinstance(m, tnn.Dropout):
+            cls, f = "nn.Dropout", {"p": m.p}
+        elif isinstance(m, tnn.ReLU):
+            cls, f = "nn.ReLU", {}
+        else:
+            raise TypeError(f"no .t7 form for {type(m).__name__}")
+        mods[i] = TorchObject(cls, f)
+    return TorchObject("nn.Sequential", {"modules": mods})
+
+
+def serialize_gate(torch, fa, smi) -> int:
+    """serialize_gate: the serving flagship (bf16, full width) saved from
+    the card with ``save_module`` and loaded with ``load_module(device=
+    "cuda")``: scoring logits over 4 x 2048 tokens equal to the
+    original's (``torch.equal``), every weight bf16 on the card, 8 flash
+    launches a forward; then ResNet-50 as ``bench.py`` builds it (NHWC,
+    random BN state) through the same round trip, its eval forward at
+    batch ``SERIALIZE_RESNET_BATCH`` equal to the original's (f32,
+    deterministic cuDNN). Archive bytes, save and load seconds. Returns
+    the flash launches."""
+    import tempfile
+
+    from bigdl_tpu_torch.models import ResNet, TransformerLM
+    from bigdl_tpu_torch.nn.module import Module
+
+    fa.launches = 0
+    t0 = time.monotonic()
+    rows = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        lm = TransformerLM(**FLAGSHIP, seed=0, device="cuda",
+                           dtype=torch.bfloat16)
+        lm.evaluate()
+        g = torch.Generator(device="cuda").manual_seed(20)
+        ids = torch.randint(0, FLAGSHIP["vocab_size"], (4, 2048),
+                            device="cuda", generator=g)
+        path = os.path.join(tmp, "flagship.bigdl")
+        with torch.inference_mode():
+            before = fa.launches
+            want = lm(ids)
+            torch.cuda.synchronize()
+            per_fwd = fa.launches - before
+        _, save_s = _timed(torch, lambda: lm.save_module(path))
+        back, load_s = _timed(torch, lambda: Module.load_module(
+            path, device="cuda"))
+        back.evaluate()
+        with torch.inference_mode():
+            before = fa.launches
+            got = back(ids)
+            torch.cuda.synchronize()
+            loaded_per_fwd = fa.launches - before
+        params = list(back.parameters())
+        lm_ok = {
+            "logits_equal": bool(torch.equal(got, want)),
+            "params": sum(p.numel() for p in params),
+            "all_bf16_on_card": all(p.dtype == torch.bfloat16 and p.is_cuda
+                                    for p in params),
+            "weights_equal": all(torch.equal(a, b) for a, b in zip(
+                params, lm.parameters(), strict=True))}
+        rows["flagship"] = {"bytes": os.path.getsize(path),
+                            "save_s": save_s, "load_s": load_s,
+                            "launches_per_forward": per_fwd,
+                            "loaded_launches_per_forward": loaded_per_fwd,
+                            **lm_ok}
+        del lm, back, want, got
+
+        cudnn_det = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+        try:
+            net = ResNet(1000, {"depth": 50, "dataSet": "ImageNet",
+                                "format": "NHWC"}, seed=0, device="cuda")
+            randomize_bn(torch, net, seed=21)
+            net.evaluate()
+            gx = torch.Generator().manual_seed(22)
+            x = torch.randn((SERIALIZE_RESNET_BATCH, 224, 224, 3),
+                            generator=gx).cuda()
+            path = os.path.join(tmp, "resnet50.bigdl")
+            with torch.inference_mode():
+                want = net(x)
+            _, save_s = _timed(torch, lambda: net.save_module(path))
+            back, load_s = _timed(torch, lambda: Module.load_module(
+                path, device="cuda"))
+            back.evaluate()
+            with torch.inference_mode():
+                got = back(x)
+            buffers = list(back.named_buffers())
+            rows["resnet50_nhwc"] = {
+                "bytes": os.path.getsize(path), "save_s": save_s,
+                "load_s": load_s, "batch": SERIALIZE_RESNET_BATCH,
+                "forward_equal": bool(torch.equal(got, want)),
+                "buffers": len(buffers),
+                "buffers_equal": all(torch.equal(a, b) for (_, a), (_, b)
+                                     in zip(buffers, net.named_buffers(),
+                                            strict=True))}
+        finally:
+            torch.backends.cudnn.deterministic = cudnn_det
+    emit({"phase": "serialize_gate", "nvidia_smi": smi, "format":
+          "module.json + tensors.npz (the JAX package's archive)",
+          "rows": rows, "seconds": time.monotonic() - t0,
+          "flash_launches": fa.launches})
+    lm_row, rn = rows["flagship"], rows["resnet50_nhwc"]
+    assert lm_row["logits_equal"] and lm_row["weights_equal"], lm_row
+    assert lm_row["all_bf16_on_card"], lm_row
+    assert per_fwd == loaded_per_fwd == FLAGSHIP["num_layers"], lm_row
+    assert rn["forward_equal"] and rn["buffers_equal"], rn
+    assert fa.launches == 2 * FLAGSHIP["num_layers"], fa.launches
+    return fa.launches
+
+
+def interop_gate(torch, fa, smi) -> int:
+    """interop_gate (f32, TF32 off): VGG-16's body at ImageNet widths
+    (the zoo's ``Vgg16`` without its ``LogSoftMax``) through
+    ``save_caffe`` from the card and ``load_caffe`` onto it, its forward
+    on 8 x 3 x 224 x 224 within ``INTEROP_RTOL`` of the original's and
+    the caffemodel the bytes of a CPU copy's export; the same body as a
+    Lua Torch ``nn.Sequential`` through the port's .t7 writer and
+    ``load_torch`` (an equal forward); a GraphDef of an NHWC convolutional
+    net at the JAX sweep's widths, from the card, the bytes of its CPU
+    copy's. Seconds and bytes by format. Returns the flash launches (0)."""
+    import copy
+    import tempfile
+
+    from bigdl_tpu_torch import nn as tnn
+    from bigdl_tpu_torch.models import Vgg16
+    from bigdl_tpu_torch.utils import torchfile
+    from bigdl_tpu_torch.utils.caffe import load_caffe
+    from bigdl_tpu_torch.utils.caffe_export import save_caffe
+    from bigdl_tpu_torch.utils.tf_export import save_tf
+
+    assert not torch.backends.cudnn.allow_tf32
+    assert not torch.backends.cuda.matmul.allow_tf32
+    fa.launches = 0
+    t0 = time.monotonic()
+    rows = {}
+    body = _body(torch, Vgg16(1000, seed=0, device="cuda"))
+    body.evaluate()
+    n_params = sum(p.numel() for p in body.parameters())
+    gx = torch.Generator().manual_seed(23)
+    x = torch.randn((8, 3, 224, 224), generator=gx).cuda()
+    with torch.inference_mode():
+        want = body(x)
+    with tempfile.TemporaryDirectory() as tmp:
+        proto, cm = os.path.join(tmp, "vgg16.prototxt"), \
+            os.path.join(tmp, "vgg16.caffemodel")
+        _, save_s = _timed(torch, lambda: save_caffe(
+            body, proto, cm, input_shape=(3, 224, 224)))
+        cproto, ccm = os.path.join(tmp, "cpu.prototxt"), \
+            os.path.join(tmp, "cpu.caffemodel")
+        save_caffe(copy.deepcopy(body).cpu(), cproto, ccm,
+                   input_shape=(3, 224, 224))
+        same_bytes = _files_equal(cm, ccm) and _files_equal(proto, cproto)
+        back, load_s = _timed(torch, lambda: load_caffe(proto, cm,
+                                                        device="cuda"))
+        back.evaluate()
+        with torch.inference_mode():
+            got = back(x)
+        caffe_rel = rel_diff(got, want)
+        rows["caffe"] = {"bytes": os.path.getsize(cm) + os.path.getsize(proto),
+                         "save_s": save_s, "load_s": load_s,
+                         "bytes_equal_cpu_export": same_bytes,
+                         "forward_max_rel": caffe_rel,
+                         "on_card": all(p.is_cuda for p in back.parameters())}
+        del back
+
+        t7 = os.path.join(tmp, "vgg16.t7")
+        _, save_s = _timed(torch, lambda: torchfile.save(
+            t7, _t7_tree(torch, body)))
+        back, load_s = _timed(torch, lambda: torchfile.load_torch(
+            t7, device="cuda"))
+        back.evaluate()
+        with torch.inference_mode():
+            got = back(x)
+        rows["torch_t7"] = {"bytes": os.path.getsize(t7), "save_s": save_s,
+                            "load_s": load_s,
+                            "forward_equal": bool(torch.equal(got, want)),
+                            "forward_max_rel": rel_diff(got, want)}
+        del back, got
+
+        def conv_net(device):
+            return (tnn.Sequential()
+                    .add(tnn.SpatialConvolution(3, 8, 3, 3, 1, 1, -1, -1,
+                                                format="NHWC", device=device))
+                    .add(tnn.SpatialBatchNormalization(8, format="NHWC",
+                                                       device=device))
+                    .add(tnn.ReLU())
+                    .add(tnn.SpatialMaxPooling(2, 2, format="NHWC"))
+                    .add(tnn.View(8 * 8 * 8))
+                    .add(tnn.Linear(8 * 8 * 8, 5, device=device)))
+
+        net = conv_net("cuda")
+        randomize_bn(torch, net, seed=24)
+        net.evaluate()
+        cpu_net = conv_net("cpu")
+        cpu_net.load_params_dict(net.params_dict())
+        cpu_net.load_buffers_dict(net.buffers_dict())
+        pb, cpb = os.path.join(tmp, "conv.pb"), os.path.join(tmp, "cpu.pb")
+        _, save_s = _timed(torch, lambda: save_tf(net, (16, 16, 3), pb))
+        save_tf(cpu_net, (16, 16, 3), cpb)
+        rows["tf_graphdef"] = {"bytes": os.path.getsize(pb), "save_s": save_s,
+                               "bytes_equal_cpu_export": _files_equal(pb, cpb)}
+    emit({"phase": "interop_gate", "nvidia_smi": smi, "dtype": "float32",
+          "model": "Vgg16(1000) without its LogSoftMax", "params": n_params,
+          "batch": 8, "rtol": INTEROP_RTOL, "rows": rows,
+          "seconds": time.monotonic() - t0, "flash_launches": fa.launches})
+    assert rows["caffe"]["bytes_equal_cpu_export"], rows["caffe"]
+    assert rows["caffe"]["on_card"], rows["caffe"]
+    assert caffe_rel <= INTEROP_RTOL, rows["caffe"]
+    assert rows["torch_t7"]["forward_max_rel"] <= INTEROP_RTOL, rows
+    assert rows["tf_graphdef"]["bytes_equal_cpu_export"], rows
+    assert fa.launches == 0, fa.launches
+    return fa.launches
+
+
+def imageclass_predict(torch, fa, smi) -> int:
+    """imageclass_predict: ``VggForCifar10``'s body (f32, its BN
+    statistics calibrated on the images) exported to Caffe, then the
+    port's image-classification main over ``IMAGECLASS`` seeded 32 x 32
+    ``.npy`` images with ``--model-type caffe`` on the card: its classes
+    equal the original body's ``predict_class`` through the main's own
+    pipeline, except where the original's two best scores lie within
+    ``NEAR_TIE`` (each such image is printed). Returns the flash
+    launches (0)."""
+    import tempfile
+
+    import numpy as np
+
+    from bigdl_tpu_torch.example.imageclassification import predict as ic
+    from bigdl_tpu_torch.models import VggForCifar10
+    from bigdl_tpu_torch.utils.caffe_export import save_caffe
+
+    fa.launches = 0
+    t0 = time.monotonic()
+    body = _body(torch, VggForCifar10(10, seed=0, device="cuda"))
+    body.evaluate()
+    rng = np.random.RandomState(IMAGECLASS["seed"])
+    with tempfile.TemporaryDirectory() as tmp:
+        for i in range(IMAGECLASS["images"]):
+            np.save(os.path.join(tmp, f"img{i:03d}.npy"),
+                    rng.rand(32, 32, 3).astype(np.float32))
+        images = os.path.join(tmp, "img*.npy")
+        x = torch.cat(list(_image_batches(torch, images))).cuda()
+        _calibrate_bn(torch, body, x)
+        proto, cm = os.path.join(tmp, "vgg.prototxt"), \
+            os.path.join(tmp, "vgg.caffemodel")
+        save_caffe(body, proto, cm, input_shape=(3, 32, 32))
+        batch = str(IMAGECLASS["batch"])
+        got, main_s = _timed(torch, lambda: ic.main(
+            ["--model", cm, "--model-type", "caffe", "--prototxt", proto,
+             "--images", images, "--batch-size", batch, "--device", "cuda"]))
+        want = ic.predict(body, images, batch_size=IMAGECLASS["batch"])
+        with torch.inference_mode():
+            scores = body(x).float().cpu()
+    top2 = scores.topk(2, dim=1).values
+    gaps = (top2[:, 0] - top2[:, 1]).tolist()
+    parted = [i for i, (a, b) in enumerate(zip(got, want)) if a != b]
+    near = [{"image": i, "caffe": got[i], "original": want[i],
+             "gap": gaps[i]} for i in parted if gaps[i] <= NEAR_TIE]
+    emit({"phase": "imageclass_predict", "nvidia_smi": smi,
+          "model": "VggForCifar10(10) without its LogSoftMax, via caffe",
+          "images": len(got), "batch": IMAGECLASS["batch"],
+          "class_counts": np.bincount(want, minlength=11)[1:].tolist(),
+          "main_seconds": main_s, "classes_equal": len(parted) == 0,
+          "parted": parted, "near_ties": near, "near_tie": NEAR_TIE,
+          "min_gap": min(gaps), "seconds": time.monotonic() - t0,
+          "flash_launches": fa.launches})
+    assert len(got) == len(want) == IMAGECLASS["images"]
+    assert len(set(want)) > 1, want
+    assert len(near) == len(parted), (parted, near)
+    assert fa.launches == 0, fa.launches
+    return fa.launches
+
+
+def _calibrate_bn(torch, model, x) -> None:
+    """Each BN layer's running statistics set to those of its input over
+    ``x``, layer by layer, and a random gain: an untrained deep net with
+    unit statistics maps every image to about the same scores, while
+    calibrated it tells them apart as a trained one does."""
+    from bigdl_tpu_torch.nn import BatchNormalization
+
+    g = torch.Generator().manual_seed(25)
+    h = x
+    with torch.no_grad():
+        for layer in model.children():
+            if isinstance(layer, BatchNormalization):
+                dims = [d for d in range(h.dim()) if d != 1]
+                n = h.shape[1]
+                layer.running_mean = h.mean(dims).clone()
+                layer.running_var = h.var(dims, unbiased=False).clone()
+                layer.weight.copy_(torch.rand(n, generator=g) + 0.5)
+                layer.bias.copy_(0.1 * torch.randn(n, generator=g))
+            h = layer(h)
+
+
+def _image_batches(torch, images):
+    """The main's preprocessed batches of ``images`` (CHW tensors in
+    [0, 1) need no rescaling)."""
+    from bigdl_tpu_torch.transform.vision import (ChannelNormalize,
+                                                  ImageFeatureToBatch,
+                                                  ImageFrame, Resize)
+
+    frame = ImageFrame.read(images).transform(Resize(32, 32)).transform(
+        ChannelNormalize((0.5, 0.5, 0.5), (0.25, 0.25, 0.25)))
+    for mb in ImageFeatureToBatch(IMAGECLASS["batch"], partial_batch=True)(
+            iter(frame.features)):
+        yield torch.as_tensor(mb.get_input())
+
+
 def main() -> int:
     import torch
 
@@ -8155,6 +8550,15 @@ def main() -> int:
           "seconds": time.monotonic() - t_ow,
           "flash_launches": ops_widedeep_launches})
 
+    # ------------- the serializer and model interop (slice 20)
+    t_si = time.monotonic()
+    serialize_launches = (serialize_gate(torch, fa, smi)
+                          + interop_gate(torch, fa, smi)
+                          + imageclass_predict(torch, fa, smi))
+    emit({"phase": "slice20_phases", "nvidia_smi": smi,
+          "seconds": time.monotonic() - t_si,
+          "flash_launches": serialize_launches})
+
     # ----------------------------------------------------- 9. kernels line
     print(nvidia_smi(), flush=True)
     emit({"kernels": [{
@@ -8170,7 +8574,7 @@ def main() -> int:
                      + text_launches + distri_launches + ring_launches
                      + longcontext_launches + tp_launches + obs_launches
                      + sequence_launches + sparse_detection_launches
-                     + ops_widedeep_launches),
+                     + ops_widedeep_launches + serialize_launches),
         "launches_serving": serving_launches,
         "launches_train": train_launches,
         "launches_engine": engine_launches,
@@ -8193,6 +8597,7 @@ def main() -> int:
         "launches_sequence": sequence_launches,
         "launches_sparse_detection": sparse_detection_launches,
         "launches_ops_widedeep": ops_widedeep_launches,
+        "launches_serialize": serialize_launches,
         "tp_local_heads": {k: tp_local[k] for k in (
             "shape", "max_abs_err", "kernel_ms", "device_ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms", "library_device_ms")},

@@ -199,8 +199,14 @@ def test_clone_copy_save_load(tmp_path):
     back = Module.load(path, device="cpu")
     assert type(back) is type(tm) and torch.equal(back(tx), tm(tx))
     assert torch.equal(back.get_parameters()[1], tm.get_parameters()[1])
-    with pytest.raises(NotImplementedError, match="item 12"):
-        tm.save_module(str(tmp_path / "m.proto"))
+    proto = str(tmp_path / "m.proto")
+    assert tm.save_module(proto) is tm
+    with pytest.raises(FileExistsError):
+        tm.save_module(proto)
+    back = Module.load_module(proto, device="cpu")
+    assert type(back) is type(tm) and torch.equal(back(tx), tm(tx))
+    for (n, a), (_, b) in zip(back.named_parameters(), tm.named_parameters()):
+        assert torch.equal(a, b) and a.requires_grad, n
     with pytest.raises(NotImplementedError, match="item 12"):
         tm.save("gs://bucket/m.bigdl")
     with pytest.raises(RuntimeError, match="device='cpu'") if not \

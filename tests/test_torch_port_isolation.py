@@ -7,8 +7,9 @@ beam search, the PredictionService, the eager Module API and a loop
 with an async checkpoint and a train summary, the native runtime, the
 text-classification main, BPE and the table layers included, the
 long-context main with MoE and the flash kernel's plain version, the
-DistriOptimizer and ring attention at a world of one, and a scan of
-every module's imports), and its entry points run on the card
+DistriOptimizer and ring attention at a world of one, the structured
+serializer reading a JAX-written archive and a Caffe pair, and a scan
+of every module's imports), and its entry points run on the card
 unless asked for the CPU, never falling back to it by themselves."""
 
 import ast
@@ -17,6 +18,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -181,11 +183,73 @@ assert not bad, bad
 print("ISOLATED")
 """
 
+# the serializer and the interop path: the port's own archive, an archive
+# the JAX package wrote (argv[1], made by the test) and a Caffe pair
+_INTEROP = """
+import os, sys, tempfile
+import numpy as np
+import torch
+from bigdl_tpu_torch import nn
+from bigdl_tpu_torch.nn.module import Module
+from bigdl_tpu_torch.utils.caffe import load_caffe
+from bigdl_tpu_torch.utils.caffe_export import save_caffe
+tmp = tempfile.mkdtemp()
+m = nn.Sequential(nn.SpatialConvolution(3, 4, 3, 3, 1, 1, 1, 1, device="cpu"),
+                  nn.ReLU(), nn.View(4 * 6 * 6), nn.Linear(144, 2, device="cpu"))
+m.evaluate()
+x = torch.randn(2, 3, 6, 6)
+m.save_module(os.path.join(tmp, "m.bigdl"))
+back = Module.load_module(os.path.join(tmp, "m.bigdl"), device="cpu")
+back.evaluate()
+with torch.no_grad():
+    assert torch.equal(back(x), m(x))
+jax_written = Module.load_module(sys.argv[1], device="cpu")
+jax_written.evaluate()
+with torch.no_grad():
+    out = jax_written(torch.from_numpy(np.load(sys.argv[2])))
+np.testing.assert_allclose(out.numpy(), np.load(sys.argv[3]), rtol=1e-5,
+                           atol=1e-6)
+save_caffe(m, os.path.join(tmp, "m.prototxt"), os.path.join(tmp, "m.cm"),
+           input_shape=(3, 6, 6))
+caffe = load_caffe(os.path.join(tmp, "m.prototxt"), os.path.join(tmp, "m.cm"),
+                   device="cpu")
+caffe.evaluate()
+with torch.no_grad():
+    torch.testing.assert_close(caffe(x), m(x), rtol=1e-4, atol=1e-6)
+bad = sorted(n for n in sys.modules
+             if n.split(".")[0] in ("jax", "jaxlib", "bigdl_tpu"))
+assert not bad, bad
+print("ISOLATED")
+"""
+
 
 def test_port_runs_without_importing_jax():
     env = dict(os.environ, PYTHONPATH="")
     proc = subprocess.run([sys.executable, "-c", _DRIVE], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=180)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "ISOLATED" in proc.stdout
+
+
+def test_archives_and_interop_without_importing_jax(tmp_path):
+    from bigdl_tpu import nn as jnn
+    from bigdl_tpu.utils import serializer as jser
+    from tests.jax_numpy_init import numpy_weight_draws
+
+    with numpy_weight_draws(0):
+        jm = jnn.Sequential(jnn.Linear(5, 4), jnn.Tanh(),
+                            jnn.MultiHeadAttention(4, 2, 0.0, True, False))
+    jm.evaluate()
+    x = np.random.RandomState(0).randn(2, 3, 5).astype(np.float32)
+    archive = str(tmp_path / "jax.bigdl")
+    jser.save_module(jm, archive)
+    np.save(tmp_path / "x.npy", x)
+    np.save(tmp_path / "want.npy", np.asarray(jm(x)))
+    env = dict(os.environ, PYTHONPATH="")
+    proc = subprocess.run(
+        [sys.executable, "-c", _INTEROP, archive, str(tmp_path / "x.npy"),
+         str(tmp_path / "want.npy")], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=180)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "ISOLATED" in proc.stdout
 
@@ -219,8 +283,14 @@ def test_no_jax_or_jax_package_import_in_the_port():
         f.stem for f in files if f.parent.name == "visualization"}
     assert {"optimizer", "predictor", "prediction_service"} <= {
         f.stem for f in files if f.parent.name == "optim"}
-    assert {"file", "tfrecord", "config", "protowire"} <= {
+    assert {"file", "tfrecord", "config", "protowire", "config_capture",
+            "torchfile", "caffe", "caffe_export", "tf_export",
+            "convert_model"} <= {
         f.stem for f in files if f.parent.name == "utils"}
+    assert {"__init__", "serializer"} <= {
+        f.stem for f in files if f.parent.name == "serializer"}
+    assert {"predict"} <= {f.stem for f in files
+                           if f.parent.name == "imageclassification"}
     assert {"__init__", "engine", "all_reduce", "collectives",
             "distri_optimizer", "ring_attention", "moe", "pipeline"} <= {
         f.stem for f in files if f.parent.name == "parallel"}
@@ -252,7 +322,9 @@ def test_entry_points_default_to_the_card_and_never_fall_back():
     from bigdl_tpu_torch.optim import load_latest_checkpoint
     from bigdl_tpu_torch.parallel import Engine, MoEMLP
     from bigdl_tpu_torch.serving import ContinuousBatchingEngine
+    from bigdl_tpu_torch.utils.caffe import load_caffe
     from bigdl_tpu_torch.utils.random import RandomGenerator
+    from bigdl_tpu_torch.utils.torchfile import load_torch
 
     for make in (lambda: TransformerLM(64, 32, 4, 2, 64),
                  lambda: MultiHeadAttention(32, 4),
@@ -261,6 +333,9 @@ def test_entry_points_default_to_the_card_and_never_fall_back():
                  lambda: LookupTableSparse(4, 2),
                  lambda: resolve_device(),
                  lambda: Module.load("/nonexistent/model.1"),
+                 lambda: Module.load_module("/nonexistent/model.2"),
+                 lambda: load_caffe("/nonexistent/net.prototxt"),
+                 lambda: load_torch("/nonexistent/net.t7"),
                  lambda: load_latest_checkpoint("/nonexistent"),
                  lambda: transformer_perf(2, 1, 1, seq_len=16),
                  lambda: RandomGenerator(0).next_generator(),
