@@ -1,10 +1,11 @@
 """Image classification inference (port of
 ``bigdl_tpu/example/imageclassification/predict.py``; ≙
 example/imageclassification/ImagePredictor.scala + loadmodel/Predict.scala):
-load a model in a supported format (bigdl / caffe / torch), run an
+load a model in a supported format (bigdl / caffe / tf / torch), run an
 ImageFrame pipeline, predict classes on ``--device`` (default the card).
-``--model-type tf`` waits for TF import (ROADMAP.md, Queue 1 item 12.6)
-and raises naming it.
+``--model-type tf`` imports a GraphDef between ``--tf-inputs`` and
+``--tf-outputs``; the graph takes the pipeline's NCHW batches as they
+come.
 
 Run: python -m bigdl_tpu_torch.example.imageclassification.predict \\
         --model model.bigdl --model-type bigdl --images 'dir/*.npy' \\

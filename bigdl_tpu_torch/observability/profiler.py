@@ -271,12 +271,15 @@ def hosting(wake=None):
             _finish(h)
 
 
-def poll() -> Optional[float]:
+def poll(take: bool = True) -> Optional[float]:
     """Called by a hosting loop between iterations: takes a session
     handed over (starting it on this thread), stops this thread's
     session once its time is up, and returns the seconds it has left
     (None when this thread runs none), the longest the loop should
-    wait idle before it polls again."""
+    wait idle before it polls again. A loop with no work at hand passes
+    ``take=False``: it stops its own session when due but leaves a
+    handed-over one to a loop that is launching (or, after
+    ``HANDOFF_S``, to the caller)."""
     global _handoff, _hosted
     h = _hosted
     me = threading.get_ident()
@@ -286,7 +289,7 @@ def poll() -> Optional[float]:
             return left
         _finish(h)
         return None
-    if _handoff is None:
+    if _handoff is None or not take:
         return None
     with _STATE:
         h, _handoff = _handoff, None

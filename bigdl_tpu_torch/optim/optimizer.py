@@ -98,6 +98,7 @@ from bigdl_tpu_torch.optim.metrics import Metrics
 from bigdl_tpu_torch.optim.optim_method import SGD, OptimMethod
 from bigdl_tpu_torch.optim.trigger import Trigger
 from bigdl_tpu_torch.observability import memory as obs_memory
+from bigdl_tpu_torch.observability import profiler
 from bigdl_tpu_torch.optim.validation import ValidationMethod
 from bigdl_tpu_torch.utils import file as bt_file
 
@@ -603,9 +604,12 @@ class LocalOptimizer(Optimizer):
         try:
             # /debug/memory attribution of the run's two big persistent
             # tensor sets; unregistered on every exit
+            # the step loop launches the device work: it hosts profiler
+            # captures asked for on other threads (polled between steps)
             with obs_memory.static_pools({
                     "train/params": obs_memory.tree_bytes(params),
-                    "train/optimizer_slots": obs_memory.tree_bytes(slots)}):
+                    "train/optimizer_slots": obs_memory.tree_bytes(slots)}), \
+                    profiler.hosting():
                 params, buffers = self._optimize_loop(state, params, buffers,
                                                       ts, slots, data_iter)
         finally:
@@ -624,6 +628,7 @@ class LocalOptimizer(Optimizer):
         ins = obs.train_instruments() if obs_on else None
         sigs = set()
         while not self.end_when(state):
+            profiler.poll()
             x, y, n = next(data_iter)
             lrs = ts.current_lrs()
             lr = float(lrs[0])

@@ -30,6 +30,7 @@ go to the flight recorder.
 from __future__ import annotations
 
 import ast
+import collections
 import io
 import itertools
 import threading
@@ -42,10 +43,15 @@ import torch
 from bigdl_tpu_torch.observability.events import (
     default_recorder, next_request_id,
 )
+from bigdl_tpu_torch.observability import profiler
 from bigdl_tpu_torch.observability.instruments import serving_instruments
 from bigdl_tpu_torch.observability.tracing import trace
 from bigdl_tpu_torch.optim.evaluator import model_device
 from bigdl_tpu_torch.utils.table import Table
+
+#: How long a micro-batcher's launcher thread waits with no batch (and no
+#: profiler capture to host) before it exits; the next batch starts it.
+LAUNCHER_IDLE_S = 2.0
 
 
 def serialize_activity(activity) -> bytes:
@@ -109,10 +115,19 @@ class _MicroBatcher:
     """Coalesce concurrent requests into one ``run_batch(stacked)`` call.
 
     The first request of a signature starts a daemon drain thread that
-    waits up to ``timeout_ms`` for ``max_batch`` requests, then runs the
-    batch and hands each request its row of the output. ``on_batch`` is
-    called with the real batch size on the drain thread just before
-    ``run_batch``. ``submit_timeout_s`` bounds a submitter's wait (None
+    waits up to ``timeout_ms`` for ``max_batch`` requests and hands the
+    batch to the batcher's launcher: one daemon thread that runs every
+    batch in turn and hands each request its row of the output.
+    ``on_batch`` is called with the real batch size on the launcher just
+    before ``run_batch``. The launcher is the loop that launches the
+    device work, so it hosts ``observability.profiler`` captures asked
+    for on other threads (``hosting`` / ``poll`` between batches; it takes
+    a new one only with a batch to launch): a capture lasts its seconds
+    and holds the kernels of every batch in its window, and a drain
+    thread that ends never stops it. The launcher
+    starts with the first batch and exits after ``LAUNCHER_IDLE_S`` with
+    no batch and no capture to host; a capture asked for while none runs
+    runs on its caller's thread. ``submit_timeout_s`` bounds a submitter's wait (None
     waits forever). ``telemetry`` (a ``serving_instruments`` namespace)
     receives each request's queue wait, the batch occupancy, the dispatch
     count and time (a ``serve/dispatch`` span) and the errors; a request
@@ -133,6 +148,8 @@ class _MicroBatcher:
         self._telemetry = telemetry
         self._rec = recorder if recorder is not None else default_recorder()
         self.name = name
+        self._ready = collections.deque()   # batches waiting to launch
+        self._launcher: Optional[threading.Thread] = None
 
     def submit(self, x, request_id=None, detail=None):
         """Queue one sample; blocks until its batch lands and returns this
@@ -178,6 +195,42 @@ class _MicroBatcher:
                                  daemon=True).start()
             else:
                 self._pending.pop(sig, None)
+            self._ready.append(batch)
+            if self._launcher is None:
+                self._launcher = threading.Thread(
+                    target=self._launch_loop, daemon=True,
+                    name=f"{self.name}-launcher")
+                self._launcher.start()
+            self._lock.notify_all()
+
+    def _rouse(self):
+        with self._lock:
+            self._lock.notify_all()
+
+    def _launch_loop(self):
+        """Run the ready batches in turn, hosting profiler captures
+        between them; exit once idle with nothing to host."""
+        idle_since = time.monotonic()
+        with profiler.hosting(self._rouse):
+            while True:
+                # an idle launcher takes no new session: the loop that is
+                # launching should host it
+                left = profiler.poll(take=bool(self._ready))
+                with self._lock:
+                    if not self._ready:
+                        idle = time.monotonic() - idle_since
+                        if left is None and idle >= LAUNCHER_IDLE_S:
+                            self._launcher = None
+                            return
+                        wait = LAUNCHER_IDLE_S - idle if left is None \
+                            else min(left, LAUNCHER_IDLE_S)
+                        self._lock.wait(timeout=max(wait, 0.0))
+                        continue
+                    batch = self._ready.popleft()
+                self._launch(batch)
+                idle_since = time.monotonic()
+
+    def _launch(self, batch):
         tel = self._telemetry
         if tel is not None:
             now = time.monotonic()
@@ -185,9 +238,9 @@ class _MicroBatcher:
                 tel.queue_wait_seconds.observe(now - b[3])
             tel.batch_occupancy.observe(len(batch))
             tel.dispatches_total.inc()
-        if self._on_batch is not None:
-            self._on_batch(len(batch))
         try:
+            if self._on_batch is not None:
+                self._on_batch(len(batch))
             t0 = time.monotonic()
             for _, _, slot, _, rid in batch:
                 slot["t_launch"] = t0

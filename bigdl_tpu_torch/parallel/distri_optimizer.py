@@ -76,6 +76,7 @@ from bigdl_tpu_torch.dataset.prefetch import prefetch
 from bigdl_tpu_torch.dataset.transformer import SampleToMiniBatch
 from bigdl_tpu_torch.nn.module import tree_leaves, tree_unflatten
 from bigdl_tpu_torch.observability import memory as obs_memory
+from bigdl_tpu_torch.observability import profiler
 from bigdl_tpu_torch.optim.evaluator import model_device
 from bigdl_tpu_torch.optim.optimizer import (PREFETCH_DEPTH, LocalOptimizer,
                                              TrainStep, load_latest_checkpoint,
@@ -430,7 +431,10 @@ class DistriOptimizer(LocalOptimizer):
             # optimizer slots (its slice under the sharded sync)
             with obs_memory.static_pools({
                     "train/params": obs_memory.tree_bytes(params),
-                    "train/optimizer_slots": obs_memory.tree_bytes(slots)}):
+                    "train/optimizer_slots": obs_memory.tree_bytes(slots)}), \
+                    profiler.hosting():
+                # the step loop hosts profiler captures asked for on other
+                # threads (polled between steps), as the local loop does
                 params, buffers = self._loop(state, ts, arp, spec, params,
                                              buffers, flat, slots, gen,
                                              data_iter)
@@ -462,6 +466,7 @@ class DistriOptimizer(LocalOptimizer):
         host = str(C.group_rank(None))
         sigs = set()
         while not self.end_when(state):
+            profiler.poll()
             x, y, n_local = next(data_iter)
             lrs = ts.current_lrs()
             lr = float(lrs[0])

@@ -34,9 +34,10 @@ surface becomes host-side bookkeeping over page ids —
   the entry's aligned pages into the new request's table (no
   pool→staging copy), and eviction / host-tier demotion are refcount
   moves plus — for demotion only — one bulk device→host spill per page.
-  The port's engine does not drive the host tier yet (it refuses
-  ``prefix_host_bytes`` / ``prefix_host_rows`` until ROADMAP.md Queue 1
-  item 4), so demotion and promotion run only in the index's own tests.
+  The engine drives the host tier: it takes ``prefix_host_bytes`` /
+  ``prefix_host_rows`` (``serving/engine.py``, ported with the tier),
+  demotes a page set it evicts and promotes one a lookup lands on
+  (``tests/test_torch_tiered_prefix_cache.py`` drives both).
 
 Why shared pages are never written (the COW invariant the engine
 maintains): the engine requires ``prefill_chunk % page_size == 0``, so

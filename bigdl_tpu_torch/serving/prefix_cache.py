@@ -45,10 +45,10 @@ total retained prefix set thus scales with host RAM, not device memory
 — BigDL's spill-to-block-manager memory hierarchy recast for KV. Every
 tier transition (demote, host-evict, promote) bumps ``generation``, so
 the stale-probe guard covers host rows exactly like device rows. The
-port's engine does not drive the host tier yet: it refuses
-``prefix_host_bytes`` / ``prefix_host_rows`` until the prefix host-tier
-step (ROADMAP.md Queue 1 item 4), so these methods are exercised only by
-the index's own tests.
+port's engine drives this tier: it takes ``prefix_host_bytes`` /
+``prefix_host_rows`` (``serving/engine.py``) and runs the demotions and
+promotions above (``tests/test_torch_tiered_prefix_cache.py`` drives
+them, ``test_paged_host_tier_drains_every_page`` among its cases).
 
 Thread contract: the engine's loop thread is the only mutator;
 ``stats()`` / ``snapshot()`` may be called from HTTP/debug threads (an

@@ -6,16 +6,20 @@ Reference: utils/ConvertModel.scala — scopt CLI with --from/--to/--input/
 Module.load{Caffe,Torch,TF}/save{Caffe,TF} and the quantizer. ``bigdl``
 is the port's pickle format (``utils/file.py``), as in the JAX package.
 Models load on ``--device`` (default the card; ``--device cpu`` on a
-machine without one). ``--from tf`` waits for TF import (ROADMAP.md,
-Queue 1 item 12.6) and ``--from keras`` for the Keras converter (item
-12.7): both raise ``NotImplementedError`` naming their item. ``--to
-torch`` of a module raises ``TypeError``, as in the JAX package: the
-.t7 writer takes raw objects and ``TorchObject`` trees only.
+machine without one). ``--from tf`` imports a GraphDef between
+``--tf-inputs`` and ``--tf-outputs`` (``utils/tf_import.py``); ``--from
+keras`` loads an hdf5 file, its topology from ``--keras-json`` or the
+file's own ``model_config`` (``keras/converter.py``). ``--to torch`` of
+a module raises ``TypeError``, as in the JAX package: the .t7 writer
+takes raw objects and ``TorchObject`` trees only.
 
 Usage:
   python -m bigdl_tpu_torch.utils.convert_model \\
       --from caffe --to bigdl --input net.caffemodel --prototxt net.prototxt \\
       --output model.bigdl [--quantize] [--device cpu]
+  python -m bigdl_tpu_torch.utils.convert_model \\
+      --from tf --to bigdl --input graph.pb --tf-inputs x --tf-outputs y \\
+      --output model.bigdl
   python -m bigdl_tpu_torch.utils.convert_model \\
       --from bigdl --to tf --input model.bigdl --output graph.pb \\
       --input-shape 8,8,3
@@ -48,13 +52,19 @@ def load_model(fmt: str, path: str, prototxt: Optional[str] = None,
             raise ValueError("--prototxt is required for --from caffe")
         return load_caffe(prototxt, path, device=device)
     if fmt in ("tf", "tensorflow"):
-        raise NotImplementedError(
-            "TF GraphDef import (utils/tf_import.py) is not ported yet: see "
-            "ROADMAP.md, Queue 1 item 12.6")
+        from bigdl_tpu_torch.utils.tf_import import load_tf
+
+        if not tf_inputs or not tf_outputs:
+            raise ValueError("--tf-inputs/--tf-outputs are required "
+                             "for --from tf")
+        return load_tf(path, list(tf_inputs), list(tf_outputs),
+                       device=device)
     if fmt == "keras":
-        raise NotImplementedError(
-            "Keras import (keras/converter.py) is not ported yet: see "
-            "ROADMAP.md, Queue 1 item 12.7")
+        from bigdl_tpu_torch.keras.converter import load_keras
+
+        # keras_json optional: model.save(...h5) embeds model_config
+        return load_keras(json_path=keras_json or None, hdf5_path=path,
+                          input_shape=input_shape, device=device)
     raise ValueError(f"unknown source format {fmt!r}")
 
 

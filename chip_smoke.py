@@ -434,6 +434,32 @@ count 0; their sum is the kernels line's ``launches_serialize``):
   ``--model-type caffe`` on the card: classes equal to the original
   body's ``predict_class`` but at near ties, which are printed.
 
+Then TF import, the keras API and profiler hosting (slice 21; only the
+generation requests of profiler_hosting may launch the flash kernel,
+the other phases count 0; their sum is the kernels line's
+``launches_tf_keras``):
+
+- tf_import_gate (f32, TF32 off): VGG-16's body at ImageNet widths
+  rebuilt NHWC with the zoo's weights, through ``save_tf`` from the card
+  and ``load_tf(device="cuda")``: forward on 8 x 224 x 224 x 3 within
+  ``INTEROP_RTOL``, GraphDef bytes and save / load seconds, the imported
+  graph captured in a CUDA graph whose replay equals eager; each
+  committed fixture of ``tests/data/torch_tf`` against TF's stored
+  outputs, the TF1 while frame's host syncs an iteration;
+- tf_predict_main: ``convert_model --from tf --to bigdl`` of an NHWC
+  net's GraphDef (an NCHW input Transpose added), then the
+  image-classification main over 64 images with ``--model-type tf`` and
+  ``bigdl``: equal classes;
+- tf_session_train: ``Session.train`` over the committed unfrozen TF1
+  linear graph: mse < 0.01, ``w`` within 0.15 of the target;
+- keras_train: Keras 1.2.2's mnist_cnn and imdb_lstm at their published
+  widths on seeded synthetic data: ms a step, records/s, held-out
+  accuracy against chance, ``predict_classes``; the mnist topology
+  reloaded through ``DefinitionLoader`` predicts equal classes;
+- profiler_hosting: a 1 s capture asked for on another thread while a
+  ``GenerationService`` and a ``LocalOptimizer`` launch: CUDA kernel
+  events in each trace, the session started on the launching thread.
+
 Earlier lines are one JSON object each; the last line is
 ``{"ok": true, "device": {...}}``. Exits non-zero without that line when
 CUDA is not available or the port cannot be imported.
@@ -8254,6 +8280,609 @@ def _image_batches(torch, images):
         yield torch.as_tensor(mb.get_input())
 
 
+# ------------------------------------------ TF import and keras (slice 21)
+TF_ORACLE_TOL = dict(rtol=2e-4, atol=2e-5)
+TF_FIXTURES = os.path.join(ROOT, "tests", "data", "torch_tf")
+TF_PREDICT = dict(images=64, batch=8, seed=11)
+TF_SESSION = dict(samples=64, epochs=40, batch=16, lr=0.2)
+KERAS_MNIST = dict(train=2560, test=512, batch=128, epochs=2, seed=21,
+                   lr=1e-3)
+KERAS_IMDB = dict(train=1024, test=256, batch=32, epochs=3, maxlen=80,
+                  vocab=20000, signal_tokens=100, seed=22, lr=3e-3)
+PROFILE_CAPTURE_S = 1.0
+#: Keras 1.2.2's examples/mnist_cnn.py as the port builds it (the
+#: activations inline), for ``DefinitionLoader``
+MNIST_CNN_JSON = json.dumps({"class_name": "Sequential", "config": [
+    {"class_name": "Convolution2D", "config": {
+        "nb_filter": 32, "nb_row": 3, "nb_col": 3, "activation": "relu",
+        "border_mode": "valid", "dim_ordering": "th",
+        "batch_input_shape": [None, 1, 28, 28]}},
+    {"class_name": "Convolution2D", "config": {
+        "nb_filter": 32, "nb_row": 3, "nb_col": 3, "activation": "relu",
+        "border_mode": "valid", "dim_ordering": "th"}},
+    {"class_name": "MaxPooling2D", "config": {"pool_size": [2, 2]}},
+    {"class_name": "Dropout", "config": {"p": 0.25}},
+    {"class_name": "Flatten", "config": {}},
+    {"class_name": "Dense", "config": {"output_dim": 128,
+                                       "activation": "relu"}},
+    {"class_name": "Dropout", "config": {"p": 0.5}},
+    {"class_name": "Dense", "config": {"output_dim": 10,
+                                       "activation": "softmax"}}]})
+
+
+def _vgg16_nhwc(torch, body):
+    """``body`` (the zoo's NCHW VGG-16 without its LogSoftMax) rebuilt
+    channels-last for the TF exporter, the same weights: SAME 3x3
+    convolutions, and fc6's input columns reordered from (C, H, W) to
+    (H, W, C) so the NHWC body computes the NCHW one's function."""
+    from bigdl_tpu_torch import nn as tnn
+
+    out = tnn.Sequential()
+    first_linear, c_last = True, None
+    for m in body.children():
+        if isinstance(m, tnn.SpatialConvolution):
+            c_last = m.n_output_plane
+            c = tnn.SpatialConvolution(m.n_input_plane, m.n_output_plane, 3,
+                                       3, 1, 1, -1, -1, format="NHWC",
+                                       device="cuda")
+            with torch.no_grad():
+                c.weight.copy_(m.weight)
+                c.bias.copy_(m.bias)
+            out.add(c)
+        elif isinstance(m, tnn.SpatialMaxPooling):
+            out.add(tnn.SpatialMaxPooling(2, 2, 2, 2, format="NHWC"))
+        elif isinstance(m, tnn.Linear):
+            lin = tnn.Linear(m.weight.shape[1], m.weight.shape[0],
+                             device="cuda")
+            w = m.weight
+            if first_linear:
+                w = w.reshape(w.shape[0], c_last, 7, 7).permute(
+                    0, 2, 3, 1).reshape(w.shape[0], -1)
+                first_linear = False
+            with torch.no_grad():
+                lin.weight.copy_(w)
+                lin.bias.copy_(m.bias)
+            out.add(lin)
+        else:
+            out.add(m)
+    return out
+
+
+def _fixture_checks(torch, load_tf):
+    """Every committed GraphDef of ``tests/data/torch_tf`` loaded on the
+    card against TF's stored outputs; the TF1 while frame's host syncs an
+    iteration."""
+    import glob
+
+    import numpy as np
+
+    from bigdl_tpu_torch.nn.tf_ops import WhileLoop
+
+    rows = {}
+    for spec_path in sorted(glob.glob(os.path.join(TF_FIXTURES, "*.json"))):
+        with open(spec_path) as f:
+            spec = json.load(f)
+        name = os.path.basename(spec_path)[:-5]
+        data = np.load(os.path.join(TF_FIXTURES, spec["io"]))
+        m = load_tf(os.path.join(TF_FIXTURES, spec["graph"]), spec["inputs"],
+                    spec["outputs"], device="cuda")
+        m.evaluate()
+        loops = [mod for mod in m.modules() if isinstance(mod, WhileLoop)]
+        worst, syncs, reads = 0.0, None, None
+        for case in range(spec["cases"]):
+            x = torch.from_numpy(data[f"x{case}"]).cuda()
+            with torch.no_grad():
+                out = m(x)
+                before = sum(lp.host_syncs for lp in loops)
+                syncs = _host_syncs(torch, lambda: m(x))
+                reads = sum(lp.host_syncs for lp in loops) - before
+            outs = list(out) if not torch.is_tensor(out) else [out]
+            for j, o in enumerate(outs):
+                want = data[f"y{case}_{j}"]
+                got = o.float().cpu().numpy()
+                np.testing.assert_allclose(got, want, **TF_ORACLE_TOL,
+                                           err_msg=name)
+                worst = max(worst, float(np.abs(got - want).max()))
+        rows[name] = {"cases": spec["cases"], "max_abs_err": worst,
+                      "on_card": all(p.is_cuda for p in m.parameters()),
+                      "host_syncs_a_call": syncs}
+        if loops:
+            rows[name]["iterations"] = loops[0].iterations
+            rows[name]["condition_reads_a_call"] = reads
+            rows[name]["host_syncs_an_iteration"] = (
+                syncs / max(loops[0].iterations, 1))
+    return rows
+
+
+def tf_import_gate(torch, fa, smi) -> int:
+    """tf_import_gate (f32, TF32 off): VGG-16's body at ImageNet widths
+    (the zoo's ``Vgg16`` without its ``LogSoftMax``, rebuilt NHWC with
+    the same weights) exported by ``save_tf`` from the card and loaded
+    back onto it by ``load_tf(device="cuda")``: its forward on
+    8 x 224 x 224 x 3 within ``INTEROP_RTOL`` of the original's; the
+    imported graph captured in a CUDA graph, its replay equal to eager
+    (the counterpart of the JAX ``test_imported_graph_is_jittable``);
+    every committed fixture against TF's stored outputs. Returns the
+    flash launches (0)."""
+    import tempfile
+
+    from bigdl_tpu_torch.models import Vgg16
+    from bigdl_tpu_torch.utils.tf_export import save_tf
+    from bigdl_tpu_torch.utils.tf_import import load_tf
+
+    assert not torch.backends.cudnn.allow_tf32
+    assert not torch.backends.cuda.matmul.allow_tf32
+    fa.launches = 0
+    t0 = time.monotonic()
+    nchw = _body(torch, Vgg16(1000, seed=0, device="cuda"))
+    nchw.evaluate()
+    body = _vgg16_nhwc(torch, nchw)
+    body.evaluate()
+    gx = torch.Generator().manual_seed(26)
+    x = torch.randn((8, 224, 224, 3), generator=gx).cuda()
+    with torch.inference_mode():
+        want = body(x)
+        layout_rel = rel_diff(want, nchw(x.permute(0, 3, 1, 2)))
+    del nchw
+    with tempfile.TemporaryDirectory() as tmp:
+        pb = os.path.join(tmp, "vgg16.pb")
+        _, save_s = _timed(torch, lambda: save_tf(body, (224, 224, 3), pb))
+        pb_bytes = os.path.getsize(pb)
+        imported, load_s = _timed(torch, lambda: load_tf(
+            pb, ["input"], ["output"], device="cuda"))
+    imported.evaluate()
+    with torch.inference_mode():
+        got = imported(x)
+    forward_rel = rel_diff(got, want)
+    on_card = all(p.is_cuda for p in imported.parameters())
+    ms_imported = time_ms(torch, lambda: imported(x), warmup=2, iters=5)
+    ms_original = time_ms(torch, lambda: body(x), warmup=2, iters=5)
+    # the CUDA-graph capture of the imported graph, replay against eager
+    static_x = x.clone()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.inference_mode():
+        with torch.cuda.stream(side):
+            for _ in range(2):
+                imported(static_x)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            static_out = imported(static_x)
+        graph.replay()
+        torch.cuda.synchronize()
+        replay_equal = bool(torch.equal(static_out, got))
+        replay_diff = float((static_out - got).abs().max())
+    ms_replay = time_ms(torch, graph.replay, warmup=2, iters=5)
+    del graph, static_out
+    fixtures = _fixture_checks(torch, load_tf)
+    emit({"phase": "tf_import_gate", "nvidia_smi": smi, "dtype": "float32",
+          "model": "Vgg16(1000) without its LogSoftMax, NHWC, via save_tf",
+          "batch": 8, "graphdef_bytes": pb_bytes, "save_s": save_s,
+          "load_s": load_s, "forward_max_rel": forward_rel,
+          "rtol": INTEROP_RTOL, "nhwc_vs_nchw_rel": layout_rel,
+          "on_card": on_card, "ms_imported": ms_imported,
+          "ms_original": ms_original, "ms_graph_replay": ms_replay,
+          "graph_replay_equal": replay_equal,
+          "graph_replay_max_abs": replay_diff, "fixtures": fixtures,
+          "seconds": time.monotonic() - t0, "flash_launches": fa.launches})
+    del imported, body
+    assert on_card
+    assert forward_rel <= INTEROP_RTOL, forward_rel
+    assert replay_equal, replay_diff
+    assert len(fixtures) >= 4, fixtures
+    tf1 = fixtures["tf1_while"]
+    assert tf1["iterations"] == 8, tf1
+    assert fa.launches == 0, fa.launches
+    return fa.launches
+
+
+def _nchw_input(pb_in: str, pb_out: str, name: str = "input") -> str:
+    """``pb_in`` with its NHWC placeholder ``name`` fed by a Transpose of
+    a new NCHW placeholder (the image pipeline's batches); returns the
+    new input's name."""
+    import numpy as np
+
+    from bigdl_tpu_torch.utils import protowire as pw
+
+    def node(nm, op, inputs=(), attrs=b""):
+        out = pw.enc_string(1, nm) + pw.enc_string(2, op)
+        for i in inputs:
+            out += pw.enc_string(3, i)
+        return pw.enc_bytes(1, out + attrs)
+
+    perm = np.asarray([0, 2, 3, 1], np.int32)
+    tensor = (pw.enc_varint(1, 3)
+              + pw.enc_bytes(2, pw.enc_bytes(2, pw.enc_varint(1, 4)))
+              + pw.enc_bytes(4, perm.tobytes()))
+    value = pw.enc_bytes(5, pw.enc_string(1, "value")
+                         + pw.enc_bytes(2, pw.enc_bytes(8, tensor)))
+    with open(pb_in, "rb") as f:
+        nodes = pw.decode(f.read()).get(1, [])
+    kept = [pw.enc_bytes(1, nb) for nb in nodes
+            if pw.as_string(pw.decode(nb)[1][0]) != name]
+    assert len(kept) == len(nodes) - 1
+    new = name + "_nchw"
+    with open(pb_out, "wb") as f:
+        f.write(node(new, "Placeholder") + node(name + "_perm", "Const",
+                                                attrs=value)
+                + node(name, "Transpose", [new, name + "_perm"])
+                + b"".join(kept))
+    return new
+
+
+def _calibrate_bn_nhwc(torch, model, x) -> None:
+    """``_calibrate_bn`` for channels-last BN layers."""
+    from bigdl_tpu_torch.nn import BatchNormalization
+
+    g = torch.Generator().manual_seed(25)
+    h = x
+    with torch.no_grad():
+        for layer in model.children():
+            if isinstance(layer, BatchNormalization):
+                n = h.shape[-1]
+                layer.running_mean = h.mean((0, 1, 2)).clone()
+                layer.running_var = h.var((0, 1, 2), unbiased=False).clone()
+                layer.weight.copy_(torch.rand(n, generator=g) + 0.5)
+                layer.bias.copy_(0.1 * torch.randn(n, generator=g))
+            h = layer(h)
+
+
+def tf_predict_main(torch, fa, smi) -> int:
+    """tf_predict_main: a CIFAR-sized NHWC convolutional net (random
+    weights, BN statistics calibrated on the images) exported by
+    ``save_tf`` with an NCHW input Transpose, then ``convert_model
+    --from tf --to bigdl`` and the image-classification main over
+    ``TF_PREDICT`` images with ``--model-type tf`` and with ``bigdl`` on
+    the converted file: equal classes. Returns the flash launches (0)."""
+    import tempfile
+
+    import numpy as np
+
+    from bigdl_tpu_torch import nn as tnn
+    from bigdl_tpu_torch.example.imageclassification import predict as ic
+    from bigdl_tpu_torch.utils import convert_model
+    from bigdl_tpu_torch.utils.tf_export import save_tf
+
+    fa.launches = 0
+    t0 = time.monotonic()
+    torch.manual_seed(27)
+    net = tnn.Sequential()
+    c_in = 3
+    for c_out in (64, 128, 256):
+        net.add(tnn.SpatialConvolution(c_in, c_out, 3, 3, 1, 1, -1, -1,
+                                       format="NHWC", device="cuda"))
+        net.add(tnn.SpatialBatchNormalization(c_out, format="NHWC",
+                                              device="cuda"))
+        net.add(tnn.ReLU()).add(tnn.SpatialMaxPooling(2, 2, 2, 2,
+                                                      format="NHWC"))
+        c_in = c_out
+    net.add(tnn.View(256 * 4 * 4)).add(tnn.Linear(256 * 4 * 4, 10,
+                                                  device="cuda"))
+    rng = np.random.RandomState(TF_PREDICT["seed"])
+    with tempfile.TemporaryDirectory() as tmp:
+        for i in range(TF_PREDICT["images"]):
+            np.save(os.path.join(tmp, f"img{i:03d}.npy"),
+                    (rng.rand(32, 32, 3) * rng.rand(3)).astype(np.float32))
+        images = os.path.join(tmp, "img*.npy")
+        x = torch.cat(list(_image_batches(torch, images))).cuda()
+        _calibrate_bn_nhwc(torch, net, x.permute(0, 2, 3, 1).contiguous())
+        net.evaluate()
+        raw = os.path.join(tmp, "net_nhwc.pb")
+        save_tf(net, (32, 32, 3), raw)
+        pb = os.path.join(tmp, "net.pb")
+        inp = _nchw_input(raw, pb)
+        dst = os.path.join(tmp, "net.bigdl")
+        _, convert_s = _timed(torch, lambda: convert_model.main(
+            ["--from", "tf", "--to", "bigdl", "--input", pb, "--tf-inputs",
+             inp, "--tf-outputs", "output", "--output", dst, "--device",
+             "cuda"]))
+        batch = str(TF_PREDICT["batch"])
+        got, tf_s = _timed(torch, lambda: ic.main(
+            ["--model", pb, "--model-type", "tf", "--tf-inputs", inp,
+             "--tf-outputs", "output", "--images", images, "--batch-size",
+             batch, "--device", "cuda"]))
+        want, bigdl_s = _timed(torch, lambda: ic.main(
+            ["--model", dst, "--model-type", "bigdl", "--images", images,
+             "--batch-size", batch, "--device", "cuda"]))
+        with torch.inference_mode():
+            direct = (net(x.permute(0, 2, 3, 1).contiguous()).argmax(1)
+                      + 1).tolist()
+    parted_direct = sum(a != b for a, b in zip(got, direct))
+    emit({"phase": "tf_predict_main", "nvidia_smi": smi,
+          "model": "3 x (NHWC conv, BN, ReLU, pool), Linear(4096, 10), "
+                   "via save_tf + an NCHW Transpose",
+          "images": len(got), "batch": TF_PREDICT["batch"],
+          "class_counts": np.bincount(got, minlength=11)[1:].tolist(),
+          "classes_equal": got == want, "convert_s": convert_s,
+          "main_tf_s": tf_s, "main_bigdl_s": bigdl_s,
+          "parted_from_the_original": parted_direct,
+          "seconds": time.monotonic() - t0, "flash_launches": fa.launches})
+    assert len(got) == TF_PREDICT["images"]
+    assert got == want, (got, want)
+    assert len(set(got)) > 1, got
+    assert fa.launches == 0, fa.launches
+    return fa.launches
+
+
+def tf_session_train(torch, fa, smi) -> int:
+    """tf_session_train: ``Session.train`` on the card over the committed
+    unfrozen TF1 linear graph (``VariableV2`` + ``Assign``, the JAX
+    ``tests/test_tf_session.py`` model): mse < 0.01 and ``w`` within 0.15
+    of the target, the Variables updated in place. Returns the flash
+    launches (0)."""
+    import numpy as np
+
+    from bigdl_tpu_torch import nn as tnn
+    from bigdl_tpu_torch.dataset.sample import Sample
+    from bigdl_tpu_torch.optim import SGD, Trigger
+    from bigdl_tpu_torch.utils.tf_session import Session
+
+    fa.launches = 0
+    t0 = time.monotonic()
+    cfg = TF_SESSION
+    w_true = np.asarray([[1.0], [-2.0], [0.5]], np.float32)
+    rng = np.random.RandomState(0)
+    x = rng.randn(cfg["samples"], 3).astype(np.float32)
+    y = x @ w_true + 0.25
+    sess = Session(os.path.join(TF_FIXTURES, "tf1_linear.pb"), ["x"],
+                   ["pred"], device="cuda")
+    w_param = sess._loader.variables["w"].value
+    assert w_param.is_cuda
+    _, train_s = _timed(torch, lambda: sess.train(
+        [Sample(x[i], y[i]) for i in range(cfg["samples"])],
+        tnn.MSECriterion(), optim_method=SGD(learning_rate=cfg["lr"]),
+        end_when=Trigger.max_epoch(cfg["epochs"]), batch_size=cfg["batch"]))
+    pred = sess.predict(x).float().cpu().numpy()
+    mse = float(np.mean((pred - y) ** 2))
+    w = w_param.detach().float().cpu().numpy()
+    steps = cfg["epochs"] * cfg["samples"] // cfg["batch"]
+    emit({"phase": "tf_session_train", "nvidia_smi": smi,
+          "graph": "tests/data/torch_tf/tf1_linear.pb", "mse": mse,
+          "w": w.reshape(-1).tolist(), "w_true": w_true.reshape(-1).tolist(),
+          "b": sess._loader.variables["b"].value.detach().cpu().tolist(),
+          "steps": steps, "train_s": train_s,
+          "ms_a_step": 1000.0 * train_s / steps,
+          "in_place": sess._loader.variables["w"].value is w_param,
+          "seconds": time.monotonic() - t0, "flash_launches": fa.launches})
+    assert mse < 0.01, mse
+    assert float(np.abs(w - w_true).max()) <= 0.15, w
+    assert sess._loader.variables["w"].value is w_param
+    assert fa.launches == 0, fa.launches
+    return fa.launches
+
+
+def _mnist_like(seed, n_train, n_test):
+    """28 x 28 images: one of 10 fixed random templates plus noise, the
+    label its template (one-hot and 1-based)."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    templates = rng.rand(10, 1, 28, 28).astype(np.float32)
+    n = n_train + n_test
+    labels = rng.randint(0, 10, n)
+    x = (0.6 * templates[labels]
+         + 0.8 * rng.rand(n, 1, 28, 28)).astype(np.float32)
+    return x, labels
+
+
+def _imdb_like(cfg):
+    """Token sequences of ``maxlen`` ids below ``vocab``: 70% of a
+    positive one's tokens come from the lower half of ``signal_tokens``
+    ids, a negative one's from the upper half, the rest from the whole
+    vocabulary."""
+    import numpy as np
+
+    rng = np.random.RandomState(cfg["seed"])
+    n, t, v = cfg["train"] + cfg["test"], cfg["maxlen"], cfg["vocab"]
+    k = cfg["signal_tokens"] // 2
+    y = rng.randint(0, 2, n)
+    half = rng.randint(0, k, (n, t)) + np.where(y[:, None] == 1, 0, k)
+    noise = rng.randint(0, v, (n, t))
+    x = np.where(rng.rand(n, t) < 0.7, half, noise)
+    return x.astype(np.float32), y.astype(np.float32)
+
+
+def _keras_fit(torch, model, x, y, batch, epochs):
+    t = time.monotonic()
+    model.fit(x, y, batch_size=batch, nb_epoch=epochs)
+    torch.cuda.synchronize()
+    seconds = time.monotonic() - t
+    steps = epochs * -(-len(x) // batch)
+    return {"steps": steps, "fit_s": seconds,
+            "ms_a_step": 1000.0 * seconds / steps,
+            "records_a_s": epochs * len(x) / seconds}
+
+
+def keras_train(torch, fa, smi) -> int:
+    """keras_train: two Keras examples at their published widths on the
+    card, trained on synthetic data from a fixed seed whose labels can
+    be learnt: Keras 1.2.2's ``mnist_cnn.py`` (compile / fit / evaluate,
+    batch 128; Adam where the example takes Adadelta, whose first steps
+    with eps 1e-10 barely move in two epochs) and ``imdb_lstm.py`` (Embedding 20000 x 128, LSTM 128,
+    Dense 1 sigmoid, maxlen 80, batch 32, binary cross-entropy); each
+    beats chance on held-out data and runs ``predict_classes``. The
+    mnist topology then goes through ``DefinitionLoader`` from
+    ``MNIST_CNN_JSON`` with the trained weights set from numpy: equal
+    classes. Returns the flash launches (0)."""
+    import numpy as np
+
+    from bigdl_tpu_torch import keras as K
+    from bigdl_tpu_torch.keras.converter import DefinitionLoader
+    from bigdl_tpu_torch.optim import Adam
+    from bigdl_tpu_torch.utils.weights import (load_jax_params,
+                                               params_to_numpy)
+
+    fa.launches = 0
+    t0 = time.monotonic()
+    rows = {}
+    cfg = KERAS_MNIST
+    torch.manual_seed(cfg["seed"])
+    x, labels = _mnist_like(cfg["seed"], cfg["train"], cfg["test"])
+    onehot = np.eye(10, dtype=np.float32)[labels]
+    xtr, ytr, xte = x[:cfg["train"]], onehot[:cfg["train"]], x[cfg["train"]:]
+    cuda = {"device": "cuda"}
+    m = K.Sequential()
+    m.add(K.Convolution2D(32, 3, 3, activation="relu",
+                          input_shape=(1, 28, 28), **cuda))
+    m.add(K.Convolution2D(32, 3, 3, activation="relu", **cuda))
+    m.add(K.MaxPooling2D((2, 2), **cuda))
+    m.add(K.Dropout(0.25, **cuda))
+    m.add(K.Flatten(**cuda))
+    m.add(K.Dense(128, activation="relu", **cuda))
+    m.add(K.Dropout(0.5, **cuda))
+    m.add(K.Dense(10, activation="softmax", **cuda))
+    m.compile(optimizer=Adam(learning_rate=cfg["lr"]),
+              loss="categorical_crossentropy", metrics=["accuracy"])
+    row = _keras_fit(torch, m, xtr, ytr, cfg["batch"], cfg["epochs"])
+    (_, acc), = m.evaluate(xte, labels[cfg["train"]:, None] + 1.0,
+                           batch_size=cfg["batch"])
+    classes = m.predict_classes(xte, batch_size=cfg["batch"])
+    pc_acc = float(np.mean(classes == labels[cfg["train"]:]))
+    json_model = DefinitionLoader.from_json_str(MNIST_CNN_JSON, device="cuda")
+    load_jax_params(json_model, params_to_numpy(m))
+    json_model.evaluate()
+    json_classes = json_model.predict_classes(xte, batch_size=cfg["batch"])
+    rows["mnist_cnn"] = dict(row, evaluate_accuracy=acc,
+                             predict_classes_accuracy=pc_acc, chance=0.1,
+                             json_reload_classes_equal=bool(
+                                 np.array_equal(json_classes, classes)))
+
+    cfg = KERAS_IMDB
+    torch.manual_seed(cfg["seed"])
+    x, y = _imdb_like(cfg)
+    n = cfg["train"]
+    lm = K.Sequential()
+    lm.add(K.Embedding(cfg["vocab"], 128, input_length=cfg["maxlen"], **cuda))
+    lm.add(K.LSTM(128, **cuda))
+    lm.add(K.Dense(1, activation="sigmoid", **cuda))
+    lm.compile(optimizer=Adam(learning_rate=cfg["lr"]),
+               loss="binary_crossentropy")
+    row = _keras_fit(torch, lm, x[:n], y[:n, None], cfg["batch"],
+                     cfg["epochs"])
+    prob = np.asarray(lm.predict(x[n:], batch_size=cfg["batch"])).reshape(-1)
+    acc = float(np.mean((prob > 0.5) == (y[n:] > 0.5)))
+    lm_classes = lm.predict_classes(x[n:], batch_size=cfg["batch"])
+    rows["imdb_lstm"] = dict(row, held_out_accuracy=acc, chance=0.5,
+                             predict_classes_rows=int(len(lm_classes)))
+    emit({"phase": "keras_train", "nvidia_smi": smi, "rows": rows,
+          "seconds": time.monotonic() - t0, "flash_launches": fa.launches})
+    assert rows["mnist_cnn"]["evaluate_accuracy"] > 0.5, rows
+    assert rows["mnist_cnn"]["json_reload_classes_equal"], rows
+    assert rows["imdb_lstm"]["held_out_accuracy"] > 0.7, rows
+    assert fa.launches == 0, fa.launches
+    return fa.launches
+
+
+def _capture_kernels(torch, name_of_loop, tmp):
+    """A ``PROFILE_CAPTURE_S`` capture asked for on this thread while
+    ``run`` (already going on another thread) launches: the CUDA kernel
+    events in the trace and the thread that started the session."""
+    from bigdl_tpu_torch import observability as obs
+    from bigdl_tpu_torch.observability import profiler
+    from bigdl_tpu_torch.observability.events import FlightRecorder
+
+    rec = FlightRecorder()
+    prev = obs.set_default_recorder(rec)
+    try:
+        path = profiler.capture(PROFILE_CAPTURE_S, out_dir=tmp)
+    finally:
+        obs.set_default_recorder(prev)
+    traces = [f for f in os.listdir(path) if f.endswith(".pt.trace.json")]
+    starts = [e.attrs["thread"] for e in rec.tail()
+              if e.kind == "profiler/capture_start"]
+    return {"kernels": sum(_trace_kernels(os.path.join(path, t))
+                           for t in traces),
+            "started_on": starts, "loop": name_of_loop}
+
+
+def profiler_hosting(torch, fa, smi) -> int:
+    """profiler_hosting: a 1 s ``capture`` asked for on the main thread
+    while a ``GenerationService`` (its batcher's launcher) and then a
+    ``LocalOptimizer`` (its step loop) launch on threads of their own:
+    each trace holds CUDA kernel events and the session started on the
+    launching thread. Returns the flash launches of the generation
+    requests."""
+    import tempfile
+    import threading
+
+    import numpy as np
+
+    from bigdl_tpu_torch import nn as tnn
+    from bigdl_tpu_torch.dataset.sample import Sample
+    from bigdl_tpu_torch.models.transformer import TransformerLM
+    from bigdl_tpu_torch.optim import SGD, Optimizer, Trigger
+    from bigdl_tpu_torch.optim.generation_service import GenerationService
+
+    fa.launches = 0
+    t0 = time.monotonic()
+    rows = {}
+    torch.manual_seed(28)
+    lm = TransformerLM(512, embed_dim=128, num_heads=4, num_kv_heads=2,
+                       num_layers=2, max_len=256, use_rope=True,
+                       device="cuda")
+    lm.evaluate()
+    svc = GenerationService(lm, max_batch=4, batch_timeout_ms=2.0,
+                            bucket_tokens=8, service_name="gen-profile")
+    stop = threading.Event()
+    served = []
+
+    def client():
+        r = np.random.RandomState(29)
+        while not stop.is_set():
+            served.append(svc.generate(list(r.randint(0, 512, (24,))), 8))
+
+    clients = [threading.Thread(target=client, name=f"client{i}")
+               for i in range(3)]
+    for c in clients:
+        c.start()
+    try:
+        while not served:
+            time.sleep(0.01)
+        with tempfile.TemporaryDirectory() as tmp:
+            rows["generation_service"] = _capture_kernels(
+                torch, "gen-profile-launcher", tmp)
+    finally:
+        stop.set()
+        for c in clients:
+            c.join(timeout=120)
+    rows["generation_service"]["requests_served"] = len(served)
+    gen_launches = fa.launches
+
+    rs = np.random.RandomState(30)
+    samples = [Sample(rs.randn(512).astype(np.float32), float(i % 10 + 1))
+               for i in range(2048)]
+    model = tnn.Sequential(tnn.Linear(512, 1024, device="cuda"), tnn.ReLU(),
+                           tnn.Linear(1024, 10, device="cuda"),
+                           tnn.LogSoftMax())
+    opt = Optimizer(model=model, dataset=samples,
+                    criterion=tnn.ClassNLLCriterion(), batch_size=64,
+                    end_when=Trigger.max_iteration(10 ** 7))
+    opt.set_optim_method(SGD(learning_rate=0.01))
+    trainer = threading.Thread(target=opt.optimize, name="local-train")
+    trainer.start()
+    try:
+        deadline = time.monotonic() + 120
+        while opt.optim_method.state.get("neval", 1) < 5:
+            assert time.monotonic() < deadline and trainer.is_alive()
+            time.sleep(0.01)
+        with tempfile.TemporaryDirectory() as tmp:
+            rows["local_optimizer"] = _capture_kernels(
+                torch, "local-train", tmp)
+    finally:
+        opt.end_when = Trigger.max_iteration(0)
+        trainer.join(timeout=120)
+    rows["local_optimizer"]["steps"] = opt.optim_method.state.get("neval")
+    emit({"phase": "profiler_hosting", "nvidia_smi": smi,
+          "capture_s": PROFILE_CAPTURE_S, "rows": rows,
+          "seconds": time.monotonic() - t0, "flash_launches": gen_launches})
+    for key, row in rows.items():
+        assert row["kernels"] > 0, ("the capture holds no CUDA kernel", key,
+                                    row)
+        assert row["started_on"] == [row["loop"]], (key, row)
+    return gen_launches
+
+
 def main() -> int:
     import torch
 
@@ -8559,6 +9188,17 @@ def main() -> int:
           "seconds": time.monotonic() - t_si,
           "flash_launches": serialize_launches})
 
+    # --------------- TF import and the keras API, profiler hosting (slice 21)
+    t_tk = time.monotonic()
+    tf_keras_launches = (tf_import_gate(torch, fa, smi)
+                         + tf_predict_main(torch, fa, smi)
+                         + tf_session_train(torch, fa, smi)
+                         + keras_train(torch, fa, smi)
+                         + profiler_hosting(torch, fa, smi))
+    emit({"phase": "slice21_phases", "nvidia_smi": smi,
+          "seconds": time.monotonic() - t_tk,
+          "flash_launches": tf_keras_launches})
+
     # ----------------------------------------------------- 9. kernels line
     print(nvidia_smi(), flush=True)
     emit({"kernels": [{
@@ -8574,7 +9214,8 @@ def main() -> int:
                      + text_launches + distri_launches + ring_launches
                      + longcontext_launches + tp_launches + obs_launches
                      + sequence_launches + sparse_detection_launches
-                     + ops_widedeep_launches + serialize_launches),
+                     + ops_widedeep_launches + serialize_launches
+                     + tf_keras_launches),
         "launches_serving": serving_launches,
         "launches_train": train_launches,
         "launches_engine": engine_launches,
@@ -8598,6 +9239,7 @@ def main() -> int:
         "launches_sparse_detection": sparse_detection_launches,
         "launches_ops_widedeep": ops_widedeep_launches,
         "launches_serialize": serialize_launches,
+        "launches_tf_keras": tf_keras_launches,
         "tp_local_heads": {k: tp_local[k] for k in (
             "shape", "max_abs_err", "kernel_ms", "device_ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms", "library_device_ms")},

@@ -7,8 +7,9 @@ the same weights, and each package's CLI converts it: the port's GraphDef
 and Caffe pair are the JAX CLI's bytes (the GraphDef's run in
 TensorFlow is ``tests/test_torch_tf_export.py``'s), and the Caffe pair
 loads back to the model's output. ``--quantize`` writes the port's int8
-clone; the sources still waiting raise naming their ROADMAP.md item;
-``--to torch`` of a module raises ``TypeError``, as in the JAX package.
+clone; ``--from tf`` and ``--from keras`` (which waited on ROADMAP.md
+items 12.6 and 12.7) convert as the JAX CLI does; ``--to torch`` of a
+module raises ``TypeError``, as in the JAX package.
 """
 
 import jax
@@ -109,15 +110,66 @@ def test_cli_caffe_to_bigdl_quantized(saved, tmp_path):
                     "--quantize"] + CPU)
 
 
+def _keras1_files(tm, tmp_path):
+    """The MLP ``tm`` as a Keras-1.2.2 json topology + hdf5 weights."""
+    import json
+
+    import h5py
+
+    spec = {"class_name": "Sequential", "config": [
+        {"class_name": "Dense", "config": {
+            "output_dim": 8, "activation": "relu",
+            "batch_input_shape": [None, 4]}},
+        {"class_name": "Dense", "config": {"output_dim": 2}}]}
+    jpath, hpath = str(tmp_path / "k.json"), str(tmp_path / "k.h5")
+    with open(jpath, "w") as f:
+        json.dump(spec, f)
+    lins = [m for m in tm.modules() if isinstance(m, tnn.Linear)]
+    with h5py.File(hpath, "w") as f:
+        f.attrs["layer_names"] = [b"dense_1", b"dense_2"]
+        for i, lin in enumerate(lins):
+            g = f.create_group(f"dense_{i + 1}")
+            g.attrs["weight_names"] = [b"W", b"b"]
+            g.create_dataset("W", data=lin.weight.detach().numpy().T)
+            g.create_dataset("b", data=lin.bias.detach().numpy())
+    return jpath, hpath
+
+
 @pytest.mark.parametrize("src,item", [("tf", "item 12.6"),
                                       ("keras", "item 12.7")])
 def test_sources_still_waiting_raise_naming_their_item(src, item, saved,
                                                        tmp_path):
-    _, _, _, tsrc = saved
-    with pytest.raises(NotImplementedError, match=item):
-        tconv.main(["--from", src, "--to", "bigdl", "--input", tsrc,
-                    "--output", str(tmp_path / "o.bigdl"), "--tf-inputs",
-                    "x", "--tf-outputs", "y"] + CPU)
+    """The two sources that waited on ROADMAP.md items 12.6 (TF import)
+    and 12.7 (Keras) now convert: ``--from tf`` and ``--from keras`` to
+    ``bigdl`` through the port's CLI and through the JAX package's give
+    the same forward as the source model, and the CLI names neither item
+    any more."""
+    _, tm, _, tsrc = saved
+    if src == "tf":
+        pb = str(tmp_path / "m.pb")
+        tconv.main(["--from", "bigdl", "--to", "tf", "--input", tsrc,
+                    "--output", pb, "--input-shape", "4"] + CPU)
+        args = ["--input", pb, "--tf-inputs", "input", "--tf-outputs",
+                "output"]
+    else:
+        jpath, hpath = _keras1_files(tm, tmp_path)
+        args = ["--input", hpath, "--keras-json", jpath]
+    tdst, jdst = str(tmp_path / "o.bigdl"), str(tmp_path / "oj.bigdl")
+    tconv.main(["--from", src, "--to", "bigdl", "--output", tdst] + args
+               + CPU)
+    jconv.main(["--from", src, "--to", "bigdl", "--output", jdst] + args)
+    back, jback = tfile.load_module(tdst, device="cpu"), jfile.load_module(jdst)
+    back.evaluate()
+    jback.evaluate()
+    x = np.random.RandomState(6).randn(5, 4).astype(np.float32)
+    with torch.no_grad():
+        got, want = back(torch.from_numpy(x)).numpy(), \
+            tm(torch.from_numpy(x)).numpy()
+    np.testing.assert_allclose(got, np.asarray(jback(jnp.asarray(x))),
+                               rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
+    with open(tconv.__file__) as f:
+        assert item not in f.read()
 
 
 def test_to_torch_of_a_module_raises_as_in_jax(saved, tmp_path):

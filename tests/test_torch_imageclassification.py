@@ -5,14 +5,12 @@ the port).
 
 The same images go through the port's main with ``--model-type bigdl``
 and ``caffe`` on the CPU and through the JAX main on the same weights:
-the classes are equal. ``--model-type tf`` raises naming its ROADMAP.md
-item.
+the classes are equal. ``--model-type tf`` (which waited on ROADMAP.md
+item 12.6) classifies a GraphDef as the JAX main does.
 """
 
 import jax
 import numpy as np
-import pytest
-import torch
 
 from bigdl_tpu import nn as jnn
 from bigdl_tpu.example.imageclassification.predict import main as jmain
@@ -100,8 +98,79 @@ def _caffe_body(nn, m):
     return body
 
 
+def _tf_graph(path, seed):
+    """A frozen-style GraphDef taking the pipeline's NCHW batch: a
+    Transpose to NHWC, a SAME Conv2D with bias and ReLU, a spatial Mean,
+    then MatMul, BiasAdd and Softmax."""
+    from bigdl_tpu.utils import protowire as pw
+
+    def attr(key, value):
+        return pw.enc_bytes(5, pw.enc_string(1, key) + pw.enc_bytes(2, value))
+
+    def tensor(arr, dt):
+        shape = b"".join(pw.enc_bytes(2, pw.enc_varint(1, d))
+                         for d in arr.shape)
+        return attr("value", pw.enc_bytes(8, pw.enc_varint(1, dt)
+                                          + pw.enc_bytes(2, shape)
+                                          + pw.enc_bytes(4, arr.tobytes())))
+
+    def ints(key, vals):
+        return attr(key, pw.enc_bytes(1, b"".join(pw.enc_varint(3, v)
+                                                  for v in vals)))
+
+    def node(name, op, inputs=(), attrs=b""):
+        out = pw.enc_string(1, name) + pw.enc_string(2, op)
+        for i in inputs:
+            out += pw.enc_string(3, i)
+        return pw.enc_bytes(1, out + attrs)
+
+    rng = np.random.RandomState(seed)
+    f32 = lambda *s: (rng.randn(*s) * 0.5).astype(np.float32)  # noqa: E731
+    gd = b"".join([
+        node("x", "Placeholder"),
+        node("perm", "Const", attrs=tensor(np.asarray([0, 2, 3, 1],
+                                                      np.int32), 3)),
+        node("nhwc", "Transpose", ["x", "perm"]),
+        node("w", "Const", attrs=tensor(f32(3, 3, 3, 4), 1)),
+        node("conv", "Conv2D", ["nhwc", "w"],
+             attrs=ints("strides", [1, 1, 1, 1])
+             + attr("padding", pw.enc_string(2, "SAME"))),
+        node("b", "Const", attrs=tensor(f32(4), 1)),
+        node("bias", "BiasAdd", ["conv", "b"]),
+        node("relu", "Relu", ["bias"]),
+        node("axes", "Const", attrs=tensor(np.asarray([1, 2], np.int32), 3)),
+        node("mean", "Mean", ["relu", "axes"]),
+        node("w2", "Const", attrs=tensor(f32(4, 3), 1)),
+        node("mm", "MatMul", ["mean", "w2"]),
+        node("b2", "Const", attrs=tensor(f32(3), 1)),
+        node("logits", "BiasAdd", ["mm", "b2"]),
+        node("prob", "Softmax", ["logits"])])
+    with open(path, "wb") as f:
+        f.write(gd)
+
+
 def test_tf_model_type_raises_naming_its_item(tmp_path):
-    images = _images(tmp_path, 1)
-    with pytest.raises(NotImplementedError, match="item 12.6"):
-        main(["--model", str(tmp_path / "m.pb"), "--model-type", "tf",
-              "--images", images, "--device", "cpu"])
+    """``--model-type tf``, which waited on ROADMAP.md item 12.6, now
+    classifies: a GraphDef taking the pipeline's NCHW batches gives the
+    JAX main's classes, and the same graph converted to the port's
+    ``bigdl`` format gives them too."""
+    from bigdl_tpu_torch.utils import convert_model as tconv
+
+    rng = np.random.RandomState(2)
+    for i in range(9):     # each image its own channel brightness
+        np.save(str(tmp_path / f"img{i:02d}.npy"),
+                (rng.rand(16, 16, 3) * rng.rand(3)).astype(np.float32))
+    images = str(tmp_path / "img*.npy")
+    pb = str(tmp_path / "m.pb")
+    _tf_graph(pb, seed=16)   # a seed whose graph parts the images
+    tf_args = ["--model-type", "tf", "--tf-inputs", "x", "--tf-outputs",
+               "prob", "--images", images, "--batch-size", "4"]
+    want = jmain(["--model", pb] + tf_args)
+    got = main(["--model", pb] + tf_args + ["--device", "cpu"])
+    assert got == want and len(got) == 9 and len(set(got)) > 1
+    dst = str(tmp_path / "m.bigdl")
+    tconv.main(["--from", "tf", "--to", "bigdl", "--input", pb,
+                "--tf-inputs", "x", "--tf-outputs", "prob", "--output", dst,
+                "--device", "cpu"])
+    assert main(["--model", dst, "--model-type", "bigdl", "--images", images,
+                 "--batch-size", "4", "--device", "cpu"]) == want

@@ -216,6 +216,36 @@ caffe = load_caffe(os.path.join(tmp, "m.prototxt"), os.path.join(tmp, "m.cm"),
 caffe.evaluate()
 with torch.no_grad():
     torch.testing.assert_close(caffe(x), m(x), rtol=1e-4, atol=1e-6)
+# TF import and the keras API
+from bigdl_tpu_torch import keras
+from bigdl_tpu_torch.keras.converter import DefinitionLoader
+from bigdl_tpu_torch.utils import protowire as pw
+from bigdl_tpu_torch.utils.tf_import import load_tf
+def node(name, op, inputs=(), attrs=b""):
+    out = pw.enc_string(1, name) + pw.enc_string(2, op)
+    for i in inputs:
+        out += pw.enc_string(3, i)
+    return pw.enc_bytes(1, out + attrs)
+w = np.arange(6, dtype=np.float32).reshape(2, 3)
+shape = b"".join(pw.enc_bytes(2, pw.enc_varint(1, d)) for d in w.shape)
+value = pw.enc_bytes(5, pw.enc_string(1, "value") + pw.enc_bytes(2, pw.enc_bytes(
+    8, pw.enc_varint(1, 1) + pw.enc_bytes(2, shape) + pw.enc_bytes(4, w.tobytes()))))
+with open(os.path.join(tmp, "g.pb"), "wb") as f:
+    f.write(node("x", "Placeholder") + node("w", "Const", attrs=value)
+            + node("mm", "MatMul", ["x", "w"]) + node("y", "Tanh", ["mm"]))
+g = load_tf(os.path.join(tmp, "g.pb"), ["x"], ["y"], device="cpu")
+xx = torch.ones(4, 2)
+torch.testing.assert_close(g(xx), torch.tanh(xx @ torch.from_numpy(w)))
+km = keras.Sequential()
+km.add(keras.Dense(4, activation="relu", input_shape=(3,), device="cpu"))
+km.add(keras.Dense(2, activation="log_softmax", device="cpu"))
+km.compile("sgd", "sparse_categorical_crossentropy")
+km.fit(np.ones((8, 3), np.float32), np.ones((8, 1), np.float32), batch_size=4,
+       nb_epoch=1)
+assert km.predict_classes(np.ones((2, 3), np.float32)).shape == (2,)
+DefinitionLoader.from_json_str('{"class_name": "Sequential", "config": ['
+    '{"class_name": "Dense", "config": {"output_dim": 2, '
+    '"batch_input_shape": [null, 3]}}]}', device="cpu")
 bad = sorted(n for n in sys.modules
              if n.split(".")[0] in ("jax", "jaxlib", "bigdl_tpu"))
 assert not bad, bad
@@ -285,8 +315,10 @@ def test_no_jax_or_jax_package_import_in_the_port():
         f.stem for f in files if f.parent.name == "optim"}
     assert {"file", "tfrecord", "config", "protowire", "config_capture",
             "torchfile", "caffe", "caffe_export", "tf_export",
-            "convert_model"} <= {
+            "convert_model", "tf_import", "tf_session"} <= {
         f.stem for f in files if f.parent.name == "utils"}
+    assert {"__init__", "engine", "layers", "topology", "converter"} <= {
+        f.stem for f in files if f.parent.name == "keras"}
     assert {"__init__", "serializer"} <= {
         f.stem for f in files if f.parent.name == "serializer"}
     assert {"predict"} <= {f.stem for f in files
@@ -325,6 +357,10 @@ def test_entry_points_default_to_the_card_and_never_fall_back():
     from bigdl_tpu_torch.utils.caffe import load_caffe
     from bigdl_tpu_torch.utils.random import RandomGenerator
     from bigdl_tpu_torch.utils.torchfile import load_torch
+    from bigdl_tpu_torch import keras
+    from bigdl_tpu_torch.keras.converter import DefinitionLoader, load_keras
+    from bigdl_tpu_torch.utils.tf_import import load_tf
+    from bigdl_tpu_torch.utils.tf_session import Session
 
     for make in (lambda: TransformerLM(64, 32, 4, 2, 64),
                  lambda: MultiHeadAttention(32, 4),
@@ -353,6 +389,13 @@ def test_entry_points_default_to_the_card_and_never_fall_back():
                  lambda: ops.Kv2Tensor(feat_len=2),
                  lambda: ops.CategoricalColVocaList(["a"]),
                  lambda: Variable(0.0), lambda: TensorArray(2),
+                 lambda: load_tf("/nonexistent/g.pb", ["x"], ["y"]),
+                 lambda: Session("/nonexistent/g.pb", ["x"], ["y"]),
+                 lambda: keras.Dense(3), lambda: keras.Flatten(),
+                 lambda: load_keras(json_str='{"class_name": "Sequential", '
+                                    '"config": []}'),
+                 lambda: DefinitionLoader.from_json_str(
+                     '{"class_name": "Sequential", "config": []}'),
                  lambda: ParseExample(1, ["float32"], [()]),
                  lambda: ContinuousBatchingEngine(
                      TransformerLM(64, 32, 4, 2, 64, device="cpu"),
