@@ -61,6 +61,8 @@ def main(argv=None):
     p.add_argument("--images", required=True,
                    help="glob or list of .npy/.png image files")
     p.add_argument("--batch-size", type=int, default=8)
+    p.add_argument("--resize", default="32,32",
+                   help="height,width the images are resized to")
     p.add_argument("--means", default="0.5,0.5,0.5")
     p.add_argument("--stds", default="0.25,0.25,0.25")
     p.add_argument("--device", default=DEFAULT_DEVICE,
@@ -74,6 +76,7 @@ def main(argv=None):
                        if args.tf_outputs else None,
                        device=args.device)
     preds = predict(model, args.images, batch_size=args.batch_size,
+                    resize=tuple(int(v) for v in args.resize.split(",")),
                     means=tuple(float(v) for v in args.means.split(",")),
                     stds=tuple(float(v) for v in args.stds.split(",")))
     for i, c in enumerate(preds):

@@ -33,12 +33,14 @@ PERF.md has the counts). So a loop that launches device work hosts
 the captures: it runs inside ``hosting(wake)`` and calls ``poll()``
 between its iterations, and ``capture`` called on any other thread
 hands the session to it, which starts and stops it on its own thread
-(the serving engine's loop does this). With no host, or a host that
-does not take the session within ``HANDOFF_S``, the session runs on
-the calling thread. Start/stop land in the flight recorder
-(``profiler/capture_start`` / ``profiler/capture_done``, with the
-starting thread's name) so captures show up on the same timeline as
-the requests they overlapped.
+(the serving engine's loop does this). A host that has polled before
+is in the middle of an iteration, or idle until it has work, and is
+waited for (up to ``HOST_REACH_S``); with no host, or only hosts that
+have never polled and do not take the session within ``HANDOFF_S``,
+the session runs on the calling thread. Start/stop land in the flight
+recorder (``profiler/capture_start`` / ``profiler/capture_done``, with
+the starting thread's name) so captures show up on the same timeline
+as the requests they overlapped.
 """
 
 from __future__ import annotations
@@ -54,8 +56,12 @@ from typing import Optional
 #: talked into an unbounded trace that fills the disk.
 MAX_SECONDS = 60.0
 #: How long ``capture`` waits for a hosting loop to take the session
-#: before it runs the session on the calling thread.
+#: before it runs the session on the calling thread, unless a host that
+#: has polled before is still registered (it is mid-iteration).
 HANDOFF_S = 0.5
+#: How long ``capture`` waits at most for a host that has polled before
+#: to reach its next poll (one iteration of the loop: a batch, a step).
+HOST_REACH_S = 60.0
 #: How long past its duration ``capture`` waits for the host to stop
 #: a session (the host stops it between two iterations).
 HOST_STOP_GRACE_S = 60.0
@@ -72,9 +78,17 @@ class ProfilerBusy(RuntimeError):
 _LOCK = threading.Lock()       # held for the whole capture
 _STATE = threading.Lock()      # guards _active and the handoff state
 _active: Optional[tuple] = None     # (artifact dir, profile object)
-_hosts: dict = {}                   # host thread ident -> wake callable
+_hosts: dict = {}                   # host thread ident -> _Host
 _handoff: Optional["_Handoff"] = None   # waiting for a host to take it
 _hosted: Optional["_Handoff"] = None    # running on a host's thread
+
+
+class _Host:
+    """A hosting loop: its wake and idle callables, and whether it has
+    polled."""
+
+    def __init__(self, wake, idle):
+        self.wake, self.idle, self.polled = wake, idle, False
 
 
 class _Handoff:
@@ -221,23 +235,32 @@ def capture(seconds: float, out_dir: Optional[str] = None) -> str:
 
 def _hand_off(seconds: float, out_dir: Optional[str]) -> Optional[_Handoff]:
     """Offer the session to the hosting loops; the taken handoff, or
-    None when no host took it within ``HANDOFF_S``."""
+    None when no host took it within ``HANDOFF_S`` and none that has
+    polled before is left to reach its next poll (within
+    ``HOST_REACH_S``)."""
     global _handoff
     h = _Handoff(seconds, out_dir)
     with _STATE:
         if _handoff is not None or _hosted is not None or _LOCK.locked():
             raise _busy()
         _handoff = h
-        wakes = list(_hosts.values())
+        wakes = [host.wake for host in _hosts.values()]
     for wake in wakes:
         wake()
-    if h.taken.wait(HANDOFF_S):
-        return h
-    with _STATE:
-        if _handoff is h:           # withdrawn: the caller runs it
-            _handoff = None
-            return None
-    return h                        # taken between the wait and the lock
+    give_up = time.monotonic() + HOST_REACH_S
+    wait = HANDOFF_S
+    while not h.taken.wait(wait):
+        with _STATE:
+            if _handoff is not h:   # taken between the wait and the lock
+                return h
+            # an idle host was woken and would have taken it by now; one
+            # that has polled before is mid-iteration and polls next
+            if (not any(host.polled for host in _hosts.values())
+                    or time.monotonic() >= give_up):
+                _handoff = None     # withdrawn: the caller runs it
+                return None
+        wait = min(HANDOFF_S, 0.05)
+    return h
 
 
 def _await(h: _Handoff) -> str:
@@ -251,15 +274,18 @@ def _await(h: _Handoff) -> str:
 
 
 @contextlib.contextmanager
-def hosting(wake=None):
+def hosting(wake=None, idle=None):
     """Make the calling thread, a loop that launches device work, the
     host of ``capture`` sessions asked for on other threads while the
     with-block runs. The loop calls ``poll()`` between its iterations;
-    ``wake()`` (optional) rouses it from an idle wait. A session still
-    running when the block ends is stopped there."""
+    ``wake()`` (optional) rouses it from an idle wait, and ``idle()``
+    (optional) tells whether it has nothing to launch: an idle loop
+    leaves a handed-over session to a loop with work (a loop without
+    ``idle`` always has work), and takes it itself once it has work. A
+    session still running when the block ends is stopped there."""
     me = threading.get_ident()
     with _STATE:
-        _hosts[me] = wake or (lambda: None)
+        _hosts[me] = _Host(wake or (lambda: None), idle)
     try:
         yield
     finally:
@@ -271,26 +297,28 @@ def hosting(wake=None):
             _finish(h)
 
 
-def poll(take: bool = True) -> Optional[float]:
+def poll() -> Optional[float]:
     """Called by a hosting loop between iterations: takes a session
     handed over (starting it on this thread), stops this thread's
     session once its time is up, and returns the seconds it has left
     (None when this thread runs none), the longest the loop should
-    wait idle before it polls again. A loop with no work at hand passes
-    ``take=False``: it stops its own session when due but leaves a
-    handed-over one to a loop that is launching (or, after
-    ``HANDOFF_S``, to the caller)."""
+    wait idle before it polls again."""
     global _handoff, _hosted
     h = _hosted
     me = threading.get_ident()
+    host = _hosts.get(me)
+    if host is not None:
+        host.polled = True
     if h is not None and h.host == me:
         left = h.t_end - time.monotonic()
         if left > 0:
             return left
         _finish(h)
         return None
-    if _handoff is None or not take:
+    if _handoff is None:
         return None
+    if host is not None and host.idle is not None and host.idle():
+        return None     # left to a loop with work, or to this one's next
     with _STATE:
         h, _handoff = _handoff, None
         if h is None:

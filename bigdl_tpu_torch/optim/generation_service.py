@@ -86,7 +86,6 @@ class GenerationService:
         # one model call at a time: the card runs one batch at a time, and
         # the concurrency value lives in the batching
         self._dispatch = threading.Lock()
-        self._batchers = {}  # (tpad, bucket[, "tight", n]) -> _MicroBatcher
         self._counts = {"served": 0, "dispatches": 0, "tokens": 0}
         self.service_name = service_name
         self._ins = serving_instruments(service_name, registry)
@@ -94,14 +93,21 @@ class GenerationService:
         self._rec = default_recorder()
         #: recent per-request timelines: the stats() percentiles' source
         self._recent: collections.deque = collections.deque(maxlen=256)
-        # the batcher calls on_batch then run_batch on one drain thread:
+        # one batcher for every (tpad, bucket[, "tight", n]) key: its drain
+        # thread runs the batches in turn and hosts profiler captures
+        self._batcher = _MicroBatcher(
+            self._run_batch, max_batch, batch_timeout_ms,
+            on_batch=self._count_batch, submit_timeout_s=submit_timeout_s,
+            telemetry=self._ins, recorder=self._rec, name=service_name)
+        # the batcher calls on_batch then run_batch on its drain thread:
         # the real request count reaches the tokens/sec gauge through it
         self._tl = threading.local()
 
     def _cap(self) -> int:
         return min(self.max_len or self.model.max_len, self.model.max_len)
 
-    def _run_batch(self, stacked, bucket: int):
+    def _run_batch(self, stacked, key):
+        bucket = key[1]
         # layout per row: [padded prompt | true length | n]
         prompts = stacked[:, :-2]
         lengths = stacked[:, -2]
@@ -133,21 +139,6 @@ class GenerationService:
         with self._lock:
             self._counts["served"] += size
             self._counts["dispatches"] += 1
-
-    def _batcher(self, key) -> _MicroBatcher:
-        with self._lock:
-            b = self._batchers.get(key)
-            if b is None:
-                b = _MicroBatcher(
-                    lambda stacked, bucket=key[1]: self._run_batch(stacked,
-                                                                   bucket),
-                    self.max_batch, self.batch_timeout_ms,
-                    on_batch=self._count_batch,
-                    submit_timeout_s=self.submit_timeout_s,
-                    telemetry=self._ins, recorder=self._rec,
-                    name=self.service_name)
-                self._batchers[key] = b
-            return b
 
     def generate(self, prompt_ids, max_new_tokens: int) -> np.ndarray:
         """One request: 1-D ``prompt_ids`` in, 1-D ``prompt + generated``
@@ -183,8 +174,8 @@ class GenerationService:
         detail: dict = {}
         try:
             with self._ins.inflight.track():
-                toks = self._batcher(key).submit(row, request_id=rid,
-                                                 detail=detail)
+                toks = self._batcher.submit(row, request_id=rid,
+                                            detail=detail, key=key)
         except Exception as e:
             # the batcher's telemetry counted the failure; the recorder
             # still needs a terminal event

@@ -30,7 +30,6 @@ go to the flight recorder.
 from __future__ import annotations
 
 import ast
-import collections
 import io
 import itertools
 import threading
@@ -49,9 +48,9 @@ from bigdl_tpu_torch.observability.tracing import trace
 from bigdl_tpu_torch.optim.evaluator import model_device
 from bigdl_tpu_torch.utils.table import Table
 
-#: How long a micro-batcher's launcher thread waits with no batch (and no
-#: profiler capture to host) before it exits; the next batch starts it.
-LAUNCHER_IDLE_S = 2.0
+#: How long a micro-batcher's drain thread waits with no request (and no
+#: profiler capture to host) before it exits; the next request starts it.
+DRAIN_IDLE_S = 2.0
 
 
 def serialize_activity(activity) -> bytes:
@@ -114,25 +113,28 @@ def _row(outs, i: int):
 class _MicroBatcher:
     """Coalesce concurrent requests into one ``run_batch(stacked)`` call.
 
-    The first request of a signature starts a daemon drain thread that
-    waits up to ``timeout_ms`` for ``max_batch`` requests and hands the
-    batch to the batcher's launcher: one daemon thread that runs every
-    batch in turn and hands each request its row of the output.
-    ``on_batch`` is called with the real batch size on the launcher just
-    before ``run_batch``. The launcher is the loop that launches the
-    device work, so it hosts ``observability.profiler`` captures asked
-    for on other threads (``hosting`` / ``poll`` between batches; it takes
-    a new one only with a batch to launch): a capture lasts its seconds
-    and holds the kernels of every batch in its window, and a drain
-    thread that ends never stops it. The launcher
-    starts with the first batch and exits after ``LAUNCHER_IDLE_S`` with
-    no batch and no capture to host; a capture asked for while none runs
-    runs on its caller's thread. ``submit_timeout_s`` bounds a submitter's wait (None
-    waits forever). ``telemetry`` (a ``serving_instruments`` namespace)
-    receives each request's queue wait, the batch occupancy, the dispatch
-    count and time (a ``serve/dispatch`` span) and the errors; a request
-    submitted with a ``request_id`` is tagged in ``recorder``
-    (``batch/enqueue``, ``batch/dispatch``, ``batch/error``)."""
+    Requests group by (``key``, shape, dtype). One daemon drain thread
+    serves every group: it waits out each group's window (``timeout_ms``
+    from the group's first request, or until ``max_batch`` requests are
+    in), runs the batches one at a time and hands each request its row
+    of the output; a group submitted with a ``key`` runs as
+    ``run_batch(stacked, key)``. ``on_batch`` is called with the real
+    batch size on the drain thread just before ``run_batch``. The drain
+    thread is the loop that launches the device work, so it hosts
+    ``observability.profiler`` captures asked for on other threads
+    (``hosting`` / ``poll`` between batches and in its waits): a capture
+    lasts its seconds and holds the kernels of every batch in its
+    window. With nothing queued it is an idle host: it leaves a capture
+    to a loop with work, or takes it with its next request. The thread
+    starts with the first request and exits after ``DRAIN_IDLE_S`` with
+    no request and no capture to host; a capture asked for while no loop
+    runs runs on its caller's thread.
+    ``submit_timeout_s`` bounds a submitter's wait (None waits forever).
+    ``telemetry`` (a ``serving_instruments`` namespace) receives each
+    request's queue wait, the batch occupancy, the dispatch count and
+    time (a ``serve/dispatch`` span) and the errors; a request submitted
+    with a ``request_id`` is tagged in ``recorder`` (``batch/enqueue``,
+    ``batch/dispatch``, ``batch/error``)."""
 
     def __init__(self, run_batch, max_batch: int, timeout_ms: float,
                  on_batch=None, submit_timeout_s=None, telemetry=None,
@@ -142,21 +144,22 @@ class _MicroBatcher:
         self.timeout = timeout_ms / 1000.0
         self.submit_timeout_s = submit_timeout_s
         self._lock = threading.Condition()
-        # signature -> list of (array, event, slot, t_enq, request_id)
+        # (key, shape, dtype) -> [deadline, [(array, event, slot, t_enq,
+        # request_id), ...]]
         self._pending = {}
         self._on_batch = on_batch
         self._telemetry = telemetry
         self._rec = recorder if recorder is not None else default_recorder()
         self.name = name
-        self._ready = collections.deque()   # batches waiting to launch
-        self._launcher: Optional[threading.Thread] = None
+        self._thread: Optional[threading.Thread] = None
+        self._idle = False      # the drain thread has nothing queued
 
-    def submit(self, x, request_id=None, detail=None):
+    def submit(self, x, request_id=None, detail=None, key=None):
         """Queue one sample; blocks until its batch lands and returns this
         sample's row of the output. ``detail`` (a dict) receives
         ``t_launch``, the monotonic instant the batch was dispatched."""
         x = np.asarray(x)
-        sig = (x.shape, x.dtype.str)
+        gkey = (key, x.shape, x.dtype.str)
         ev = threading.Event()
         slot = detail if detail is not None else {}
         if request_id is not None:
@@ -164,13 +167,17 @@ class _MicroBatcher:
             # precede batch/enqueue in its timeline
             self._rec.record("batch/enqueue", request_id, service=self.name)
         with self._lock:
-            group = self._pending.setdefault(sig, [])
-            group.append((x, ev, slot, time.monotonic(), request_id))
-            if len(group) == 1:
-                # group leader: wait out the window, then run this group
-                threading.Thread(target=self._drain, args=(sig,),
-                                 daemon=True).start()
-            self._lock.notify_all()
+            now = time.monotonic()
+            group = self._pending.setdefault(gkey, [now + self.timeout, []])
+            group[1].append((x, ev, slot, now, request_id))
+            self._idle = False
+            if self._thread is None:
+                self._thread = threading.Thread(
+                    target=self._drain, daemon=True,
+                    name=f"{self.name}-drain")
+                self._thread.start()
+            if len(group[1]) in (1, self.max_batch):
+                self._lock.notify_all()
         if not ev.wait(self.submit_timeout_s):
             raise RuntimeError(
                 f"micro-batch request still unanswered after "
@@ -181,64 +188,79 @@ class _MicroBatcher:
             raise slot["error"]
         return slot["out"]
 
-    def _drain(self, sig):
-        deadline = time.monotonic() + self.timeout
-        with self._lock:
-            while (len(self._pending.get(sig, ())) < self.max_batch
-                   and time.monotonic() < deadline):
-                self._lock.wait(timeout=max(0.0, deadline - time.monotonic()))
-            group = self._pending.get(sig, [])
-            batch, rest = group[:self.max_batch], group[self.max_batch:]
-            if rest:  # stragglers past the cap get their own leader
-                self._pending[sig] = rest
-                threading.Thread(target=self._drain, args=(sig,),
-                                 daemon=True).start()
-            else:
-                self._pending.pop(sig, None)
-            self._ready.append(batch)
-            if self._launcher is None:
-                self._launcher = threading.Thread(
-                    target=self._launch_loop, daemon=True,
-                    name=f"{self.name}-launcher")
-                self._launcher.start()
-            self._lock.notify_all()
-
     def _rouse(self):
         with self._lock:
             self._lock.notify_all()
 
-    def _launch_loop(self):
-        """Run the ready batches in turn, hosting profiler captures
-        between them; exit once idle with nothing to host."""
-        idle_since = time.monotonic()
-        with profiler.hosting(self._rouse):
-            while True:
-                # an idle launcher takes no new session: the loop that is
-                # launching should host it
-                left = profiler.poll(take=bool(self._ready))
-                with self._lock:
-                    if not self._ready:
-                        idle = time.monotonic() - idle_since
-                        if left is None and idle >= LAUNCHER_IDLE_S:
-                            self._launcher = None
-                            return
-                        wait = LAUNCHER_IDLE_S - idle if left is None \
-                            else min(left, LAUNCHER_IDLE_S)
-                        self._lock.wait(timeout=max(wait, 0.0))
-                        continue
-                    batch = self._ready.popleft()
-                self._launch(batch)
-                idle_since = time.monotonic()
+    def _take(self, now):
+        """(key, batch) of the ready group whose window ends first, or
+        None; stragglers past ``max_batch`` get a window of their own.
+        Called with the lock held."""
+        ready = [(g[0], k) for k, g in self._pending.items()
+                 if len(g[1]) >= self.max_batch or g[0] <= now]
+        if not ready:
+            return None
+        gkey = min(ready, key=lambda r: r[0])[1]
+        group = self._pending[gkey][1]
+        batch, rest = group[:self.max_batch], group[self.max_batch:]
+        if rest:
+            self._pending[gkey] = [now + self.timeout, rest]
+        else:
+            del self._pending[gkey]
+        return gkey[0], batch
 
-    def _launch(self, batch):
-        tel = self._telemetry
-        if tel is not None:
-            now = time.monotonic()
-            for b in batch:
-                tel.queue_wait_seconds.observe(now - b[3])
-            tel.batch_occupancy.observe(len(batch))
-            tel.dispatches_total.inc()
+    def _drain(self):
+        """Run the batches as their windows end, hosting profiler
+        captures meanwhile; exit once idle with nothing to host."""
         try:
+            with profiler.hosting(self._rouse, idle=lambda: self._idle):
+                idle_since = time.monotonic()
+                while True:
+                    left = profiler.poll()
+                    with self._lock:
+                        now = time.monotonic()
+                        job = self._take(now)
+                        self._idle = job is None and not self._pending
+                        if job is None:
+                            if self._pending:
+                                wait = min(g[0] for g in
+                                           self._pending.values()) - now
+                            elif left is None and \
+                                    now - idle_since >= DRAIN_IDLE_S:
+                                self._thread = None
+                                return
+                            else:
+                                wait = DRAIN_IDLE_S - (now - idle_since)
+                            if left is not None:
+                                wait = min(wait, left)
+                            self._lock.wait(timeout=max(wait, 0.0))
+                            continue
+                    self._launch(*job)
+                    idle_since = time.monotonic()
+        except BaseException as e:
+            # answer every waiting request rather than leave it hanging
+            with self._lock:
+                groups, self._pending = list(self._pending.values()), {}
+            for _, batch in groups:
+                for _, ev, slot, _, _ in batch:
+                    slot["error"] = RuntimeError(
+                        f"the micro-batch drain thread died: {e!r}")
+                    ev.set()
+            raise
+        finally:
+            with self._lock:
+                if self._thread is threading.current_thread():
+                    self._thread = None
+
+    def _launch(self, key, batch):
+        tel = self._telemetry
+        try:
+            if tel is not None:
+                now = time.monotonic()
+                for b in batch:
+                    tel.queue_wait_seconds.observe(now - b[3])
+                tel.batch_occupancy.observe(len(batch))
+                tel.dispatches_total.inc()
             if self._on_batch is not None:
                 self._on_batch(len(batch))
             t0 = time.monotonic()
@@ -248,10 +270,12 @@ class _MicroBatcher:
                     self._rec.record("batch/dispatch", rid,
                                      service=self.name,
                                      batch_size=len(batch))
+            stacked = np.stack([b[0] for b in batch])
             with trace.span("serve/dispatch",
                             histogram=tel.dispatch_seconds
                             if tel is not None else None):
-                outs = self._run(np.stack([b[0] for b in batch]))
+                outs = (self._run(stacked) if key is None
+                        else self._run(stacked, key))
             for i, (_, ev, slot, _, _) in enumerate(batch):
                 slot["out"] = _row(outs, i)
                 ev.set()

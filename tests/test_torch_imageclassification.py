@@ -174,3 +174,28 @@ def test_tf_model_type_raises_naming_its_item(tmp_path):
                 "--device", "cpu"])
     assert main(["--model", dst, "--model-type", "bigdl", "--images", images,
                  "--batch-size", "4", "--device", "cpu"]) == want
+
+
+def test_resize_option_sets_the_pipelines_image_size(tmp_path):
+    """``--resize H,W`` (the port's option; the JAX main resizes to its
+    ``predict``'s default 32 x 32) gives the classes of the JAX
+    ``predict`` called with the same ``resize``: a flattening model
+    takes only 8 x 8 inputs."""
+    from bigdl_tpu.example.imageclassification.predict import (
+        predict as jpredict)
+
+    def flat(nn, d):
+        return (nn.Sequential().add(nn.View(3 * 8 * 8))
+                .add(nn.Linear(3 * 8 * 8, 5, **d)).add(nn.SoftMax()))
+
+    with numpy_weight_draws(4):
+        jm = flat(jnn, {})
+    tm = flat(tnn, dict(device="cpu"))
+    load_jax_params(tm, jax.tree.map(np.asarray, jm.params_dict()))
+    tpath = str(tmp_path / "t.bigdl")
+    tfile.save_module(tm, tpath)
+    images = _images(tmp_path, 6, seed=3)
+    got = main(["--model", tpath, "--model-type", "bigdl", "--images",
+                images, "--resize", "8,8", "--device", "cpu"])
+    assert got == jpredict(jm, images, resize=(8, 8))
+    assert len(got) == 6 and len(set(got)) > 1
