@@ -28,7 +28,9 @@ the sparse stack with sparse samples (``nn/sparse.py``) and the
 detection heads (``nn/detection.py``).
 """
 
-__all__ = ["resolve_device"]
+from bigdl_tpu_torch.version import __version__
+
+__all__ = ["resolve_device", "__version__"]
 
 
 def __getattr__(name):

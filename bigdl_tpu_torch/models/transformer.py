@@ -58,7 +58,8 @@ from torch.utils.checkpoint import checkpoint, set_checkpoint_early_stop
 
 from bigdl_tpu_torch.device import DEFAULT_DEVICE, resolve_device
 from bigdl_tpu_torch.nn import init as bt_init
-from bigdl_tpu_torch.nn.attention import LayerNorm, TransformerBlock
+from bigdl_tpu_torch.nn.attention import (KVShards, LayerNorm,
+                                         TransformerBlock, cache_len)
 from bigdl_tpu_torch.nn.dropout import Dropout
 from bigdl_tpu_torch.nn.linear import Linear
 from bigdl_tpu_torch.nn.module import Module
@@ -380,31 +381,53 @@ class TransformerLM(Module):
         return kv_pool_sharding(mesh, self.num_kv_heads,
                                 model_axis=model_axis)
 
-    def _check_sharding(self, sharding) -> None:
-        """A cache ``sharding`` must be the layout this model computes:
-        replicated for a whole model, the heads spec of its own mesh and
-        axis for a tensor-parallel shard (whose caches then hold its local
-        heads)."""
-        from bigdl_tpu_torch.parallel.tp import kv_pool_spec
+    def _check_sharding(self, sharding):
+        """A cache ``sharding`` (B, H_kv, T, D) must be a layout this
+        model computes. Heads: replicated for a whole model, the heads
+        spec of its own mesh and axis for a tensor-parallel shard (whose
+        caches then hold its local heads). The batch may be split over
+        any other axis: each rank then holds and decodes only its own
+        rows (the caller passes them, as ``parallel/tp.py::
+        put_from_host`` cuts them) with no collective. The sequence or
+        the head dim may be split too (one of them): returns ``(dim,
+        group, block, blocks)`` of that split (else None), and each
+        rank's caches hold its block of the positions or features."""
+        from bigdl_tpu_torch.parallel.tp import _axes, kv_pool_spec
 
         if sharding is None:
-            return
-        spec = tuple(sharding.spec)
-        if self._tp is not None and sharding.mesh is self._tp.mesh and \
-                spec == tuple(kv_pool_spec(self._tp.model_axis)):
-            return
-        if self._tp is None and sharding.is_fully_replicated:
-            return
-        if any(e is not None for e in spec[:1] + spec[2:]):
-            raise NotImplementedError(
-                f"KV caches sharded by {sharding.spec} (batch, sequence or "
-                "head-dim blocks) are not ported (ROADMAP.md, Queue 1 item "
-                "12); the port shards caches by heads only")
-        raise ValueError(
-            f"cache sharding {sharding.spec} does not match the model's "
-            "layout: shard the model over that mesh and axis first "
-            "(parallel/tp.py::shard_model), whose caches hold its local "
-            "heads")
+            return None
+        spec = tuple(sharding.spec) + (None,) * (4 - len(sharding.spec))
+        tp = self._tp
+        if tp is not None and sharding.mesh is not tp.mesh:
+            raise ValueError(
+                f"cache sharding {sharding.spec} is not on the mesh the "
+                "model is sharded over (parallel/tp.py::shard_model)")
+        heads_ok = (sharding.num_blocks(1) == 1 if tp is None
+                    else spec[1] == kv_pool_spec(tp.model_axis)[1])
+        if not heads_ok:
+            raise ValueError(
+                f"cache sharding {sharding.spec} does not match the model's "
+                "layout: shard the model over that mesh and axis first "
+                "(parallel/tp.py::shard_model), whose caches hold its local "
+                "heads")
+        if tp is not None and tp.model_axis in _axes(spec[0]):
+            raise ValueError(f"cache sharding {sharding.spec} splits the "
+                             f"batch over the model axis "
+                             f"{tp.model_axis!r}, which holds the heads")
+        split = [d for d in (2, 3) if sharding.num_blocks(d) > 1]
+        if len(split) > 1:
+            raise ValueError(f"cache sharding {sharding.spec} splits both "
+                             "the sequence and the head dim: split one")
+        if not split:
+            return None
+        d = split[0]
+        if tp is not None and tp.model_axis in _axes(spec[d]):
+            raise ValueError(f"cache sharding {sharding.spec} splits over "
+                             f"the model axis {tp.model_axis!r}, which "
+                             "holds the heads")
+        axes = _axes(spec[d])
+        return (d, sharding.mesh.group(axes), sharding.mesh.index(axes),
+                sharding.num_blocks(d))
 
     def analytic_bytes(self, tokens: int, context: int,
                        dtype_bytes: int = 4) -> float:
@@ -428,13 +451,31 @@ class TransformerLM(Module):
         bf16 cache, also in the int8 clone); ``kv_dtype="int8"`` gives
         each block the quantized ``(k_q, v_q, k_scale, v_scale)`` form,
         which every prefill, decode and verify entry point takes.
-        ``sharding`` (``kv_cache_sharding(mesh)``) is checked against the
-        model's layout: a tensor-parallel shard allocates its local
-        heads."""
-        self._check_sharding(sharding)
+        ``sharding`` (``kv_cache_sharding(mesh)``, or any layout
+        ``_check_sharding`` takes) is checked against the model's
+        layout: a tensor-parallel shard allocates its local heads, and a
+        split of the sequence (the head dim) over ``n`` ranks gives each
+        rank ``max_len / n`` positions (``D / n`` features) as
+        ``nn/attention.py``'s ``KVShards``, which every cached entry point
+        decodes with the other blocks."""
+        split = self._check_sharding(sharding)
         dtype = dtype or self.tok_embed.dtype
-        return [blk.attn.init_cache(batch, max_len, dtype, kv_dtype)
-                for blk in self.blocks()]
+        if split is None:
+            return [blk.attn.init_cache(batch, max_len, dtype, kv_dtype)
+                    for blk in self.blocks()]
+        dim, group, block, blocks = split
+        total = max_len if dim == 2 else self.block0.attn.head_dim
+        if total % blocks:
+            raise ValueError(f"{'max_len' if dim == 2 else 'head_dim'} "
+                             f"{total} does not split into {blocks} blocks")
+        local = total // blocks
+        out = []
+        for blk in self.blocks():
+            bufs = (blk.attn.init_cache(batch, local, dtype, kv_dtype)
+                    if dim == 2 else blk.attn.init_cache(
+                        batch, max_len, dtype, kv_dtype, features=local))
+            out.append(KVShards(bufs, dim, group, block * local, total))
+        return out
 
     def prefill(self, ids, caches, pos0: int = 0):
         """One causal pass over ids (B, T0) writing every block's cache at
@@ -526,8 +567,11 @@ class TransformerLM(Module):
         ``init_cache`` forms with the leading dim indexing pool pages. One
         block table indexes every layer (page ``p`` names slice ``p`` of
         each block's tensors), so a request's pages are one id list. ``sharding`` as in
-        ``init_cache``."""
-        self._check_sharding(sharding)
+        ``init_cache``, but a pool splits only its heads: a split of the
+        sequence or the head dim raises ``ValueError``."""
+        if self._check_sharding(sharding) is not None:
+            raise ValueError(f"page pool sharding {sharding.spec}: a pool "
+                             "splits its heads only")
         dtype = dtype or self.tok_embed.dtype
         return [blk.attn.init_page_pool(max_pages, page_size, dtype,
                                         kv_dtype)
@@ -707,7 +751,7 @@ class TransformerLM(Module):
             return (prompt, None) if return_logits else prompt
         n = max_new_tokens
         if bucket_tokens and not host_loop:
-            room = caches[0][0].shape[2] - prompt.shape[1] + 1
+            room = cache_len(caches[0]) - prompt.shape[1] + 1
             n = max(n, min(-(-n // bucket_tokens) * bucket_tokens, room))
         toks, seen = self._decode_loop(
             logits, prompt.shape[1], caches, n, sampled,
@@ -979,7 +1023,7 @@ class TransformerLM(Module):
                                             gather_last=lengths - 1)
         n_c = n
         if bucket_tokens:
-            room = caches[0][0].shape[2] - lmax + 1
+            room = cache_len(caches[0]) - lmax + 1
             n_c = max(n, min(-(-n // bucket_tokens) * bucket_tokens, room))
         toks, _ = self._decode_loop(
             logits, lengths, caches, n_c, sampled,

@@ -196,6 +196,62 @@ def _write_kv(cache, k_t, v_t, write):
             dequantize_kv(v_q, v_s, v_t.dtype))
 
 
+class KVShards(tuple):
+    """One layer's KV cache split over ranks along the sequence
+    (``dim=2``) or the head dim (``dim=3``): the cache tuple (float
+    ``(k, v)`` or int8 ``(k_q, v_q, k_scale, v_scale)``) of this rank's
+    block ``[start, start + local)`` of the ``total``-long dimension, and
+    the process ``group`` of the ranks holding the other blocks, in
+    block order. ``TransformerLM.init_cache`` makes it for a cache
+    sharding that splits the sequence or the head dim; every cached
+    entry point decodes it with the other blocks."""
+
+    def __new__(cls, bufs, dim: int, group, start: int, total: int):
+        out = super().__new__(cls, bufs)
+        out.dim, out.group = int(dim), group
+        out.start, out.total = int(start), int(total)
+        return out
+
+
+def cache_len(cache) -> int:
+    """The positions a layer's cache covers, over every sequence block."""
+    if isinstance(cache, KVShards) and cache.dim == 2:
+        return cache.total
+    return cache[0].shape[2]
+
+
+def _position_write(pos0, positions, start: int = 0, local=None):
+    """``write(buf, blk)`` of a K/V block (B, H, T, *) at its
+    ``positions``: ``pos0`` an int (``positions`` (T,), every row alike)
+    or a (B,) tensor (``positions`` (B, T), per row). With ``local``, the
+    buffer holds only positions ``[start, start + local)`` and the block
+    keeps what falls there."""
+    if not _is_ragged(pos0):
+        lo, t = int(pos0), positions.shape[0]
+        a, b = lo, lo + t
+        if local is not None:
+            a, b = max(a, start), min(b, start + local)
+
+        def write(buf, blk):
+            if a < b:
+                buf[:, :, a - start:b - start] = blk[:, :, a - lo:b - lo]
+        return write
+    rows = torch.arange(positions.shape[0], device=positions.device)
+    rows = rows[:, None].expand_as(positions)
+    rel = positions - start
+    if local is None:
+        def write(buf, blk):
+            # advanced indices at dims 0 and 2 put (B, T) in front
+            buf[rows, :, rel] = blk.transpose(1, 2)
+        return write
+    mine = (rel >= 0) & (rel < local)                       # (B, T)
+    rows, cols = rows[mine], rel[mine]
+
+    def write(buf, blk):
+        buf[rows, :, cols] = blk.transpose(1, 2)[mine]
+    return write
+
+
 def _gather_pages(leaf, tables):
     """One logical KV row per batch entry from a page-pool tensor:
     ``leaf`` (max_pages, H, page_size, D), ``tables`` (B, table_len)
@@ -345,13 +401,17 @@ class MultiHeadAttention(Module):
             if self.rotary else x
 
     def init_cache(self, batch: int, max_len: int, dtype=torch.float32,
-                   kv_dtype: Optional[str] = None):
+                   kv_dtype: Optional[str] = None,
+                   features: Optional[int] = None):
         """Zero KV cache (k, v), each (B, H_kv, max_len, D), in ``dtype``
         on this layer's device. ``kv_dtype="int8"`` gives the quantized
         form ``(k_q, v_q, k_scale, v_scale)``: int8 codes of that shape
-        and f32 scales (B, H_kv, max_len, 1)."""
+        and f32 scales (B, H_kv, max_len, 1). ``features`` caches that
+        many of each head's D features (a rank's block of a head-dim
+        split)."""
         dev = next(itertools.chain(self.parameters(), self.buffers())).device
-        shape = (batch, self.num_kv_heads, max_len, self.head_dim)
+        shape = (batch, self.num_kv_heads, max_len,
+                 features or self.head_dim)
         if kv_dtype is None:
             return (torch.zeros(shape, dtype=dtype, device=dev),
                     torch.zeros(shape, dtype=dtype, device=dev))
@@ -386,6 +446,8 @@ class MultiHeadAttention(Module):
         """One decode step: x_t (B, 1, C) attends over the cache up to
         ``pos`` (an int, or a (B,) tensor of per-row positions for a
         ragged batch), after writing its own K/V there."""
+        if isinstance(cache, KVShards):
+            return self._forward_sharded(x_t, cache, pos)
         b = x_t.shape[0]
         qkv = self.qkv(x_t.reshape(b, self.embed_dim)).reshape(b, 1, -1)
         q, k_t, v_t = self._split_kv_step(qkv)      # q (B, H, 1, D)
@@ -421,6 +483,8 @@ class MultiHeadAttention(Module):
         the block's queries also attend over the cached ``[0, pos0)``."""
         if not isinstance(pos0, int):
             raise TypeError("forward_prefill pos0 must be an int")
+        if isinstance(cache, KVShards):
+            return self._forward_sharded(x, cache, pos0)
         b, t, _ = x.shape
         qkv = self.qkv(x.reshape(b * t, self.embed_dim)).reshape(b, t, -1)
         q, k, v = self._split_kv_step(qkv)
@@ -454,6 +518,8 @@ class MultiHeadAttention(Module):
         (B,) tensor of per-row offsets for a ragged batch): the chunk's
         queries attend over the whole cache under a position mask.
         Caller contract: ``pos0 + T_chunk <= cache length`` per row."""
+        if isinstance(cache, KVShards):
+            return self._forward_sharded(x, cache, pos0)
         b, t, _ = x.shape
         qkv = self.qkv(x.reshape(b * t, self.embed_dim)).reshape(b, t, -1)
         q, k, v = self._split_kv_step(qkv)
@@ -463,24 +529,123 @@ class MultiHeadAttention(Module):
             if self.rotary:
                 q = rotary_embedding_rowwise(q, positions, self.rotary_base)
                 k = rotary_embedding_rowwise(k, positions, self.rotary_base)
-            rows = torch.arange(b, device=x.device)[:, None]
-
-            def write(buf, blk):
-                # advanced indices at dims 0 and 2 put (B, T) in front
-                buf[rows, :, positions] = blk.transpose(1, 2)
         else:
             pos0 = int(pos0)
             positions = pos0 + ar_t                               # (T,)
             q, k = self._rope(q, positions), self._rope(k, positions)
-
-            def write(buf, blk):
-                buf[:, :, pos0:pos0 + t] = blk
-        k_read, v_read = _write_kv(cache, k, v, write)
+        k_read, v_read = _write_kv(cache, k, v,
+                                   _position_write(pos0, positions))
         ar = torch.arange(k_read.shape[2], device=x.device)
         live = ar <= positions[..., None]               # (B, T, L) / (T, L)
         o = self._grouped_attention(q, k_read, v_read, live)
         o = self.out_proj(o.reshape(b * t, self.q_dim).to(x.dtype))
         return o.reshape(b, t, -1), cache
+
+    def _forward_sharded(self, x, cache: KVShards, pos0):
+        """The cached forward of x (B, T, C) at offset ``pos0`` (an int or
+        a (B,) tensor) over a cache split across ranks, every rank
+        getting the same output.
+
+        Sequence blocks: the rank that owns a new position writes its
+        K/V; each rank attends over its own block (the causal position
+        mask of ``forward_chunk``) and gives its partial output and
+        log-sum-exp; the partials merge by the online-softmax rule in
+        block order. A block with no live key for a query contributes
+        nothing (lse -1e30, out 0: the flash kernel's dead row).
+
+        Head-dim blocks: each rank writes its features of the new K/V
+        (an int8 cache quantizes the whole head first, so the scales are
+        the unsplit cache's); the scores are the all-reduced sum of the
+        ranks' partial dot products, and each rank's weighted sum of its
+        V features is all-gathered into the whole head."""
+        from bigdl_tpu_torch.parallel import collectives as C
+
+        b, t, _ = x.shape
+        qkv = self.qkv(x.reshape(b * t, self.embed_dim)).reshape(b, t, -1)
+        q, k, v = self._split_kv_step(qkv)
+        ar_t = torch.arange(t, device=x.device)
+        if _is_ragged(pos0):
+            positions = pos0[:, None] + ar_t[None]                # (B, T)
+            if self.rotary:
+                q = rotary_embedding_rowwise(q, positions, self.rotary_base)
+                k = rotary_embedding_rowwise(k, positions, self.rotary_base)
+        else:
+            positions = int(pos0) + ar_t                          # (T,)
+            q, k = self._rope(q, positions), self._rope(k, positions)
+        if not _is_ragged(pos0) and int(pos0) + t > cache_len(cache):
+            raise ValueError(f"{t} tokens at pos0={int(pos0)} overflow "
+                             f"the {cache_len(cache)}-long KV cache")
+        h_kv, d = self.num_kv_heads, self.head_dim
+        qg = q.reshape(b, h_kv, self.num_heads // h_kv, t, d).float()
+        n = C.group_size(cache.group)
+        if cache.dim == 2:
+            local = cache[0].shape[2]
+            k_read, v_read = _write_kv(cache, k, v, _position_write(
+                pos0, positions, cache.start, local))
+            keys = cache.start + torch.arange(local, device=x.device)
+        else:
+            feats = slice(cache.start, cache.start + cache[0].shape[3])
+            write = _position_write(pos0, positions)
+            if len(cache) == 2:
+                k_read, v_read = _write_kv(cache, k[..., feats],
+                                           v[..., feats], write)
+            else:               # quantize whole heads, keep my features
+                k_q, v_q, k_s, v_s = cache
+                (kq, ks), (vq, vs) = quantize_kv(k), quantize_kv(v)
+                for buf, blk in ((k_q, kq[..., feats]), (v_q, vq[..., feats]),
+                                 (k_s, ks), (v_s, vs)):
+                    write(buf, blk)
+                k_read = dequantize_kv(k_q, k_s, k.dtype)
+                v_read = dequantize_kv(v_q, v_s, v.dtype)
+            qg = qg[..., feats]
+            keys = torch.arange(k_read.shape[2], device=x.device)
+        scale = 1.0 / math.sqrt(d)
+        live = keys <= positions[..., None]             # (B, T, L) / (T, L)
+        live = live[:, None, None] if live.dim() == 3 else live
+        if cache.dim == 2:
+            o = self._merge_blocks(qg, k_read, v_read, scale, live,
+                                   cache.group, n)
+        else:
+            s = torch.matmul(qg, k_read.float()[:, :, None].transpose(-1, -2))
+            if n > 1:
+                s = C.all_reduce(s, cache.group)
+            s = (s * scale).masked_fill(~live, -math.inf)  # (B, G, R, T, L)
+            p = torch.softmax(s, -1).to(v_read.dtype)
+            o = torch.matmul(p, v_read[:, :, None])     # my features
+            if n > 1:
+                parts = C.all_gather(o.contiguous().reshape(-1),
+                                     cache.group)
+                o = parts.reshape((n,) + tuple(o.shape)).movedim(
+                    0, -2).reshape(*o.shape[:-1], d)
+        o = o.permute(0, 3, 1, 2, 4).reshape(b * t, self.q_dim)
+        return self.out_proj(o.to(x.dtype)).reshape(b, t, -1), cache
+
+    @staticmethod
+    def _merge_blocks(qg, k_read, v_read, scale, live, group, n: int):
+        """Softmax(q K^T) V over keys split across ranks: this rank's
+        queries ``qg`` (B, G, R, T, D) attend over its block of keys
+        (``live`` masks them), and its partial out and log-sum-exp,
+        gathered in one packed collective, merge with the other blocks'
+        in block order."""
+        from bigdl_tpu_torch.parallel import collectives as C
+        from bigdl_tpu_torch.parallel.ring_attention import (_block_attend,
+                                                             _merge)
+
+        o, den, m, alive = _block_attend(qg, k_read[:, :, None],
+                                         v_read[:, :, None], scale, live)
+        o = o / torch.where(alive, den, torch.ones_like(den))[..., None]
+        lse = torch.where(alive, m + torch.log(den),
+                          torch.full_like(m, -1e30))
+        if n > 1:
+            cut = o.numel()
+            parts = C.all_gather(torch.cat([o.reshape(-1), lse.reshape(-1)]),
+                                 group).reshape(n, -1)
+            parts_o = parts[:, :cut].reshape((n,) + tuple(o.shape))
+            parts_l = parts[:, cut:].reshape((n,) + tuple(lse.shape))
+            o, lse = parts_o[0], parts_l[0]
+            for r in range(1, n):
+                o, lse = _merge(o, lse, parts_o[r], parts_l[r])
+        return o.to(v_read.dtype)
 
     def init_page_pool(self, max_pages: int, page_size: int,
                        dtype=torch.float32, kv_dtype: Optional[str] = None):

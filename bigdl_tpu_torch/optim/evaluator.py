@@ -11,6 +11,7 @@ from __future__ import annotations
 
 from typing import List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from bigdl_tpu_torch.dataset.dataset import as_dataset, minibatches
@@ -27,6 +28,16 @@ def model_device(model: torch.nn.Module) -> torch.device:
     for t in model.buffers():
         return t.device
     raise ValueError("model has no parameters or buffers to place it")
+
+
+def no_lone_row(x: np.ndarray) -> np.ndarray:
+    """``x`` (a stack of rows) with its one row repeated where it holds
+    only one: a layer that infers the batch from the element count
+    (LeNet-5's ``Reshape``) takes a stack of one for one unbatched
+    sample. The JAX package never gives it one, since it pads every
+    batch to one shape for ``jit``; the caller keeps the first
+    ``len(x)`` rows of the output."""
+    return np.concatenate([x, x]) if len(x) == 1 else x
 
 
 def batch_to_device(value, device):

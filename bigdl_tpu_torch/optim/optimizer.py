@@ -368,9 +368,9 @@ def load_latest_checkpoint(path: str, device="cuda"):
     ``optimMethod.{tag}``), the model on ``device``; (None, None, None)
     when there is none."""
     device = resolve_device(device)
-    if not bt_file.is_remote(path) and not os.path.isdir(path):
-        return None, None, None
     try:
+        if not bt_file.isdir(path):
+            return None, None, None
         names = bt_file.listdir(path)
     except (FileNotFoundError, NotADirectoryError, OSError):
         return None, None, None
@@ -746,17 +746,26 @@ class LocalOptimizer(Optimizer):
         self.join_pending_checkpoint()  # one in flight; raise its error
         model_snap, method_snap, wait = self._snapshot(slots)
 
+        # locally each file lands under a hidden name and is renamed in
+        # whole; a bucket has no atomic rename, so there the final names
+        # are put directly, the method (which the latest-scan pairs with
+        # its model) last
+        remote = bt_file.is_remote(path)
+
         def write():
-            mtmp = os.path.join(path, f".model.{tag}.tmp")
-            otmp = os.path.join(path, f".optimMethod.{tag}.tmp")
+            mtmp = model_f if remote else \
+                os.path.join(path, f".model.{tag}.tmp")
+            otmp = method_f if remote else \
+                os.path.join(path, f".optimMethod.{tag}.tmp")
             try:
                 wait()
                 bt_file.save_module(None, mtmp, overwrite=True,
                                     snapshot=model_snap)
                 bt_file.save(None, otmp, overwrite=True,
                              snapshot=method_snap)
-                os.replace(mtmp, model_f)
-                os.replace(otmp, method_f)
+                if not remote:
+                    os.replace(mtmp, model_f)
+                    os.replace(otmp, method_f)
             except BaseException as e:  # raised again at the next join
                 self._ckpt_error = e
 

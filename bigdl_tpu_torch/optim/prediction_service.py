@@ -9,8 +9,10 @@ single-sample requests with the same (shape, dtype) signature coalesce
 into one stacked forward; ``sample_ndim`` names the rank of such a
 request, and a request of another rank (or a Table) runs alone. The JAX
 package pads every batch to ``max_batch`` so that XLA compiles one
-program; eager PyTorch compiles nothing, so a batch here holds exactly
-the requests that arrived.
+program; eager PyTorch compiles nothing, so a batch here holds the
+requests that arrived, except that a lone request is stacked with a copy
+of itself (``optim.evaluator.no_lone_row``, the copy's output dropped):
+the model never sees a stack of one, as in JAX.
 
 The bytes protocol is the JAX package's npz codec (keys ``a:0`` for a
 bare tensor, ``t:<repr(key)>`` for Table slots, ``allow_pickle=False``),
@@ -45,7 +47,7 @@ from bigdl_tpu_torch.observability.events import (
 from bigdl_tpu_torch.observability import profiler
 from bigdl_tpu_torch.observability.instruments import serving_instruments
 from bigdl_tpu_torch.observability.tracing import trace
-from bigdl_tpu_torch.optim.evaluator import model_device
+from bigdl_tpu_torch.optim.evaluator import model_device, no_lone_row
 from bigdl_tpu_torch.utils.table import Table
 
 #: How long a micro-batcher's drain thread waits with no request (and no
@@ -270,7 +272,7 @@ class _MicroBatcher:
                     self._rec.record("batch/dispatch", rid,
                                      service=self.name,
                                      batch_size=len(batch))
-            stacked = np.stack([b[0] for b in batch])
+            stacked = no_lone_row(np.stack([b[0] for b in batch]))
             with trace.span("serve/dispatch",
                             histogram=tel.dispatch_seconds
                             if tel is not None else None):

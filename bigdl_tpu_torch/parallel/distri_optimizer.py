@@ -294,8 +294,10 @@ class DistriOptimizer(LocalOptimizer):
         return _map_tree(lambda s: data if s.dim() else None, slots)
 
     def _orbax_path(self, tag) -> str:
-        return os.path.join(os.path.abspath(self.checkpoint_path),
-                            f"optimSlots.{tag}.orbax")
+        root = self.checkpoint_path
+        if not bt_file.is_remote(root):     # a bucket URL stays as it is
+            root = os.path.abspath(root)
+        return os.path.join(root, f"optimSlots.{tag}.orbax")
 
     def _run_checkpoint(self, state, slots):
         if self.checkpoint_path is None:

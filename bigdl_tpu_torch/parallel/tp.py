@@ -46,11 +46,22 @@ full model):
   epilogue, so the sharded int8 layer equals the unsharded one exactly.
 
 With a data axis in the rules (``transformer_tp_rules(model, data)``,
-the zero-style 2-D layout) each weight is split over both axes and every
-use all-gathers its data-axis blocks before the tensor-parallel math.
-``sequence_parallel=`` and ``n_experts=`` models are refused on a model
-mesh (ROADMAP.md, Queue 1 item 10), and the int8 clone under 2-D rules
-(item 12).
+the zero-style 2-D layout) each float weight is split over both axes and
+every use all-gathers its data-axis blocks before the tensor-parallel
+math. An int8 clone's codes and scales take the model-axis split of the
+1-D layout and are replicated over the data axis (the JAX package
+replicates every int8 buffer under any mesh), so its sharded forward
+equals the unsharded int8 forward exactly; its float leaves (the token
+table) keep the 2-D split.
+
+An ``n_experts=`` model keeps its experts replicated on every rank (no
+rule matches ``MoEMLP``'s leaves, as in JAX) while its attention is
+sharded by heads. A ``sequence_parallel=`` model runs its ring over that
+axis of the same mesh and its heads over the model axis: what the JAX
+package computes under ``shard_map`` over both axes. JAX cannot run
+such a model outside ``shard_map`` over its sequence axis (its position
+offset is an unbound ``axis_index``), so a mesh without that axis is a
+``ValueError``.
 """
 
 from __future__ import annotations
@@ -467,13 +478,6 @@ def put_from_host(tree, sharding: Optional[NamedSharding] = None, *,
 
 
 # ------------------------------------------------------ the sharded LM
-def _refuse(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} on a model-axis mesh is not ported (ROADMAP.md, Queue 1 "
-        "item 10: tensor-parallel serving shards the dense "
-        "TransformerLM)")
-
-
 class TensorParallel:
     """What a sharded model knows of its mesh: the model axis, its
     process group, the shard count and this rank's index, and the slice
@@ -663,10 +667,14 @@ def shard_model(model, mesh, rules=None, model_axis: str = "model"):
     from bigdl_tpu_torch.nn import linear as bt_linear
     from bigdl_tpu_torch.nn import quantized as qnn
 
-    if getattr(model, "sequence_parallel", None) is not None:
-        raise _refuse("sequence_parallel=")
-    if getattr(model, "n_experts", 0) > 0:
-        raise _refuse("n_experts=")
+    seq_axis = getattr(model, "sequence_parallel", None)
+    if isinstance(seq_axis, str) and seq_axis not in mesh.shape:
+        raise ValueError(
+            f"a sequence_parallel={seq_axis!r} model on a mesh without a "
+            f"{seq_axis!r} "
+            "axis: the JAX package runs such a model only inside "
+            "shard_map over that axis (outside it the sequence offset is "
+            "an unbound axis_index); give the mesh the axis too")
     if getattr(model, "_tp", None) is not None:
         raise ValueError("the model is already sharded")
     rules = rules if rules is not None else transformer_tp_rules(model_axis)
@@ -676,15 +684,9 @@ def shard_model(model, mesh, rules=None, model_axis: str = "model"):
         raise ValueError(f"rules shard over {others} beside "
                          f"{model_axis!r}: one data axis at most")
     data_axis = others[0] if others else None
-    if data_axis is not None:
-        if data_axis not in mesh.shape:
-            raise ValueError(f"rules shard over {data_axis!r}, not in "
-                             f"mesh axes {list(mesh.axis_names)}")
-        if any(isinstance(m, qnn.Linear) for m in model.modules()):
-            raise NotImplementedError(
-                "the int8 clone under 2-D data x model rules is not "
-                "ported (ROADMAP.md, Queue 1 item 12); shard it over the "
-                "model axis alone")
+    if data_axis is not None and data_axis not in mesh.shape:
+        raise ValueError(f"rules shard over {data_axis!r}, not in "
+                         f"mesh axes {list(mesh.axis_names)}")
     attn0 = model.blocks()[0].attn
     kv_pool_sharding(mesh, attn0.num_kv_heads, model_axis)
     n = int(mesh.shape[model_axis])
@@ -711,6 +713,9 @@ def shard_model(model, mesh, rules=None, model_axis: str = "model"):
             s = pad(spec(prefix + "weight"), 2)
             w = "weight" if isinstance(mod, bt_linear.Linear) \
                 else "weight_q"
+            if w == "weight_q" and data_axis is not None:
+                # int8 codes and scales: the model split alone
+                s = P(*(None if data_axis in _axes(e) else e for e in s))
             cols = getattr(mod, w).shape[1]
             if s[0] == model_axis:                              # column
                 _set(mod, w, _slice_leaf(getattr(mod, w),
@@ -787,4 +792,8 @@ def shard_model(model, mesh, rules=None, model_axis: str = "model"):
                         else sharding_of.get("head") == "column")
     local._tp = TensorParallel(mesh, model_axis, model.vocab_size,
                                vocab_sharded, head_sharded, gathers)
+    if isinstance(seq_axis, str):   # the ring runs over this mesh's axis
+        local.sequence_parallel = mesh.group(seq_axis)
+        for blk in local.blocks():
+            blk.attn.sequence_parallel = local.sequence_parallel
     return local

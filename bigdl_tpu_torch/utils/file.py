@@ -1,4 +1,4 @@
-"""Module save and load on local paths (port of the local half of
+"""Module save and load on local and object-store paths (port of
 ``bigdl_tpu/utils/file.py``).
 
 ``save_module`` pickles a copy of the module whose parameters, their
@@ -7,16 +7,25 @@ written from the card loads on a machine without one; a Dropout's bound
 generator is not saved (the loaded layer draws from the default
 generator). ``load_module`` moves the module to ``device``. ``save`` /
 ``load`` pickle any object (an optim method's state, a table), its
-tensors on the host. Object-store paths (``gs://``, ``s3://``, ...)
-raise ``NotImplementedError``: the JAX package routes them through
-``etils.epath``, which the port does not carry yet (ROADMAP.md, Queue 1
-item 12).
+tensors on the host.
+
+Remote paths: anything with a URL scheme (``gs://``, ``s3://``, ...) goes
+through ``etils.epath``, imported at the first remote call, as in the
+JAX package. ``open_file`` / ``exists`` / ``makedirs`` / ``listdir`` /
+``remove`` are the single IO seam (``_epath`` is the one place a remote
+path becomes a path object): checkpoint triggers, the sharded
+checkpoints, the distributed slot files and the summary writers go
+through them, so each can target a bucket with no ``os.*`` call on a
+remote path. A bucket has no append (``"ab"`` becomes one streaming
+``"wb"``) and no atomic rename (writers put final names directly).
 """
 
 from __future__ import annotations
 
 import copy
+import io
 import os
+import shutil
 
 import torch
 
@@ -28,28 +37,57 @@ def is_remote(path) -> bool:
     return "://" in str(path)
 
 
-def _local(path) -> str:
-    if is_remote(path):
-        raise NotImplementedError(
-            f"object-store path {path!r}: remote paths are not ported yet, "
-            "see ROADMAP.md, Queue 1 item 12")
-    return str(path)
+def _epath(path):
+    from etils import epath  # object-store capable; imported on first use
+
+    return epath.Path(path)
 
 
 def open_file(path, mode: str = "rb"):
-    return open(_local(path), mode)
+    """``open()`` that understands object-store URLs; append mode there
+    is one streaming write (``"ab"`` -> ``"wb"``): buckets have no
+    append, and every writer here creates fresh files anyway."""
+    if is_remote(path):
+        return _epath(path).open(mode.replace("ab", "wb"))
+    return open(path, mode)
 
 
 def exists(path) -> bool:
-    return os.path.exists(_local(path))
+    return _epath(path).exists() if is_remote(path) else \
+        os.path.exists(path)
 
 
 def makedirs(path) -> None:
-    os.makedirs(_local(path), exist_ok=True)
+    if is_remote(path):
+        _epath(path).mkdir(parents=True, exist_ok=True)
+    else:
+        os.makedirs(path, exist_ok=True)
 
 
 def listdir(path):
-    return os.listdir(_local(path))
+    if is_remote(path):
+        return [p.name for p in _epath(path).iterdir()]
+    return os.listdir(path)
+
+
+def isdir(path) -> bool:
+    return _epath(path).is_dir() if is_remote(path) else \
+        os.path.isdir(path)
+
+
+def remove(path) -> None:
+    """Remove a file or a directory tree if present (no-op otherwise)."""
+    if is_remote(path):
+        p = _epath(path)
+        if p.is_dir():
+            p.rmtree()
+        elif p.exists():
+            p.unlink()
+        return
+    if os.path.isdir(path):
+        shutil.rmtree(path)
+    elif os.path.exists(path):
+        os.remove(path)
 
 
 def snapshot(obj):
@@ -127,16 +165,14 @@ def save_module(module, path: str, overwrite: bool = False,
     # a parameter pickles without its .grad: the gradients ride beside
     grads = {n: p.grad for n, p in clone.named_parameters()
              if p.grad is not None}
-    with open_file(path, "wb") as f:
-        torch.save({"module": clone, "grads": grads}, f)
+    _torch_save({"module": clone, "grads": grads}, path)
 
 
 def load_module(path: str, device=DEFAULT_DEVICE):
     """The module pickled at ``path``, with its gradients, moved to
     ``device``."""
     dev = resolve_device(device)
-    with open_file(path, "rb") as f:
-        saved = torch.load(f, map_location="cpu", weights_only=False)
+    saved = _torch_load(path)
     module = saved["module"]
     params = dict(module.named_parameters())
     for name, g in saved["grads"].items():
@@ -150,10 +186,27 @@ def save(obj, path: str, overwrite: bool = False, snapshot=None) -> None:
     if exists(path) and not overwrite:
         raise FileExistsError(f"{path} exists; pass overwrite=True")
     clone = snapshot if snapshot is not None else host_copy(obj)
-    with open_file(path, "wb") as f:
-        torch.save(clone, f)
+    _torch_save(clone, path)
 
 
 def load(path: str):
-    with open_file(path, "rb") as f:
-        return torch.load(f, map_location="cpu", weights_only=False)
+    return _torch_load(path)
+
+
+def _torch_save(obj, path) -> None:
+    """``torch.save`` to ``path``; to an object store as one buffered
+    put, since a bucket's stream need not seek."""
+    if not is_remote(path):
+        torch.save(obj, path)
+        return
+    buf = io.BytesIO()
+    torch.save(obj, buf)
+    with open_file(path, "wb") as f:
+        f.write(buf.getvalue())
+
+
+def _torch_load(path):
+    if is_remote(path):
+        with open_file(path, "rb") as f:
+            path = io.BytesIO(f.read())
+    return torch.load(path, map_location="cpu", weights_only=False)

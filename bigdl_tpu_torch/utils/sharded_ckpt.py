@@ -25,8 +25,16 @@ complete pair among ``.tmp-save``, the path and ``.old``, and the next
 save finishes a swap a crash interrupted and sweeps partial leftovers),
 the step and the loop state's scalars in the sidecar, and the
 collective discipline: every rank of the world calls both functions.
-Object-store paths (``gs://``, ``s3://``, ...) are refused (ROADMAP.md,
-Queue 1 item 12).
+
+Object-store paths (``gs://``, ``s3://``, ...) cannot rename a prefix
+atomically, so they keep the JAX module's meta-last protocol instead:
+the old sidecar is removed first (the checkpoint is then detectably
+incomplete during the overwrite), the blocks are rewritten in place,
+and the sidecar is put last in one write; a restore refuses a bucket
+checkpoint without its sidecar. There every block is one ``torch.save``
+under ``<path>/blocks.<rank>.pt`` of the lowest rank that holds it,
+written and read through ``utils/file.py``'s seam, and the sidecar maps
+each block to its file.
 """
 
 from __future__ import annotations
@@ -34,23 +42,20 @@ from __future__ import annotations
 import json
 import logging
 import os
-import shutil
 from typing import Optional
 
 import torch
 import torch.distributed as dist
 
+from bigdl_tpu_torch.utils import file as bt_file
 from bigdl_tpu_torch.utils.file import is_remote
 
 logger = logging.getLogger("bigdl_tpu_torch")
 
 
-def _refuse_remote(path: str) -> None:
-    if is_remote(path):
-        raise NotImplementedError(
-            f"{path}: sharded checkpoints to an object store are not "
-            "ported (ROADMAP.md, Queue 1 item 12); write to a local or "
-            "shared file system path")
+def _norm(path: str) -> str:
+    # URL-style paths (gs://, s3://) must pass through untouched
+    return path if is_remote(path) else os.path.abspath(path)
 
 
 def _barrier() -> None:
@@ -62,15 +67,8 @@ def _rank0() -> bool:
     return not dist.is_initialized() or dist.get_rank() == 0
 
 
-def _remove(path: str) -> None:
-    if os.path.isdir(path):
-        shutil.rmtree(path)
-    elif os.path.exists(path):
-        os.remove(path)
-
-
-def _exists(path: str) -> bool:
-    return os.path.exists(path)
+_remove = bt_file.remove
+_exists = bt_file.exists
 
 
 def _swap_in(path: str) -> None:
@@ -162,8 +160,10 @@ def save_train_state(path: str, step: int, params, buffers, slots,
     blocks (``shardings``: see the module notes), replacing any previous
     checkpoint atomically. ``state`` keeps its bool / int / float / str
     entries. Collective: every rank calls it."""
-    _refuse_remote(path)
-    path = os.path.abspath(path)
+    path = _norm(path)
+    if is_remote(path):
+        _save_remote(path, step, params, buffers, slots, state, shardings)
+        return
     tmp = path + ".tmp-save"
     if _rank0():
         if _exists(tmp) and _exists(tmp + ".meta.json"):
@@ -175,6 +175,31 @@ def save_train_state(path: str, step: int, params, buffers, slots,
             _remove(tmp + ".meta.json")
         os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     _barrier()      # the cleanup lands before any block is written
+    sd, layout = _local_blocks(params, buffers, slots, shardings)
+    dcp, kw = _dcp()
+    dcp.save(sd, checkpoint_id=tmp, **kw)
+    _barrier()      # every rank's blocks are written
+    if _rank0():
+        with open(tmp + ".meta.json.part", "w") as f:
+            json.dump(_meta(step, state, layout), f)
+        os.replace(tmp + ".meta.json.part", tmp + ".meta.json")
+        _swap_in(path)
+    # no rank returns (and possibly restores) before rank 0's swap
+    _barrier()
+
+
+def _meta(step, state, layout, files=None) -> dict:
+    kept = {k: v for k, v in (state or {}).items()
+            if isinstance(v, (bool, int, float, str))}
+    meta = {"step": int(step), "state": kept, "layout": layout}
+    if files is not None:
+        meta["files"] = files
+    return meta
+
+
+def _local_blocks(params, buffers, slots, shardings):
+    """(this rank's ``{block key: CPU tensor}``, the layout of every
+    leaf)."""
     by_path = _shardings_of(shardings)
     tree = {"params": params, "buffers": buffers, "slots": slots}
     sd, layout = {}, {}
@@ -193,18 +218,38 @@ def save_train_state(path: str, step: int, params, buffers, slots,
         sd[_block_key(p, coords)] = leaf.detach().cpu().contiguous()
         layout[p] = {"shape": shape, "grid": grid,
                      "dtype": str(leaf.dtype)}
-    dcp, kw = _dcp()
-    dcp.save(sd, checkpoint_id=tmp, **kw)
-    _barrier()      # every rank's blocks are written
+    return sd, layout
+
+
+def _rank() -> int:
+    return dist.get_rank() if dist.is_initialized() else 0
+
+
+def _save_remote(path, step, params, buffers, slots, state, shardings):
+    """The meta-last protocol of an object-store path (module notes)."""
+    meta = path + ".meta.json"
     if _rank0():
-        kept = {k: v for k, v in (state or {}).items()
-                if isinstance(v, (bool, int, float, str))}
-        with open(tmp + ".meta.json.part", "w") as f:
-            json.dump({"step": int(step), "state": kept,
-                       "layout": layout}, f)
-        os.replace(tmp + ".meta.json.part", tmp + ".meta.json")
-        _swap_in(path)
-    # no rank returns (and possibly restores) before rank 0's swap
+        _remove(meta)
+    _barrier()      # the old sidecar is gone before any block changes
+    sd, layout = _local_blocks(params, buffers, slots, shardings)
+    keys = [sorted(sd)]
+    if dist.is_initialized():
+        keys = [None] * dist.get_world_size()
+        dist.all_gather_object(keys, sorted(sd))
+    files = {}
+    for r, ks in enumerate(keys):      # a block's lowest holder writes it
+        for k in ks:
+            files.setdefault(k, f"blocks.{r}.pt")
+    mine = {k: v for k, v in sd.items() if files[k] == f"blocks.{_rank()}.pt"}
+    if mine:
+        bt_file.makedirs(path)
+        # the blocks are host copies already: saved as they are
+        bt_file.save(None, f"{path}/blocks.{_rank()}.pt", overwrite=True,
+                     snapshot=mine)
+    _barrier()      # every rank's blocks are written
+    if _rank0():    # one put: atomic on an object store
+        with bt_file.open_file(meta, "w") as f:
+            f.write(json.dumps(_meta(step, state, layout, files)))
     _barrier()
 
 
@@ -214,9 +259,8 @@ def restore_train_state(path: str, like, shardings=None):
     dtype, device and local shape); ``shardings`` names the layout to
     restore onto (any layout: a rank reads the blocks it needs).
     Collective: every rank calls it."""
-    _refuse_remote(path)
-    path = _resolve_restore_path(os.path.abspath(path))
-    with open(path + ".meta.json") as f:
+    path = _resolve_restore_path(_norm(path))
+    with bt_file.open_file(path + ".meta.json", "r") as f:
         meta = json.load(f)
     layout = meta["layout"]
     by_path = _shardings_of(shardings)
@@ -234,8 +278,16 @@ def restore_train_state(path: str, like, shardings=None):
         for c in _blocks(lay["grid"]):
             sd[_block_key(p, c)] = torch.empty(block,
                                                dtype=_dtype(lay["dtype"]))
-    dcp, kw = _dcp()
-    dcp.load(sd, checkpoint_id=path, **kw)
+    if "files" in meta:         # an object-store checkpoint
+        loaded = {}
+        for k in sd:
+            name = meta["files"][k]
+            if name not in loaded:
+                loaded[name] = bt_file.load(f"{path}/{name}")
+            sd[k] = loaded[name][k]
+    else:
+        dcp, kw = _dcp()
+        dcp.load(sd, checkpoint_id=path, **kw)
     values = {}
     for p, leaf in leaves:
         lay = layout[p]
@@ -281,7 +333,7 @@ def _resolve_restore_path(path: str) -> str:
 def exists(path: str) -> bool:
     """A complete checkpoint pair at ``path`` or one of its fallbacks."""
     try:
-        _resolve_restore_path(os.path.abspath(path))
+        _resolve_restore_path(_norm(path))
         return True
     except ValueError:
         return False

@@ -150,9 +150,9 @@ def read_scalar(log_dir: str, tag: str):
     """Read back (step, wall_time, value) triples for a tag from all event
     files (≙ Summary.readScalar, visualization/Summary.scala:77)."""
     out = []
-    if not bt_file.is_remote(log_dir) and not os.path.isdir(log_dir):
-        return out
     try:
+        if not bt_file.isdir(log_dir):
+            return out
         names = sorted(bt_file.listdir(log_dir))
     except (FileNotFoundError, NotADirectoryError, OSError):
         return out

@@ -39,7 +39,7 @@ a non-zero exit, at the first phase that does not hold:
      first difference, a near tie of the lone run (top two logits within
      1e-4); a 192-token prefix hit whose row equals the cache-off
      engine's; a cancellation mid-decode; the flow counters;
-   - engine_serving (bf16): a Poisson workload of 32 requests at 20/s
+   - engine_serving (bf16): a Poisson workload of 16 requests at 20/s
      (prompts 64-512, 16-128 new tokens) through the engine
      (``max_slots=8, prefill_chunk=64, prefill_rows=4``) and through
      ``GenerationService(max_batch=8)``: latency, TTFT, inter-token gap,
@@ -63,13 +63,13 @@ a non-zero exit, at the first phase that does not hold:
      acceptance >= 0.99: the bonus and full-burst paths); rows as
      above; a lone ``speculative_generate`` with draft (a) for two
      prompts;
-   - paged_serving (bf16): ``run_paged_comparison`` (32 requests at
+   - paged_serving (bf16): ``run_paged_comparison`` (16 requests at
      200/s, 2 dense slots against 8 paged slots at equal KV bytes):
      admitted-concurrency ratio, TTFT speedups, the byte budget, rows
      equal between the legs; then the profile window over 16 steady
      paged-decode iterations;
    - spec_serving (bf16): ``run_speculative_comparison`` with draft (a)
-     (12 requests at 30/s, 8 slots, gamma 4): inter-token and TTFT
+     (8 requests at 30/s, 8 slots, gamma 4): inter-token and TTFT
      speedups, acceptance rate, token parity; then the profile window
      over 16 steady speculative iterations;
    - quant_gate (f32, TF32 off): ``quantize_kv`` on the card gives the
@@ -86,7 +86,7 @@ a non-zero exit, at the first phase that does not hold:
      way); dense against paged and the int8-draft speculative rows
      against the plain ones (int8 weights, and int8 KV over float
      weights) are reported; ``quantized_quality_report``;
-   - quant_serving (bf16): ``run_quantized_comparison`` (12 requests at
+   - quant_serving (bf16): ``run_quantized_comparison`` (8 requests at
      30/s, 8 slots; int8 against float, int8 KV only, the int8 draft
      over float and int8 KV): latencies, row bytes (ratio 0.5312 at
      head_dim 64), quality, acceptance, parity within each regime; then
@@ -232,7 +232,8 @@ Then the perf CLI and the layer variants (slice 11):
   steps)), ``bench.py``'s ResNet-50 (batch 256, NHWC, bf16 over f32
   masters, 10 iterations) with ``--profile`` (the Chrome trace must hold
   CUDA kernel events) and without, the decode runs at the JAX defaults
-  (plain, ``--int8``, ``--speculative 2``, ``--speculative-int8``: rates
+  but 32 new tokens (plain, ``--int8``, ``--speculative 2``,
+  ``--speculative-int8``: rates
   finite and positive, accept rates in [0, 1]), ``--input-pipeline
   --records 128 --batch-size 32``, and the raw-torch ResNet-50 step
   (``models/torch_resnet_ref.py``) at batch 256 beside the CLI's:
@@ -463,6 +464,33 @@ the other phases count 0; their sum is the kernels line's
   ``LocalOptimizer`` launch: CUDA kernel events in each trace, the
   session started on the launching thread.
 
+Then the last modules (slice 22; the ``slice22_phases`` line, no flash
+launch in any, ``launches_slice22``):
+
+- dlframes_train: the reference's DLClassifierLeNet example, a
+  ``DLClassifier`` over LeNet-5 fitted on rendered 28 x 28 digits in a
+  pandas DataFrame: its first losses within ``DLFRAMES_LOSS_RTOL``
+  of the same fit on the CPU, held-out accuracy from ``transform``, then
+  ``make_udf`` (micro-batched) over the test rows from threads, classes
+  equal to ``transform``'s but at near ties;
+- bucket_io: the file layer's ``_epath`` seam over a local directory
+  (a ``pathlib`` path; the card has no etils): sync
+  and async checkpoint triggers of a LocalOptimizer on the card, the
+  flagship's module, a sharded checkpoint (meta last), each loaded back
+  equal to the bit, the sharded one also to the same checkpoint written
+  locally;
+- inside the --tp-rank launch (two ranks over gloo, the records printed
+  here): seq_decode, the flagship (f32) decoding 32 tokens after a
+  1100-token prompt with its 2048-position caches split over a
+  ``("seq", 2)`` mesh, tokens held to the unsplit caches' by the near-tie
+  rule; int8_2d, the int8 clone under 2-D rules on a ``("data", 2) x
+  ("model", 1)`` mesh, forward and tokens equal to the unsharded clone's;
+  moe_mesh, the flagship with 4 experts on the model mesh, forward within
+  ``TP_RTOL`` and tokens held; convergence, the JAX package's LeNet-5
+  (MNIST idx round trip, 360 sharded steps, held-out >= 0.97) and
+  ResNet-20 (40 sharded steps, accuracy > 0.85, loss < 0.8) cases
+  through the ``DistriOptimizer`` with ``parameter_sync="sharded"``.
+
 Earlier lines are one JSON object each; the last line is
 ``{"ok": true, "device": {...}}``. Exits non-zero without that line when
 CUDA is not available or the port cannot be imported.
@@ -570,7 +598,7 @@ SERVER_LENGTHS = [100, 128, 193, 200, 224, 241, 250, 256]
 SERVER_NEWS = [32, 24, 32, 16, 32, 32, 20, 32]
 # the engine_serving phase: a Poisson workload through the engine and
 # through GenerationService (bf16 flagship)
-ENGINE_SERVING = dict(n_requests=32, rate_hz=20.0, max_slots=8,
+ENGINE_SERVING = dict(n_requests=16, rate_hz=20.0, max_slots=8,
                       prefill_chunk=64, prefill_rows=4, max_batch=8,
                       prompt_lens=(64, 512), decode_lens=(16, 128), seed=0)
 # loop iterations in the engine's steady-decode profile windows
@@ -583,11 +611,11 @@ SPEC_GAMMA = 4
 DRAFT = dict(vocab_size=32000, embed_dim=256, num_heads=4, num_kv_heads=2,
              num_layers=2, max_len=2048, use_rope=True)
 # paged_serving: paged against dense KV at equal bytes (bf16 flagship)
-PAGED_SERVING = dict(n_requests=32, rate_hz=200.0, dense_slots=2,
+PAGED_SERVING = dict(n_requests=16, rate_hz=200.0, dense_slots=2,
                      paged_slots=8, page_size=PAGE_SIZE, prefill_chunk=64,
                      prefill_rows=4)
 # spec_serving: draft (a) proposing against plain decode (bf16 flagship)
-SPEC_SERVING = dict(n_requests=12, rate_hz=30.0, max_slots=8,
+SPEC_SERVING = dict(n_requests=8, rate_hz=30.0, max_slots=8,
                     prefill_chunk=64, prefill_rows=4, gamma=SPEC_GAMMA)
 # the self-draft's proposals equal the target's argmax but for f32 GEMMs
 # of another shape flipping a near tie
@@ -602,7 +630,7 @@ QUANT_ROWS = (4, 8, 24, 256)
 # K = 4608 (ResNet-50's last stage) does not, and is reported
 QUANT_CONV_SHAPES = [(2, 64, 56, 64, 3), (2, 512, 7, 512, 3)]
 # quant_serving: int8 against full precision, with the int8 draft (bf16)
-QUANT_SERVING = dict(n_requests=12, rate_hz=30.0, max_slots=8,
+QUANT_SERVING = dict(n_requests=8, rate_hz=30.0, max_slots=8,
                      prefill_chunk=64, prefill_rows=4, gamma=SPEC_GAMMA)
 # tier_serving: a 2-row prefix pool under 2 and 8 round-robin templates of
 # 256 tokens, host tier against device only (bf16)
@@ -726,7 +754,7 @@ LONGCONTEXT_RTOL = 1e-5
 TP = dict(ranks=2, gate_batch=2, gate_seq=1024, score_batch=4,
           score_seq=2048, slots=4, chunk=64, page=16, gamma=4)
 TP_REQS = [(96, 12), (160, 8), (200, 12), (64, 16)]  # (prompt, new)
-TP_SERVING = dict(n_requests=16, rate_hz=20.0, max_slots=8,
+TP_SERVING = dict(n_requests=8, rate_hz=20.0, max_slots=8,
                   prefill_chunk=64, prefill_rows=2, seed=0)
 TP_CKPT = dict(iterations=10, every=3, fault_at=8)
 TP_TIMEOUT_S = 900
@@ -748,10 +776,10 @@ OBS_PREDICT = dict(clients=8, tokens=1024, max_batch=4, timeout_ms=20.0)
 FLEET = dict(chunk=64, rpc_timeout=60.0,
              engine=dict(max_slots=4, prefill_chunk=64, prefill_rows=2))
 # fleet_serving's shared-prefix storm (bf16): 4 templates of 512 tokens
-# over 4 s, so most requests arrive after one of their template finished
+# over 2 s, so most requests arrive after one of their template finished
 # (a flagship request lives 0.3-1 s); each replica's prefix pool holds
 # its affinity share of the templates + 1 (run_fleet_comparison's rule)
-FLEET_SERVING = dict(n_requests=32, rate_hz=8.0, n_templates=4,
+FLEET_SERVING = dict(n_requests=16, rate_hz=8.0, n_templates=4,
                      template_len=512, tail_lens=(4, 32),
                      decode_lens=(8, 32), seed=3, max_slots=8,
                      prefill_chunk=64, prefill_rows=4)
@@ -767,8 +795,38 @@ LOOP_FRACTION_TOL = 6 * 0.5e-6
 # tip such a tie; f32 rows must be equal
 BF16_NEAR_TIE = 2 ** -5
 
+# the last modules (slice 22): dlframes_train fits the reference's
+# DLClassifierLeNet example (LeNet-5 through a DLClassifier over a
+# DataFrame) on rendered 28 x 28 digits, its first losses held to the
+# same fit on the CPU; bucket_io writes checkpoints to an object-store
+# path (the file layer's seam on a local directory); the --tp-rank
+# launch adds the convergence cases, the sequence-sharded decode of the
+# serving flagship and the 2-D int8 and MoE shards
+# 257 test rows at batch 64: transform's tail chunk is a lone row
+DLFRAMES = dict(train=1536, test=257, batch=64, epochs=15, lr=0.05,
+                first_iters=4, udf_threads=8)
+DLFRAMES_LOSS_RTOL = 1e-4
+# a near tie of the udf's micro-batched logits against transform's
+DLFRAMES_NEAR_TIE = 1e-3
+SEQ_DECODE = dict(batch=2, prompt=1100, new=32, max_len=2048)
+# the split caches' logits against the unsplit caches', up to each row's
+# first parted token: the merge only reorders f32 sums (2.03e-6 measured
+# on the H100), where a wrongly weighted block moves them by far more
+SEQ_DECODE_LOGIT_ATOL = 2e-5
+SLICE22_CHECK = dict(batch=2, seq=512, new=16, experts=4)
+CONVERGENCE = dict(lenet_train=1536, lenet_test=256, lenet_steps=360,
+                   lenet_batch=64, resnet_per_class=24, resnet_steps=40,
+                   resnet_batch=80)
+BUCKET = dict(iterations=5, every=2)
+
+
+#: the script's start, for each phase line's ``t_s`` (its timeline)
+_T0 = time.monotonic()
+
 
 def emit(obj) -> None:
+    if "phase" in obj:
+        obj = {**obj, "t_s": time.monotonic() - _T0}
     print(json.dumps(obj), flush=True)
 
 
@@ -3887,10 +3945,10 @@ def input_pipeline(torch, fa, smi, inception_ips: float) -> int:
 #: the CLI runs of perf_cli: (name, argv); decode runs at the JAX
 #: defaults (the serving flagship's width: batch 8, prompt 128, 128 new
 #: tokens, vocab 32000, embed 512, 8 layers, 8 heads), bf16
-#: the decode runs make 64 new tokens (the CLI's default 128 halved to
-#: keep the whole script inside its time limit)
+#: the decode runs make 32 new tokens (the CLI's default 128 cut, in two
+#: steps, to keep the whole script inside its time limit)
 PERF_DECODE = ["--decode", "--dtype", "bfloat16", "--batch-size", "8",
-               "--new-tokens", "64"]
+               "--new-tokens", "32"]
 PERF_CLI_RUNS = [
     ("train_transformer", ["--model", "transformer", "--dtype", "bfloat16",
                            "--master-f32", "--iterations", "5"]),
@@ -5201,11 +5259,15 @@ def _tp_ckpt(torch, rank) -> dict:
     return rec
 
 
-def tp_rank() -> int:
+def tp_rank(only_slice22: bool = False) -> int:
     """One rank of the tensor-parallel phases, run by the launcher on the
     card (``chip_smoke.py --tp-rank``): tp_gate, tp_serving and
-    sharded_ckpt on a 2-way model mesh, then the rank's record as one
-    JSON line, the ranks printing in turn."""
+    sharded_ckpt on a 2-way model mesh, then the slice-22 checks
+    (``_slice22_rank``: the sequence-sharded decode, the 2-D int8 and
+    MoE shards on meshes over the same world, the convergence cases),
+    then the rank's record as one JSON line, the ranks printing in turn.
+    ``only_slice22`` (``--tp-rank slice22``) runs the slice-22 checks
+    alone."""
     import torch
 
     sys.path.insert(0, ROOT)
@@ -5223,15 +5285,17 @@ def tp_rank() -> int:
     rec = {"rank": rank, "library": os.path.basename(str(lib)),
            "transport": C.transport(mesh.group("model"),
                                     torch.empty(1, device="cuda"))}
-    t0 = time.monotonic()
-    rec["gate"] = _tp_gate(torch, fa, C, mesh, leader)
-    rec["gate_seconds"] = time.monotonic() - t0
-    t0 = time.monotonic()
-    fa.launches = 0
-    rec["serving"] = _tp_serving(torch, C, mesh)
-    rec["serving_launches"] = fa.launches
-    rec["serving_seconds"] = time.monotonic() - t0
-    rec["ckpt"] = _tp_ckpt(torch, rank)
+    if not only_slice22:
+        t0 = time.monotonic()
+        rec["gate"] = _tp_gate(torch, fa, C, mesh, leader)
+        rec["gate_seconds"] = time.monotonic() - t0
+        t0 = time.monotonic()
+        fa.launches = 0
+        rec["serving"] = _tp_serving(torch, C, mesh)
+        rec["serving_launches"] = fa.launches
+        rec["serving_seconds"] = time.monotonic() - t0
+        rec["ckpt"] = _tp_ckpt(torch, rank)
+    rec["slice22"] = _slice22_rank(torch, fa, C, mesh, rank, world)
     rec["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
     for turn in range(world):
         C.barrier(None)
@@ -5274,7 +5338,13 @@ def tp_phases(torch, fa, smi) -> int:
     for m in lead["serving"]["bfloat16"]["mismatches"]:
         assert abs(m["unsharded_margin"]) <= BF16_NEAR_TIE, m
     assert len({r["library"] for r in ranks}) == 1
+    _TP_RANKS[:] = ranks        # their slice-22 records, read by main()
     return sum(r["gate"]["launches"] + r["serving_launches"] for r in ranks)
+
+
+#: the records of the --tp-rank launch, whose slice-22 checks main()
+#: emits with the slice-22 phases
+_TP_RANKS: list = []
 
 
 def _tp_serving_line(smi, dtype, srv, ranks) -> None:
@@ -8918,6 +8988,585 @@ def profiler_hosting(torch, fa, smi) -> int:
     return gen_launches
 
 
+
+# --------------------------------------------- the last modules (slice 22)
+_GLYPHS = {  # 3 x 5 digit bitmaps, the JAX convergence test's font
+    0: ["111", "101", "101", "101", "111"],
+    1: ["010", "110", "010", "010", "111"],
+    2: ["111", "001", "111", "100", "111"],
+    3: ["111", "001", "111", "001", "111"],
+    4: ["101", "101", "111", "001", "001"],
+    5: ["111", "100", "111", "001", "111"],
+    6: ["111", "100", "111", "101", "111"],
+    7: ["111", "001", "010", "010", "010"],
+    8: ["111", "101", "111", "101", "111"],
+    9: ["111", "101", "111", "001", "111"],
+}
+
+
+def _draw_digits(n, seed):
+    """28 x 28 uint8 digit images (rendered glyphs at random places, with
+    sensor noise) and their 0-based labels."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    imgs = np.zeros((n, 28, 28), np.uint8)
+    labels = rng.randint(0, 10, n).astype(np.uint8)
+    for i, c in enumerate(labels):
+        glyph = np.array([[int(ch) for ch in row] for row in _GLYPHS[c]],
+                         np.float32)
+        up = np.kron(glyph, np.ones((4, 5), np.float32))    # (20, 15)
+        dy, dx = rng.randint(0, 28 - 20), rng.randint(0, 28 - 15)
+        canvas = np.zeros((28, 28), np.float32)
+        canvas[dy:dy + 20, dx:dx + 15] = up * 255.0
+        canvas += rng.randn(28, 28) * 16.0
+        imgs[i] = np.clip(canvas, 0, 255).astype(np.uint8)
+    return imgs, labels
+
+
+def _digit_frames(np):
+    """(train, test) pandas frames of normalized rendered digits as
+    28 x 28 features and 1-based float labels, and the test labels."""
+    import pandas as pd
+
+    from bigdl_tpu_torch.dataset.mnist import TRAIN_MEAN, TRAIN_STD
+
+    cfg = DLFRAMES
+    imgs, labels = _draw_digits(cfg["train"] + cfg["test"], 7)
+    x = (imgs.astype(np.float32) - TRAIN_MEAN) / TRAIN_STD
+    y = labels.astype(np.float32) + 1
+    n = cfg["train"]
+    train = pd.DataFrame({"features": list(x[:n]), "label": list(y[:n])})
+    test = pd.DataFrame({"features": list(x[n:]), "label": list(y[n:])})
+    return train, test, y[n:]
+
+
+def dlframes_train(torch, fa, smi) -> int:
+    """dlframes_train: the reference's DLClassifierLeNet example on the
+    card: a ``DLClassifier`` over the port's LeNet-5 fitted on rendered
+    digits (its first ``first_iters`` losses held to the same fit on the
+    CPU from the same weights), held-out accuracy from ``transform``,
+    then ``make_udf`` over the test rows from threads with
+    micro-batching, its classes equal to ``transform``'s but at near
+    ties. No flash launch."""
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+
+    from bigdl_tpu_torch import nn
+    from bigdl_tpu_torch.dlframes import DLClassifier
+    from bigdl_tpu_torch.example.udfpredictor.predict import make_udf
+    from bigdl_tpu_torch.models import LeNet5
+    from bigdl_tpu_torch.optim import SGD, Trigger
+    from bigdl_tpu_torch.visualization import TrainSummary
+
+    cfg = DLFRAMES
+    fa.launches = 0
+    t_phase = time.monotonic()
+    train, test, y_test = _digit_frames(np)
+
+    def fit(device, end, summary=None, seed=1):
+        clf = (DLClassifier(LeNet5(10, seed=seed, device=device),
+                            nn.ClassNLLCriterion(), [28, 28])
+               .set_batch_size(cfg["batch"]).set_end_when(end)
+               .set_optim_method(SGD(learning_rate=cfg["lr"],
+                                     momentum=0.9)))
+        if summary is not None:
+            clf.set_train_summary(summary)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.monotonic()
+        fitted = clf.fit(train)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        return fitted, time.monotonic() - t0
+
+    first = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for dev in ("cpu", "cuda"):
+            summ = TrainSummary(tmp, dev)
+            fit(dev, Trigger.max_iteration(cfg["first_iters"]), summ)
+            first[dev] = [v for _, _, v in summ.read_scalar("Loss")]
+            summ.close()
+    loss_rel = max(abs(a - b) / abs(b)
+                   for a, b in zip(first["cuda"], first["cpu"]))
+    fitted, fit_s = fit("cuda", Trigger.max_epoch(cfg["epochs"]))
+    t0 = time.monotonic()
+    out = fitted.transform(test)
+    transform_s = time.monotonic() - t0
+    preds = np.asarray(out["prediction"].tolist())
+    acc = float((preds == y_test).mean())
+    raw = fitted._forward_all(test)
+    udf = make_udf(fitted.model, concurrent=True, sample_ndim=2)
+    rows = test["features"].tolist()
+    t0 = time.monotonic()
+    with ThreadPoolExecutor(cfg["udf_threads"]) as ex:
+        udf_preds = np.asarray(list(ex.map(udf, rows)))
+    udf_s = time.monotonic() - t0
+    apart = np.nonzero(udf_preds != preds)[0]
+    top2 = np.sort(raw, -1)[:, -2:]
+    margins = [float(top2[i, 1] - top2[i, 0]) for i in apart]
+    rec = {"phase": "dlframes_train", "nvidia_smi": smi,
+           "train_rows": cfg["train"], "test_rows": cfg["test"],
+           "batch": cfg["batch"], "epochs": cfg["epochs"],
+           "first_losses": first, "first_loss_max_rel": loss_rel,
+           "rtol": DLFRAMES_LOSS_RTOL, "fit_seconds": fit_s,
+           "iterations": cfg["epochs"] * cfg["train"] // cfg["batch"],
+           "ms_per_iteration": fit_s * 1e3 * cfg["batch"] / (
+               cfg["epochs"] * cfg["train"]),
+           "transform_seconds": transform_s,
+           "transform_tail_rows": cfg["test"] % cfg["batch"],
+           "held_out_accuracy": acc,
+           "udf_rows": len(rows), "udf_seconds": udf_s,
+           "udf_apart": len(apart), "udf_apart_margins": margins,
+           "seconds": time.monotonic() - t_phase,
+           "flash_launches": fa.launches}
+    emit(rec)
+    assert len(first["cpu"]) == len(first["cuda"]) == cfg["first_iters"]
+    assert preds.shape == (cfg["test"],), rec
+    assert loss_rel <= DLFRAMES_LOSS_RTOL, rec
+    assert acc >= 0.9, rec
+    assert all(m < DLFRAMES_NEAR_TIE for m in margins), rec
+    assert fa.launches == 0, rec
+    return fa.launches
+
+
+def _bucket_seam(root):
+    """``utils/file.py``'s ``_epath`` seam over ``root``: ``gs://b/x``
+    becomes the ``pathlib`` path ``root/x`` (with epath's ``rmtree``).
+    The remote code path runs: no ``os.*`` call sees the URL."""
+    import pathlib
+    import shutil
+
+    class _Path(type(pathlib.Path())):
+        def rmtree(self):
+            shutil.rmtree(self)
+
+    def seam(path):
+        s = str(path)
+        assert "://" in s, f"_epath must only see remote paths, got {s}"
+        tail = s.split("://", 1)[1].split("/", 1)
+        return _Path(os.path.join(root, tail[1] if len(tail) > 1 else ""))
+
+    return seam
+
+
+def _bucket_run(torch, path, async_write):
+    """A LocalOptimizer on the card checkpointing to ``path`` every
+    ``BUCKET["every"]`` iterations; the trained model and the newest
+    checkpoint loaded back on the card, and the file names."""
+    import numpy as np
+
+    from bigdl_tpu_torch import nn
+    from bigdl_tpu_torch.dataset import Sample
+    from bigdl_tpu_torch.optim import SGD, Trigger
+    from bigdl_tpu_torch.optim.optimizer import (LocalOptimizer,
+                                                 load_latest_checkpoint)
+    from bigdl_tpu_torch.utils import file as bt_file
+
+    rs = np.random.RandomState(3)
+    samples = [Sample(rs.randn(256).astype(np.float32),
+                      np.float32(1 + i % 4)) for i in range(64)]
+    model = nn.Sequential(nn.Linear(256, 1024, device="cuda"), nn.Tanh(),
+                          nn.Linear(1024, 4, device="cuda"),
+                          nn.LogSoftMax())
+    opt = LocalOptimizer(model=model, training_set=samples,
+                         criterion=nn.ClassNLLCriterion(), batch_size=16,
+                         end_when=Trigger.max_iteration(BUCKET["iterations"]))
+    opt.set_optim_method(SGD(learning_rate=0.1, momentum=0.9))
+    opt.set_checkpoint(path, Trigger.several_iteration(BUCKET["every"]),
+                       async_write=async_write)
+    t0 = time.monotonic()
+    trained = opt.optimize()
+    secs = time.monotonic() - t0
+    back, method, tag = load_latest_checkpoint(path, device="cuda")
+    equal = all(torch.equal(a, b) for a, b in zip(back.parameters(),
+                                                   trained.parameters()))
+    return {"equal_bit_for_bit": equal, "tag": tag,
+            "neval": method.state["neval"], "seconds": secs,
+            "files": sorted(bt_file.listdir(path))}
+
+
+def bucket_io(torch, fa, smi) -> int:
+    """bucket_io: the object-store paths of the file layer on the card,
+    through its ``_epath`` seam over a local directory: a sync and an
+    async checkpoint trigger of a LocalOptimizer (the newest checkpoint
+    loaded back equal to the trained model bit for bit), the serving
+    flagship's module through ``save_module`` / ``load_module``, and a
+    sharded checkpoint of its parameters with a slot tree (meta last),
+    restored onto the card equal bit for bit to the tensors saved and to
+    the same checkpoint written to a local path. No flash launch."""
+    import tempfile
+
+    from bigdl_tpu_torch.models.transformer import TransformerLM
+    from bigdl_tpu_torch.utils import file as bt_file
+    from bigdl_tpu_torch.utils import sharded_ckpt
+
+    fa.launches = 0
+    t_phase = time.monotonic()
+    real = bt_file._epath
+    with tempfile.TemporaryDirectory() as tmp:
+        bt_file._epath = _bucket_seam(os.path.join(tmp, "bucket"))
+        try:
+            ckpt = {"sync": _bucket_run(torch, "gs://bucket/sync", False),
+                    "async": _bucket_run(torch, "gs://bucket/async", True)}
+            model = TransformerLM(**FLAGSHIP, seed=0, device="cuda",
+                                  dtype=torch.bfloat16)
+            bt_file.makedirs("gs://bucket/models")
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            bt_file.save_module(model, "gs://bucket/models/flagship")
+            save_s = time.monotonic() - t0
+            t0 = time.monotonic()
+            back = bt_file.load_module("gs://bucket/models/flagship",
+                                       device="cuda")
+            torch.cuda.synchronize()
+            load_s = time.monotonic() - t0
+            module_equal = all(torch.equal(a, b) for a, b in zip(
+                back.parameters(), model.parameters()))
+            module_mb = os.path.getsize(os.path.join(
+                tmp, "bucket", "models", "flagship")) / 1e6
+            params = model.params_dict()
+            slots = {"momentum": {k: v.float() * 0.5 for k, v in
+                                  params["~params"].items()},
+                     "neval": torch.tensor(7, device="cuda")}
+            like = (params, {}, slots)
+            restored, secs = {}, {}
+            for name, path in (("bucket", "gs://bucket/sharded/ck"),
+                               ("local", os.path.join(tmp, "local", "ck"))):
+                t0 = time.monotonic()
+                sharded_ckpt.save_train_state(path, 7, params, {}, slots,
+                                              {"Loss": 0.5})
+                secs[f"{name}_save"] = time.monotonic() - t0
+                t0 = time.monotonic()
+                restored[name] = sharded_ckpt.restore_train_state(path,
+                                                                  like=like)
+                torch.cuda.synchronize()
+                secs[f"{name}_restore"] = time.monotonic() - t0
+            meta_first = sorted(os.listdir(os.path.join(tmp, "bucket",
+                                                        "sharded")))
+        finally:
+            bt_file._epath = real
+
+    def leaves(tree):
+        if isinstance(tree, dict):
+            return [x for k in sorted(tree) for x in leaves(tree[k])]
+        if isinstance(tree, (list, tuple)):
+            return [x for v in tree for x in leaves(v)]
+        return [tree]
+
+    saved = leaves((params, {}, slots))
+    b_leaves = leaves(restored["bucket"][1:4])
+    l_leaves = leaves(restored["local"][1:4])
+    sharded_equal = (len(saved) == len(b_leaves) == len(l_leaves)
+                     and all(torch.equal(a, b) and torch.equal(b, c)
+                             and b.is_cuda
+                             for a, b, c in zip(saved, b_leaves, l_leaves)))
+    rec = {"phase": "bucket_io", "nvidia_smi": smi,
+           "checkpoints": ckpt,
+           "module": {"equal_bit_for_bit": module_equal, "mb": module_mb,
+                      "save_seconds": save_s, "load_seconds": load_s},
+           "sharded": {"equal_bit_for_bit": sharded_equal,
+                       "step": [restored["bucket"][0],
+                                restored["local"][0]],
+                       "state": restored["bucket"][4],
+                       "bucket_files": meta_first, "seconds": secs,
+                       "leaves": len(saved)},
+           "seconds": time.monotonic() - t_phase,
+           "flash_launches": fa.launches}
+    emit(rec)
+    for c in ckpt.values():
+        assert c["equal_bit_for_bit"] and c["tag"] == BUCKET["iterations"], rec
+        assert not any(f.startswith(".") for f in c["files"]), rec
+    assert module_equal and sharded_equal, rec
+    assert restored["bucket"][0] == restored["local"][0] == 7, rec
+    assert restored["bucket"][4] == {"Loss": 0.5}, rec
+    assert meta_first == ["ck", "ck.meta.json"], rec
+    assert fa.launches == 0, rec
+    return fa.launches
+
+
+def _first_apart(rows, ref_rows, ref_logits, t0):
+    """The rows that part from the reference's, each with its first
+    position and the reference's top-two margin there."""
+    out = []
+    for i in range(rows.shape[0]):
+        diff = (rows[i] != ref_rows[i]).nonzero()
+        if len(diff):
+            j = int(diff[0]) - t0
+            top2 = ref_logits[i, j].topk(2).values
+            out.append({"row": i, "position": j,
+                        "margin": (top2[0] - top2[1]).item()})
+    return out
+
+
+def _seq_decode(torch, C, world) -> dict:
+    """seq_decode on one rank: the serving flagship (f32) decoding with
+    its caches split over the sequence of a ``("seq", world)`` mesh, each
+    rank holding ``max_len / world`` positions, a prompt that fills more
+    than one block; its tokens against the unsplit caches' (rows may part
+    only at a near tie of the unsplit run)."""
+    import numpy as np
+
+    from bigdl_tpu_torch.models.transformer import TransformerLM
+    from bigdl_tpu_torch.parallel import Engine
+    from bigdl_tpu_torch.parallel.tp import P, NamedSharding
+
+    cfg = SEQ_DECODE
+    mesh = Engine.create_mesh([("seq", world)])
+    sh = NamedSharding(mesh, P(None, None, "seq", None))
+    model = TransformerLM(**FLAGSHIP, seed=0, device="cuda",
+                          dtype=torch.float32)
+    model.evaluate()
+    prompt = torch.as_tensor(np.random.RandomState(11).randint(
+        0, FLAGSHIP["vocab_size"], (cfg["batch"], cfg["prompt"])),
+        device="cuda")
+    local = tuple(model.init_cache(cfg["batch"], cfg["max_len"],
+                                   sharding=sh)[0][0].shape)
+    runs = {}
+    for name, layout in (("sharded", sh), ("whole", None)):
+        C.barrier(None)
+        torch.cuda.synchronize()
+        gathers = C.calls["all_gather"]
+        t0 = time.monotonic()
+        toks, seen = model.generate(prompt, cfg["new"],
+                                    max_len=cfg["max_len"],
+                                    kv_cache_sharding=layout,
+                                    return_logits=True)
+        torch.cuda.synchronize()
+        runs[name] = (toks, seen, time.monotonic() - t0,
+                      C.calls["all_gather"] - gathers)
+    apart = _first_apart(runs["sharded"][0], runs["whole"][0],
+                         runs["whole"][1], cfg["prompt"])
+    held = [cfg["new"]] * cfg["batch"]     # steps fed the same prefix
+    for a in apart:
+        held[a["row"]] = a["position"] + 1
+    diff = (runs["sharded"][1] - runs["whole"][1]).abs()
+    return {"local_cache": list(local), "apart": apart,
+            "rows_equal": cfg["batch"] - len(apart),
+            "max_logit_diff": max(diff[i, :h].max().item()
+                                  for i, h in enumerate(held)),
+            "max_abs_logit": runs["whole"][1].abs().max().item(),
+            "sharded_seconds": runs["sharded"][2],
+            "whole_seconds": runs["whole"][2],
+            "sharded_all_gathers": runs["sharded"][3],
+            "sharded_ms_per_token": runs["sharded"][2] * 1e3 / cfg["new"],
+            "whole_ms_per_token": runs["whole"][2] * 1e3 / cfg["new"]}
+
+
+def _int8_2d(torch, world) -> dict:
+    """int8_2d on one rank: the serving flagship's int8 clone sharded
+    under 2-D rules on a ``("data", world) x ("model", 1)`` mesh (codes
+    and scales whole on every rank, the f32 token table split over the
+    data axis): its forward EQUAL to the unsharded clone's, its greedy
+    tokens too."""
+    import numpy as np
+
+    from bigdl_tpu_torch.models.transformer import TransformerLM
+    from bigdl_tpu_torch.nn.quantized import Quantizer
+    from bigdl_tpu_torch.parallel import Engine
+    from bigdl_tpu_torch.parallel.tp import shard_model, transformer_tp_rules
+
+    cfg = SLICE22_CHECK
+    mesh = Engine.create_mesh([("data", world), ("model", 1)])
+    q = Quantizer.quantize(TransformerLM(**dict(FLAGSHIP, use_flash=False),
+                                         seed=0, device="cuda",
+                                         dtype=torch.float32))
+    q.evaluate()
+    local = shard_model(q, mesh, transformer_tp_rules("model", "data"))
+    ids = torch.as_tensor(np.random.RandomState(12).randint(
+        0, FLAGSHIP["vocab_size"], (cfg["batch"], cfg["seq"])),
+        device="cuda")
+    with torch.inference_mode():
+        a, b = local(ids), q(ids)
+    prompt = ids[:, :64]
+    t_sh = local.generate(prompt, cfg["new"])
+    t_wh = q.generate(prompt, cfg["new"])
+    return {"forward_equal": bool(torch.equal(a, b)),
+            "tokens_equal": bool(torch.equal(t_sh, t_wh)),
+            "table_block": list(local.tok_embed.shape),
+            "qkv_codes": list(local.block0.attn.qkv.weight_q.shape)}
+
+
+def _moe_mesh(torch, mesh) -> dict:
+    """moe_mesh on one rank: the serving flagship with
+    ``n_experts=SLICE22_CHECK["experts"]`` (f32) on the tensor-parallel
+    mesh, attention split by heads and the experts whole on every rank:
+    its forward against the unsharded model's, its greedy tokens (rows
+    may part only at a near tie)."""
+    import numpy as np
+
+    from bigdl_tpu_torch.models.transformer import TransformerLM
+    from bigdl_tpu_torch.parallel.tp import shard_model
+
+    cfg = SLICE22_CHECK
+    m = TransformerLM(**dict(FLAGSHIP, use_flash=False,
+                             n_experts=cfg["experts"]),
+                      seed=0, device="cuda", dtype=torch.float32)
+    m.evaluate()
+    local = shard_model(m, mesh)
+    ids = torch.as_tensor(np.random.RandomState(13).randint(
+        0, FLAGSHIP["vocab_size"], (cfg["batch"], cfg["seq"])),
+        device="cuda")
+    with torch.inference_mode():
+        a, b = local(ids), m(ids)
+    prompt = ids[:, :64]
+    t_sh = local.generate(prompt, cfg["new"])
+    t_wh, seen = m.generate(prompt, cfg["new"], return_logits=True)
+    return {"forward_max_rel": rel_diff(a, b), "rtol": TP_RTOL,
+            "apart": _first_apart(t_sh, t_wh, seen, prompt.shape[1]),
+            "local_heads": local.block0.attn.num_heads,
+            "expert_w1": list(local.block0.mlp.w1.shape)}
+
+
+def _convergence(torch, C, rank) -> dict:
+    """convergence on one rank: the JAX package's two convergence cases
+    through the sharded ``DistriOptimizer`` over the launch's ranks
+    (gloo, sharing the card): LeNet-5 on rendered digits after the MNIST
+    idx round trip (``lenet_steps`` steps, held-out accuracy), ResNet-20
+    on the class-template CIFAR set (``resnet_steps`` steps, train
+    accuracy and loss)."""
+    import tempfile
+
+    import numpy as np
+
+    from bigdl_tpu_torch import nn
+    from bigdl_tpu_torch.dataset import DataSet, Sample, mnist
+    from bigdl_tpu_torch.models import DatasetType, LeNet5, ResNet
+    from bigdl_tpu_torch.optim import SGD, Top1Accuracy, Trigger
+    from bigdl_tpu_torch.parallel import DistriOptimizer
+
+    cfg = CONVERGENCE
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, n, seed in (("train", cfg["lenet_train"], 0),
+                              ("t10k", cfg["lenet_test"], 1)):
+            imgs, labels = _draw_digits(n, seed)
+            mnist.write_images(os.path.join(
+                tmp, f"{name}-images-idx3-ubyte"), imgs)
+            mnist.write_labels(os.path.join(
+                tmp, f"{name}-labels-idx1-ubyte"), labels)
+        ti, tl, vi, vl = mnist.read_data_sets(tmp)
+    model = LeNet5(10, device="cuda")
+    opt = DistriOptimizer(model=model,
+                          dataset=DataSet.array(mnist.to_samples(ti, tl)),
+                          criterion=nn.ClassNLLCriterion(),
+                          batch_size=cfg["lenet_batch"],
+                          end_when=Trigger.max_iteration(cfg["lenet_steps"]),
+                          parameter_sync="sharded")
+    opt.set_optim_method(SGD(learning_rate=0.05, momentum=0.9))
+    C.barrier(None)
+    t0 = time.monotonic()
+    trained = opt.optimize()
+    torch.cuda.synchronize()
+    secs = time.monotonic() - t0
+    acc, _ = trained.evaluate_on(mnist.to_samples(vi, vl), [Top1Accuracy()],
+                                 batch_size=128)[0][1].result()
+    out["lenet"] = {"held_out_accuracy": float(acc), "seconds": secs,
+                    "ms_per_step": secs * 1e3 / cfg["lenet_steps"]}
+
+    rng = np.random.RandomState(0)
+    templates = rng.randn(10, 3, 32, 32).astype(np.float32)
+    xs, ys = [], []
+    for c in range(10):
+        for _ in range(cfg["resnet_per_class"]):
+            xs.append(templates[c]
+                      + 0.3 * rng.randn(3, 32, 32).astype(np.float32))
+            ys.append(np.float32(c + 1))
+    order = np.arange(len(xs))
+    rng.shuffle(order)
+    x, y = np.stack(xs)[order], np.asarray(ys, np.float32)[order]
+    model = ResNet(10, {"depth": 20, "dataSet": DatasetType.CIFAR10},
+                   device="cuda")
+    opt = DistriOptimizer(model=model,
+                          dataset=DataSet.array([Sample(a, b)
+                                                 for a, b in zip(x, y)]),
+                          criterion=nn.CrossEntropyCriterion(),
+                          batch_size=cfg["resnet_batch"],
+                          end_when=Trigger.max_iteration(
+                              cfg["resnet_steps"]),
+                          parameter_sync="sharded")
+    opt.set_optim_method(SGD(learning_rate=0.05, momentum=0.9))
+    C.barrier(None)
+    t0 = time.monotonic()
+    opt.optimize()
+    torch.cuda.synchronize()
+    secs = time.monotonic() - t0
+    model.evaluate()
+    with torch.inference_mode():
+        xt, yt = torch.from_numpy(x).cuda(), torch.from_numpy(y).cuda()
+        logits = model(xt)
+        loss = float(nn.CrossEntropyCriterion()(logits, yt))
+    acc = float((logits.argmax(1) + 1 == yt).float().mean())
+    out["resnet20"] = {"train_accuracy": acc, "train_loss": loss,
+                       "seconds": secs,
+                       "ms_per_step": secs * 1e3 / cfg["resnet_steps"]}
+    return out
+
+
+def _slice22_rank(torch, fa, C, mesh, rank, world) -> dict:
+    """The slice-22 checks on one rank of the --tp-rank launch, each
+    counting its flash launches from 0 and timing itself."""
+    rec = {}
+    for name, run in (("seq_decode", lambda: _seq_decode(torch, C, world)),
+                      ("int8_2d", lambda: _int8_2d(torch, world)),
+                      ("moe_mesh", lambda: _moe_mesh(torch, mesh)),
+                      ("convergence", lambda: _convergence(torch, C, rank))):
+        fa.launches = 0
+        C.barrier(None)
+        t0 = time.monotonic()
+        rec[name] = run()
+        rec[name]["seconds"] = time.monotonic() - t0
+        rec[name]["flash_launches"] = fa.launches
+    return rec
+
+
+def _slice22_lines(smi, ranks) -> int:
+    """The --tp-rank launch's slice-22 records as one line a check, each
+    asserted; returns the flash launches of both ranks."""
+    lead = ranks[0]["slice22"]
+    by_rank = [r["slice22"] for r in ranks]
+    for name in ("seq_decode", "int8_2d", "moe_mesh", "convergence"):
+        emit({"phase": name, "nvidia_smi": smi, "ranks": len(ranks),
+              "backend": "gloo", **lead[name],
+              "flash_launches_by_rank": [r[name]["flash_launches"]
+                                         for r in by_rank],
+              "seconds_by_rank": [r[name]["seconds"] for r in by_rank]})
+    sd = lead["seq_decode"]
+    assert sd["local_cache"][2] == SEQ_DECODE["max_len"] // len(ranks), sd
+    for a in sd["apart"]:
+        assert abs(a["margin"]) < NEAR_TIE, sd
+    assert sd["max_logit_diff"] <= SEQ_DECODE_LOGIT_ATOL, sd
+    for r in by_rank:
+        assert r["int8_2d"]["forward_equal"], r["int8_2d"]
+        assert r["int8_2d"]["tokens_equal"], r["int8_2d"]
+        assert r["moe_mesh"]["forward_max_rel"] <= TP_RTOL, r["moe_mesh"]
+        for a in r["moe_mesh"]["apart"]:
+            assert abs(a["margin"]) < NEAR_TIE, r["moe_mesh"]
+        conv = r["convergence"]
+        assert conv["lenet"]["held_out_accuracy"] >= 0.97, conv
+        assert conv["resnet20"]["train_accuracy"] > 0.85, conv
+        assert conv["resnet20"]["train_loss"] < 0.8, conv
+    launches = sum(r[n]["flash_launches"] for r in by_rank
+                   for n in ("seq_decode", "int8_2d", "moe_mesh",
+                             "convergence"))
+    assert launches == 0, launches
+    return launches
+
+
+def slice22_ranks(torch, fa, smi) -> int:
+    """The slice-22 checks of the --tp-rank launch, launched alone
+    (``chip_smoke.py --tp-rank slice22``): for running them by name."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ranks, _ = _launch(tmp, TP["ranks"],
+                           [os.path.join(ROOT, "chip_smoke.py"),
+                            "--tp-rank", "slice22"], TP_TIMEOUT_S)
+    return _slice22_lines(smi, ranks)
+
+
 def main() -> int:
     import torch
 
@@ -9234,6 +9883,20 @@ def main() -> int:
           "seconds": time.monotonic() - t_tk,
           "flash_launches": tf_keras_launches})
 
+    # ------ dlframes, object-store paths, the sharded caches, the TP
+    # leftovers and the convergence cases (slice 22; the last four ran
+    # inside the --tp-rank launch, timed there)
+    t_lm = time.monotonic()
+    last_launches = (dlframes_train(torch, fa, smi)
+                     + bucket_io(torch, fa, smi)
+                     + _slice22_lines(smi, _TP_RANKS))
+    in_ranks = sum(_TP_RANKS[0]["slice22"][n]["seconds"]
+                   for n in _TP_RANKS[0]["slice22"])
+    emit({"phase": "slice22_phases", "nvidia_smi": smi,
+          "seconds": time.monotonic() - t_lm + in_ranks,
+          "seconds_in_tp_ranks": in_ranks,
+          "flash_launches": last_launches})
+
     # ----------------------------------------------------- 9. kernels line
     print(nvidia_smi(), flush=True)
     emit({"kernels": [{
@@ -9250,7 +9913,7 @@ def main() -> int:
                      + longcontext_launches + tp_launches + obs_launches
                      + sequence_launches + sparse_detection_launches
                      + ops_widedeep_launches + serialize_launches
-                     + tf_keras_launches),
+                     + tf_keras_launches + last_launches),
         "launches_serving": serving_launches,
         "launches_train": train_launches,
         "launches_engine": engine_launches,
@@ -9275,6 +9938,7 @@ def main() -> int:
         "launches_ops_widedeep": ops_widedeep_launches,
         "launches_serialize": serialize_launches,
         "launches_tf_keras": tf_keras_launches,
+        "launches_slice22": last_launches,
         "tp_local_heads": {k: tp_local[k] for k in (
             "shape", "max_abs_err", "kernel_ms", "device_ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms", "library_device_ms")},
@@ -9293,4 +9957,6 @@ def main() -> int:
 
 if __name__ == "__main__":
     sys.exit(ring_rank() if sys.argv[1:] == ["--ring-rank"]
-             else tp_rank() if sys.argv[1:] == ["--tp-rank"] else main())
+             else tp_rank() if sys.argv[1:] == ["--tp-rank"]
+             else tp_rank(True) if sys.argv[1:] == ["--tp-rank", "slice22"]
+             else main())

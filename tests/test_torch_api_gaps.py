@@ -259,7 +259,7 @@ def test_func_transformer_and_normalizer_match_jax():
         np.testing.assert_array_equal(t.labels[0], np.asarray(j.labels[0]))
 
 
-def test_device_prefetch_stages_batches_on_the_device(tmp_path):
+def test_device_prefetch_stages_batches_on_the_device():
     rs = np.random.RandomState(6)
     batches = [MiniBatch(rs.rand(4, 3).astype(np.float32),
                          rs.rand(4, 1).astype(np.float32)),
@@ -279,11 +279,7 @@ def test_device_prefetch_stages_batches_on_the_device(tmp_path):
     from torch_world import World
 
     batch = np.arange(24, dtype=np.float32).reshape(6, 4)
-    world = World(2, tmp_path)
-    try:
-        got = world.run(jobs.prefetch_shard, batch)
-    finally:
-        world.close()
+    got = World.shared(2).run(jobs.prefetch_shard, batch)
     for r, (mb_rows, rows) in enumerate(got):
         np.testing.assert_array_equal(mb_rows, batch[3 * r:3 * r + 3])
         np.testing.assert_array_equal(rows, batch[3 * r:3 * r + 3])

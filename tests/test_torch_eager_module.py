@@ -179,7 +179,7 @@ def test_backward_leaves_the_forward_buffers():
     assert all(torch.equal(a, b) for a, b in zip(stats, net.buffers()))
 
 
-def test_clone_copy_save_load(tmp_path):
+def test_clone_copy_save_load(tmp_path, monkeypatch):
     _, tm = _pair()
     x, _ = _data(4)
     tx = torch.tensor(x)
@@ -207,8 +207,19 @@ def test_clone_copy_save_load(tmp_path):
     assert type(back) is type(tm) and torch.equal(back(tx), tm(tx))
     for (n, a), (_, b) in zip(back.named_parameters(), tm.named_parameters()):
         assert torch.equal(a, b) and a.requires_grad, n
-    with pytest.raises(NotImplementedError, match="item 12"):
-        tm.save("gs://bucket/m.bigdl")
+    # an object-store path goes through the file layer's seam (a fake
+    # bucket under tmp_path here)
+    from etils import epath
+
+    from bigdl_tpu_torch.utils import file as bt_file
+
+    monkeypatch.setattr(bt_file, "_epath", lambda p: epath.Path(
+        tmp_path / "bucket" / str(p).split("://", 1)[1]))
+    (tmp_path / "bucket" / "bucket").mkdir(parents=True)
+    tm.save("gs://bucket/m.bigdl")
+    assert (tmp_path / "bucket" / "bucket" / "m.bigdl").is_file()
+    assert torch.equal(Module.load("gs://bucket/m.bigdl", device="cpu")(tx),
+                       tm(tx))
     with pytest.raises(RuntimeError, match="device='cpu'") if not \
             torch.cuda.is_available() else pytest.raises(Exception):
         if torch.cuda.is_available():

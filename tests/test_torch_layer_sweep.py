@@ -473,7 +473,7 @@ def test_bind_generator_reaches_every_random_layer():
     assert slopes.unique().numel() > 1
 
 
-def test_sync_bn_axis_waits_for_the_distributed_slice(tmp_path):
+def test_sync_bn_axis_waits_for_the_distributed_slice():
     """Sync-BN (``global_stats_axis``), ported with the distributed slice:
     a SpatialBatchNormalization over a 2-rank gloo world normalizes each
     rank's images by the statistics of both ranks' batch, and its output,
@@ -507,14 +507,10 @@ def test_sync_bn_axis_waits_for_the_distributed_slice(tmp_path):
         return jnp.sum(s), (out, nb)
 
     # the ranks boot while the JAX side computes
-    world = World(2, tmp_path)
-    try:
-        (_, (out, nb)), dx = jax.value_and_grad(loss, has_aux=True)(
-            jnp.asarray(x))
-        got = world.run(jobs.sync_bn_forward_and_grad, x, w_out, weight,
-                        bias)
-    finally:
-        world.close()
+    world = World.shared(2)
+    (_, (out, nb)), dx = jax.value_and_grad(loss, has_aux=True)(
+        jnp.asarray(x))
+    got = world.run(jobs.sync_bn_forward_and_grad, x, w_out, weight, bias)
     tol = dict(rtol=1e-5, atol=1e-5)
     np.testing.assert_allclose(np.concatenate([g["out"] for g in got]),
                                np.asarray(out), **tol)

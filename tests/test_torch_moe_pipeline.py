@@ -52,11 +52,10 @@ def _one_thread():
 
 
 @pytest.fixture(scope="module")
-def world(tmp_path_factory):
-    w = World(4, tmp_path_factory.mktemp("world"))
+def world():
+    w = World.shared(4)
     w.run(jobs.quiet)
-    yield w
-    w.close()
+    return w
 
 
 def _np(tree):

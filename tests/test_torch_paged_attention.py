@@ -11,7 +11,10 @@ the same logical K/V as a dense run and give the same logits. The
 indices must stay in range where the engine drives them: CUDA asserts
 on an out-of-range index where JAX clamps, and torch on the CPU raises,
 so the edges (the last decodable position with the verify headroom, a
-chunk ending on a page boundary) are driven on purpose here.
+chunk ending on a page boundary) are driven on purpose here. The JAX
+weights are drawn by numpy (``tests/jax_numpy_init.py``) and its
+model's entry points run under ``jax.jit`` (one compile a program, not
+one an op).
 """
 
 import jax
@@ -26,6 +29,7 @@ from bigdl_tpu_torch.models.transformer import TransformerLM
 from bigdl_tpu_torch.nn import attention as tattn
 from bigdl_tpu_torch.serving import ContinuousBatchingEngine
 from bigdl_tpu_torch.utils.weights import load_jax_params
+from tests.jax_numpy_init import numpy_weight_draws
 
 CFG = dict(vocab_size=32, embed_dim=16, num_heads=4, num_kv_heads=2,
            num_layers=2, max_len=48)
@@ -38,10 +42,8 @@ TABLES = np.asarray([[3, 7, 1, 8], [0, 0, 0, 0], [5, 2, 9, 0]], np.int64)
 
 
 def _pair(use_rope: bool, seed: int):
-    from bigdl_tpu.utils import random as rnd
-
-    rnd.set_seed(seed)
-    jm = JaxLM(**CFG, use_rope=use_rope)
+    with numpy_weight_draws(seed):
+        jm = JaxLM(**CFG, use_rope=use_rope)
     jm.evaluate()
     tm = TransformerLM(**CFG, use_rope=use_rope, device="cpu")
     load_jax_params(tm, jax.tree.map(np.asarray, jm.params_dict()))
@@ -138,7 +140,7 @@ def _prefilled(jm, tm):
     last = np.asarray([7, 7, 5])
     jpools = jm.init_page_pool(10, PS)
     tpools = tm.init_page_pool(10, PS)
-    jl, jpools = jm.prefill_chunk_at_paged(
+    jl, jpools = jax.jit(jm.prefill_chunk_at_paged)(
         jnp.asarray(ids), jpools, jnp.asarray(TABLES, jnp.int32),
         jnp.asarray(pos0, jnp.int32), jnp.asarray(last, jnp.int32))
     tl, tpools = tm.prefill_chunk_at_paged(
@@ -162,9 +164,9 @@ def test_model_paged_entry_points_match_jax(lms):
     # a decode step at per-row positions (row 0 on a page boundary)
     tok = np.asarray([3, 0, 17])
     pos = np.asarray([8, 0, 10])
-    jl, jpools = jm.decode_step_paged(jnp.asarray(tok, jnp.int32),
-                                      jnp.asarray(pos, jnp.int32),
-                                      jpools, tables_j)
+    jl, jpools = jax.jit(jm.decode_step_paged)(
+        jnp.asarray(tok, jnp.int32), jnp.asarray(pos, jnp.int32), jpools,
+        tables_j)
     tl, tpools = tm.decode_step_paged(tok, torch.from_numpy(pos), tpools,
                                       tables_t)
     _close(tl[[0, 2]], np.asarray(jl)[[0, 2]])
@@ -174,9 +176,9 @@ def test_model_paged_entry_points_match_jax(lms):
     # is the scratch page)
     chunk = np.asarray([[4, 9, 1], [0, 0, 0], [30, 2, 5]])
     pos = np.asarray([9, 0, 11])
-    jv, jpools = jm.verify_chunk_paged(jnp.asarray(chunk, jnp.int32),
-                                       jpools, tables_j,
-                                       jnp.asarray(pos, jnp.int32))
+    jv, jpools = jax.jit(jm.verify_chunk_paged)(
+        jnp.asarray(chunk, jnp.int32), jpools, tables_j,
+        jnp.asarray(pos, jnp.int32))
     tv, tpools = tm.verify_chunk_paged(chunk, tpools, tables_t,
                                        torch.from_numpy(pos))
     assert tv.shape == (3, 3, 32)
@@ -194,15 +196,15 @@ def test_attention_layer_paged_methods_match_jax(lms):
     jpool, tpool = ja.init_page_pool(10, PS), ta.init_page_pool(10, PS)
     tables_j = jnp.asarray(TABLES, jnp.int32)
     tables_t = torch.from_numpy(TABLES)
-    jo, jpool = ja.forward_chunk_paged(jnp.asarray(x), jpool, tables_j,
-                                       jnp.asarray(pos0, jnp.int32))
+    jo, jpool = jax.jit(ja.forward_chunk_paged)(
+        jnp.asarray(x), jpool, tables_j, jnp.asarray(pos0, jnp.int32))
     to, tpool = ta.forward_chunk_paged(torch.from_numpy(x), tpool,
                                        tables_t, torch.from_numpy(pos0))
     _close(to[[0, 2]], np.asarray(jo)[[0, 2]])
     x1 = r.randn(3, 1, 16).astype(np.float32)
     pos = np.asarray([8, 0, 12])
-    jo, jpool = ja.forward_step_paged(jnp.asarray(x1), jpool, tables_j,
-                                      jnp.asarray(pos, jnp.int32))
+    jo, jpool = jax.jit(ja.forward_step_paged)(
+        jnp.asarray(x1), jpool, tables_j, jnp.asarray(pos, jnp.int32))
     to, tpool = ta.forward_step_paged(torch.from_numpy(x1), tpool,
                                       tables_t, torch.from_numpy(pos))
     _close(to[0], np.asarray(jo)[0])
@@ -210,8 +212,9 @@ def test_attention_layer_paged_methods_match_jax(lms):
     _close(tpool[1][1:], np.asarray(jpool[1])[1:])
     # the block twins
     jb, tb = jm.block1, tm.block1
-    jo, _ = jb.forward_step_paged(jnp.asarray(x1), jb.attn.init_page_pool(
-        10, PS), tables_j, jnp.asarray(pos, jnp.int32))
+    jo, _ = jax.jit(jb.forward_step_paged)(
+        jnp.asarray(x1), jb.attn.init_page_pool(10, PS), tables_j,
+        jnp.asarray(pos, jnp.int32))
     to, _ = tb.forward_step_paged(torch.from_numpy(x1),
                                   tb.attn.init_page_pool(10, PS), tables_t,
                                   torch.from_numpy(pos))
@@ -226,18 +229,19 @@ def test_verify_chunk_matches_jax_dense(lms):
     head = r.randint(0, 32, (2, 8))
     chunk = r.randint(0, 32, (2, 5))
     cj, ct = jm.init_cache(2, 20), tm.init_cache(2, 20)
-    _, cj = jm.prefill(jnp.asarray(head), cj)
+    _, cj = jax.jit(jm.prefill)(jnp.asarray(head), cj)
     _, ct = tm.prefill(head, ct)
     pos0 = np.asarray([8, 3])
-    jv, cj = jm.verify_chunk(jnp.asarray(chunk), cj,
-                             jnp.asarray(pos0, jnp.int32))
+    jv, cj = jax.jit(jm.verify_chunk)(jnp.asarray(chunk), cj,
+                                      jnp.asarray(pos0, jnp.int32))
     tv, ct = tm.verify_chunk(chunk, ct, torch.from_numpy(pos0))
     assert tv.shape == (2, 5, 32)
     _close(tv, jv)
     for (jk, jvv), (tk, tvv) in zip(cj, ct):
         _close(tk, jk)
         _close(tvv, jvv)
-    jv, _ = jm.verify_chunk(jnp.asarray(chunk), cj, 13)
+    jv, _ = jax.jit(jm.verify_chunk, static_argnums=2)(
+        jnp.asarray(chunk), cj, 13)
     tv, _ = tm.verify_chunk(chunk, ct, 13)
     _close(tv, jv)
 

@@ -56,11 +56,10 @@ def _one_thread():
 
 
 @pytest.fixture(scope="module")
-def world(tmp_path_factory):
-    w = World(N, tmp_path_factory.mktemp("world"))
+def world():
+    w = World.shared(N)
     w.run(jobs.quiet)
-    yield w
-    w.close()
+    return w
 
 
 @pytest.fixture(scope="module")

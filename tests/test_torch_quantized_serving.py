@@ -16,6 +16,7 @@ ledger and perf_gate cases of the JAX file wait for ROADMAP.md Queue 1
 items 10 and 11.
 """
 
+import copy
 import threading
 
 import jax
@@ -178,7 +179,23 @@ def test_engine_dtype_validation(lm):
 
 
 # ------------------------------------------- quality vs the float path
-def test_logit_divergence_and_greedy_match(lms):
+def _jit_entry_points(monkeypatch):
+    """The JAX LM's ``prefill`` and ``decode_step`` under ``jax.jit``
+    (one compile a model), for every JAX LM the report builds. A traced
+    call leaves tracers in the modules' recorded outputs, so the report
+    runs on a copy of the fixture's model."""
+    for name in ("prefill", "decode_step"):
+        eager, jitted = getattr(JaxLM, name), {}
+
+        def call(self, *args, _eager=eager, _jitted=jitted):
+            if id(self) not in _jitted:
+                _jitted[id(self)] = (self, jax.jit(_eager.__get__(self)))
+            return _jitted[id(self)][1](*args)
+
+        monkeypatch.setattr(JaxLM, name, call)
+
+
+def test_logit_divergence_and_greedy_match(lms, monkeypatch):
     """Teacher-forced int8 logits track the float logits within a
     scale-free ceiling, the free-running greedy prefix agrees on short
     horizons, the report is deterministic, and it is the JAX report:
@@ -195,8 +212,9 @@ def test_logit_divergence_and_greedy_match(lms):
                                                   n_prompts=4, seed=3)
     rep = tbench.quantized_quality_report(lm, horizon=6, n_prompts=2,
                                           seed=3)
-    jrep = jbench.quantized_quality_report(jm, horizon=6, n_prompts=2,
-                                           seed=3)
+    _jit_entry_points(monkeypatch)
+    jrep = jbench.quantized_quality_report(copy.deepcopy(jm), horizon=6,
+                                           n_prompts=2, seed=3)
     assert rep["greedy_match_fraction"] == jrep["greedy_match_fraction"]
     for key in ("logit_div_max", "logit_div_mean", "logit_div_rel"):
         assert rep[key] == pytest.approx(jrep[key], abs=1e-4), key

@@ -31,6 +31,7 @@ from bigdl_tpu_torch import optim as topt
 from bigdl_tpu_torch.models import LeNet5, ResNet
 from bigdl_tpu_torch.nn import CrossEntropyCriterion, Module
 from bigdl_tpu_torch.nn.module import tree_leaves
+from tests.jax_numpy_init import numpy_weight_draws
 from bigdl_tpu_torch.utils.weights import (buffers_to_numpy,
                                            load_jax_buffers, load_jax_params,
                                            params_to_numpy)
@@ -107,36 +108,45 @@ def _nhwc(x):
 
 @pytest.fixture(scope="module")
 def jax_resnet50():
-    """ImageNet ResNet-50 (NCHW) with random BN state; built once, as the
-    JAX package draws its 25 M weights slowly on the CPU."""
-    jm = JaxResNet(1000, {"depth": 50, "dataSet": DatasetType.ImageNet})
+    """ImageNet ResNet-50 (NCHW) with random BN state and its logits on
+    the test images; built once, its weights drawn by numpy (the JAX
+    package draws its 25 M weights slowly on the CPU)."""
+    with numpy_weight_draws(50):
+        jm = JaxResNet(1000, {"depth": 50, "dataSet": DatasetType.ImageNet})
     _randomize_bn(jm, seed=50)
-    return jm
+    x = _images(2, 224, seed=1)
+    return jm, x, _jax_eval(jm, x)
 
 
 @pytest.mark.parametrize("fmt", ["NCHW", "NHWC"])
 def test_resnet50_eval_matches_jax(jax_resnet50, fmt):
     """Both formats of the port against the JAX NCHW model on the same
     weights and images (the NHWC port takes the images transposed)."""
-    jm = jax_resnet50
+    jm, x, ref = jax_resnet50
     tm = _port_twin(jm, (1000, {"depth": 50, "dataSet": DatasetType.ImageNet,
                                 "format": fmt}))
     assert len(tree_leaves(tm.buffers_dict())) == 2 * 53
-    x = _images(2, 224, seed=1)
-    ref = _jax_eval(jm, x)
     ours = _port_eval(tm, _nhwc(x) if fmt == "NHWC" else x)
     _assert_logits_close(ours, ref)
 
 
-@pytest.mark.parametrize("fmt", ["NHWC", "NCHW"])
-def test_resnet18_eval_matches_jax_nhwc(fmt):
-    jm = JaxResNet(1000, {"depth": 18, "dataSet": DatasetType.ImageNet,
-                          "format": "NHWC"})
+@pytest.fixture(scope="module")
+def jax_resnet18():
+    """ImageNet ResNet-18 (NHWC) with random BN state and its logits on
+    the test images, built once."""
+    with numpy_weight_draws(18):
+        jm = JaxResNet(1000, {"depth": 18, "dataSet": DatasetType.ImageNet,
+                              "format": "NHWC"})
     _randomize_bn(jm, seed=18)
+    x = _images(2, 224, seed=2, fmt="NHWC")
+    return jm, x, _jax_eval(jm, x)
+
+
+@pytest.mark.parametrize("fmt", ["NHWC", "NCHW"])
+def test_resnet18_eval_matches_jax_nhwc(jax_resnet18, fmt):
+    jm, x, ref = jax_resnet18
     tm = _port_twin(jm, (1000, {"depth": 18, "dataSet": DatasetType.ImageNet,
                                 "format": fmt}))
-    x = _images(2, 224, seed=2, fmt="NHWC")
-    ref = _jax_eval(jm, x)
     ours = _port_eval(tm, x if fmt == "NHWC" else
                       np.ascontiguousarray(np.moveaxis(x, -1, 1)))
     _assert_logits_close(ours, ref)
@@ -148,7 +158,8 @@ CIFAR20 = (10, {"depth": 20, "dataSet": DatasetType.CIFAR10,
 
 def _cifar20(fmt="NCHW", seed=20):
     cfg = (CIFAR20[0], {**CIFAR20[1], "format": fmt})
-    jm = JaxResNet(*cfg)
+    with numpy_weight_draws(seed):
+        jm = JaxResNet(*cfg)
     _randomize_bn(jm, seed=seed)
     return jm, cfg
 
@@ -164,7 +175,8 @@ def test_cifar_resnet20_shortcut_a_eval_matches_jax(fmt):
 
 
 def test_lenet5_matches_jax():
-    jm = JaxLeNet5(10)
+    with numpy_weight_draws(5):
+        jm = JaxLeNet5(10)
     tm = LeNet5(10, device="cpu")
     load_jax_params(tm, _np(jm.params_dict()))
     assert [n for n, _ in tree_leaves(tm.params_dict())][:2] == \

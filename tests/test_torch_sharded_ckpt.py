@@ -34,10 +34,8 @@ N = 2
 
 
 @pytest.fixture(scope="module")
-def world(tmp_path_factory):
-    w = World(N, tmp_path_factory.mktemp("ckpt_world"))
-    yield w
-    w.close()
+def world():
+    return World.shared(N)
 
 
 def _leaves(tree):
@@ -108,7 +106,8 @@ def test_restore_onto_another_layout(tmp_path):
     assert torch.equal(rp["w"], flat[:4])
 
 
-def test_missing_meta_raises_and_state_roundtrips_types(tmp_path):
+def test_missing_meta_raises_and_state_roundtrips_types(tmp_path,
+                                                        monkeypatch):
     m = nn.Sequential(nn.Linear(3, 2, device="cpu"))
     params = m.params_dict()
     p = str(tmp_path / "ck")
@@ -122,8 +121,18 @@ def test_missing_meta_raises_and_state_roundtrips_types(tmp_path):
     os.remove(p + ".meta.json")
     with pytest.raises(ValueError, match="incomplete"):
         restore_train_state(p, like=(params, {}, ()))
-    with pytest.raises(NotImplementedError, match="item 12"):
-        save_train_state("gs://bucket/ck", 1, params, {}, ())
+    # an object-store path: the meta-last protocol through the file
+    # layer's seam, here a fake bucket under tmp_path
+    from etils import epath
+
+    from bigdl_tpu_torch.utils import file as bt_file
+
+    monkeypatch.setattr(bt_file, "_epath", lambda path: epath.Path(
+        tmp_path / "bucket" / str(path).split("://", 1)[1]))
+    save_train_state("gs://bucket/ck", 1, params, {}, ())
+    assert (tmp_path / "bucket" / "bucket" / "ck.meta.json").is_file()
+    assert restore_train_state("gs://bucket/ck",
+                               like=(params, {}, ()))[0] == 1
 
 
 def test_interrupted_overwrite_preserves_prior_checkpoint(tmp_path):

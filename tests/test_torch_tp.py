@@ -69,10 +69,8 @@ def params(jlm):
 
 
 @pytest.fixture(scope="module")
-def world(tmp_path_factory):
-    w = World(N, tmp_path_factory.mktemp("tp_world"))
-    yield w
-    w.close()
+def world():
+    return World.shared(N)
 
 
 def _ids(seed=0, shape=(2, 9)):
@@ -264,28 +262,40 @@ def test_2d_sharded_forward_matches_replicated(world):
 
 
 def test_refused_combinations_name_their_item():
-    """A sequence-parallel or MoE model is refused on a model mesh
-    (ROADMAP.md, Queue 1 item 10), the int8 clone under 2-D rules and a
-    cache sharded by sequence blocks too (item 12); rules over an axis
-    the mesh lacks are an error."""
+    """What a one-rank mesh takes and refuses: a sequence-parallel model
+    whose axis the mesh lacks is a ``ValueError`` (JAX runs it only
+    inside ``shard_map`` over that axis); MoE models, the int8 clone
+    under 2-D rules and a cache sharded by sequence blocks (each rank
+    holding T/n positions) are taken; rules over an axis the mesh lacks
+    are an error; a cache split over the head dim holds D/n features; a
+    page pool split other than by heads is an error."""
+    from bigdl_tpu_torch.nn.attention import KVShards
     from bigdl_tpu_torch.nn.quantized import Quantizer
 
     mesh1 = Mesh([("model", 1)], ranks=[0])
-    for kw in ({"sequence_parallel": "seq"}, {"n_experts": 2}):
-        m = TransformerLM(**CFG, device="cpu", **kw)
-        with pytest.raises(NotImplementedError, match="item 10"):
-            tp.shard_model(m, mesh1)
+    m = TransformerLM(**CFG, device="cpu", sequence_parallel="seq")
+    with pytest.raises(ValueError, match="shard_map"):
+        tp.shard_model(m, mesh1)
+    moe = tp.shard_model(TransformerLM(**CFG, device="cpu", n_experts=2),
+                         mesh1)
+    assert moe.blocks()[0].mlp.n_experts == 2
     m = TransformerLM(**CFG, device="cpu")
     rules2d = tp.transformer_tp_rules("model", "data")
     with pytest.raises(ValueError, match="not in mesh axes"):
         tp.shard_model(m, mesh1, rules2d)
     mesh11 = Mesh([("data", 1), ("model", 1)], ranks=[0])
-    with pytest.raises(NotImplementedError, match="item 12"):
-        tp.shard_model(Quantizer.quantize(m), mesh11, rules2d)
+    q = tp.shard_model(Quantizer.quantize(m), mesh11, rules2d)
+    assert q._tp is not None
     mesh4 = Mesh([("model", 4)], ranks=[0, 1, 2, 3])
     seq = tp.NamedSharding(mesh4, tp.P(None, None, "model", None))
-    with pytest.raises(NotImplementedError, match="item 12"):
-        m.init_cache(1, 8, sharding=seq)
+    caches = m.init_cache(1, 8, sharding=seq)
+    assert isinstance(caches[0], KVShards)
+    assert caches[0][0].shape == (1, 4, 2, 4) and caches[0].total == 8
+    caches = m.init_cache(1, 8, sharding=tp.NamedSharding(
+        mesh4, tp.P(None, None, None, "model")))
+    assert caches[0][0].shape == (1, 4, 8, 1) and caches[0].dim == 3
+    with pytest.raises(ValueError, match="heads only"):
+        m.init_page_pool(4, 4, sharding=seq)
     local = tp.shard_model(m, mesh1)
     assert local.init_cache(1, 8, sharding=local.kv_cache_sharding(
         mesh1))[0][0].shape == (1, 4, 8, 4)

@@ -57,10 +57,8 @@ def lms():
 
 
 @pytest.fixture(scope="module")
-def world(tmp_path_factory):
-    w = World(N, tmp_path_factory.mktemp("tp_serving_world"))
-    yield w
-    w.close()
+def world():
+    return World.shared(N)
 
 
 def _direct(jm, prompt, n):

@@ -5,6 +5,9 @@ its dense fallback; the port runs its kernel's plain version), prefill
 and decode logits, and greedy tokens, which must be identical.
 
 Tolerance: f32 logits at rtol 2e-4 / atol 2e-5 (the JAX flash test's).
+The JAX weights are drawn by numpy (``tests/jax_numpy_init.py``) and
+the JAX forward, prefill and decode steps run under ``jax.jit`` (one
+compile a program, not one an op).
 Sampled generation cannot match the JAX package's draws (different
 generators); it is checked for valid ids and for its top-k filter.
 """
@@ -16,8 +19,10 @@ import pytest
 import torch
 
 from bigdl_tpu.models import transformer as jtr
+from bigdl_tpu.nn.module import jit_inference_fn
 from bigdl_tpu_torch.models import transformer as ttr
 from bigdl_tpu_torch.utils.weights import load_jax_params
+from tests.jax_numpy_init import numpy_weight_draws
 
 TOL = dict(rtol=2e-4, atol=2e-5)
 CFG = dict(vocab_size=64, embed_dim=32, num_heads=4, num_layers=2,
@@ -26,10 +31,8 @@ CFG = dict(vocab_size=64, embed_dim=32, num_heads=4, num_layers=2,
 
 @pytest.fixture(scope="module", params=[True, False], ids=["rope", "learned"])
 def lms(request):
-    from bigdl_tpu.utils import random as bt_random
-
-    bt_random.set_seed(11)
-    jm = jtr.TransformerLM(**CFG, use_rope=request.param)
+    with numpy_weight_draws(11):
+        jm = jtr.TransformerLM(**CFG, use_rope=request.param)
     jm.evaluate()
     tm = ttr.TransformerLM(**CFG, use_rope=request.param, device="cpu")
     load_jax_params(tm, jax.tree.map(np.asarray, jm.params_dict()))
@@ -45,27 +48,31 @@ def test_forward_logits_match(lms):
     ids = _ids(2, 24)
     with torch.no_grad():
         out = tm(torch.from_numpy(ids))
-    np.testing.assert_allclose(out.numpy(), np.asarray(jm(jnp.asarray(ids))),
-                               **TOL)
+    ref = jit_inference_fn(jm)(jm.params_dict(), jm.buffers_dict(),
+                               jnp.asarray(ids))
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), **TOL)
 
 
 def test_prefill_and_decode_step_logits_match(lms):
     jm, tm = lms
     ids = _ids(2, 10, seed=1)
     cj, ct = jm.init_cache(2, 16), tm.init_cache(2, 16)
-    lj, cj = jm.prefill(jnp.asarray(ids[:, :6]), cj)
+    lj, cj = jax.jit(jm.prefill)(jnp.asarray(ids[:, :6]), cj)
     lt, ct = tm.prefill(ids[:, :6], ct)
     np.testing.assert_allclose(lt.numpy(), np.asarray(lj), **TOL)
-    lj, cj = jm.prefill_chunk(jnp.asarray(ids[:, 6:8]), cj, 6)
+    lj, cj = jax.jit(jm.prefill_chunk, static_argnums=2)(
+        jnp.asarray(ids[:, 6:8]), cj, 6)
     lt, ct = tm.prefill_chunk(ids[:, 6:8], ct, 6)
     np.testing.assert_allclose(lt.numpy(), np.asarray(lj), **TOL)
+    step = jax.jit(jm.decode_step, static_argnums=1)
     for i in (8, 9):
-        lj, cj = jm.decode_step(jnp.asarray(ids[:, i]), i, cj)
+        lj, cj = step(jnp.asarray(ids[:, i]), i, cj)
         lt, ct = tm.decode_step(ids[:, i], i, ct)
         np.testing.assert_allclose(lt.numpy(), np.asarray(lj), **TOL)
     # ragged: each row at its own depth
     pos = np.array([10, 7])
-    lj, _ = jm.decode_step(jnp.asarray(ids[:, 0]), jnp.asarray(pos), cj)
+    lj, _ = jax.jit(jm.decode_step)(jnp.asarray(ids[:, 0]),
+                                    jnp.asarray(pos), cj)
     lt, _ = tm.decode_step(ids[:, 0], torch.from_numpy(pos), ct)
     np.testing.assert_allclose(lt.numpy(), np.asarray(lj), **TOL)
 

@@ -3,8 +3,10 @@ autoencoder}.py) against the JAX package's, at the full architectures.
 
 Weights and BN statistics are the JAX model's, carried across by the
 bridge; every BN first gets a random gamma, beta, mean and variance from
-a seed, so that no branch hides behind a trivial normalization. The same
-numpy images go through both.
+a seed, so that no branch hides behind a trivial normalization. The
+Inception pair's JAX weights are drawn by numpy (tests/jax_numpy_init.py:
+the JAX package's threefry draws compile a sampler per shape, tens of
+seconds for Inception's many). The same numpy images go through both.
 
 Tolerances (f32 on both sides; the convolutions sum in another order
 through up to 22 layers):
@@ -52,6 +54,7 @@ from bigdl_tpu_torch import optim as topt
 from bigdl_tpu_torch.nn.module import tree_leaves
 from bigdl_tpu_torch.utils.weights import (load_jax_buffers, load_jax_params,
                                            params_to_numpy)
+from tests.jax_numpy_init import numpy_weight_draws, seed_of
 
 EVAL_RTOL = 1e-4
 STEP_RTOL = 1e-4
@@ -127,7 +130,11 @@ def _pair(name):
     once per module: the JAX package draws large trees slowly."""
     if name not in _BUILT:
         jf, tf = ZOO[name][:2]
-        jm = jf()
+        if name.startswith("inception"):
+            with numpy_weight_draws(seed_of(name)):
+                jm = jf()
+        else:
+            jm = jf()
         _randomize_bn(jm, seed=len(name))
         tm = tf()
         load_jax_params(tm, _np(jm.params_dict()))

@@ -6,8 +6,11 @@ group through a ``FileStore`` under ``tmpdir`` (no TCP port to collide
 under ``pytest -n``) with ``Engine.init(device="cpu")``, and then serve
 jobs: ``world.run(job, *args)`` calls ``job(*args)`` on every rank and
 returns the per-rank results in rank order, raising with a rank's
-traceback where one failed. A test file starts one world in a
-module-scoped fixture and runs all its cases in it.
+traceback where one failed. A test file runs all its cases in one
+world: ``World.shared(n)``, which the files that one ``pytest -n``
+worker runs share (a world takes ~4 s and ~17 CPU-seconds to start), or
+a world of its own where its jobs change a rank's defaults (the default
+mesh), closed by the file.
 
 The jobs live in modules that import neither JAX nor the JAX package
 (``tests/torch_jobs_*.py``), so a child imports only torch and the port;
@@ -17,9 +20,12 @@ tests compute the JAX side in their own process.
 
 from __future__ import annotations
 
+import atexit
 import importlib
 import multiprocessing as mp
 import os
+import shutil
+import tempfile
 import traceback
 
 import numpy as np
@@ -49,6 +55,9 @@ def _serve(rank: int, world: int, store: str, conn) -> None:
     Engine.reset()
 
 
+_SHARED: dict = {}
+
+
 class World:
     """``n`` ranks over gloo on the CPU (see the module docstring)."""
 
@@ -56,6 +65,7 @@ class World:
         ctx = mp.get_context("spawn")
         store = os.path.join(str(tmpdir), f"store-{n}")
         self.n = n
+        self.closed = False
         self.conns, self.procs = [], []
         for r in range(n):
             ours, theirs = ctx.Pipe()
@@ -64,6 +74,19 @@ class World:
             p.start()
             self.conns.append(ours)
             self.procs.append(p)
+
+    @classmethod
+    def shared(cls, n: int) -> "World":
+        """This process's ``n``-rank world: started by the first caller
+        (or anew where a job's timeout closed it), closed at exit. Its
+        users' jobs leave each rank's default mesh as they found it."""
+        w = _SHARED.get(n)
+        if w is None or w.closed:
+            tmp = tempfile.mkdtemp(prefix=f"world{n}-")
+            w = _SHARED[n] = cls(n, tmp)
+            atexit.register(shutil.rmtree, tmp, ignore_errors=True)
+            atexit.register(w.close)
+        return w
 
     def run(self, job, *args, **kw) -> list:
         """``job(*args, **kw)`` on every rank; the results in rank
@@ -86,6 +109,9 @@ class World:
         return out
 
     def close(self) -> None:
+        if self.closed:
+            return
+        self.closed = True
         for c in self.conns:
             try:
                 c.send(None)
