@@ -130,7 +130,7 @@ def main(argv=None):
     params = list(model.parameters())
 
     losses, times, grad_norms = [], [], []
-    fa.launches = 0
+    fa.launches = fa.backward_launches = fa.plain_backward_cuda_calls = 0
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
     for i in range(args.steps):
@@ -165,6 +165,8 @@ def main(argv=None):
                "tokens_per_s": batch * args.seq_len / np.median(times[1:]
                                                                 or times),
                "flash_launches": fa.launches,
+               "flash_backward_launches": fa.backward_launches,
+               "plain_backward_cuda_calls": fa.plain_backward_cuda_calls,
                "transport": C.transport(None, ids_t) if sp else "local",
                "peak_memory_bytes": (torch.cuda.max_memory_allocated(dev)
                                      if dev.type == "cuda" else None)}

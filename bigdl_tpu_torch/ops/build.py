@@ -1,11 +1,13 @@
 """Build the port's CUDA kernel library at first use and load it with ctypes.
 
-The library is compiled by ``nvcc`` for ``sm_90a`` from
-``ops/csrc/flash_attention.cu`` into ``build/bigdl_tpu_torch/`` at the
-root of the checkout, as a shared library with a plain ``extern "C"``
-interface (no PyTorch headers, so a build takes seconds). The file name
-carries a hash of the flags and of every file under ``csrc/``, so any
-edited source or header is rebuilt and a stale library is never loaded.
+The library is compiled by one ``nvcc`` call for ``sm_90a`` from every
+``.cu`` file under ``ops/csrc/`` (the flash forward,
+``flash_attention.cu``, and its backward, ``flash_attention_bwd.cu``)
+into ``build/bigdl_tpu_torch/`` at the root of the checkout, as one
+shared library with a plain ``extern "C"`` interface (no PyTorch headers,
+so a build takes seconds). The file name carries a hash of the flags and
+of every file under ``csrc/``, so any edited source or header is rebuilt
+and a stale library is never loaded.
 
 Nothing here runs at import time: this module imports on a machine with
 no CUDA toolkit, and only a CUDA launch reaches ``load``.
@@ -23,6 +25,7 @@ from pathlib import Path
 from typing import Optional
 
 CSRC = Path(__file__).resolve().parent / "csrc"
+#: the forward's source, which names the library
 SOURCE = CSRC / "flash_attention.cu"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "bigdl_tpu_torch"
 
@@ -40,6 +43,12 @@ def nvcc_path() -> str:
     if home and (Path(home) / "bin" / "nvcc").exists():
         return str(Path(home) / "bin" / "nvcc")
     return shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+
+
+def sources() -> list:
+    """Every ``.cu`` file under ``CSRC``, in name order: the translation
+    units of the one library."""
+    return sorted(CSRC.glob("*.cu"))
 
 
 def library_path() -> Path:
@@ -67,7 +76,7 @@ def build() -> Path:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
     proc = subprocess.run([nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
-                           str(SOURCE)], stdout=subprocess.PIPE,
+                           *map(str, sources())], stdout=subprocess.PIPE,
                           stderr=subprocess.STDOUT, text=True)
     with open(build_log(), "w") as f:
         f.write(proc.stdout)

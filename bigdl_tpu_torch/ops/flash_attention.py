@@ -1,9 +1,11 @@
 """Flash attention (port of ``bigdl_tpu/ops/flash_attention.py``).
 
 The JAX package's one Pallas kernel, ``_flash_kernel``, becomes the
-hand-written CUDA kernel ``csrc/flash_attention.cu`` (see the note at its
-top for what it computes, its bound on the card and its design). This
-module is its Python side:
+hand-written CUDA kernel ``csrc/flash_attention.cu``, and its custom VJP,
+``_flash_bwd`` (XLA there: a ``lax.scan`` over kv blocks), the three
+hand-written kernels of ``csrc/flash_attention_bwd.cu`` (see the notes at
+the top of each for what they compute, their bound on the card and their
+design). This module is their Python side:
 
 - :func:`flash_attention` / :func:`flash_attention_with_lse` take the JAX
   package's layout, q (B, H, T, D) and k, v (B, H_kv, Tk, D) with
@@ -11,24 +13,26 @@ module is its Python side:
   ``H // H_kv`` query heads share a kv head, read in place, never
   repeated). Outputs are out (B, H, T, D) in q's dtype and lse (B, H, T)
   in f32. Both outputs are differentiable (the JAX package's ``_flash``
-  and ``flash_with_lse`` custom VJPs): the forward is the kernel, the
-  backward :func:`flash_attention_backward_reference`.
+  and ``flash_with_lse`` custom VJPs) through :class:`FlashAttention`.
 - :func:`flash_attention_reference` is the plain PyTorch version of the
   forward: a blocked online softmax with the kernel's recurrence, its
   last-query-aligned causal mask and its dead-row rule (out 0, lse
   -1e30).
-- :func:`flash_attention_backward_reference` is the JAX package's
-  ``_flash_bwd``, which is XLA there (no Pallas kernel), in plain
-  PyTorch: the blocked recurrence over 256-key kv blocks from the saved
-  lse, f32 math, grads cast back to each input's dtype.
+- :func:`flash_attention_backward_reference` is the plain PyTorch version
+  of the backward, the JAX package's ``_flash_bwd``: the blocked
+  recurrence over 256-key kv blocks from the saved lse, f32 math, grads
+  cast back to each input's dtype.
 
-A CPU tensor takes the plain forward; a CUDA tensor launches the kernel
-or raises. The kernel guards its ragged tails, so unlike the JAX wrapper
+A CPU tensor takes the plain versions, forward and backward; a CUDA
+tensor launches the kernels or raises, with no fallback from one to the
+other. The kernels guard their ragged tails, so unlike the JAX wrapper
 (which falls back to dense attention when t or tk does not tile) every
-length launches it, and the backward takes every length too.
+length launches them.
 
-``launches`` counts kernel launches; it never counts the plain version.
-The backward launches no kernel of its own.
+``launches`` counts forward kernel launches and ``backward_launches``
+backward calls that ran the backward kernels; neither counts the plain
+versions. ``plain_backward_cuda_calls`` counts calls of the plain
+backward on CUDA tensors: only comparisons with the kernel make them.
 """
 
 from __future__ import annotations
@@ -46,8 +50,12 @@ BLOCK_K = 64  # keys per kv tile, as in the kernel
 #: keys per kv block of the backward (the JAX package's auto_block(1024))
 BWD_BLOCK_K = 256
 
-#: CUDA kernel launches since import (or since the caller last reset it)
+#: forward kernel launches since import (or since the caller last reset it)
 launches = 0
+#: backward calls that launched the backward kernels (prep, dkdv, dq)
+backward_launches = 0
+#: calls of :func:`flash_attention_backward_reference` on CUDA tensors
+plain_backward_cuda_calls = 0
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _LIB: Optional[ctypes.CDLL] = None    # the kernel library, once bound
@@ -133,6 +141,10 @@ def _library() -> ctypes.CDLL:
         fn.argtypes = ([ptr] * 5 + [i32] * 6 + [i64] * 9
                        + [i32, i32, ctypes.c_float, i32, i32, ptr])
         fn.restype = i32
+        bwd = lib.bigdl_flash_attention_bwd
+        bwd.argtypes = ([ptr] * 11 + [i32] * 6 + [i64] * 15
+                        + [i32, i32, ctypes.c_float, i32, ptr])
+        bwd.restype = i32
         lib.bigdl_cuda_error_string.argtypes = [i32]
         lib.bigdl_cuda_error_string.restype = ctypes.c_char_p
         _LIB = lib
@@ -183,6 +195,54 @@ def _launch(q, k, v, causal: bool, scale: float):
     return out, lse
 
 
+def _launch_backward(q, k, v, out, lse, d_out, d_lse, causal: bool,
+                     scale: float):
+    """(dq, dk, dv) from the backward kernels, contiguous, each in its
+    input's dtype. ``d_out`` or ``d_lse`` may be None (that cotangent is
+    zero). A cotangent whose last dim is not contiguous (the stride-0
+    cotangent of ``out.sum()``) is copied; q, k, v, out and d_out are read
+    through their other strides."""
+    global backward_launches
+    if q.device.type != "cuda":
+        raise ValueError(f"the CUDA flash backward needs CUDA tensors, got "
+                         f"{q.device}")
+    if any(x.stride(-1) != 1 for x in (q, k, v, out)):
+        raise ValueError("the flash backward needs a contiguous last dim in "
+                         "q, k, v and out")
+    b, h, t, d = q.shape
+    h_kv, tk = k.shape[1], k.shape[2]
+    dq = torch.empty((b, h, t, d), dtype=q.dtype, device=q.device)
+    dk = torch.empty((b, h_kv, tk, d), dtype=k.dtype, device=q.device)
+    dv = torch.empty((b, h_kv, tk, d), dtype=v.dtype, device=q.device)
+    if dq.numel() == 0:
+        return dq, dk.zero_(), dv.zero_()
+    if d_out is not None:
+        d_out = d_out.to(q.dtype)
+        if d_out.stride(-1) != 1:
+            d_out = d_out.contiguous()
+    if d_lse is not None:
+        d_lse = d_lse.to(torch.float32).contiguous()
+    lse = lse.contiguous()
+    delta = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
+    lib = _library()
+    dev = q.device.index
+    do_strides = d_out.stride()[:3] if d_out is not None else (0, 0, 0)
+    err = lib.bigdl_flash_attention_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        lse.data_ptr(), None if d_out is None else d_out.data_ptr(),
+        None if d_lse is None else d_lse.data_ptr(), dq.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), delta.data_ptr(), b, h, h_kv, t, tk, d,
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+        *out.stride()[:3], *do_strides, _DTYPE_CODES[q.dtype], int(causal),
+        float(scale), dev, torch._C._cuda_getCurrentRawStream(dev))
+    if err != 0:
+        msg = lib.bigdl_cuda_error_string(err).decode()
+        raise RuntimeError(f"flash attention backward kernel launch failed: "
+                           f"{msg} (code {err})")
+    backward_launches += 1
+    return dq, dk, dv
+
+
 def flash_attention_backward_reference(q, k, v, out, lse, d_out,
                                        causal: bool = False,
                                        scale: Optional[float] = None,
@@ -203,7 +263,11 @@ def flash_attention_backward_reference(q, k, v, out, lse, d_out,
     lies above every block and gets no gradient. The q heads of a GQA
     group share kv head ``h // group``: k and v are repeated per q head,
     as in the JAX package, and dk, dv summed back over the group. f32
-    math; each grad in its input's dtype."""
+    math; each grad in its input's dtype. The backward kernels compute the
+    same function; on the main path only CPU tensors come here."""
+    global plain_backward_cuda_calls
+    if q.is_cuda:
+        plain_backward_cuda_calls += 1
     b, h, t, d = q.shape
     h_kv, tk = k.shape[1], k.shape[2]
     g, n = h // h_kv, b * h
@@ -265,10 +329,11 @@ def _forward(q, k, v, causal: bool, scale: float):
 
 class FlashAttention(torch.autograd.Function):
     """(out, lse) with both outputs differentiable: the forward of
-    :func:`_forward`, the backward of
-    :func:`flash_attention_backward_reference` from the saved
-    (q, k, v, out, lse); the lse cotangent enters only when the lse
-    output was used."""
+    :func:`_forward`; the backward from the saved (q, k, v, out, lse), the
+    kernels of :func:`_launch_backward` on CUDA tensors and
+    :func:`flash_attention_backward_reference` on CPU tensors. The lse
+    cotangent enters only when the lse output was used, the out cotangent
+    only when out was."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool, scale: float):
@@ -281,10 +346,14 @@ class FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, d_out, d_lse):
         q, k, v, out, lse = ctx.saved_tensors
-        if d_out is None:
-            d_out = torch.zeros_like(out)
-        dq, dk, dv = flash_attention_backward_reference(
-            q, k, v, out, lse, d_out, ctx.causal, ctx.scale, d_lse)
+        if q.device.type == "cpu":
+            if d_out is None:
+                d_out = torch.zeros_like(out)
+            dq, dk, dv = flash_attention_backward_reference(
+                q, k, v, out, lse, d_out, ctx.causal, ctx.scale, d_lse)
+        else:
+            dq, dk, dv = _launch_backward(q, k, v, out, lse, d_out, d_lse,
+                                          ctx.causal, ctx.scale)
         return dq, dk, dv, None, None
 
 

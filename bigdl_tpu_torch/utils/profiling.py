@@ -16,7 +16,7 @@ card.
 from __future__ import annotations
 
 import time
-from typing import Callable, Dict
+from typing import Callable, Dict, Sequence
 
 
 def _busy_us(events) -> float:
@@ -35,12 +35,15 @@ def _busy_us(events) -> float:
     return busy
 
 
-def device_profile(fn: Callable[[], object], top: int = 12) -> Dict:
+def device_profile(fn: Callable[[], object], top: int = 12,
+                   named: Sequence[str] = ()) -> Dict:
     """Trace ``fn()`` (synchronized before and after) and return its wall
     ms, summed kernel ms, device busy ms and idle share, the number of
     kernel launches, the ``top`` kernels by device ms as ``[name, ms,
     share of the kernel ms]`` and the ``top`` PyTorch operations, by
-    input shapes, as ``[name, shapes, ms, share, calls]``."""
+    input shapes, as ``[name, shapes, ms, share, calls]``; with ``named``,
+    also ``named_kernels_ms``: for each string, the device ms of the
+    kernels whose name holds it."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -63,6 +66,8 @@ def device_profile(fn: Callable[[], object], top: int = 12) -> Dict:
                   for a in prof.key_averages(group_by_input_shape=True)
                   if a.device_type.name == "CPU"
                   and a.self_device_time_total > 0), key=lambda r: -r[2])
+    found = {s: sum(us for n, us in by_name.items() if s in n) / 1e3
+             for s in named}
     return {"wall_ms": wall_us / 1e3, "device_kernel_ms": total / 1e3,
             "device_busy_ms": busy / 1e3,
             "device_idle_share": 1.0 - busy / wall_us,
@@ -71,4 +76,5 @@ def device_profile(fn: Callable[[], object], top: int = 12) -> Dict:
                                 else 0.0] for n, us in rows],
             "top_ops_ms": [[n, shapes, us / 1e3, us / total if total
                             else 0.0, calls]
-                           for n, shapes, us, calls in ops[:top]]}
+                           for n, shapes, us, calls in ops[:top]],
+            **({"named_kernels_ms": found} if named else {})}

@@ -12,9 +12,10 @@ tokens, bf16 compute over f32 masters, SGD, flash on), and fails, with
 a non-zero exit, at the first phase that does not hold:
 
 1. device: ``nvidia-smi`` name and power limit, torch/CUDA versions, TF32;
-2. build: the CUDA kernel library compiled from
-   ``bigdl_tpu_torch/ops/csrc`` with ``nvcc`` for sm_90a, with the
-   compiler's register/spill report;
+2. build: the CUDA kernel library compiled from every ``.cu`` under
+   ``bigdl_tpu_torch/ops/csrc`` (the flash forward and its backward) by
+   one ``nvcc`` call for sm_90a, with the compiler's register/spill
+   report;
 3. kernels: each kernel against its plain PyTorch version on the card at
    the shapes of the main path and its edge cases, out and lse, with the
    stated tolerances (shown, at the flagship shape, to reject an output
@@ -131,18 +132,30 @@ a non-zero exit, at the first phase that does not hold:
    - noncausal_scoring (bf16): the ``causal=False`` flagship's forward
      over 4 x 2048 tokens, 8 launches, against ``use_flash=False`` by
      phase 4's rule;
-7. flash_backward: the differentiable flash attention (the kernel's
-   forward, the plain blocked backward) against the plain forward (out
-   and lse) and autograd through it (dq / dk / dv and the lse
-   cotangent), at the training shape (on views of a fused qkv
-   projection, as the model passes them) and its edge cases; the
-   backward timed beside SDPA's backward and its bound, eagerly and by
-   CUDA-graph replay (the card's time alone);
+7. flash_backward: the differentiable flash attention (the forward
+   kernel, the backward kernels ``flash_bwd_prep``, ``flash_bwd_dkdv``
+   and ``flash_bwd_dq``) against the plain forward (out and lse), its
+   dq / dk / dv against autograd through the plain forward and against
+   the plain backward on the same saved tensors and cotangents (out's,
+   both, lse's alone, the stride-0 cotangent of ``out.sum()``), at the
+   training shape (on views of a fused qkv projection, as the model
+   passes them) and its edge cases (``BWD_CASES``,
+   ``BWD_KERNEL_CASES``); two backward calls bit-equal; the backward
+   kernels timed beside the plain backward, SDPA's backward and their
+   bound, eagerly and by CUDA-graph replay (the card's time alone), with
+   their registers and spills;
 8. train: ``transformer_perf`` at the training flagship (ms/step,
-   tokens/s, analytic MFU, the loss of every step, 8 kernel launches a
-   step; a remat step launches 16), a ``torch.profiler`` pass over one
-   step, and at batch 4 in f32 with TF32 off the flash path's gradients
-   against the dense path's, then f32 SGD steps that lower the loss;
+   tokens/s, analytic MFU, the loss of every step, 8 kernel launches and
+   8 backward-kernel calls a step; a remat step launches the forward 16
+   times), a ``torch.profiler`` pass over one step (the backward
+   kernels' device ms by name), and at batch 4 in f32 with TF32 off the
+   flash path's gradients against the dense path's, then f32 SGD steps
+   that lower the loss. Every training phase (these, checkpoint_train,
+   distri_train, ring_gate, longcontext_train, obs_serving's train
+   family, perf_cli's transformer) counts its backward-kernel calls
+   (``fa.backward_launches``) from 0 and asserts them, and asserts that
+   no CUDA tensor reached the plain backward
+   (``fa.plain_backward_cuda_calls`` 0);
    then checkpoint_train: the training flagship through the
    ``LocalOptimizer`` (bf16 over f32 masters, ``RMSprop``, a
    ``TrainSummary``, async checkpoints after iterations 1, 3 and 5 of
@@ -164,7 +177,10 @@ a non-zero exit, at the first phase that does not hold:
    ``launches_checkpoint_train`` are slice 9's phases'; ``launches_text``
    is text_train's and text_lm's; ``launches_distri``,
    ``launches_ring`` and ``launches_longcontext`` are slice 13's, the
-   spawned ranks' own counts summed), error, times and bound.
+   spawned ranks' own counts summed), error, times and bound; then the
+   backward kernels' entry (``flash_attention_bwd``): their calls by
+   training phase and in total, the training-shape record's error
+   against the plain backward, times and bound.
 
 Before the kernels line, the vision path (ResNet-50 at full width and
 depth, LeNet-5, the LocalOptimizer), which launches no kernel of the
@@ -502,6 +518,7 @@ import json
 import logging
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -561,6 +578,21 @@ BWD_CASES = [
     ((2, 8, 2, 1000, 1000, 64), True, "bfloat16"),
     ((2, 8, 2, 300, 700, 64), False, "bfloat16"),
     ((2, 8, 8, 512, 512, 64), True, "float32"),
+]
+# the backward kernels' edges beside BWD_CASES: (B, H, H_kv, t, tk, d),
+# causal, dtype, cotangent ("out", "out_lse", "lse" alone, or "sum": the
+# stride-0 cotangent of out.sum()): d 40 and d 128 (zero-padded to 64 and
+# 128), GQA 4 without the mask, the stride-0 cotangent, the lse cotangent
+# alone, one query row against 300 keys, and f32 at d 40 and d 128
+BWD_KERNEL_CASES = [
+    ((2, 8, 2, 300, 300, 40), True, "bfloat16", "out_lse"),
+    ((2, 4, 2, 512, 512, 128), True, "bfloat16", "out_lse"),
+    ((2, 8, 2, 1024, 1024, 64), False, "bfloat16", "out"),
+    ((2, 8, 8, 1024, 1024, 64), True, "bfloat16", "sum"),
+    ((2, 8, 2, 512, 512, 64), True, "bfloat16", "lse"),
+    ((2, 8, 2, 1, 300, 64), True, "bfloat16", "out_lse"),
+    ((2, 4, 1, 300, 300, 40), True, "float32", "out_lse"),
+    ((2, 4, 2, 200, 200, 128), False, "float32", "lse"),
 ]
 # the vision path's f32 gate (TF32 off): logits of the card's NHWC and
 # NCHW forwards and of the CPU's may differ by this much of the largest
@@ -919,6 +951,30 @@ def grad_excess(torch, grad, ref, rtol: float) -> float:
     return ratio.max().item()
 
 
+#: the backward kernels, by the names the profiler gives them
+BWD_KERNEL_NAMES = ("flash_bwd_prep", "flash_bwd_dkdv", "flash_bwd_dq")
+#: the backward kernels' calls on the training paths by phase, for the
+#: kernels line; each phase counts from 0 and asserts its reckoning
+BWD_LAUNCHES: dict = {}
+
+
+def bwd_start(fa) -> None:
+    """Count a phase's backward-kernel calls, and its calls of the plain
+    backward on CUDA tensors, from 0."""
+    fa.backward_launches = 0
+    fa.plain_backward_cuda_calls = 0
+
+
+def bwd_end(fa, phase: str, want: int) -> int:
+    """The phase's backward-kernel calls, asserted to be ``want`` with no
+    plain backward on a CUDA tensor, kept for the kernels line."""
+    got, plain = fa.backward_launches, fa.plain_backward_cuda_calls
+    assert plain == 0, (phase, "the plain backward ran on the card", plain)
+    assert got == want, (phase, "flash backward launches", got, want)
+    BWD_LAUNCHES[phase] = got
+    return got
+
+
 def check_flash(torch, fa, shape, causal, dtype, with_library,
                 mutant=False):
     """The kernel against its plain version at one shape, timed. With
@@ -1007,15 +1063,20 @@ def flash_bwd_bound(b, h, h_kv, t, tk, d, dtype: str, causal: bool):
                                    else "bytes"), flops
 
 
-def check_flash_backward(torch, fa, shape, causal, dtype, with_lse,
+def check_flash_backward(torch, fa, shape, causal, dtype, cotangent="out_lse",
                          timed=False, fused=False):
     """The Function's forward (out and lse, against the plain forward)
-    and gradients (kernel forward, blocked backward, against autograd
-    through the plain forward) for dq, dk, dv, with the lse cotangent
-    when ``with_lse``; with ``fused``, q, k and v are strided views of one
-    (B, t, (H + 2·H_kv)·d) projection, as ``MultiHeadAttention`` passes
-    them; with ``timed``, the backward's time beside SDPA's and its
-    bound."""
+    and its gradients (kernel forward, backward kernels) for dq, dk, dv,
+    held two ways: against autograd through the plain forward, and
+    against the plain backward ``flash_attention_backward_reference`` on
+    the same saved (q, k, v, out, lse) and cotangents. ``cotangent``: "out"
+    (out's only), "out_lse" (both), "lse" (lse's only: the Function gets
+    None for out) or "sum" (the cotangent of ``out.sum()``: one expanded
+    scalar, every stride 0); with ``fused``, q, k and v are strided views
+    of one (B, t, (H + 2·H_kv)·d) projection, as ``MultiHeadAttention``
+    passes them; with ``timed``, the dropped-tile mutant, the bit-equality
+    of two backward calls, and the backward's times beside the plain
+    backward's, SDPA's and its bound. Returns the phase's record."""
     import torch.nn.functional as F
 
     b, h, h_kv, t, tk, d = shape
@@ -1035,16 +1096,25 @@ def check_flash_backward(torch, fa, shape, causal, dtype, with_lse,
                               (b, h_kv, tk, d)))
     d_out = torch.randn((b, h, t, d), device="cuda", generator=g).to(dtype)
     d_lse = torch.randn((b, h, t), device="cuda", generator=g)
+    if cotangent == "sum":
+        d_out = torch.ones((), device="cuda", dtype=dtype).expand(b, h, t, d)
     before = fa.launches
     out, lse = fa.flash_attention_with_lse(q, k, v, causal)
     assert fa.launches == before + 1 and out.grad_fn is not None
-    outs, cots = ((out, lse), (d_out, d_lse)) if with_lse else \
-        ((out,), (d_out,))
+    outs, cots = {"out": ((out,), (d_out,)), "sum": ((out,), (d_out,)),
+                  "out_lse": ((out, lse), (d_out, d_lse)),
+                  "lse": ((lse,), (d_lse,))}[cotangent]
+    before = fa.backward_launches, fa.plain_backward_cuda_calls
     grads = torch.autograd.grad(outs, (q, k, v), cots)
+    assert (fa.backward_launches, fa.plain_backward_cuda_calls) == (
+        before[0] + 1, before[1]), "the backward did not run the kernels"
     qr, kr, vr = (x.detach().clone().requires_grad_(True) for x in (q, k, v))
     ref_out, ref_lse = fa.flash_attention_reference(qr, kr, vr, causal)
-    ref = torch.autograd.grad((ref_out, ref_lse)[:len(outs)], (qr, kr, vr),
-                              cots)
+    ref_outs = {"out": (ref_out,), "sum": (ref_out,),
+                "out_lse": (ref_out, ref_lse), "lse": (ref_lse,)}[cotangent]
+    # lse does not depend on v: its gradient through lse alone is zero
+    ref = torch.autograd.grad(ref_outs, (qr, kr, vr), cots,
+                              allow_unused=True, materialize_grads=True)
     name = str(dtype).replace("torch.", "")
     # the forward the backward starts from, held as phase 3 holds it
     out_excess = tol_excess(torch, out.detach(), ref_out.detach(),
@@ -1063,6 +1133,23 @@ def check_flash_backward(torch, fa, shape, causal, dtype, with_lse,
     assert all(a.dtype == x.dtype and a.shape == x.shape
                for a, x in zip(grads, (q, k, v)))
     assert max(excess.values()) <= 1.0, (shape, name, errs, excess)
+    # the kernels against their plain version on the same saved tensors
+    scale = 1.0 / d ** 0.5
+    q0, k0, v0 = q.detach(), k.detach(), v.detach()
+    o0, l0 = out.detach(), lse.detach()
+    g_out = None if cotangent == "lse" else d_out
+    g_lse = d_lse if cotangent in ("lse", "out_lse") else None
+    plain = fa.flash_attention_backward_reference(
+        q0, k0, v0, o0, l0, torch.zeros_like(o0) if g_out is None else g_out,
+        causal, scale, g_lse)
+    plain_excess = {f"d{n}": grad_excess(torch, a, r, rtol)
+                    for n, a, r in zip("qkv", grads, plain)}
+    plain_errs = {f"d{n}": (a.float() - r.float()).abs().max().item()
+                  for n, a, r in zip("qkv", grads, plain)}
+    assert max(plain_excess.values()) <= 1.0, (shape, name, plain_errs,
+                                               plain_excess)
+    assert (grads[0].float()[dead.unsqueeze(-1).expand_as(grads[0])]
+            == 0).all(), "a dead row got a gradient"
     mutant = None
     if timed:
         # the reference with one 64-key V tile zeroed must fail the check
@@ -1070,42 +1157,54 @@ def check_flash_backward(torch, fa, shape, causal, dtype, with_lse,
         v_bad[:, :, tk // 2:tk // 2 + fa.BLOCK_K] = 0
         qb, kb, vb = (x.detach().clone().requires_grad_(True)
                       for x in (qr, kr, v_bad))
+        bad_outs = fa.flash_attention_reference(qb, kb, vb, causal)
         bad = torch.autograd.grad(
-            fa.flash_attention_reference(qb, kb, vb, causal)[:len(outs)],
-            (qb, kb, vb), cots)
+            {"out": bad_outs[:1], "sum": bad_outs[:1], "out_lse": bad_outs,
+             "lse": bad_outs[1:]}[cotangent], (qb, kb, vb), cots)
         mutant = {f"d{n}": grad_excess(torch, a, r, rtol)
                   for n, a, r in zip("qk", bad, ref)}
         assert min(mutant.values()) > 1.0, ("the tolerance passes a "
                                             "gradient that dropped a kv "
                                             "tile", mutant)
-        del v_bad, qb, kb, vb, bad
-    del ref, qr, kr, vr, ref_out, ref_lse
+        del v_bad, qb, kb, vb, bad, bad_outs
+    del ref, qr, kr, vr, ref_out, ref_lse, plain
     rec = {"phase": "flash_backward",
            "shape": {"B": b, "H": h, "H_kv": h_kv, "t": t, "tk": tk,
                      "d": d}, "dtype": name, "causal": causal,
            "inputs": ("views of a fused qkv projection" if fused
                       else "contiguous"),
-           "lse_cotangent": with_lse,
+           "cotangent": cotangent, "lse_cotangent": g_lse is not None,
            "out_err_over_tol": out_excess, "out_rtol": RTOL[name],
            "lse_max_abs_err": lse_err, "lse_atol": LSE_ATOL,
            "max_abs_err": errs, "max_err_over_tol": excess,
+           "vs_plain_backward_max_abs_err": plain_errs,
+           "vs_plain_backward_err_over_tol": plain_excess,
+           "dead_rows": int(dead.sum()),
            "tol": {"rtol": rtol, "allowance": "per row: ||err|| <= rtol*("
                    "||ref row||+rms of ref row norms)",
-                   "reference": "autograd through flash_attention_reference"},
+                   "reference": "autograd through flash_attention_reference"
+                                "; and flash_attention_backward_reference "
+                                "on the same saved tensors"},
            "dropped_tile_err_over_tol": mutant}
     if timed:
-        scale = 1.0 / d ** 0.5
-        q0, k0, v0 = q.detach(), k.detach(), v.detach()
-        o0, l0 = out.detach(), lse.detach()
+        def kernel_backward():
+            return fa._launch_backward(q0, k0, v0, o0, l0, g_out, g_lse,
+                                       causal, scale)
 
         def plain_backward():
             return fa.flash_attention_backward_reference(
-                q0, k0, v0, o0, l0, d_out, causal, scale)
+                q0, k0, v0, o0, l0, g_out, causal, scale, g_lse)
 
-        rec["backward_ms"] = time_ms(torch, plain_backward, 1, 5)
-        torch.backends.cuda.matmul.allow_tf32 = True
-        rec["backward_tf32_ms"] = time_ms(torch, plain_backward, 1, 5)
-        torch.backends.cuda.matmul.allow_tf32 = False
+        once, again = kernel_backward(), kernel_backward()
+        rec["bit_equal_repeat"] = all(torch.equal(a, b)
+                                      for a, b in zip(once, again))
+        assert rec["bit_equal_repeat"], "two backward calls differ"
+        del once, again
+        rec["backward_ms"] = time_ms(torch, kernel_backward)
+        rec["backward_device_ms"] = graph_ms(torch, kernel_backward)
+        rec["plain_backward_ms"] = time_ms(torch, plain_backward, 1, 5)
+        rec["plain_backward_device_ms"] = graph_ms(torch, plain_backward,
+                                                   5, 3)
         # leaves over the same (strided) storage, so that every timed
         # graph starts at its inputs
         qkv_in = tuple(x.detach().requires_grad_(True) for x in (q, k, v))
@@ -1119,8 +1218,6 @@ def check_flash_backward(torch, fa, shape, causal, dtype, with_lse,
             F.scaled_dot_product_attention(*qkv_in, is_causal=causal,
                                            enable_gqa=True), qkv_in,
             d_out))
-        # the card's time alone, by CUDA-graph replay (TF32 off)
-        rec["backward_device_ms"] = graph_ms(torch, plain_backward, 5, 3)
         # autograd runs a backward on the streams of its forward and of
         # its leaves, so fresh leaves and the SDPA forward are made on
         # the stream the graph captures
@@ -1140,29 +1237,72 @@ def check_flash_backward(torch, fa, shape, causal, dtype, with_lse,
         rec.update(backward_bound_ms=bound, backward_bound_by=by,
                    backward_flops=flops,
                    backward_share_of_bound=bound / rec["backward_ms"],
+                   backward_device_share_of_bound=(
+                       bound / rec["backward_device_ms"]),
                    timing="*_ms: median CUDA-event interval around eager "
-                          "calls; *_device_ms: CUDA-graph replay of 5 calls, "
-                          "the card's time alone; backward_ms with TF32 "
-                          "off, as every f32 product of this run; library "
-                          "calls timed only")
+                          "calls; *_device_ms: CUDA-graph replay, the "
+                          "card's time alone; backward_ms: the kernels' "
+                          "wrapper (prep, dkdv, dq); plain_backward_ms with "
+                          "TF32 off, as every f32 product of this run; "
+                          "library calls timed only")
     emit(rec)
+    return rec
 
 
-def flash_backward_phase(torch, fa) -> None:
+def flash_backward_phase(torch, fa, smi) -> dict:
     """Phase 7: the Function against autograd through the plain forward
-    at the training shape (timed, on the main path's inputs and
-    cotangent: views of the fused projection, out only; then contiguous,
-    with the lse cotangent) and at ``BWD_CASES``. The backward is not a
-    kernel: its times stay on the ``flash_backward`` line."""
+    and its backward kernels against the plain backward, at the training
+    shape (timed, on the main path's inputs and cotangent: views of the
+    fused projection, out only; then contiguous, with the lse cotangent),
+    at ``BWD_CASES`` and at ``BWD_KERNEL_CASES``. Returns the timed
+    record, with the backward kernels' registers and spills from the build
+    log."""
+    from bigdl_tpu_torch.ops import build
+
     b, h, t = TRAIN_BATCH, TRAIN["heads"], TRAIN["seq_len"]
     shape = (b, h, h, t, t, TRAIN["embed_dim"] // h)
-    check_flash_backward(torch, fa, shape, True, torch.bfloat16,
-                         with_lse=False, timed=True, fused=True)
-    check_flash_backward(torch, fa, shape, True, torch.bfloat16,
-                         with_lse=True)
+    timed = check_flash_backward(torch, fa, shape, True, torch.bfloat16,
+                                 "out", timed=True, fused=True)
+    check_flash_backward(torch, fa, shape, True, torch.bfloat16)
     for shape, causal, dtype in BWD_CASES:
-        check_flash_backward(torch, fa, shape, causal,
-                             getattr(torch, dtype), with_lse=True)
+        check_flash_backward(torch, fa, shape, causal, getattr(torch, dtype))
+    for shape, causal, dtype, cotangent in BWD_KERNEL_CASES:
+        check_flash_backward(torch, fa, shape, causal, getattr(torch, dtype),
+                             cotangent)
+    with open(build.build_log()) as f:
+        timed["ptxas"] = bwd_ptxas(f.read())
+    emit({"phase": "flash_backward_kernels", "nvidia_smi": smi,
+          "ptxas": timed["ptxas"],
+          "cases": 2 + len(BWD_CASES) + len(BWD_KERNEL_CASES)})
+    return timed
+
+
+def bwd_ptxas(text: str) -> dict:
+    """Registers, spill stores and spill loads (bytes) of each backward
+    kernel in an ``nvcc -Xptxas -v`` log, by a readable name such as
+    ``flash_bwd_dq_bf16<64>``."""
+    rows, name = {}, None
+    for line in text.splitlines():
+        if "Compiling entry function" in line:
+            m = re.search(r"(flash_bwd_\w+?)I(?:Li(\d+)|(f)|13__nv_bfloat16)E",
+                          line)
+            name = None
+            if m:
+                arg = m.group(2) or ("float32" if m.group(3) else "bfloat16")
+                name = f"{m.group(1)}<{arg}>"
+                rows[name] = {}
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            rows[name].update(spill_stores=int(m.group(1)),
+                              spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            rows[name]["registers"] = int(m.group(1))
+    return rows
 
 
 def train_phase(torch, fa, smi) -> int:
@@ -1180,13 +1320,17 @@ def train_phase(torch, fa, smi) -> int:
     # launches the kernel once per layer
     warm, steps = 2, 5
     fa.launches = 0
+    bwd_start(fa)
     perf = transformer_perf(TRAIN_BATCH, steps, warm, bf16,
                             log=lambda *_: None, device="cuda",
-                            profile=lambda fn: device_profile(fn, top=20),
+                            profile=lambda fn: device_profile(
+                                fn, top=20, named=BWD_KERNEL_NAMES),
                             **TRAIN)
     train_launches = fa.launches
     per_step = TRAIN["layers"]
     assert train_launches == per_step * (warm + steps + 1), train_launches
+    # one backward a layer a step (the profiled step too)
+    train_bwd = bwd_end(fa, "train", per_step * (warm + steps + 1))
     assert all(map(math.isfinite, perf["losses"])), perf["losses"]
     prof = perf.pop("profile")
     mfu = perf["flops_per_iter"] / (perf["ms_per_iter"] / 1e3) \
@@ -1194,11 +1338,15 @@ def train_phase(torch, fa, smi) -> int:
     # a remat run (one warm-up, one timed step): the recompute launches
     # the kernel again, counted on its own
     fa.launches = 0
+    bwd_start(fa)
     remat = transformer_perf(TRAIN_BATCH, 1, 1, bf16, log=lambda *_: None,
                              remat=True, device="cuda", **TRAIN)
     remat_launches = fa.launches
     remat_per_step = remat_launches // 2
     assert remat_per_step == 2 * per_step, remat_per_step
+    # the recompute's forward has the backward; the first forward, under
+    # no_grad, has none
+    remat_bwd = bwd_end(fa, "train_remat", 2 * per_step)
     assert all(map(math.isfinite, remat["losses"])), remat["losses"]
     emit({"phase": "train", "config": {**TRAIN, "batch": TRAIN_BATCH,
                                        "compute_dtype": "bfloat16",
@@ -1213,11 +1361,17 @@ def train_phase(torch, fa, smi) -> int:
           "analytic_mfu": mfu, "mfu_peak": "989 TFLOP/s bf16 (H100 SXM)",
           "flash_launches": train_launches,
           "flash_launches_per_step": per_step,
+          "flash_backward_launches": train_bwd,
           "remat_ms_per_step": remat["ms_per_iter"],
           "remat_flash_launches": remat_launches,
           "remat_flash_launches_per_step": remat_per_step,
+          "remat_flash_backward_launches": remat_bwd,
           "timer": perf["timer"]})
     emit({"phase": "train_profile", "window": "one flagship train step",
+          "backward_kernels_device_ms": prof["named_kernels_ms"],
+          "backward_kernels_share_of_kernel_ms": {
+              n: ms / prof["device_kernel_ms"]
+              for n, ms in prof["named_kernels_ms"].items()},
           **prof})
 
     # the gate: f32, TF32 off, at batch 4 on the same weights and batch,
@@ -1243,8 +1397,10 @@ def train_phase(torch, fa, smi) -> int:
     # the f32 kernel (the CUDA-core loop, not the bf16 wgmma kernel of the
     # timed path), counted on its own
     fa.launches = 0
+    bwd_start(fa)
     loss_flash, g_flash = model_grads(True)
     assert fa.launches == TRAIN["layers"], fa.launches
+    assert fa.backward_launches == TRAIN["layers"], fa.backward_launches
     loss_dense, g_dense = model_grads(False)
     model.zero_grad(set_to_none=True)
     leaf_rel = {n: ((g_flash[n] - g_dense[n]).abs().max()
@@ -1268,13 +1424,15 @@ def train_phase(torch, fa, smi) -> int:
           "grad_rtol": GRAD_RTOL,
           "tol": "per leaf: max|g_flash - g_dense| / max|g_dense|",
           "sgd_f32_losses": f32_losses,
-          "f32_flash_launches": gate_launches})
+          "f32_flash_launches": gate_launches,
+          "f32_flash_backward_launches": fa.backward_launches})
     assert leaf_rel[worst] <= GRAD_RTOL, (worst, leaf_rel[worst])
     assert abs(loss_flash - loss_dense) <= 1e-4 * abs(loss_dense)
     assert all(b < a for a, b in zip(f32_losses, f32_losses[1:])), \
         f32_losses
     assert gate_launches == TRAIN["layers"] * (1 + len(f32_losses)), \
         gate_launches
+    bwd_end(fa, "train_gate", TRAIN["layers"] * (1 + len(f32_losses)))
     return train_launches
 
 
@@ -3244,6 +3402,7 @@ def checkpoint_train(torch, fa, smi) -> int:
         try:
             summary = TrainSummary(tmp, "flagship")
             fa.launches = 0
+            bwd_start(fa)
             t_s = time.monotonic()
             opt, rows = run(build(), RMSprop(cfg["lr"]), cfg["iterations"],
                             tmp, summary)
@@ -3258,6 +3417,7 @@ def checkpoint_train(torch, fa, smi) -> int:
         finally:
             bt_file.save_module, bt_file.save = real_save_module, real_save
     assert launches == TRAIN["layers"] * cfg["iterations"], launches
+    bwd = bwd_end(fa, "checkpoint_train", launches)
     assert tag == cfg["last_ckpt"] - 1, (tag, names)
     want_p, want_s, want_state = snaps[tag]
     same_params = all(torch.equal(a.cpu(), b.cpu()) for a, b in
@@ -3266,8 +3426,10 @@ def checkpoint_train(torch, fa, smi) -> int:
                      zip(method._train_slots[0]["accum"], want_s))
     same_state = method.state == want_state
     fa.launches = 0
+    bwd_start(fa)
     _, resumed = run(model, method, cfg["iterations"] - 1)
     resumed_launches = fa.launches
+    resumed_bwd = bwd_end(fa, "checkpoint_train_resumed", resumed_launches)
     losses = [r[0] for r in rows]
     again = [r[0] for r in resumed]
     ref = losses[tag:tag + len(again)]
@@ -3294,7 +3456,9 @@ def checkpoint_train(torch, fa, smi) -> int:
                            "state": same_state},
           "summary_loss_rows": len(loss_rows),
           "flash_launches": launches,
-          "flash_launches_resumed": resumed_launches})
+          "flash_launches_resumed": resumed_launches,
+          "flash_backward_launches": bwd,
+          "flash_backward_launches_resumed": resumed_bwd})
     assert same_params and same_slots and same_state
     assert resumed_launches == TRAIN["layers"] * len(again)
     assert len(again) == cfg["iterations"] - 1 - tag
@@ -4017,8 +4181,14 @@ def perf_cli(torch, fa, smi) -> int:
             launches = {}
             for name, argv in PERF_CLI_RUNS:
                 fa.launches = 0
+                bwd_start(fa)
                 rows[name], secs = _cli_row(torch, perf, argv)
                 launches[name] = fa.launches
+                if name == "train_transformer":
+                    bwd_end(fa, "perf_cli", fa.launches)
+                else:
+                    assert (fa.backward_launches
+                            == fa.plain_backward_cuda_calls == 0), name
                 if isinstance(rows[name], dict):
                     rows[name]["seconds"] = secs
             trace_dir = os.path.join(tmp, "trace")
@@ -4554,6 +4724,7 @@ def distri_train(torch, fa, smi) -> int:
                                  momentum=cfg["momentum"], dampening=0.0))
         opt.set_compute_dtype(torch.bfloat16)
         fa.launches = 0
+        bwd_start(fa)
         C.calls.clear()
         torch.cuda.reset_peak_memory_stats()
         rows = logged("bigdl_tpu_torch.optim", opt.optimize)
@@ -4561,6 +4732,8 @@ def distri_train(torch, fa, smi) -> int:
         return opt, model, {
             "step_ms": _median_ms(rows, TRAIN_BATCH),
             "losses": [r[0] for r in rows], "flash_launches": fa.launches,
+            "flash_backward_launches": fa.backward_launches,
+            "plain_backward_cuda_calls": fa.plain_backward_cuda_calls,
             "backend_calls": dict(C.calls),
             "peak_memory_bytes": torch.cuda.max_memory_allocated()}
 
@@ -4607,6 +4780,10 @@ def distri_train(torch, fa, smi) -> int:
           "f32_rtol_of_update": DISTRI_F32_RTOL})
     per_run = TRAIN["layers"] * cfg["iterations"]
     assert local_row["flash_launches"] == per_run, local_row
+    for name, row in [("local", local_row), *rows.items()]:
+        assert row["flash_backward_launches"] == per_run, (name, row)
+        assert row["plain_backward_cuda_calls"] == 0, (name, row)
+    BWD_LAUNCHES["distri_train"] = per_run * (1 + len(rows))
     for name, row in rows.items():
         assert row["flash_launches"] == per_run, (name, row)
         assert row["err_over_allowance"] <= 1.0, (name, row)
@@ -4795,11 +4972,15 @@ def _ring_checks(torch, fa, build, C, ring_attention, ulysses_attention,
         torch.cuda.synchronize()
         t_fwd = time.monotonic() - t0
         launches = fa.launches
+        fa.backward_launches = fa.plain_backward_cuda_calls = 0
         (o.float() * d_out[:, :, rows]).sum().backward()
         torch.cuda.synchronize()
         t_all = time.monotonic() - t0
         rec["transport"] = C.transport(None, qb)
-        return ([o.detach(), qb.grad, kb.grad, vb.grad], launches,
+        return ([o.detach(), qb.grad, kb.grad, vb.grad],
+                {"launches": launches,
+                 "backward_launches": fa.backward_launches,
+                 "plain_backward_cuda_calls": fa.plain_backward_cuda_calls},
                 t_fwd * 1e3, t_all * 1e3)
 
     q, k, v = full["q"], full["k"], full["v"]
@@ -4807,9 +4988,9 @@ def _ring_checks(torch, fa, build, C, ring_attention, ulysses_attention,
         ref = reference(causal, q, k, v)
         tag = "causal" if causal else "noncausal"
         for flash in (True, False):
-            got, launches, fwd_ms, all_ms = run(causal, flash, q, k, v)
+            got, counts, fwd_ms, all_ms = run(causal, flash, q, k, v)
             name = f"{'flash' if flash else 'dense'}_{tag}"
-            rec[name] = {"launches": launches, "fwd_ms": fwd_ms,
+            rec[name] = {**counts, "fwd_ms": fwd_ms,
                          "fwd_bwd_ms": all_ms,
                          "vs_kernel": held(got, ref["kernel"]),
                          "vs_plain": held(got, ref["plain"])}
@@ -4835,9 +5016,9 @@ def _ring_checks(torch, fa, build, C, ring_attention, ulysses_attention,
         rep = cfg["h"] // cfg["h_kv"]
         kx, vx = k.repeat_interleave(rep, 1), v.repeat_interleave(rep, 1)
         uref = reference(causal, q, kx, vx)
-        got, launches, fwd_ms, all_ms = run(causal, False, q, kx, vx,
-                                            kind="ulysses")
-        rec[f"ulysses_{tag}"] = {"launches": launches, "fwd_ms": fwd_ms,
+        got, counts, fwd_ms, all_ms = run(causal, False, q, kx, vx,
+                                          kind="ulysses")
+        rec[f"ulysses_{tag}"] = {**counts, "fwd_ms": fwd_ms,
                                  "fwd_bwd_ms": all_ms,
                                  "vs_kernel": held(got, uref["kernel"]),
                                  "vs_plain": held(got, uref["plain"])}
@@ -4846,9 +5027,9 @@ def _ring_checks(torch, fa, build, C, ring_attention, ulysses_attention,
                for x in (q, k, v))
     for causal in (True, False):
         ref = reference(causal, q, k, v)
-        got, launches, fwd_ms, all_ms = run(causal, True, q, k, v)
+        got, counts, fwd_ms, all_ms = run(causal, True, q, k, v)
         rec[f"flash_f32_{'causal' if causal else 'noncausal'}"] = {
-            "launches": launches, "fwd_ms": fwd_ms, "fwd_bwd_ms": all_ms,
+            **counts, "fwd_ms": fwd_ms, "fwd_bwd_ms": all_ms,
             "vs_kernel": held(got, ref["kernel"], "float32"),
             "vs_plain": held(got, ref["plain"], "float32")}
     return rec
@@ -4875,6 +5056,13 @@ def ring_gate(torch, fa, smi) -> int:
                                   for r in ranks]
                 for ring in ("flash", "flash_f32")
                 for tag in ("causal", "noncausal")}
+    # a flash call's backward launches the backward kernels once; the
+    # dense ring and Ulysses launch neither
+    bwd = {name: [r[name]["backward_launches"] for r in ranks]
+           for name in ranks[0] if isinstance(ranks[0][name], dict)
+           and "backward_launches" in ranks[0][name]}
+    plain = sum(r[name]["plain_backward_cuda_calls"] for r in ranks
+                for name in bwd)
     worst = {}
     for rec in ranks:
         for key, row in rec.items():
@@ -4890,6 +5078,8 @@ def ring_gate(torch, fa, smi) -> int:
           "backend": "gloo", "transport": ranks[0]["transport"],
           "libraries": sorted({r["library"] for r in ranks}),
           "launches_by_rank": launches,
+          "backward_launches_by_rank": bwd,
+          "plain_backward_cuda_calls": plain,
           "rtol": {"out": RTOL, "grads": BWD_RTOL},
           "worst_excess": worst, "seconds": secs, "ranks_detail": ranks})
     for name, counts in launches.items():
@@ -4897,6 +5087,11 @@ def ring_gate(torch, fa, smi) -> int:
                 if name.endswith("_causal") else [cfg["ranks"]] * cfg["ranks"])
         assert counts == want, (name, counts)
     assert all(r["dense_causal"]["launches"] == 0 for r in ranks)
+    for name, counts in bwd.items():
+        assert counts == launches.get(name, [0] * cfg["ranks"]), (name,
+                                                                  counts)
+    assert plain == 0, ("the plain backward ran on the card", plain)
+    BWD_LAUNCHES["ring_gate"] = sum(sum(c) for c in bwd.values())
     assert all(e < 1.0 for e in worst.values()), worst
     assert len({r["library"] for r in ranks}) == 1
     return sum(sum(c) for c in launches.values())
@@ -5509,6 +5704,10 @@ def longcontext_train(torch, fa, smi) -> int:
                 "peak_memory_bytes_by_rank": [r["peak_memory_bytes"]
                                               for r in rs],
                 "flash_launches_by_rank": [r["flash_launches"] for r in rs],
+                "flash_backward_launches_by_rank": [
+                    r["flash_backward_launches"] for r in rs],
+                "plain_backward_cuda_calls": sum(
+                    r["plain_backward_cuda_calls"] for r in rs),
                 "transport": rs[0]["transport"]}
 
     launches = sum(r["flash_launches"] for r in ring + moe)
@@ -5526,6 +5725,13 @@ def longcontext_train(torch, fa, smi) -> int:
     assert [r["flash_launches"] for r in ring] == [
         per_layer_step * (r + 1) * steps for r in range(sp)], ring
     assert alone[0]["flash_launches"] == per_layer_step * steps, alone
+    # remat: each backward call follows its recompute's forward, so a rank
+    # launches the backward kernels half as often as the forward
+    for r in ring + alone + moe:
+        assert 2 * r["flash_backward_launches"] == r["flash_launches"], r
+        assert r["plain_backward_cuda_calls"] == 0, r
+    BWD_LAUNCHES["longcontext_train"] = sum(
+        r["flash_backward_launches"] for r in ring + alone + moe)
     for name in ("ring_vs_one_process", "ring_step1_vs_plain"):
         assert max(readings[name].values()) <= LONGCONTEXT_RTOL, readings
     assert max(readings["broken_ring_step1_vs_plain"].values()) \
@@ -5894,9 +6100,11 @@ def obs_serving(torch, fa, smi, model) -> int:
         opt.set_optim_method(SGD(learning_rate=tcfg["lr"]))
         opt.set_compute_dtype(torch.bfloat16)
         fa.launches = 0
+        bwd_start(fa)
         opt.optimize()
         torch.cuda.synchronize()
         train_launches = fa.launches
+        bwd_end(fa, "obs_train", train_launches)
         trace_path = os.path.join(tmp, "train_trace.json")
         obs.write_chrome_trace(trace_path)
     finally:
@@ -9601,6 +9809,7 @@ def main() -> int:
                  or "Function properties" in ln]
     emit({"phase": "build", "seconds": build_s, "nvcc": build.nvcc_path(),
           "flags": build.NVCC_FLAGS, "library": os.path.relpath(lib, ROOT),
+          "sources": [os.path.relpath(p, ROOT) for p in build.sources()],
           "ptxas": ptxas})
 
     # --------------------------------------------------------- 3. kernels
@@ -9798,7 +10007,7 @@ def main() -> int:
     _WINDOWS.clear()
 
     # ---------------------------------------- 7. and 8.: the train path
-    flash_backward_phase(torch, fa)
+    bwd = flash_backward_phase(torch, fa, smi)
     train_launches = train_phase(torch, fa, smi)
     checkpoint_launches = checkpoint_train(torch, fa, smi)
     optim_criterion_gate(torch, smi)
@@ -9948,7 +10157,31 @@ def main() -> int:
         "plain_ms": flagship["plain_ms"], "bound_ms": flagship["bound_ms"],
         "bound_by": flagship["bound_by"],
         "library_ms": flagship["library_ms"],
-        "library_device_ms": flagship["library_device_ms"]}]})
+        "library_device_ms": flagship["library_device_ms"]}, {
+        "name": "flash_attention_bwd", "route": "cuda",
+        "source": "bigdl_tpu_torch/ops/csrc/flash_attention_bwd.cu",
+        "replaces": "bigdl_tpu/ops/flash_attention.py::_flash_bwd",
+        "replaces_note": "XLA in the JAX package (a lax.scan over kv "
+                         "blocks): the custom VJP of the pallas_call at "
+                         "bigdl_tpu/ops/flash_attention.py:116, not a "
+                         "Pallas kernel",
+        "kernels": list(BWD_KERNEL_NAMES),
+        "launches": sum(BWD_LAUNCHES.values()),
+        "launches_by_phase": dict(BWD_LAUNCHES),
+        "shape": bwd["shape"], "dtype": bwd["dtype"],
+        "inputs": bwd["inputs"],
+        "max_abs_err": max(bwd["vs_plain_backward_max_abs_err"].values()),
+        "max_abs_err_of": "dq, dk, dv against the plain backward on the "
+                          "same saved tensors",
+        "ms": bwd["backward_ms"], "kernel_ms": bwd["backward_ms"],
+        "device_ms": bwd["backward_device_ms"],
+        "plain_ms": bwd["plain_backward_ms"],
+        "plain_device_ms": bwd["plain_backward_device_ms"],
+        "bound_ms": bwd["backward_bound_ms"],
+        "bound_by": bwd["backward_bound_by"],
+        "library_ms": bwd["sdpa_backward_ms"],
+        "library_device_ms": bwd["sdpa_backward_device_ms"],
+        "ptxas": bwd["ptxas"]}]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
